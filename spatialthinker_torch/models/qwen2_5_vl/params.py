@@ -1,0 +1,165 @@
+"""Weights for the port's ``Qwen25VL`` module (counterpart of
+``spatialthinker_tpu/models/qwen2_5_vl/params.py``).
+
+- ``params_from_hf_state_dict``: an HF checkpoint's state dict (torch
+  (out, in) Linear layout, per-layer names) -> the port's state dict.
+- ``params_from_jax``: the JAX package's parameter pytree as numpy (stacked
+  (L, ...) leaves, (in, out) weights, fused ``qkv_proj`` (L, Hkv, E, G) and
+  ``gate_up_proj`` (L, 2, E, I)) -> the port's state dict. Tests carry the
+  same weights across the two packages with it.
+- ``init_params``: random weights drawn directly on the device from a
+  ``torch.Generator`` (normal * 0.02, zero biases, unit norms — the JAX
+  package's init scheme).
+- ``build_model``: a state dict -> a ``Qwen25VL`` on a device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from .config import Qwen25VLConfig
+from .model import Qwen25VL
+from .text import RMSNorm
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.tensor(np.asarray(x))  # a copy: JAX-exported arrays are read-only
+
+
+def _detect_text_prefix(keys) -> Dict[str, str]:
+    if any(k.startswith("model.language_model.") for k in keys):
+        return {"text": "model.language_model.", "vision": "model.visual."}
+    return {"text": "model.", "vision": "visual."}
+
+
+def params_from_hf_state_dict(state: Mapping[str, Any], cfg: Qwen25VLConfig) -> StateDict:
+    """HF Qwen2.5-VL state dict (numpy or torch tensors) -> port state dict."""
+    pref = _detect_text_prefix(state.keys())
+    tp, vp = pref["text"], pref["vision"]
+    tc = cfg.text
+    hkv, d, e = tc.num_key_value_heads, tc.head_dim, tc.hidden_size
+    qper = tc.num_attention_heads // hkv
+
+    def raw(name):
+        return _t(state[name])
+
+    out: StateDict = {
+        "text.embed_tokens.weight": raw(f"{tp}embed_tokens.weight"),
+        "text.norm.weight": raw(f"{tp}norm.weight"),
+    }
+    for i in range(tc.num_hidden_layers):
+        src, dst = f"{tp}layers.{i}.", f"text.layers.{i}."
+        # per kv group: [q heads of the group | k | v] output rows
+        w = torch.cat([
+            raw(src + "self_attn.q_proj.weight").reshape(hkv, qper * d, e),
+            raw(src + "self_attn.k_proj.weight").reshape(hkv, d, e),
+            raw(src + "self_attn.v_proj.weight").reshape(hkv, d, e),
+        ], dim=1)
+        bias = torch.cat([
+            raw(src + "self_attn.q_proj.bias").reshape(hkv, qper * d),
+            raw(src + "self_attn.k_proj.bias").reshape(hkv, d),
+            raw(src + "self_attn.v_proj.bias").reshape(hkv, d),
+        ], dim=1)
+        out[dst + "self_attn.qkv_proj.weight"] = w.reshape(-1, e)
+        out[dst + "self_attn.qkv_proj.bias"] = bias.reshape(-1)
+        out[dst + "self_attn.o_proj.weight"] = raw(src + "self_attn.o_proj.weight")
+        out[dst + "mlp.gate_up_proj.weight"] = torch.cat(
+            [raw(src + "mlp.gate_proj.weight"), raw(src + "mlp.up_proj.weight")], dim=0
+        )
+        out[dst + "mlp.down_proj.weight"] = raw(src + "mlp.down_proj.weight")
+        out[dst + "input_layernorm.weight"] = raw(src + "input_layernorm.weight")
+        out[dst + "post_attention_layernorm.weight"] = raw(src + "post_attention_layernorm.weight")
+    if not tc.tie_word_embeddings:
+        out["text.lm_head.weight"] = raw("lm_head.weight")
+
+    patch_w = raw(f"{vp}patch_embed.proj.weight")  # (E, C, T, P, P) Conv3d
+    out["vision.patch_embed.weight"] = patch_w.reshape(patch_w.shape[0], -1)
+    for i in range(cfg.vision.depth):
+        src, dst = f"{vp}blocks.{i}.", f"vision.blocks.{i}."
+        for name in ("norm1.weight", "norm2.weight"):
+            out[dst + name] = raw(src + name)
+        for hf, ours in (("attn.qkv", "qkv"), ("attn.proj", "proj"),
+                         ("mlp.gate_proj", "mlp.gate_proj"), ("mlp.up_proj", "mlp.up_proj"),
+                         ("mlp.down_proj", "mlp.down_proj")):
+            out[dst + ours + ".weight"] = raw(src + hf + ".weight")
+            out[dst + ours + ".bias"] = raw(src + hf + ".bias")
+    out["vision.merger.ln_q.weight"] = raw(f"{vp}merger.ln_q.weight")
+    for hf, ours in (("mlp.0", "fc1"), ("mlp.2", "fc2")):
+        out[f"vision.merger.{ours}.weight"] = raw(f"{vp}merger.{hf}.weight")
+        out[f"vision.merger.{ours}.bias"] = raw(f"{vp}merger.{hf}.bias")
+    return out
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg: Qwen25VLConfig) -> StateDict:
+    """The JAX package's parameter pytree (numpy leaves) -> port state dict."""
+    text, vis = tree["text"], tree["vision"]
+    layers = text["layers"]
+    out: StateDict = {
+        "text.embed_tokens.weight": _t(text["embed_tokens"]),
+        "text.norm.weight": _t(text["norm"]),
+    }
+    for i in range(cfg.text.num_hidden_layers):
+        dst = f"text.layers.{i}."
+        qkv = np.asarray(layers["self_attn"]["qkv_proj"][i])  # (Hkv, E, G)
+        out[dst + "self_attn.qkv_proj.weight"] = _t(qkv.transpose(0, 2, 1).reshape(-1, qkv.shape[1]))
+        out[dst + "self_attn.qkv_proj.bias"] = _t(np.asarray(layers["self_attn"]["qkv_bias"][i]).reshape(-1))
+        out[dst + "self_attn.o_proj.weight"] = _t(np.asarray(layers["self_attn"]["o_proj"][i]).T)
+        gu = np.asarray(layers["mlp"]["gate_up_proj"][i])  # (2, E, I)
+        out[dst + "mlp.gate_up_proj.weight"] = _t(gu.transpose(0, 2, 1).reshape(-1, gu.shape[1]))
+        out[dst + "mlp.down_proj.weight"] = _t(np.asarray(layers["mlp"]["down_proj"][i]).T)
+        out[dst + "input_layernorm.weight"] = _t(layers["input_layernorm"][i])
+        out[dst + "post_attention_layernorm.weight"] = _t(layers["post_attention_layernorm"][i])
+    if not cfg.text.tie_word_embeddings:
+        out["text.lm_head.weight"] = _t(np.asarray(text["lm_head"]).T)
+
+    out["vision.patch_embed.weight"] = _t(np.asarray(vis["patch_embed"]).T)
+    blocks = vis["blocks"]
+    for i in range(cfg.vision.depth):
+        dst = f"vision.blocks.{i}."
+        out[dst + "norm1.weight"] = _t(blocks["norm1"][i])
+        out[dst + "norm2.weight"] = _t(blocks["norm2"][i])
+        out[dst + "qkv.weight"] = _t(np.asarray(blocks["qkv"][i]).T)
+        out[dst + "qkv.bias"] = _t(blocks["qkv_bias"][i])
+        out[dst + "proj.weight"] = _t(np.asarray(blocks["proj"][i]).T)
+        out[dst + "proj.bias"] = _t(blocks["proj_bias"][i])
+        for name in ("gate", "up", "down"):
+            out[dst + f"mlp.{name}_proj.weight"] = _t(np.asarray(blocks["mlp"][f"{name}_proj"][i]).T)
+            out[dst + f"mlp.{name}_proj.bias"] = _t(blocks["mlp"][f"{name}_bias"][i])
+    merger = vis["merger"]
+    out["vision.merger.ln_q.weight"] = _t(merger["ln_q"])
+    for name in ("fc1", "fc2"):
+        out[f"vision.merger.{name}.weight"] = _t(np.asarray(merger[name]).T)
+        out[f"vision.merger.{name}.bias"] = _t(merger[f"{name}_bias"])
+    return out
+
+
+def build_model(cfg: Qwen25VLConfig, state: Mapping[str, torch.Tensor], *,
+                device, dtype=torch.bfloat16) -> Qwen25VL:
+    """A ``Qwen25VL`` holding ``state`` (every parameter, strictly) on ``device``."""
+    model = Qwen25VL(cfg, device="meta", dtype=dtype)
+    model.load_state_dict(
+        {k: v.to(device=device, dtype=dtype) for k, v in state.items()}, strict=True, assign=True
+    )
+    return model.eval()
+
+
+@torch.no_grad()
+def init_params(cfg: Qwen25VLConfig, generator: torch.Generator, device,
+                dtype=torch.bfloat16) -> Qwen25VL:
+    """A ``Qwen25VL`` with random weights made on ``device`` (the generator
+    must live on the same device)."""
+    model = Qwen25VL(cfg, device="meta", dtype=dtype).to_empty(device=device)
+    norms = {id(m.weight) for m in model.modules() if isinstance(m, RMSNorm)}
+    for name, p in model.named_parameters():
+        if id(p) in norms:
+            p.fill_(1.0)
+        elif name.endswith(".bias"):
+            p.zero_()
+        else:
+            p.normal_(0.0, 0.02, generator=generator)
+    return model.eval()
