@@ -1,9 +1,10 @@
 """SpatialThinker on PyTorch and CUDA (one NVIDIA H100).
 
 The port of ``spatialthinker_tpu`` (JAX/Pallas), package beside package,
-module names mirrored. It imports ``torch`` and never ``jax``; of the JAX
-package it uses only the framework-free modules (``core``, ``eval``'s
-``Provider`` base, ``utils.synthetic_tokenizer``, ``rewards``). Every TPU
+module names mirrored. It imports ``torch``, never ``jax`` and nothing
+of the JAX package: what it needs of that package's framework-free modules
+(``core``, the ``Provider`` base, the synthetic tokenizer) it keeps as its
+own copy. Every TPU
 kernel on a ported path is a hand-written Hopper kernel under ``csrc/``,
 with its plain PyTorch version beside it in ``ops/``.
 """

@@ -1,0 +1,65 @@
+"""RolloutBatch: the host-side batch container of the port (its own copy of
+the JAX package's ``core/batch.py``, trimmed to what the port's data pipeline
+and providers use). Arrays are plain numpy on the host; ``non_tensors`` holds
+ragged python payloads (raw prompt ids, images) as object ndarrays.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+Array = np.ndarray
+
+
+@dataclass
+class RolloutBatch:
+    tensors: Dict[str, Array] = field(default_factory=dict)
+    non_tensors: Dict[str, Array] = field(default_factory=dict)
+    meta: Dict[str, Any] = field(default_factory=dict)
+
+    def __len__(self) -> int:
+        for v in self.tensors.values():
+            return int(v.shape[0])
+        for v in self.non_tensors.values():
+            return int(v.shape[0])
+        return 0
+
+
+def pad_to_divisor(batch: RolloutBatch, divisor: int) -> Tuple[RolloutBatch, int]:
+    """Cyclically self-repeat rows until len is divisible."""
+    n = len(batch)
+    if divisor <= 1 or n % divisor == 0:
+        return batch, 0
+    pad = divisor - (n % divisor)
+    idx = np.concatenate([np.arange(n), np.arange(pad) % n])
+    padded = RolloutBatch(
+        tensors={k: v[idx] for k, v in batch.tensors.items()},
+        non_tensors={k: v[idx] for k, v in batch.non_tensors.items()},
+        meta=copy.copy(batch.meta),
+    )
+    return padded, pad
+
+
+def trim_prompt_padding(batch: RolloutBatch, bucket: int = 512,
+                        negotiated_max: Optional[int] = None) -> RolloutBatch:
+    """Left-padded prompts are padded to the config max; trim to the batch's
+    longest prompt rounded up to `bucket`.
+    Safe because position ids / segment ids travel with the tokens.
+    ``negotiated_max`` carries a cross-process max where one was negotiated."""
+    seg = batch.tensors["segment_ids"]
+    max_len = negotiated_max if negotiated_max is not None else int(seg.sum(-1).max())
+    p = seg.shape[1]
+    keep = min(p, max(bucket, ((max_len + bucket - 1) // bucket) * bucket))
+    if keep >= p:
+        return batch
+    out = RolloutBatch(
+        tensors=dict(batch.tensors), non_tensors=batch.non_tensors, meta=batch.meta
+    )
+    out.tensors["input_ids"] = batch.tensors["input_ids"][:, p - keep:]
+    out.tensors["segment_ids"] = seg[:, p - keep:]
+    out.tensors["position_ids"] = batch.tensors["position_ids"][:, :, p - keep:]
+    return out

@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), built at first use.
 
-The ``.cu`` sources in this directory compile with ``nvcc`` into one shared
-library with a plain C interface, loaded through ``ctypes``. Nothing builds
-on import: ``library()`` compiles on its first call (seconds) into
-``csrc/build/``, named by a hash of the sources and flags so an edited
-source rebuilds and an unchanged one is reused. Each C entry point returns
+The ``.cu`` sources in this directory compile with ``nvcc`` (one process per
+source, all started together) and link into one shared library with a plain
+C interface, loaded through ``ctypes``. Nothing builds on import:
+``library()`` compiles on its first call (seconds) into ``csrc/build/``,
+named by a hash of the sources and flags so an edited source rebuilds and an
+unchanged one is reused. Each C entry point returns
 ``cudaGetLastError()`` after its launch; the Python wrappers in
 ``spatialthinker_torch/ops`` raise when it is nonzero.
 """
@@ -21,10 +22,10 @@ from typing import Optional
 
 CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR / "build"
-SOURCES = ("flash_attention.cu", "decode_attention.cu")
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -35,6 +36,11 @@ _SIGNATURES = {
     "st_flash_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
     # q, k_cache, v_cache, kv_seg, o, B, Hq, Hkv, S, D, layer, scale, stream
     "st_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
+    # q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, o, m, l,
+    # S, Hq, Hkv, page, D, P_max, n_pages, layer, mode, scale, stream
+    "st_paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
+    # mode, G, page -> bytes of dynamic shared memory per block
+    "st_paged_attention_smem": [_I] * 3,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -62,15 +68,33 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, flush=True)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    nvcc = _nvcc()
+    stem = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{stem}.{Path(name).stem}.o" for name in SOURCES]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+             "-c", "-o", str(obj), str(CSRC_DIR / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for name, obj in zip(SOURCES, objects)
+    ]
+    outputs = [proc.communicate() for proc in procs]  # all compile concurrently
+    try:
+        for name, proc, (_, stderr) in zip(SOURCES, procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name} (exit {proc.returncode}):\n{stderr}")
+            if verbose:
+                print(stderr, flush=True)
+        tmp = out.with_name(f"{stem}.tmp")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{link.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

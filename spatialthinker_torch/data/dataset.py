@@ -15,9 +15,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from spatialthinker_tpu.core.batch import RolloutBatch
-from spatialthinker_tpu.core.config import DataConfig
-
+from ..core.batch import RolloutBatch
+from ..core.config import DataConfig
 from ..models.qwen2_5_vl.config import Qwen25VLConfig
 from ..models.qwen2_5_vl.host import get_mrope_position_ids
 from .image import process_image

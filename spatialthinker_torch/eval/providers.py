@@ -1,6 +1,5 @@
 """Eval-harness provider running the port's model and dense rollout engine
-(counterpart of ``JaxProvider`` in ``spatialthinker_tpu/eval/providers.py``;
-the ``Provider`` base is shared)."""
+(counterpart of ``JaxProvider`` in ``spatialthinker_tpu/eval/providers.py``)."""
 
 from __future__ import annotations
 
@@ -9,16 +8,21 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from spatialthinker_tpu.core.batch import pad_to_divisor, trim_prompt_padding
-from spatialthinker_tpu.core.config import DataConfig
-from spatialthinker_tpu.eval.providers import Provider
-
+from ..core.batch import pad_to_divisor, trim_prompt_padding
+from ..core.config import DataConfig
 from ..data.dataset import RLHFDataset, collate_fn
 from ..data.packing import pack_vision_batch
 from ..models.qwen2_5_vl.host import window_patch_len
 from ..models.qwen2_5_vl.model import vision_to_device
 from ..rollout.engine import generate as engine_generate
 from ..rollout.sampling import SamplingParams
+
+
+class Provider:
+    """generate(prompts, images_per_prompt) -> list of output texts."""
+
+    def generate(self, prompts: List[str], images: List[List[Any]]) -> List[str]:
+        raise NotImplementedError
 
 
 class TorchProvider(Provider):
@@ -41,14 +45,15 @@ class TorchProvider(Provider):
         self._data_cfg = DataConfig(
             max_prompt_length=max_prompt_length, min_pixels=min_pixels, max_pixels=max_pixels
         )
-        self.device = next(params.parameters()).device
+        self.device = params.text.norm.weight.device
         self._generator = torch.Generator(device=self.device).manual_seed(0)
         self._prompt_bucket = prompt_bucket
         self._row_bucket = 0  # grows to the largest batch seen; never shrinks
 
-    def prepare(self, prompts: List[str], images: List[List[Any]]) -> Dict[str, Any]:
-        """The engine's inputs for a batch of requests, on the model's device:
-        tokenized, left-padded, bucketed prompts and the packed vision input."""
+    def prepare_host(self, prompts: List[str], images: List[List[Any]]) -> Dict[str, Any]:
+        """Host (numpy) inputs for a batch of requests: tokenized, left-padded,
+        bucketed prompts and each prompt's image patches and grids — what the
+        paged engine takes as they are."""
         self._row_bucket = max(self._row_bucket, len(prompts))
         rows = [
             {"problem": ("<image>" * len(imgs)) + p, "answer": "", "image": imgs}
@@ -58,8 +63,21 @@ class TorchProvider(Provider):
         batch = collate_fn([ds[i] for i in range(len(rows))])
         batch = trim_prompt_padding(batch, bucket=self._prompt_bucket)
         batch, _ = pad_to_divisor(batch, self._row_bucket)
-        patches = list(batch.non_tensors["patches"])
-        grids = list(batch.non_tensors["image_grid_thw"])
+        t = batch.tensors
+        return {
+            "input_ids": t["input_ids"],
+            "segment_ids": t["segment_ids"],
+            "position_ids": np.transpose(t["position_ids"], (1, 0, 2)),
+            "gen_pos_start": t["gen_pos_start"],
+            "patches_list": list(batch.non_tensors["patches"]),
+            "grids_list": list(batch.non_tensors["image_grid_thw"]),
+        }
+
+    def prepare(self, prompts: List[str], images: List[List[Any]]) -> Dict[str, Any]:
+        """The dense engine's inputs for a batch of requests, on the model's
+        device: the prompts of ``prepare_host`` and the packed vision input."""
+        host = self.prepare_host(prompts, images)
+        patches, grids = host["patches_list"], host["grids_list"]
         vision = pack_vision_batch(patches, grids, self.model_cfg.vision)
         if vision is not None:
             gran = window_patch_len(self.model_cfg.vision) * 16
@@ -70,12 +88,11 @@ class TorchProvider(Provider):
         def dev(a):
             return torch.as_tensor(np.asarray(a), device=self.device)
 
-        t = batch.tensors
         return {
-            "input_ids": dev(t["input_ids"]),
-            "prompt_segment_ids": dev(t["segment_ids"]),
-            "position_ids": dev(np.transpose(t["position_ids"], (1, 0, 2))),
-            "gen_pos_start": dev(t["gen_pos_start"]),
+            "input_ids": dev(host["input_ids"]),
+            "prompt_segment_ids": dev(host["segment_ids"]),
+            "position_ids": dev(host["position_ids"]),
+            "gen_pos_start": dev(host["gen_pos_start"]),
             "vision": vision_to_device(vision, self.device),
         }
 

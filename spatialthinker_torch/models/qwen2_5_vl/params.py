@@ -6,7 +6,12 @@
 - ``params_from_jax``: the JAX package's parameter pytree as numpy (stacked
   (L, ...) leaves, (in, out) weights, fused ``qkv_proj`` (L, Hkv, E, G) and
   ``gate_up_proj`` (L, 2, E, I)) -> the port's state dict. Tests carry the
-  same weights across the two packages with it.
+  same weights across the two packages with it. A QUANTIZED rollout tree
+  (``{"qvalue", "scale"}`` nodes, 2D (L, E, 2I) gate_up, quantized
+  ``embed_tokens``) gives ``<module>.qvalue`` / ``<module>.scale`` entries
+  instead of ``<module>.weight``, and ``build_model`` makes those modules
+  ``QuantLinear`` / ``QuantEmbedding`` — both packages then start from the
+  same int8 values.
 - ``init_params``: random weights drawn directly on the device from a
   ``torch.Generator`` (normal * 0.02, zero biases, unit norms — the JAX
   package's init scheme).
@@ -23,6 +28,7 @@ import torch
 from .config import Qwen25VLConfig
 from .model import Qwen25VL
 from .text import RMSNorm
+from ...ops.quant import QuantEmbedding, QuantLinear
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -95,27 +101,44 @@ def params_from_hf_state_dict(state: Mapping[str, Any], cfg: Qwen25VLConfig) -> 
     return out
 
 
+def _is_qnode(leaf) -> bool:
+    return isinstance(leaf, Mapping) and "qvalue" in leaf
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: Qwen25VLConfig) -> StateDict:
-    """The JAX package's parameter pytree (numpy leaves) -> port state dict."""
+    """The JAX package's parameter pytree (numpy leaves), plain or quantized
+    for rollout -> port state dict."""
     text, vis = tree["text"], tree["vision"]
     layers = text["layers"]
-    out: StateDict = {
-        "text.embed_tokens.weight": _t(text["embed_tokens"]),
-        "text.norm.weight": _t(text["norm"]),
-    }
+    out: StateDict = {"text.norm.weight": _t(text["norm"])}
+
+    def put(prefix: str, leaf, index, to_out_in):
+        """One matmul weight as the port's (out, in) matrix. ``to_out_in``
+        maps the (indexed) JAX array to it; a quantized node's scale keeps
+        its non-contracted dims in order, which flatten to the out rows."""
+        pick = (lambda a: np.asarray(a)) if index is None else (lambda a: np.asarray(a[index]))
+        if _is_qnode(leaf):
+            out[prefix + ".qvalue"] = _t(to_out_in(pick(leaf["qvalue"])))
+            out[prefix + ".scale"] = _t(pick(leaf["scale"]).reshape(-1))
+        else:
+            out[prefix + ".weight"] = _t(to_out_in(pick(leaf)))
+
+    put("text.embed_tokens", text["embed_tokens"], None, lambda a: a)
     for i in range(cfg.text.num_hidden_layers):
         dst = f"text.layers.{i}."
-        qkv = np.asarray(layers["self_attn"]["qkv_proj"][i])  # (Hkv, E, G)
-        out[dst + "self_attn.qkv_proj.weight"] = _t(qkv.transpose(0, 2, 1).reshape(-1, qkv.shape[1]))
+        # (Hkv, E, G) -> (Hkv*G, E)
+        put(dst + "self_attn.qkv_proj", layers["self_attn"]["qkv_proj"], i,
+            lambda a: a.transpose(0, 2, 1).reshape(-1, a.shape[1]))
         out[dst + "self_attn.qkv_proj.bias"] = _t(np.asarray(layers["self_attn"]["qkv_bias"][i]).reshape(-1))
-        out[dst + "self_attn.o_proj.weight"] = _t(np.asarray(layers["self_attn"]["o_proj"][i]).T)
-        gu = np.asarray(layers["mlp"]["gate_up_proj"][i])  # (2, E, I)
-        out[dst + "mlp.gate_up_proj.weight"] = _t(gu.transpose(0, 2, 1).reshape(-1, gu.shape[1]))
-        out[dst + "mlp.down_proj.weight"] = _t(np.asarray(layers["mlp"]["down_proj"][i]).T)
+        put(dst + "self_attn.o_proj", layers["self_attn"]["o_proj"], i, lambda a: a.T)
+        # plain (2, E, I) or the rollout tree's 2D (E, 2I), gate columns first -> (2I, E)
+        put(dst + "mlp.gate_up_proj", layers["mlp"]["gate_up_proj"], i,
+            lambda a: a.T if a.ndim == 2 else a.transpose(0, 2, 1).reshape(-1, a.shape[1]))
+        put(dst + "mlp.down_proj", layers["mlp"]["down_proj"], i, lambda a: a.T)
         out[dst + "input_layernorm.weight"] = _t(layers["input_layernorm"][i])
         out[dst + "post_attention_layernorm.weight"] = _t(layers["post_attention_layernorm"][i])
     if not cfg.text.tie_word_embeddings:
-        out["text.lm_head.weight"] = _t(np.asarray(text["lm_head"]).T)
+        put("text.lm_head", text["lm_head"], None, lambda a: a.T)
 
     out["vision.patch_embed.weight"] = _t(np.asarray(vis["patch_embed"]).T)
     blocks = vis["blocks"]
@@ -138,21 +161,45 @@ def params_from_jax(tree: Mapping[str, Any], cfg: Qwen25VLConfig) -> StateDict:
     return out
 
 
+def default_device() -> torch.device:
+    """Where an entry point runs when the caller names no device: the card.
+    The CPU is used only when asked for."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def build_model(cfg: Qwen25VLConfig, state: Mapping[str, torch.Tensor], *,
-                device, dtype=torch.bfloat16) -> Qwen25VL:
-    """A ``Qwen25VL`` holding ``state`` (every parameter, strictly) on ``device``."""
+                device=None, dtype=torch.bfloat16) -> Qwen25VL:
+    """A ``Qwen25VL`` holding ``state`` (every parameter, strictly) on
+    ``device`` (default: the current CUDA device)."""
+    device = default_device() if device is None else device
     model = Qwen25VL(cfg, device="meta", dtype=dtype)
-    model.load_state_dict(
-        {k: v.to(device=device, dtype=dtype) for k, v in state.items()}, strict=True, assign=True
-    )
+    loaded = {}
+    for key, value in state.items():
+        prefix, _, leaf = key.rpartition(".")
+        if leaf == "qvalue":
+            parent, _, name = prefix.rpartition(".")
+            holder = model.get_submodule(parent)
+            qvalue = value.to(device=device, dtype=torch.int8)
+            scale = state[prefix + ".scale"].to(device=device, dtype=torch.float32)
+            if name == "embed_tokens":
+                setattr(holder, name, QuantEmbedding(qvalue, scale))
+            else:
+                setattr(holder, name, QuantLinear(qvalue, scale, getattr(holder, name).bias))
+            loaded[key], loaded[prefix + ".scale"] = qvalue, scale
+        elif not (leaf == "scale" and prefix + ".qvalue" in state):
+            loaded[key] = value.to(device=device, dtype=dtype)
+    model.load_state_dict(loaded, strict=True, assign=True)
     return model.eval()
 
 
 @torch.no_grad()
-def init_params(cfg: Qwen25VLConfig, generator: torch.Generator, device,
+def init_params(cfg: Qwen25VLConfig, generator: torch.Generator, device=None,
                 dtype=torch.bfloat16) -> Qwen25VL:
-    """A ``Qwen25VL`` with random weights made on ``device`` (the generator
-    must live on the same device)."""
+    """A ``Qwen25VL`` with random weights made on ``device`` (default: the
+    current CUDA device; the generator must live on the same device)."""
+    device = default_device() if device is None else device
     model = Qwen25VL(cfg, device="meta", dtype=dtype).to_empty(device=device)
     norms = {id(m.weight) for m in model.modules() if isinstance(m, RMSNorm)}
     for name, p in model.named_parameters():

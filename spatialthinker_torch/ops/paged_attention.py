@@ -1,0 +1,326 @@
+"""Paged decode attention: one new token per slot attends its page-table
+pages of a global KV page pool — the CUDA kernels
+(``csrc/paged_attention.cu``) and their plain PyTorch versions.
+
+Counterpart of ``spatialthinker_tpu/ops/paged_attention.py``. Three pool
+formats, all (L, N_pages, Hkv, page, D) head-major with pages holding
+compacted tokens (validity is ``cell < length``):
+
+- bf16 pools, and int8 pools with per-cell bf16 scales (L, N, Hkv, page):
+  the TPU kernel ``_paged_kernel`` -> ``_launch_pool_kernel``;
+- int4 pools (uint8, (L, N, Hkv, page/2, D): byte row r of a page holds cell
+  r in its low nibble and cell r + page/2 in its high nibble, +8 biased) with
+  both dots on int8 operands (``int4_i8dot=True``): the TPU kernel
+  ``_paged_kernel_int4_i8`` -> ``_launch_int4_i8_kernel``. The bf16-dot int4
+  kernel (``int4_i8dot=False``) and the fused staging block (``staged=``)
+  are not ported and raise on every device.
+
+Unused page-table entries point at page 0 (a reserved dummy) and are masked
+by the length. The result is (S, Hq, D) and, with ``return_stats``, the
+partial-softmax stats (m, l), each (S, Hq) fp32 in scaled-score space, for
+callers that merge further cells by the flash combine. A slot of length 0
+gives o = 0, m = -1e30, l = 0.
+
+The plain versions walk the table page block by page block with the same
+arithmetic as the kernels (bf16-rounded softmax weights; for int4, q
+quantized per row and the weights per row per page against the running
+max). ``paged_attention_gathered`` is the exact dense-gather reference (the
+JAX package's XLA fallback): dequantize, one masked softmax in fp32.
+
+The wrapper runs the plain versions for CPU tensors only. A CUDA tensor
+launches the kernel or raises — nothing falls back.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .. import csrc
+from .flash_attention import NEG_INF
+
+KV4_BIAS = 8
+KERNEL_HEAD_DIM = 128
+KERNEL_MAX_GROUP = 16
+KERNEL_MAX_SMEM = 232448  # dynamic shared memory a block may opt in to on sm_90
+MODE_BF16, MODE_INT8, MODE_INT4_I8 = 0, 1, 2
+
+Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _pool_mode(k_pool: torch.Tensor, k_scale, int4_i8dot: bool) -> int:
+    if k_pool.dtype == torch.uint8:
+        if not int4_i8dot:
+            raise NotImplementedError(
+                "int4 pools with bf16 dots (int4_i8dot=False) are not ported yet; "
+                "run int4 pools with int4_i8dot=True"
+            )
+        if k_scale is None:
+            raise ValueError("int4 pools need k_scale and v_scale")
+        return MODE_INT4_I8
+    if k_pool.dtype == torch.int8:
+        if k_scale is None:
+            raise ValueError("int8 pools need k_scale and v_scale")
+        return MODE_INT8
+    if k_scale is not None:
+        raise ValueError(f"scales given for a {k_pool.dtype} pool")
+    return MODE_BF16
+
+
+def _page_cells(k_pool: torch.Tensor) -> int:
+    """Token cells per page (an int4 pool stores page/2 packed byte rows)."""
+    return k_pool.shape[3] * (2 if k_pool.dtype == torch.uint8 else 1)
+
+
+def paged_attention_plain(q, k_pool, v_pool, page_table, lengths, layer_idx,
+                          k_scale, v_scale, scale) -> Stats:
+    """bf16 / int8 pools, page block by page block: fp32 scores (int8 k times
+    its cell scale), online softmax against the running max, weights (times
+    the v cell scale) rounded to bf16 for the p . v product."""
+    s_slots, hq, d = q.shape
+    hkv, page = k_pool.shape[2], k_pool.shape[3]
+    g = hq // hkv
+    quantized = k_scale is not None
+    qg = q.reshape(s_slots, hkv, g, d).float()
+    kl, vl = k_pool[layer_idx], v_pool[layer_idx]
+    m = torch.full((s_slots, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((s_slots, hkv, g, d), dtype=torch.float32, device=q.device)
+    cell = torch.arange(page, device=q.device)
+    lengths = lengths.to(torch.int64)
+    for pi in range(page_table.shape[1]):
+        ids = page_table[:, pi].to(torch.int64)
+        k = kl[ids].to(torch.bfloat16).float()  # (S, Hkv, page, D)
+        v = vl[ids].to(torch.bfloat16).float()
+        s = torch.einsum("shgd,shcd->shgc", qg, k)
+        if quantized:
+            s = s * (k_scale[layer_idx][ids].float() * scale)[:, :, None, :]
+        else:
+            s = s * scale
+        valid = (pi * page + cell)[None, :] < lengths[:, None]
+        valid = valid[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        if quantized:
+            p = p * v_scale[layer_idx][ids].float()[:, :, None, :]
+        pv = torch.einsum("shgc,shcd->shgd", p.to(torch.bfloat16).float(), v)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    out = (acc / safe[..., None]).reshape(s_slots, hq, d).to(q.dtype)
+    return out, m.reshape(s_slots, hq), l.reshape(s_slots, hq)
+
+
+def paged_attention_int4_i8_plain(q, k_pool, v_pool, page_table, lengths, layer_idx,
+                                  k_scale, v_scale, scale) -> Stats:
+    """int4 pools, both dots on int8 operands. q quantizes per (head, row)
+    once; per page the biased nibbles meet it in an integer dot, debiased by
+    -8 * sum(q) and rescaled by qscale * (k_scale * scale); the softmax
+    weights times v_scale quantize per row per page, and the integer p . v
+    dot is debiased by -8 * sum(p) and restored by pscale. The integer
+    products run as fp32 matmuls of integer values: every partial sum stays
+    below 2**24, so they are exact on any device."""
+    s_slots, hq, d = q.shape
+    hkv, half = k_pool.shape[2], k_pool.shape[3]
+    page = 2 * half
+    g = hq // hkv
+    qf = q.reshape(s_slots, hkv, g, d).float()
+    qa = qf.abs().amax(dim=-1, keepdim=True)
+    qscale = torch.clamp(qa, min=1e-8) * (1.0 / 127.0)
+    q_i8 = torch.round(qf / qscale)  # integer-valued fp32
+    sumq = q_i8.sum(dim=-1, keepdim=True)
+    kl, vl = k_pool[layer_idx], v_pool[layer_idx]
+    m = torch.full((s_slots, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((s_slots, hkv, g, d), dtype=torch.float32, device=q.device)
+    cell = torch.arange(page, device=q.device)
+    lengths = lengths.to(torch.int64)
+
+    def nibbles(packed):  # (S, Hkv, half, D) uint8 -> (S, Hkv, page, D) biased values
+        return torch.cat([packed & 15, packed >> 4], dim=2).float()
+
+    for pi in range(page_table.shape[1]):
+        ids = page_table[:, pi].to(torch.int64)
+        s = torch.einsum("shgd,shcd->shgc", q_i8, nibbles(kl[ids]))
+        s = (s - KV4_BIAS * sumq) * qscale
+        s = s * (k_scale[layer_idx][ids].float() * scale)[:, :, None, :]
+        valid = (pi * page + cell)[None, :] < lengths[:, None]
+        valid = valid[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        p = p * v_scale[layer_idx][ids].float()[:, :, None, :]
+        pscale = torch.clamp(p.amax(dim=-1, keepdim=True), min=1e-20) * (1.0 / 127.0)
+        p_i8 = torch.round(p / pscale)
+        sump = p_i8.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("shgc,shcd->shgd", p_i8, nibbles(vl[ids]))
+        pv = (pv - KV4_BIAS * sump) * pscale
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    out = (acc / safe[..., None]).reshape(s_slots, hq, d).to(q.dtype)
+    return out, m.reshape(s_slots, hq), l.reshape(s_slots, hq)
+
+
+def paged_attention_gathered(q, k_pool, v_pool, page_table, lengths, layer_idx,
+                             k_scale=None, v_scale=None, scale=None) -> Stats:
+    """Exact reference for any pool format: gather the slot's pages to a dense
+    (S, Hkv, P_max*page, D) view, dequantize, one masked softmax in fp32."""
+    s_slots, hq, d = q.shape
+    scale = scale if scale is not None else d**-0.5
+    hkv = k_pool.shape[2]
+    int4 = k_pool.dtype == torch.uint8
+    page = _page_cells(k_pool)
+    p_max = page_table.shape[1]
+    g = hq // hkv
+    ids = page_table.reshape(-1).to(torch.int64)
+
+    def gather(pool, unpack4=False):
+        lay = pool[layer_idx][ids]  # (S*P_max, Hkv, rows, ...)
+        if unpack4:
+            lay = torch.cat([(lay & 15).to(torch.int8) - KV4_BIAS,
+                             (lay >> 4).to(torch.int8) - KV4_BIAS], dim=2)
+        lay = lay.reshape(s_slots, p_max, hkv, page, *lay.shape[3:])
+        return lay.movedim(2, 1).reshape(s_slots, hkv, p_max * page, *lay.shape[4:])
+
+    k_l, v_l = gather(k_pool, int4).float(), gather(v_pool, int4).float()
+    if k_scale is not None:
+        # dequantized values round to q's dtype, as the fallback's do
+        k_l = (k_l * gather(k_scale).float()[..., None]).to(q.dtype).float()
+        v_l = (v_l * gather(v_scale).float()[..., None]).to(q.dtype).float()
+    mask = torch.arange(p_max * page, device=q.device)[None, :] < lengths.to(torch.int64)[:, None]
+    mask = mask[:, None, None, :]
+    qg = q.reshape(s_slots, hkv, g, d).float()
+    s = torch.einsum("shgd,shtd->shgt", qg, k_l) * scale
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=3)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=3)
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.einsum("shgt,shtd->shgd", p, v_l) / safe[..., None]
+    return out.reshape(s_slots, hq, d).to(q.dtype), m.reshape(s_slots, hq), l.reshape(s_slots, hq)
+
+
+def _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale,
+                       mode: int) -> None:
+    s_slots, hq, d = q.shape
+    if k_pool.dim() != 5 or k_pool.shape != v_pool.shape or k_pool.dtype != v_pool.dtype:
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
+    n_layers, n_pages, hkv, _, pd = k_pool.shape
+    page = _page_cells(k_pool)
+    if d != KERNEL_HEAD_DIM or pd != d:
+        raise ValueError(f"paged kernel takes head dim {KERNEL_HEAD_DIM}, got q {d} / pool {pd}")
+    if hq % hkv or hq // hkv > KERNEL_MAX_GROUP:
+        raise ValueError(f"paged kernel takes query groups up to {KERNEL_MAX_GROUP}, got {hq}/{hkv}")
+    if page % 2:
+        raise ValueError(f"paged kernel takes even page sizes, got {page}")
+    if not 0 <= layer_idx < n_layers:
+        raise ValueError(f"layer {layer_idx} outside the {n_layers}-layer pool")
+    if s_slots < 1 or page_table.dim() != 2 or page_table.shape[0] != s_slots:
+        raise ValueError(f"page_table {tuple(page_table.shape)} does not fit {s_slots} slots")
+    if tuple(lengths.shape) != (s_slots,):
+        raise ValueError(f"lengths must be ({s_slots},), got {tuple(lengths.shape)}")
+    pool_dtype = (torch.bfloat16, torch.int8, torch.uint8)[mode]
+    tensors = [("q", q, torch.bfloat16), ("k_pool", k_pool, pool_dtype),
+               ("v_pool", v_pool, pool_dtype), ("page_table", page_table, torch.int32),
+               ("lengths", lengths, torch.int32)]
+    if mode != MODE_BF16:
+        want = (n_layers, n_pages, hkv, page)
+        if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+            raise ValueError(f"scales must be {want}, got {tuple(k_scale.shape)}/{tuple(v_scale.shape)}")
+        tensors += [("k_scale", k_scale, torch.bfloat16), ("v_scale", v_scale, torch.bfloat16)]
+    for name, t, dtype in tensors:
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _launch(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, scale,
+            mode: int) -> Stats:
+    _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, mode)
+    s_slots, hq, d = q.shape
+    n_pages, hkv = k_pool.shape[1], k_pool.shape[2]
+    page = _page_cells(k_pool)
+    lib = csrc.library()
+    smem = lib.st_paged_attention_smem(mode, hq // hkv, page)
+    if smem > KERNEL_MAX_SMEM:
+        raise ValueError(
+            f"page size {page} with {hq // hkv} query heads per kv head needs {smem} bytes of "
+            f"shared memory per block; the card allows {KERNEL_MAX_SMEM}"
+        )
+    out = torch.empty_like(q)
+    m = torch.empty((s_slots, hq), dtype=torch.float32, device=q.device)
+    l = torch.empty((s_slots, hq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.st_paged_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if k_scale is not None else None,
+            v_scale.data_ptr() if v_scale is not None else None,
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+            s_slots, hq, hkv, page, d, page_table.shape[1], n_pages, int(layer_idx), mode,
+            float(scale), torch.cuda.current_stream().cuda_stream,
+        )
+    csrc.check_launch(rc, "paged attention")
+    return out, m, l
+
+
+def _launch_pool_kernel(*args, mode: int) -> Stats:
+    """bf16 / int8 pools (modes 0 and 1 of the kernel)."""
+    res = _launch(*args, mode=mode)
+    _launch_pool_kernel.launches += 1
+    return res
+
+
+def _launch_int4_i8_kernel(*args) -> Stats:
+    """int4 pools with int8 dots (mode 2 of the kernel)."""
+    res = _launch(*args, mode=MODE_INT4_I8)
+    _launch_int4_i8_kernel.launches += 1
+    return res
+
+
+_launch_pool_kernel.launches = 0
+_launch_int4_i8_kernel.launches = 0
+
+
+def paged_attention(
+    q: torch.Tensor,           # (S, Hq, D) — one new token per slot
+    k_pool: torch.Tensor,      # (L, N_pages, Hkv, page, D) bf16 | int8; uint8 (.., page/2, D) int4
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # (S, P_max) int32 — pool page ids per slot
+    lengths: torch.Tensor,     # (S,) int32 — valid (compacted) cells per slot
+    layer_idx: int,
+    k_scale: Optional[torch.Tensor] = None,  # (L, N_pages, Hkv, page) bf16 — int8 / int4 pools
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    return_stats: bool = False,
+    int4_i8dot: bool = False,
+    staged=None,
+):
+    """Attention of one decode token per slot over its page-table pages of
+    layer ``layer_idx``. Returns (S, Hq, D); with ``return_stats`` also the
+    partial-softmax stats (m, l), each (S, Hq)."""
+    if staged is not None:
+        raise NotImplementedError(
+            "the fused staging block (staged=) is not ported; merge the staged cells "
+            "with the returned (m, l) stats"
+        )
+    mode = _pool_mode(k_pool, k_scale, int4_i8dot)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    args = (q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, scale)
+    if not q.is_cuda:
+        plain = paged_attention_int4_i8_plain if mode == MODE_INT4_I8 else paged_attention_plain
+        out = plain(*args)
+    elif mode == MODE_INT4_I8:
+        out = _launch_int4_i8_kernel(*args)
+    else:
+        out = _launch_pool_kernel(*args, mode=mode)
+    return out if return_stats else out[0]

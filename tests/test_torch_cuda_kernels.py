@@ -9,6 +9,13 @@ differ in summation order, in where the softmax weights are rounded to bf16
 (the kernels round running-max-relative weights, the plain versions final
 ones) and in the bf16 rounding of the output — a few bf16 ulps of an O(1)
 output, so atol/rtol 2e-2. The logsumexp is fp32 end to end: atol 2e-3.
+The paged kernels repeat their plain versions' arithmetic page by page: the
+stats m, l within 2e-3 (fast-math-free fp32, other summation order), the
+bf16 output within 2e-2 (bf16 pools) or 1e-2 of an O(0.3) output (int8 and
+int4 pools; an int8 softmax weight on a rounding tie may flip by one step).
+The silu->int8 kernel: scales within 1e-5 relative, int8 values at most one
+step apart and fewer than 1 in 100 differing (ties; the division and the
+sigmoid differ in the last bit).
 """
 
 import numpy as np
@@ -16,7 +23,9 @@ import pytest
 import torch
 
 from spatialthinker_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from spatialthinker_torch.ops import paged_attention as pa
 from spatialthinker_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+from spatialthinker_torch.ops.silu_quant import fused_silu_quantize, fused_silu_quantize_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +119,105 @@ def test_kernels_raise_on_unsupported_cuda_input(dev):
     cache = torch.zeros((1, 1, 2, 8, 96), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         decode_attention(q[:, 0], cache, cache, seg, 0)
+
+
+def _paged_case(rng, dev, kind, g, page, lengths, hkv=2, n_layers=2, d=128):
+    """Pools of one format with every slot's pages scattered over the pool."""
+    s_slots = len(lengths)
+    need = sum(-(-ell // page) for ell in lengths)
+    n_pages = need + 2
+    order = iter(rng.permutation(np.arange(1, n_pages)))
+    table = np.zeros((s_slots, max(-(-ell // page) for ell in lengths) + 1), np.int32)
+    for i, ell in enumerate(lengths):
+        for c in range(-(-ell // page)):
+            table[i, c] = next(order)
+    shape = (n_layers, n_pages, hkv, page, d)
+    scales = (None, None)
+    if kind == "bf16":
+        k, v = _bf16(rng, shape, dev), _bf16(rng, shape, dev)
+    else:
+        lim = 127 if kind == "int8" else 7
+        k = rng.integers(-lim, lim + 1, size=shape).astype(np.int8)
+        v = rng.integers(-lim, lim + 1, size=shape).astype(np.int8)
+        lo, hi = (0.001, 0.02) if kind == "int8" else (0.01, 0.1)
+        scales = tuple(
+            torch.from_numpy(rng.uniform(lo, hi, size=shape[:-1]).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(2)
+        )
+        if kind == "int4":
+            half = page // 2
+            k, v = ((((a[:, :, :, :half] + 8).astype(np.uint8) & 0xF)
+                     | ((a[:, :, :, half:] + 8).astype(np.uint8) << 4).astype(np.uint8)) for a in (k, v))
+        k, v = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+    q = _bf16(rng, (s_slots, hkv * g, d), dev)
+    return (q, k, v, torch.from_numpy(table).to(dev),
+            torch.from_numpy(np.asarray(lengths, np.int32)).to(dev), n_layers - 1, *scales)
+
+
+PAGED_CASES = [
+    # kind, G, page, lengths
+    ("bf16", 8, 256, (600, 256, 37, 0, 511)),
+    ("bf16", 7, 6, (11, 6, 1, 17)),
+    ("int8", 8, 256, (600, 256, 37, 0, 511)),
+    ("int8", 7, 130, (300, 131, 0, 390)),
+    ("int4", 8, 256, (600, 256, 37, 0, 511)),
+    ("int4", 8, 1024, (1500, 1024, 3, 2048)),
+    ("int4", 7, 6, (11, 6, 1, 17, 0)),
+    ("int4", 16, 130, (300, 131, 65, 66)),
+]
+
+
+@pytest.mark.parametrize("kind,g,page,lengths", PAGED_CASES)
+def test_paged_kernels_match_plain(dev, kind, g, page, lengths):
+    rng = np.random.default_rng(page + g)
+    args = _paged_case(rng, dev, kind, g, page, lengths)
+    i8 = kind == "int4"
+    plain = pa.paged_attention_int4_i8_plain if i8 else pa.paged_attention_plain
+    counter = pa._launch_int4_i8_kernel if i8 else pa._launch_pool_kernel
+    o_ref, m_ref, l_ref = plain(*args, 128**-0.5)
+    before = counter.launches
+    o, m, l = pa.paged_attention(*args, return_stats=True, int4_i8dot=i8)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    torch.testing.assert_close(m, m_ref, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(l, l_ref, atol=2e-3, rtol=2e-3)
+    tol = 2e-2 if kind == "bf16" else 1e-2
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    for i, ell in enumerate(lengths):
+        if ell == 0:
+            assert torch.all(o[i] == 0) and torch.all(l[i] == 0) and torch.all(m[i] == -1e30)
+
+
+@pytest.mark.parametrize("m,i,dtype", [(1024, 11008, torch.bfloat16), (8, 18944, torch.bfloat16),
+                                       (33, 86, torch.float32)])
+def test_silu_quant_kernel_matches_plain(dev, m, i, dtype):
+    rng = np.random.default_rng(i)
+    gu = torch.from_numpy(rng.normal(size=(m, 2 * i)).astype(np.float32)).to(dev, dtype)
+    gu[1] = 0  # an all-zero row takes the eps floor
+    q_ref, s_ref = fused_silu_quantize_plain(gu)
+    before = fused_silu_quantize.launches
+    q, s = fused_silu_quantize(gu)
+    torch.cuda.synchronize()
+    assert fused_silu_quantize.launches == before + 1
+    assert q.dtype == torch.int8 and tuple(q.shape) == (m, i) and tuple(s.shape) == (m, 1)
+    torch.testing.assert_close(s, s_ref, atol=0, rtol=1e-5)
+    diff = (q.int() - q_ref.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) < 1e-2
+
+
+def test_paged_and_silu_wrappers_raise_on_unsupported_cuda_input(dev):
+    rng = np.random.default_rng(0)
+    args = list(_paged_case(rng, dev, "int4", 8, 256, (300, 10)))
+    with pytest.raises(NotImplementedError):
+        pa.paged_attention(*args, int4_i8dot=False)
+    with pytest.raises(ValueError):  # fp32 query
+        pa.paged_attention(args[0].float(), *args[1:], int4_i8dot=True)
+    with pytest.raises(ValueError):  # int64 table
+        pa.paged_attention(*args[:3], args[3].long(), *args[4:], int4_i8dot=True)
+    big = _paged_case(rng, dev, "bf16", 16, 4096, (10,), hkv=1, n_layers=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        pa.paged_attention(*big)
+    with pytest.raises(ValueError):
+        fused_silu_quantize(torch.zeros((4, 7), device=dev))
+    with pytest.raises(ValueError):
+        fused_silu_quantize(torch.zeros((4, 8), dtype=torch.int32, device=dev))
