@@ -13,8 +13,14 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    time the card could take: bytes over the memory rate or operations over
    the peak rate, whichever is larger) and, for the flash and dense-decode
    kernels, times ``F.scaled_dot_product_attention`` with the equivalent
-   mask as a yardstick (used nowhere in the port);
-4. drives three paths at full Qwen2.5-VL-3B width with seeded random weights
+   mask as a yardstick (used nowhere in the port); the flash forward and the
+   two flash backward kernels are held against ``flash_fwd_plain`` and
+   ``flash_bwd_plain`` on hand-made segment ids of the training path's three
+   attention forms here and, after path d, on the segment ids its first
+   micro-batch gave them (packed text rows, the vision pack of that
+   micro-batch's images as one sequence and as windows), timed beside SDPA
+   and its backward;
+4. drives three serving paths at full Qwen2.5-VL-3B width with seeded random weights
    made on the device, each with the kernels' launch counts set to 0 just
    before and read just after, and with the plain versions forbidden:
    a. the dense engine (bf16): 4 image requests through
@@ -24,6 +30,12 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
       ``int4_i8dot``, rows-mode + sequence-chunked prefill, shared prompt
       pages, a finite page pool and fewer slots than lanes (sampled, T=1);
    c. the paged engine with bf16 weights and bf16 pools (greedy);
+   then d. the training path: two GRPO steps through the functions of
+      ``spatialthinker_torch/trainer/grpo_trainer.py`` -- the paged rollout of
+      path b, old log-probs (policy) and ref log-probs (a frozen copy) on
+      packed multimodal rows, GRPO advantages, the packed actor update
+      (dual-clip loss + ``low_var_kl``, per-layer checkpointing, the flash
+      backward kernels, AdamW), ``quantize_model`` again on the updated policy;
 5. checks what came out: finite log-probs <= 0 of the expected shapes; the
    kernel-path prefill logits as close to an fp32 reference as the plain
    path's; the int4 path's rollout log-probs against the bf16 model's
@@ -31,7 +43,14 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    ``rollout/probs_diff``) and its greedy first tokens against the dense
    engine's; the bf16-pool paged path against the dense engine (equal first
    tokens, and no further from the teacher-forced bf16 model than the dense
-   engine is, see ``ENGINE_DRIFT_RATIO``);
+   engine is, see ``ENGINE_DRIFT_RATIO``); for the training path: finite
+   metrics, a positive gradient norm, parameters that moved and a reference
+   copy that did not, a first mini-batch whose forward recomputes the old
+   log-probs (``actor/ppo_kl`` ~ 0, nothing clipped), old log-probs as close
+   to the engine's as ``PROBS_DIFF_LIMIT``, packed = per-sample log-probs, the
+   gradient of one packed row with the backward kernels against the plain
+   backward behind the same kernel forward, and a non-finite
+   gradient that leaves parameters and optimizer state untouched;
 6. prints one JSON line of kernel results, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -58,6 +77,7 @@ import spatialthinker_torch.ops.flash_attention as fa
 import spatialthinker_torch.ops.paged_attention as pa
 import spatialthinker_torch.ops.silu_quant as sq
 from spatialthinker_torch import csrc
+from spatialthinker_torch.core.batch import RolloutBatch
 from spatialthinker_torch.eval.providers import TorchProvider
 from spatialthinker_torch.models.qwen2_5_vl import (
     forward, init_params, logits_from_hidden, prefill_forward, qwen25_vl_3b, window_patch_len,
@@ -67,6 +87,15 @@ from spatialthinker_torch.ops.quant import quantize_model
 from spatialthinker_torch.rollout.engine import generate
 from spatialthinker_torch.rollout.paged import effective_prefill_chunk, generate_paged
 from spatialthinker_torch.rollout.sampling import SamplingParams
+from spatialthinker_torch.trainer.grpo_trainer import (
+    compute_advantages, compute_log_probs_batched, packed_micro_batches, rollout_batch_from_result,
+    to_device, update_actor_packed,
+)
+from spatialthinker_torch.trainer.metrics import Timer
+from spatialthinker_torch.trainer.train_step import (
+    make_optimizer, make_packed_grad_fn, make_packed_update_fn,
+)
+from spatialthinker_torch.models.qwen2_5_vl.model import vision_to_device
 from spatialthinker_torch.utils.synthetic_tokenizer import QwenSyntheticTokenizer
 
 # bf16 kernel vs fp32-softmax plain version on the same bf16 inputs: both
@@ -111,6 +140,35 @@ FIRST_TOKEN_MIN_AGREEMENT = 0.4
 # against the same bf16 model run over prompt + response in one forward, and
 # the paged engine may drift at most twice as far from it as the dense one.
 ENGINE_DRIFT_RATIO = 2.0
+
+# Flash backward kernels vs the fp32 plain version: the kernels round p and ds
+# to bf16 (8 bits) before the second products and the gradients themselves to
+# bf16; each gradient within this share of its own largest magnitude
+# (4e-3 to 7e-3 measured on an H100).
+BWD_REL_TOL = 1e-2
+# Training path. No optimizer step lies between the old log-probs and the first
+# mini-batch of a step, so that mini-batch's forward recomputes them up to
+# bf16 and packing noise (other row neighbours, other matmul shapes).
+FIRST_MINIBATCH_PPO_KL = 5e-3   # 6e-4 measured on an H100
+FIRST_MINIBATCH_CLIPFRAC = 0.01
+# Packed vs per-sample log-probs of the same samples, bf16 model: the same
+# tokens meet other row lengths and matmul shapes; mean |difference|.
+PACKED_LOGP_ATOL = 3e-2
+# Gradient of one packed row through the whole model, the two backward kernels
+# against ``flash_bwd_plain`` on the card. Both arms run the kernel forward
+# (the same o and lse reach both backwards), so only the backward kernels'
+# bf16 rounding of p and ds separates them: relative difference of the global
+# norms, and the cosine between the two gradients.
+GRAD_NORM_REL_TOL = 5e-3
+GRAD_COSINE_MIN = 0.999
+ACTOR = dict(
+    clip_ratio_low=0.2, clip_ratio_high=0.3, clip_ratio_dual=3.0, use_kl_loss=True,
+    kl_loss_coef=1e-2, kl_penalty="low_var_kl", max_grad_norm=1.0, remat=True, chunk_size=1024,
+    temperature=1.0, grad_accum_dtype=torch.float32,
+)
+# global_batch_size 128 of the shipped script cut to 64: two optimizer steps per GRPO step
+TRAIN = dict(global_batch_size=64, micro_rows=4, experience_micro=16, lr=1e-6, strategy="adamw")
+GRPO_STEPS = 2
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -168,20 +226,46 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def _kv_groups(q, k):
+    """(kv head as a slice, its G query heads as a slice) for every kv head."""
+    g = q.shape[2] // k.shape[2]
+    return [(slice(h, h + 1), slice(h * g, (h + 1) * g)) for h in range(k.shape[2])]
+
+
+def flash_fwd_plain_by_head(q, k, v, q_seg, kv_seg, **kw):
+    """``flash_fwd_plain`` one kv head (with its G query heads) at a time: the
+    fp32 score tensors of all 16 heads of a 16,384-slot vision pack at once
+    would not fit the card."""
+    parts = [fa.flash_fwd_plain(q[:, :, hq], k[:, :, hk], v[:, :, hk], q_seg, kv_seg, **kw)
+             for hk, hq in _kv_groups(q, k)]
+    return torch.cat([o for o, _ in parts], dim=2), torch.cat([lse for _, lse in parts], dim=1)
+
+
+def flash_bwd_plain_by_head(q, k, v, q_seg, kv_seg, o, lse, do, **kw):
+    """``flash_bwd_plain`` one kv head at a time, for the same reason."""
+    parts = [fa.flash_bwd_plain(q[:, :, hq], k[:, :, hk], v[:, :, hk], q_seg, kv_seg,
+                                o[:, :, hq], lse[:, hq], do[:, :, hq], **kw)
+             for hk, hq in _kv_groups(q, k)]
+    return tuple(torch.cat(grads, dim=2) for grads in zip(*parts))
+
+
 @contextmanager
-def plain_prefill_attention():
-    """Route the model's prefill attention through the plain version on the
-    card (for the kernel-vs-plain prefill comparison only)."""
-    saved = fa.flash_fwd
-    fa.flash_fwd = fa.flash_fwd_plain
+def plain_attention(forward: bool = True):
+    """Route the model's attention through the plain versions on the card (for
+    the kernel-vs-plain comparisons only): forward and backward, or with
+    ``forward=False`` the backward alone behind the kernel forward."""
+    saved = fa.flash_fwd, fa.flash_bwd
+    if forward:
+        fa.flash_fwd = fa.flash_fwd_plain
+    fa.flash_bwd = flash_bwd_plain_by_head
     try:
         yield
     finally:
-        fa.flash_fwd = saved
+        fa.flash_fwd, fa.flash_bwd = saved
 
 
 PLAIN_VERSIONS = [
-    (fa, "flash_fwd_plain"), (da, "decode_attention_plain"), (pa, "paged_attention_plain"),
+    (fa, "flash_fwd_plain"), (fa, "flash_bwd_plain"), (da, "decode_attention_plain"), (pa, "paged_attention_plain"),
     (pa, "paged_attention_int4_i8_plain"), (pa, "paged_attention_gathered"),
     (sq, "fused_silu_quantize_plain"),
 ]
@@ -206,14 +290,15 @@ def forbid_plain_versions():
 
 def reset_counts() -> None:
     # looked up at call time: a wrapper may have been re-bound meanwhile
-    for fn in (fa.flash_fwd, da.decode_attention, pa._launch_pool_kernel,
-               pa._launch_int4_i8_kernel, sq.fused_silu_quantize):
+    for fn in (fa.flash_fwd, fa._launch_bwd_dq, fa._launch_bwd_dkv, da.decode_attention,
+               pa._launch_pool_kernel, pa._launch_int4_i8_kernel, sq.fused_silu_quantize):
         fn.launches = 0
 
 
 def read_counts() -> dict:
     return {
-        "flash_fwd": fa.flash_fwd.launches, "decode_attention": da.decode_attention.launches,
+        "flash_fwd": fa.flash_fwd.launches, "flash_bwd_dq": fa._launch_bwd_dq.launches,
+        "flash_bwd_dkv": fa._launch_bwd_dkv.launches, "decode_attention": da.decode_attention.launches,
         "paged_attention_pool": pa._launch_pool_kernel.launches,
         "paged_attention_int4_i8": pa._launch_int4_i8_kernel.launches,
         "silu_quant": sq.fused_silu_quantize.launches,
@@ -292,6 +377,119 @@ def check_flash(dev, prep, cfg):
         del q, k, v, o, lse, o_ref, lse_ref, mask, qt, kt, vt
         torch.cuda.empty_cache()
     return results
+
+
+def synthetic_training_cases(cfg):
+    """Hand-made segment ids of the training path's three attention forms:
+    packed text rows (2-3 segments per row and a padded tail), vision full
+    attention over a padded patch sequence, and the batched windows form."""
+    wlen = window_patch_len(cfg.vision)
+    seg_text = np.zeros((4, 1024), np.int32)
+    for row, cuts in enumerate(((400, 790, 1000), (520, 980), (330, 660, 940), (470, 900, 1024))):
+        start = 0
+        for i, end in enumerate(cuts):
+            seg_text[row, start:end] = i + 1
+            start = end
+    seg_full = np.zeros((1, 8192), np.int32)
+    for i in range(5):  # five 34 x 46 images and a padded tail
+        seg_full[0, i * 1564 : (i + 1) * 1564] = i + 1
+    seg_win = np.ones((8192 // wlen, wlen), np.int32)
+    seg_win[-3:, wlen // 2 :] = 0   # edge windows padded in place
+    seg_win[-1] = 0                 # a whole padding window
+    return training_cases(cfg, "synthetic", seg_text, seg_full, seg_win)
+
+
+def training_cases(cfg, prefix, seg_text, seg_full, seg_win):
+    tc, vc = cfg.text, cfg.vision
+    wlen = window_patch_len(vc)
+    text = (tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim)
+    vis = (vc.num_heads, vc.num_heads, vc.head_dim)
+    return [
+        (f"{prefix}_text_packed_rows", text, np.asarray(seg_text, np.int32), True),
+        (f"{prefix}_vision_full", vis, np.asarray(seg_full, np.int32).reshape(1, -1), False),
+        (f"{prefix}_vision_window", vis, np.asarray(seg_win, np.int32).reshape(-1, wlen), False),
+    ]
+
+
+def check_flash_training(dev, cases):
+    """The flash forward and the two backward kernels vs their plain versions
+    (run head by head) on the training path's attention forms: packed text
+    rows (causal), vision full attention and the batched windows form (D = 80,
+    non-causal). ``cases`` are (name, (Hq, Hkv, D), segment ids (B, S), causal).
+    Each backward kernel is timed on its own (delta precomputed); the library
+    yardsticks are SDPA with the equivalent mask and its backward, which
+    computes dq, dk and dv together. Returns (forward, dQ, dK/dV) results."""
+    rng = np.random.default_rng(8)
+    fwd_cases, dq_cases, dkv_cases = [], [], []
+    for name, (hq, hkv, d), seg_np, causal in cases:
+        seg = torch.from_numpy(seg_np).to(dev)
+        bb, s_len = seg.shape
+        q, do = randn_bf16(rng, dev, bb, s_len, hq, d), randn_bf16(rng, dev, bb, s_len, hq, d)
+        k, v = randn_bf16(rng, dev, bb, s_len, hkv, d), randn_bf16(rng, dev, bb, s_len, hkv, d)
+        kw = dict(causal=causal, scale=d**-0.5)
+        dead = seg == 0
+        o, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
+        o_ref, lse_ref = flash_fwd_plain_by_head(q, k, v, seg, seg, **kw)
+        fwd_err = (o.float() - o_ref.float()).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        fwd_ok = fwd_err <= OUT_ATOL and lse_err <= LSE_ATOL and bool(torch.all(o[dead] == 0))
+        del o_ref, lse_ref
+        ref = flash_bwd_plain_by_head(q, k, v, seg, seg, o, lse, do, **kw)
+        got = fa.flash_bwd(q, k, v, seg, seg, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        errs, rels, zeros = {}, {}, True
+        for gname, x, r in zip(("dq", "dk", "dv"), got, ref):
+            errs[gname] = (x.float() - r.float()).abs().max().item()
+            rels[gname] = errs[gname] / r.float().abs().max().item()
+            zeros = zeros and bool(torch.isfinite(x.float()).all()) and bool(torch.all(x[dead] == 0))
+        del ref, got
+        fwd_plain_ms = cuda_ms(lambda: flash_fwd_plain_by_head(q, k, v, seg, seg, **kw), iters=5, warmup=1)
+        fwd_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, seg, seg, **kw))
+        plain_ms = cuda_ms(lambda: flash_bwd_plain_by_head(q, k, v, seg, seg, o, lse, do, **kw),
+                           iters=5, warmup=1)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, seg, seg, causal, d**-0.5)
+        dq_ms = cuda_ms(lambda: fa._launch_bwd_dq(*args))
+        dkv_ms = cuda_ms(lambda: fa._launch_bwd_dkv(*args))
+        # the one PyTorch call for the same function: SDPA, and its backward
+        mask = fa.make_attention_mask(seg, seg, causal)[:, None]
+        pairs = int(mask.sum())
+        g = hq // hkv
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in
+                      (q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
+        with torch.no_grad():
+            fwd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                        scale=d**-0.5), iters=10)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=d**-0.5)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+        fwd_b, fwd_by = bound_ms(nbytes(q, k, v, o, lse, seg, seg), 4.0 * pairs * hq * d, "bf16")
+        common = nbytes(q, k, v, do, lse, delta, seg, seg)
+        dq_b, dq_by = bound_ms(common + nbytes(q), 6.0 * pairs * hq * d, "bf16")
+        dkv_b, dkv_by = bound_ms(common + nbytes(k, v), 8.0 * pairs * hq * d, "bf16")
+        print(f"flash forward {name}: q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal} "
+              f"max_abs_err={fwd_err:.3e} lse_err={lse_err:.3e} ms={fwd_ms:.4f} plain_ms={fwd_plain_ms:.4f} "
+              f"sdpa_ms={fwd_lib_ms:.4f} bound_ms={fwd_b:.5f} ({fwd_by})", flush=True)
+        print(f"flash backward {name}: q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal} "
+              f"max_abs_err dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e} "
+              f"(of max |grad|: {rels['dq']:.2e} {rels['dk']:.2e} {rels['dv']:.2e}, tol {BWD_REL_TOL}) "
+              f"padding_rows_zero={zeros} dq_ms={dq_ms:.4f} (bound {dq_b:.5f}, {dq_by}) "
+              f"dkv_ms={dkv_ms:.4f} (bound {dkv_b:.5f}, {dkv_by}) plain_ms={plain_ms:.4f} "
+              f"sdpa_bwd_ms={lib_ms:.4f}", flush=True)
+        if not fwd_ok:
+            raise AssertionError(f"flash kernel disagrees with plain on {name}")
+        if not (max(rels.values()) <= BWD_REL_TOL and zeros):
+            raise AssertionError(f"flash backward kernels disagree with plain on {name}")
+        fwd_cases.append(dict(shape=name, max_abs_err=fwd_err, lse_err=lse_err, ms=fwd_ms,
+                              plain_ms=fwd_plain_ms, bound_ms=fwd_b, bound_by=fwd_by, library_ms=fwd_lib_ms))
+        dq_cases.append(dict(shape=name, max_abs_err=errs["dq"], rel_err=rels["dq"], ms=dq_ms,
+                             plain_ms=plain_ms, bound_ms=dq_b, bound_by=dq_by, library_ms=lib_ms))
+        dkv_cases.append(dict(shape=name, max_abs_err=max(errs["dk"], errs["dv"]),
+                              rel_err=max(rels["dk"], rels["dv"]), ms=dkv_ms, plain_ms=plain_ms,
+                              bound_ms=dkv_b, bound_by=dkv_by, library_ms=lib_ms))
+        del q, k, v, do, o, lse, delta, args, mask, qt, kt, vt, out, dot
+        torch.cuda.empty_cache()
+    return fwd_cases, dq_cases, dkv_cases
 
 
 def check_decode(dev, cfg, rows: int, width: int, prompt_len: int):
@@ -456,6 +654,243 @@ def engine_drift(model, prep, tokens, logp) -> float:
     return float(np.abs(np.asarray(logp) - teacher_forced_logps(model, prep, tokens, ones)).mean())
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+
+def _objects(items) -> np.ndarray:
+    arr = np.empty(len(items), dtype=object)
+    for i, item in enumerate(items):
+        arr[i] = item
+    return arr
+
+
+def prompt_batch(host) -> RolloutBatch:
+    """The provider's host inputs as the RolloutBatch a train step starts
+    from: one row per prompt, a uid per prompt for the GRPO groups."""
+    n = host["input_ids"].shape[0]
+    return RolloutBatch(
+        tensors={
+            "input_ids": host["input_ids"], "segment_ids": host["segment_ids"],
+            "position_ids": np.transpose(host["position_ids"], (1, 0, 2)),  # (B, 3, P)
+            "gen_pos_start": host["gen_pos_start"],
+        },
+        non_tensors={
+            "patches": _objects(host["patches_list"]), "image_grid_thw": _objects(host["grids_list"]),
+            "uid": _objects([f"prompt-{i:03d}" for i in range(n)]),
+        },
+    )
+
+
+def grpo_step(model, ref_model, prompts: RolloutBatch, rollout, packed_update, *, step: int,
+              group_n: int, score_rng, experience_micro: int, global_batch_size: int,
+              micro_rows: int, temperature: float, device):
+    """One GRPO step in the order of the JAX package's ``GRPOTrainer.train_step``:
+    rollout -> scores -> old log-probs (policy) -> ref log-probs (frozen copy)
+    -> GRPO advantages -> packed actor update. ``rollout()`` returns the
+    engine's result for ``prompts`` x ``group_n`` (row i*group_n + j = sample
+    j of prompt i). The scores are scaffolding: one seeded random number on
+    each response's last valid token stands in for the reward functions, which
+    are host code outside this package so far. Returns (rolled batch, actor
+    metrics, seconds per phase)."""
+    timer = Timer()
+    with timer("gen"):
+        result = rollout()
+    repeated = prompts.select(np.repeat(np.arange(len(prompts)), group_n))
+    rolled = rollout_batch_from_result(repeated, result.responses, result.response_mask,
+                                       result.rollout_log_probs)
+    mask = rolled.tensors["response_mask"]
+    scores = np.zeros(mask.shape, np.float32)
+    scores[np.arange(len(mask)), mask.sum(-1).astype(np.int64) - 1] = score_rng.random(len(mask))
+    rolled.tensors["token_level_scores"] = scores
+    logp_kw = dict(micro_batch_size=experience_micro, temperature=temperature, device=device)
+    with timer("old"):
+        rolled.tensors["old_log_probs"] = compute_log_probs_batched(model, rolled, **logp_kw)
+    with timer("ref"):
+        rolled.tensors["ref_log_probs"] = compute_log_probs_batched(ref_model, rolled, **logp_kw)
+    with timer("adv"):
+        rolled.tensors["token_level_rewards"] = rolled.tensors["token_level_scores"]
+        adv, ret = compute_advantages(rolled, "grpo")
+        rolled.tensors["advantages"], rolled.tensors["returns"] = adv, ret
+    with timer("update_actor"):
+        metrics = update_actor_packed(
+            rolled, packed_update, model.cfg.vision, global_batch_size=global_batch_size,
+            micro_rows=micro_rows, global_step=step, device=device,
+        )
+    return rolled, metrics, timer.timing
+
+
+def checksums(tensors) -> list:
+    """One fp64 sum per tensor: equal lists mean nothing moved."""
+    return [float(torch.sum(t.detach(), dtype=torch.float64)) for t in tensors]
+
+
+def training_path(dev, model, qmodel_holder, host, paged_kw, card):
+    """Path d: two GRPO steps at full 3B width, then the checks that need the
+    plain versions or a second forward (outside the counted run)."""
+    cfg = model.cfg
+    prompts = prompt_batch(host)
+    host_inputs = (host["input_ids"], host["segment_ids"], host["position_ids"], host["gen_pos_start"])
+    ref_model = copy.deepcopy(model).requires_grad_(False)
+    ref_sums = checksums(ref_model.parameters())
+    optimizer = make_optimizer(TRAIN["lr"], strategy=TRAIN["strategy"])
+    inner_update = make_packed_update_fn(model, optimizer, **ACTOR)
+    seen = []  # per mini-batch: metrics, rows, fill, tokens
+    first_micro = {}  # segment ids the flash kernels get in the first micro-batch of the update
+
+    def packed_update(ptb, vision):
+        if not first_micro:
+            first_micro.update(seg_text=ptb.segment_ids[0].cpu().numpy(),
+                               seg_full=vision.seg_full[0].cpu().numpy(),
+                               seg_window=vision.seg_window[0].cpu().numpy(),
+                               images=int(vision.seg_full[0].max()))
+        metrics = inner_update(ptb, vision)
+        live = ptb.segment_ids != 0
+        seen.append(dict(metrics={k: float(v) for k, v in metrics.items()},
+                         rows=live.shape[0] * live.shape[1], row_len=live.shape[2],
+                         tokens=int(live.sum()), fill=float(live.float().mean())))
+        return metrics
+
+    def rollout():
+        t0 = time.perf_counter()
+        if qmodel_holder["model"] is None:  # the policy moved: quantize it again
+            qmodel_holder["model"] = quantize_model(model, mode="int8")
+            torch.cuda.synchronize()
+        qmodel_holder["quantize_s"] = time.perf_counter() - t0
+        out = generate_paged(
+            qmodel_holder["model"], *host_inputs, sampling=SamplingParams(temperature=1.0),
+            generator=torch.Generator(device=dev).manual_seed(20 + len(steps)), **paged_kw)
+        qmodel_holder["model"] = None  # free the int8 copy and the pools before the update
+        torch.cuda.empty_cache()
+        return out
+
+    steps = []
+    score_rng = np.random.default_rng(11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rolled = None
+    with forbid_plain_versions():
+        for step in range(1, GRPO_STEPS + 1):
+            before = read_counts()
+            sums_before = checksums(model.parameters())
+            n_seen = len(seen)
+            rolled, metrics, timing = grpo_step(
+                model, ref_model, prompts, rollout, packed_update, step=step,
+                group_n=paged_kw["group_n"], score_rng=score_rng,
+                experience_micro=TRAIN["experience_micro"],
+                global_batch_size=TRAIN["global_batch_size"], micro_rows=TRAIN["micro_rows"],
+                temperature=ACTOR["temperature"], device=dev)
+            torch.cuda.synchronize()
+            after = read_counts()
+            sums_after = checksums(model.parameters())
+            mask = rolled.tensors["response_mask"].astype(bool)
+            drift = np.abs(rolled.tensors["old_log_probs"] - rolled.tensors["rollout_log_probs"])[mask]
+            minis = seen[n_seen:]
+            info = dict(
+                step=step, timing=timing, quantize_s=qmodel_holder["quantize_s"], metrics=metrics,
+                first_minibatch=minis[0]["metrics"], optimizer_steps=len(minis),
+                update_tokens=sum(m["tokens"] for m in minis), rows=[m["rows"] for m in minis],
+                row_len=[m["row_len"] for m in minis], fill=[m["fill"] for m in minis],
+                old_vs_rollout=float(drift.mean()),
+                tensors_moved=sum(a != b for a, b in zip(sums_before, sums_after)),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+                launches={k: after[k] - before[k] for k in after},
+            )
+            steps.append(info)
+            print(f"grpo step {step}: rollout {timing['gen']:.3f} s (quantize_model "
+                  f"{info['quantize_s']:.3f} s), old log-probs {timing['old']:.3f} s, ref log-probs "
+                  f"{timing['ref']:.3f} s, advantages {timing['adv']:.4f} s, update {timing['update_actor']:.3f} s "
+                  f"in {info['optimizer_steps']} optimizer steps; update tokens {info['update_tokens']}, "
+                  f"packed rows {info['rows']} x {info['row_len']} fill "
+                  f"{[round(f, 3) for f in info['fill']]}; old vs rollout log-probs mean |d| "
+                  f"{info['old_vs_rollout']:.4f}; parameter tensors moved {info['tensors_moved']}; "
+                  f"peak allocated {info['peak_gb']:.2f} GB, reserved {info['peak_reserved_gb']:.2f} GB of "
+                  f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.2f} GB  [{card}]", flush=True)
+            print(f"grpo step {step} metrics: {json.dumps(metrics)}; first mini-batch "
+                  f"{json.dumps(info['first_minibatch'])}", flush=True)
+            print(f"grpo step {step} launches: {info['launches']}", flush=True)
+    launches = read_counts()
+
+    checks = {}
+    for info in steps:
+        s, first = info["step"], info["first_minibatch"]
+        everything = list(info["metrics"].values()) + list(first.values())
+        checks[f"step {s}: metrics finite"] = bool(np.isfinite(everything).all())
+        checks[f"step {s}: grad norm > 0"] = info["metrics"]["actor/grad_norm"] > 0
+        checks[f"step {s}: parameters moved"] = info["tensors_moved"] > 0
+        checks[f"step {s}: first mini-batch ppo_kl ~ 0"] = abs(first["actor/ppo_kl"]) < FIRST_MINIBATCH_PPO_KL
+        checks[f"step {s}: first mini-batch unclipped"] = (
+            first["actor/pg_clipfrac_higher"] < FIRST_MINIBATCH_CLIPFRAC
+            and first["actor/pg_clipfrac_lower"] < FIRST_MINIBATCH_CLIPFRAC)
+        checks[f"step {s}: old log-probs near the engine's"] = info["old_vs_rollout"] <= PROBS_DIFF_LIMIT
+        checks[f"step {s}: optimizer steps"] = (
+            info["optimizer_steps"] == len(rolled) // TRAIN["global_batch_size"] >= 2)
+        checks[f"step {s}: every kernel of the step launched"] = all(
+            info["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                              "paged_attention_int4_i8", "silu_quant"))
+    checks["reference copy untouched"] = checksums(ref_model.parameters()) == ref_sums
+    checks["optimizer count"] = optimizer.state["count"] == sum(i["optimizer_steps"] for i in steps)
+
+    # a forced non-finite gradient: parameters, moments and count stay as they are
+    piece = rolled.select(slice(0, 8))
+    ptb_all, vis_all = packed_micro_batches(piece, cfg.vision, micro_rows=1)
+    ptb = to_device(type(ptb_all)(*(x[:1] for x in ptb_all)), dev)   # one micro-batch of one row
+    vis = vision_to_device(type(vis_all)(*(x[:1] for x in vis_all)), dev)
+    p_sums = checksums(model.parameters())
+    mu_sums = checksums(optimizer.state["mu"].values())
+    count = optimizer.state["count"]
+    bad = inner_update(ptb._replace(advantages=ptb.advantages * float("nan")), vis)
+    torch.cuda.synchronize()
+    checks["non-finite gradient skipped"] = (
+        not np.isfinite(float(bad["actor/grad_norm"])) and optimizer.state["count"] == count
+        and checksums(model.parameters()) == p_sums
+        and checksums(optimizer.state["mu"].values()) == mu_sums)
+    optimizer.reset_moments()  # room for two sets of fp32 gradients
+    del inner_update
+    torch.cuda.empty_cache()
+
+    # the gradient of that row through the whole model: the backward kernels
+    # against flash_bwd_plain behind the same kernel forward
+    grad_fn = make_packed_grad_fn(model, **ACTOR)
+    t0 = time.perf_counter()
+    grads_kernel, m_kernel = grad_fn(ptb, vis)[:2]
+    norm_kernel = float(m_kernel["actor/grad_norm"])
+    kernel_s = time.perf_counter() - t0
+    with plain_attention(forward=False):
+        grads_plain, m_plain = grad_fn(ptb, vis)[:2]
+    norm_plain = float(m_plain["actor/grad_norm"])
+    dot = sum(float(torch.dot(grads_kernel[n].flatten(), grads_plain[n].flatten())) for n in grads_kernel)
+    grad_cos = dot / (norm_kernel * norm_plain)
+    del grads_kernel, grads_plain
+    torch.cuda.empty_cache()
+    grad_rel = abs(norm_kernel - norm_plain) / norm_plain
+    checks["kernel-path gradient equals the plain backward's"] = (
+        grad_rel < GRAD_NORM_REL_TOL and grad_cos > GRAD_COSINE_MIN)
+
+    # packed and per-sample log-probs of the same 8 samples
+    kw = dict(micro_batch_size=8, temperature=ACTOR["temperature"], device=dev)
+    lp_packed = compute_log_probs_batched(model, piece, padding_free=True, **kw)
+    lp_plain = compute_log_probs_batched(model, piece, padding_free=False, **kw)
+    sel = piece.tensors["response_mask"].astype(bool)
+    lp_diff = np.abs(lp_packed - lp_plain)[sel]
+    checks["packed log-probs equal per-sample log-probs"] = float(lp_diff.mean()) <= PACKED_LOGP_ATOL
+    print(f"training checks: one packed row {tuple(ptb.input_ids.shape)} forward+backward {kernel_s:.3f} s; "
+          f"gradient norm backward kernels {norm_kernel:.6e} vs plain backward {norm_plain:.6e} (relative "
+          f"{grad_rel:.3e}, limit {GRAD_NORM_REL_TOL}; cosine {grad_cos:.6f}, floor {GRAD_COSINE_MIN}; losses "
+          f"behind the same kernel forward {float(m_kernel['actor/loss']):.6e} and "
+          f"{float(m_plain['actor/loss']):.6e}); packed vs per-sample log-probs of 8 samples "
+          f"({int(sel.sum())} tokens): mean |d| {lp_diff.mean():.4e}, max {lp_diff.max():.4e} "
+          f"(limit on the mean {PACKED_LOGP_ATOL})", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"training-path checks failed: {failed}")
+    return dict(steps=steps, launches=launches, grad_norm_rel=grad_rel, grad_cosine=grad_cos,
+                packed_logp_diff=float(lp_diff.mean()), first_micro=first_micro)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -490,6 +925,7 @@ def main() -> int:
 
     # ---- every kernel against its plain version ----
     flash_cases = check_flash(dev, prep, cfg)
+    synth_fwd, synth_dq, synth_dkv = check_flash_training(dev, synthetic_training_cases(cfg))
     n_samp = 5
     width = -(-(p + MAX_NEW_TOKENS) // 128) * 128
     decode_cases = check_decode(dev, cfg, len(prompts) * n_samp, width, p)
@@ -504,7 +940,7 @@ def main() -> int:
 
     # kernel path and plain path vs an fp32 reference: prefill last-position logits
     logits_k = prefill_logits(model, prep)
-    with plain_prefill_attention():
+    with plain_attention():
         logits_p = prefill_logits(model, prep)
         model32 = copy.deepcopy(model).float()
         logits_ref = prefill_logits(model32, prep)
@@ -706,6 +1142,25 @@ def main() -> int:
     if not (bf16_launches["paged_attention_pool"] > 0 and bf16_launches["flash_fwd"] > 0):
         raise AssertionError("the bf16-pool path did not launch its kernels")
 
+    # ---- path d: two GRPO steps (rollout, log-probs, advantages, packed update) ----
+    del dense, g4, g16, paged, prep16
+    torch.cuda.empty_cache()
+    holder = {"model": qmodel, "quantize_s": 0.0}
+    del qmodel
+    train = training_path(dev, model, holder, host, paged_kw, card)
+    train_launches = train["launches"]
+
+    # the flash kernels once more, on the segment ids the update's first
+    # micro-batch gave them (its packed text rows and its vision pack)
+    first = train.pop("first_micro")
+    print(f"first micro-batch of the update: text rows {first['seg_text'].shape}, vision pack "
+          f"{first['seg_full'].shape[0]} patch slots holding {first['images']} images", flush=True)
+    path_fwd, dq_cases, dkv_cases = check_flash_training(
+        dev, training_cases(cfg, "update", first["seg_text"], first["seg_full"], first["seg_window"]))
+    flash_cases += path_fwd + synth_fwd
+    dq_cases += synth_dq
+    dkv_cases += synth_dkv
+
     def entry(name, route, source, replaces, cases, n_launch, **extra):
         main_case = cases[0]
         return {
@@ -720,7 +1175,12 @@ def main() -> int:
         entry("flash_fwd", "cuda", "spatialthinker_torch/csrc/flash_attention.cu",
               "spatialthinker_tpu/ops/flash_attention.py:45", flash_cases, paged_launches["flash_fwd"],
               launches_dense_path=dense_launches["flash_fwd"],
-              launches_bf16_pool_path=bf16_launches["flash_fwd"]),
+              launches_bf16_pool_path=bf16_launches["flash_fwd"],
+              launches_training_path=train_launches["flash_fwd"]),
+        entry("flash_bwd_dq", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
+              "spatialthinker_tpu/ops/flash_attention.py:192", dq_cases, train_launches["flash_bwd_dq"]),
+        entry("flash_bwd_dkv", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
+              "spatialthinker_tpu/ops/flash_attention.py:255", dkv_cases, train_launches["flash_bwd_dkv"]),
         entry("decode_attention", "cuda", "spatialthinker_torch/csrc/decode_attention.cu",
               "spatialthinker_tpu/ops/decode_attention.py:138", decode_cases,
               dense_launches["decode_attention"]),
@@ -729,9 +1189,11 @@ def main() -> int:
               bf16_launches["paged_attention_pool"]),
         entry("paged_attention_int4_i8", "cuda", "spatialthinker_torch/csrc/paged_attention.cu",
               "spatialthinker_tpu/ops/paged_attention.py:338", int4_cases,
-              paged_launches["paged_attention_int4_i8"]),
+              paged_launches["paged_attention_int4_i8"],
+              launches_training_path=train_launches["paged_attention_int4_i8"]),
         entry("silu_quant", "triton", "spatialthinker_torch/ops/silu_quant.py",
-              "spatialthinker_tpu/ops/int8_matmul.py:128", silu_cases, paged_launches["silu_quant"]),
+              "spatialthinker_tpu/ops/int8_matmul.py:128", silu_cases, paged_launches["silu_quant"],
+              launches_training_path=train_launches["silu_quant"]),
     ], "paths": {
         "dense": {"decode_tok_s": decode_tok_s, "prefill_s": prefill_s, "peak_gb": peak_gb},
         "paged_int4": {"decode_tok_s": decode_tok_s_paged, "prefill_s": st["refill_s"],
@@ -739,6 +1201,9 @@ def main() -> int:
                        "first_token_agreement": first_agree, "stats": st},
         "paged_bf16": {"rows_equal_dense": rows_equal, "drift": drift_paged, "dense_drift": drift_dense,
                        "seconds": bf16_s},
+        "training": {"steps": train["steps"], "grad_norm_rel": train["grad_norm_rel"],
+                     "grad_cosine": train["grad_cosine"],
+                     "packed_logp_diff": train["packed_logp_diff"], "knobs": TRAIN},
     }, "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's rollout goes, on one NVIDIA GPU.
 
-    python3 profile_rollout.py [--engine dense|paged]
+    python3 profile_rollout.py [--engine dense|paged|train]
 
 ``--engine dense`` (the default) builds the same 3B model, requests and
 sampled call (n=5, T=1.0) as ``chip_smoke.py``, then times a 1-token call (prefill + fanout + first
@@ -18,7 +18,17 @@ int4 pools, int8 dots, 16 requests x 8 samples through 64 slots) and puts
 ``torch.profiler`` around ONE decode chunk of 16 steps (the third; the
 second and fourth are timed unprofiled): top device kernels, kernels per
 step, device time per step, busy share as profiled and device time over the
-unprofiled wall per step. Imports nothing of JAX.
+unprofiled wall per step.
+
+``--engine train`` profiles the actor update of ``chip_smoke.py``'s training
+path: 16 image prompts with 64 response tokens each are packed into rows, and
+``torch.profiler`` goes around ONE micro-batch (4 packed rows) forward +
+backward through ``make_packed_grad_fn`` (per-layer checkpointing, the flash
+forward and backward kernels, chunked log-probs) and around ONE AdamW step
+over every parameter; a third window holds the chunked log-prob forward +
+backward alone at the same rows. Prints device time by kind of kernel
+(attention forward, dQ, dK/dV, GEMMs, everything else), the busy share of
+each window and the top device kernels. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,16 +38,27 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import spatialthinker_torch.rollout.paged as paged_engine
-from chip_smoke import MAX_NEW_TOKENS, PAGED, PAGED_REQUESTS, QUESTIONS, requests, smi_line
+from chip_smoke import (
+    ACTOR, MAX_NEW_TOKENS, PAGED, PAGED_REQUESTS, QUESTIONS, TRAIN, prompt_batch, requests, smi_line,
+)
 from spatialthinker_torch.eval.providers import TorchProvider
 from spatialthinker_torch.models.qwen2_5_vl import init_params, qwen25_vl_3b
 from spatialthinker_torch.ops.quant import quantize_model
 from spatialthinker_torch.rollout.engine import generate
+from spatialthinker_torch.models.qwen2_5_vl.model import vision_to_device
+from spatialthinker_torch.ops.logprobs import log_probs_from_hidden
 from spatialthinker_torch.rollout.sampling import SamplingParams
+from spatialthinker_torch.trainer.grpo_trainer import (
+    compute_log_probs_batched, packed_micro_batches, rollout_batch_from_result, to_device,
+)
+from spatialthinker_torch.trainer.train_step import (
+    apply_optimizer_step, make_optimizer, make_packed_grad_fn,
+)
 from spatialthinker_torch.utils.synthetic_tokenizer import QwenSyntheticTokenizer
 
 N_SAMPLES = 5
@@ -93,9 +114,109 @@ def profile_paged_chunk(model, cfg, dev, card) -> None:
           flush=True)
 
 
+KERNEL_KINDS = (
+    ("attention forward (flash_fwd_kernel)", ("flash_fwd_kernel",)),
+    ("attention backward dQ (flash_bwd_dq_kernel)", ("flash_bwd_dq_kernel",)),
+    ("attention backward dK/dV (flash_bwd_dkv_kernel)", ("flash_bwd_dkv_kernel",)),
+    ("GEMMs (library matmuls)", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "gemv")),
+)
+
+
+def _window(fn, label: str, card: str, rows: int = 14) -> float:
+    """Run ``fn`` unprofiled (wall), then under the profiler; print device time
+    by kind of kernel, the busy share and the top kernels. Returns device ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.device_time for e in kernels) / 1e3
+    by_kind = {name: [0.0, 0] for name, _ in KERNEL_KINDS}
+    by_kind["everything else (elementwise, reductions, copies)"] = [0.0, 0]
+    for e in kernels:
+        low = e.name.lower()
+        kind = next((name for name, keys in KERNEL_KINDS if any(k in low for k in keys)),
+                    "everything else (elementwise, reductions, copies)")
+        by_kind[kind][0] += e.device_time / 1e3
+        by_kind[kind][1] += 1
+    print(f"{label}: unprofiled wall {unprofiled * 1e3:.1f} ms, profiled wall {wall * 1e3:.1f} ms, "
+          f"device {device_ms:.1f} ms in {len(kernels)} kernels, busy share as profiled "
+          f"{device_ms / (wall * 1e3):.3f}, device / unprofiled wall {device_ms / (unprofiled * 1e3):.3f}  "
+          f"[{card}]", flush=True)
+    for kind, (ms, n) in by_kind.items():
+        print(f"    {kind}: {ms:.2f} ms in {n} launches ({ms / max(device_ms, 1e-9):.1%})", flush=True)
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=rows,
+                                    max_name_column_width=60), flush=True)
+    return device_ms
+
+
+def profile_train_step(model, cfg, dev, card) -> None:
+    provider = TorchProvider(model, cfg, QwenSyntheticTokenizer(cfg), max_new_tokens=MAX_NEW_TOKENS,
+                             max_prompt_length=1024, prompt_bucket=512)
+    prompts = prompt_batch(provider.prepare_host(*requests(PAGED_REQUESTS, seed=3)))
+    rng = np.random.default_rng(4)
+    n = len(prompts)
+    responses = rng.integers(1000, 100000, size=(n, MAX_NEW_TOKENS)).astype(np.int32)
+    mask = np.ones_like(responses)
+    rolled = rollout_batch_from_result(prompts, responses, mask, np.zeros(responses.shape, np.float32))
+    logp = compute_log_probs_batched(model, rolled, micro_batch_size=TRAIN["experience_micro"],
+                                     temperature=ACTOR["temperature"], device=dev)
+    rolled.tensors.update(old_log_probs=logp, ref_log_probs=logp,
+                          advantages=rng.normal(size=logp.shape).astype(np.float32))
+    ptb_all, vis_all = packed_micro_batches(rolled, cfg.vision, TRAIN["micro_rows"])
+    ptb = to_device(type(ptb_all)(*(x[:1] for x in ptb_all)), dev)   # the first micro-batch
+    vis = vision_to_device(type(vis_all)(*(x[:1] for x in vis_all)), dev)
+    live = ptb.segment_ids != 0
+    print(f"micro-batch: packed rows {tuple(ptb.input_ids.shape[1:])} of "
+          f"{ptb_all.input_ids.shape[0] * ptb_all.input_ids.shape[1]}, "
+          f"{int(live.sum())} tokens (fill {float(live.float().mean()):.3f}), vision patch slots "
+          f"{vis.patches.shape[1]}; knobs {ACTOR}", flush=True)
+
+    grad_fn = make_packed_grad_fn(model, **ACTOR)
+    optimizer = make_optimizer(TRAIN["lr"], strategy=TRAIN["strategy"])
+    out = {}
+
+    def forward_backward():
+        out.clear()  # the previous accumulators go before the next ones come
+        out["grads"], out["metrics"], out["finite"], out["factor"] = grad_fn(ptb, vis)
+
+    def optimizer_step():
+        apply_optimizer_step(optimizer, out["grads"], model, finite=out["finite"],
+                             grad_scale=out["factor"])
+
+    forward_backward()  # warm-up: kernel loads, allocator, the moments' first allocation
+    optimizer_step()
+    fb_ms = _window(forward_backward, "one micro-batch forward + backward", card, rows=18)
+    opt_ms = _window(optimizer_step, f"one {TRAIN['strategy']} step over "
+                     f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters", card, rows=8)
+    out.clear()
+    torch.cuda.empty_cache()
+
+    hidden = torch.randn(ptb.input_ids.shape[1:] + (cfg.text.hidden_size,), device=dev,
+                         dtype=torch.bfloat16).requires_grad_()
+    head = model.text.embed_tokens.weight
+
+    def log_prob_chunks():
+        logp, _ = log_probs_from_hidden(hidden, ptb.labels[0], head, chunk_size=ACTOR["chunk_size"],
+                                        temperature=ACTOR["temperature"])
+        torch.autograd.grad(logp.sum(), (hidden, head))
+
+    log_prob_chunks()
+    lp_ms = _window(log_prob_chunks, "chunked log-probs alone, forward + backward", card, rows=8)
+    print(f"train step summary: forward + backward {fb_ms:.1f} ms device, of which the chunked log-probs "
+          f"measured alone {lp_ms:.1f} ms; optimizer step {opt_ms:.1f} ms device; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--engine", choices=("dense", "paged"), default="dense")
+    parser.add_argument("--engine", choices=("dense", "paged", "train"), default="dense")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_rollout: no CUDA device", file=sys.stderr)
@@ -107,6 +228,9 @@ def main() -> int:
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
     if args.engine == "paged":
         profile_paged_chunk(model, cfg, dev, card)
+        return 0
+    if args.engine == "train":
+        profile_train_step(model, cfg, dev, card)
         return 0
     provider = TorchProvider(model, cfg, QwenSyntheticTokenizer(cfg), max_new_tokens=MAX_NEW_TOKENS,
                              max_prompt_length=1024, prompt_bucket=512)

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -27,6 +27,20 @@ class RolloutBatch:
         for v in self.non_tensors.values():
             return int(v.shape[0])
         return 0
+
+    def split(self, split_size: int) -> List["RolloutBatch"]:
+        """Consecutive pieces of at most ``split_size`` rows."""
+        n = len(self)
+        return [self.select(slice(start, min(start + split_size, n)))
+                for start in range(0, n, split_size)]
+
+    def select(self, rows) -> "RolloutBatch":
+        """The rows picked by a slice or an index array, in that order."""
+        return RolloutBatch(
+            tensors={k: v[rows] for k, v in self.tensors.items()},
+            non_tensors={k: v[rows] for k, v in self.non_tensors.items()},
+            meta=copy.copy(self.meta),
+        )
 
 
 def pad_to_divisor(batch: RolloutBatch, divisor: int) -> Tuple[RolloutBatch, int]:

@@ -22,7 +22,9 @@ from typing import Optional
 
 CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR / "build"
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu")
+SOURCES = (
+    "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "paged_attention.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -34,6 +36,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, q_seg, kv_seg, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, causal_offset, scale, stream
     "st_flash_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # q, k, v, dO, lse, delta, q_seg, kv_seg, dq, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
+    "st_flash_bwd_dq": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q, k, v, dO, lse, delta, q_seg, kv_seg, dk, dv, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
+    "st_flash_bwd_dkv": [_P] * 10 + [_I] * 7 + [_F, _P],
     # q, k_cache, v_cache, kv_seg, o, B, Hq, Hkv, S, D, layer, scale, stream
     "st_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
     # q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, o, m, l,

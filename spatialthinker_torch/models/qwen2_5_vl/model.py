@@ -48,7 +48,8 @@ def merge_multimodal_embeds(
 
 
 def embed_inputs(
-    model: Qwen25VL, input_ids: torch.Tensor, vision: Optional[VisionInputs] = None
+    model: Qwen25VL, input_ids: torch.Tensor, vision: Optional[VisionInputs] = None,
+    *, remat: bool = False,
 ) -> torch.Tensor:
     """Token embeddings with vision embeddings merged into image-token slots
     (B, S, E). Chunked prefill embeds the whole prompt once: the vision tower
@@ -57,7 +58,7 @@ def embed_inputs(
         model.text.embed_tokens.weight, input_ids, dtype=model.text.norm.weight.dtype
     )
     if vision is not None:
-        vision_embeds = vision_forward(model.vision, *vision)
+        vision_embeds = vision_forward(model.vision, *vision, remat=remat)
         embeds = merge_multimodal_embeds(
             embeds, vision_embeds, input_ids == model.cfg.image_token_id
         )
@@ -73,15 +74,19 @@ def forward(
     vision: Optional[VisionInputs] = None,
     cache: Optional[KVCache] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Returns (hidden_states (B, S, E), updated cache)."""
+    """Returns (hidden_states (B, S, E), updated cache). Differentiable when
+    gradients are enabled and no cache is given (the training forward);
+    ``remat`` checkpoints each decoder layer and vision block."""
     return forward_hidden(
         model.text,
-        inputs_embeds=embed_inputs(model, input_ids, vision),
+        inputs_embeds=embed_inputs(model, input_ids, vision, remat=remat),
         position_ids=position_ids,
         segment_ids=segment_ids,
         cache=cache,
         kv_segment_ids=kv_segment_ids,
+        remat=remat,
     )
 
 

@@ -12,6 +12,11 @@
   instead of ``<module>.weight``, and ``build_model`` makes those modules
   ``QuantLinear`` / ``QuantEmbedding`` — both packages then start from the
   same int8 values.
+- ``params_to_jax``: the way back for an unquantized tree -- a port state
+  dict (parameters, gradients or optimizer moments keyed by parameter name)
+  as numpy in the JAX tree's layout, so tests compare updated parameters leaf
+  by leaf; ``optimizer_state_from_jax`` carries Adam moments (and a Kahan
+  compensation tree) the other way, into ``trainer.optim.AdamW.state``.
 - ``init_params``: random weights drawn directly on the device from a
   ``torch.Generator`` (normal * 0.02, zero biases, unit norms — the JAX
   package's init scheme).
@@ -159,6 +164,82 @@ def params_from_jax(tree: Mapping[str, Any], cfg: Qwen25VLConfig) -> StateDict:
         out[f"vision.merger.{name}.weight"] = _t(np.asarray(merger[name]).T)
         out[f"vision.merger.{name}.bias"] = _t(merger[f"{name}_bias"])
     return out
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor], cfg: Qwen25VLConfig) -> Dict[str, Any]:
+    """Inverse of ``params_from_jax`` for an unquantized state dict: numpy
+    fp32 leaves in the JAX package's layout (stacked (L, ...) layers, (in,
+    out) weights, ``qkv_proj`` (L, Hkv, E, G), ``gate_up_proj`` (L, 2, E, I))."""
+    tc, vc = cfg.text, cfg.vision
+    hkv, e = tc.num_key_value_heads, tc.hidden_size
+
+    def a(name: str) -> np.ndarray:
+        return state[name].detach().float().cpu().numpy()
+
+    def stack(n: int, fmt: str, fn=lambda x: x) -> np.ndarray:
+        return np.stack([fn(a(fmt.format(i))) for i in range(n)])
+
+    n = tc.num_hidden_layers
+    t = "text.layers.{}."
+    text: Dict[str, Any] = {
+        "embed_tokens": a("text.embed_tokens.weight"),
+        "norm": a("text.norm.weight"),
+        "layers": {
+            "self_attn": {
+                "qkv_proj": stack(n, t + "self_attn.qkv_proj.weight",
+                                  lambda w: w.reshape(hkv, -1, e).transpose(0, 2, 1)),
+                "qkv_bias": stack(n, t + "self_attn.qkv_proj.bias", lambda x: x.reshape(hkv, -1)),
+                "o_proj": stack(n, t + "self_attn.o_proj.weight", lambda w: w.T),
+            },
+            "mlp": {
+                "gate_up_proj": stack(n, t + "mlp.gate_up_proj.weight",
+                                      lambda w: w.reshape(2, -1, e).transpose(0, 2, 1)),
+                "down_proj": stack(n, t + "mlp.down_proj.weight", lambda w: w.T),
+            },
+            "input_layernorm": stack(n, t + "input_layernorm.weight"),
+            "post_attention_layernorm": stack(n, t + "post_attention_layernorm.weight"),
+        },
+    }
+    if not tc.tie_word_embeddings:
+        text["lm_head"] = a("text.lm_head.weight").T
+    d, b = vc.depth, "vision.blocks.{}."
+    vision = {
+        "patch_embed": a("vision.patch_embed.weight").T,
+        "blocks": {
+            "norm1": stack(d, b + "norm1.weight"),
+            "norm2": stack(d, b + "norm2.weight"),
+            "qkv": stack(d, b + "qkv.weight", lambda w: w.T),
+            "qkv_bias": stack(d, b + "qkv.bias"),
+            "proj": stack(d, b + "proj.weight", lambda w: w.T),
+            "proj_bias": stack(d, b + "proj.bias"),
+            "mlp": {
+                **{f"{k}_proj": stack(d, b + f"mlp.{k}_proj.weight", lambda w: w.T)
+                   for k in ("gate", "up", "down")},
+                **{f"{k}_bias": stack(d, b + f"mlp.{k}_proj.bias") for k in ("gate", "up", "down")},
+            },
+        },
+        "merger": {
+            "ln_q": a("vision.merger.ln_q.weight"),
+            **{k: a(f"vision.merger.{k}.weight").T for k in ("fc1", "fc2")},
+            **{f"{k}_bias": a(f"vision.merger.{k}.bias") for k in ("fc1", "fc2")},
+        },
+    }
+    return {"text": text, "vision": vision}
+
+
+def optimizer_state_from_jax(cfg: Qwen25VLConfig, *, count: int, mu, nu, compensation=None,
+                             moment_dtype=torch.float32, param_dtype=torch.float32,
+                             device="cpu") -> Dict[str, Any]:
+    """Adam state of the JAX package (moment trees shaped like the parameter
+    tree, numpy leaves; ``compensation`` the AnyPrecision Kahan tree or None)
+    -> the ``state`` dict of ``trainer.optim.AdamW``."""
+    def carry(tree, dtype):
+        return {k: v.to(device=device, dtype=dtype) for k, v in params_from_jax(tree, cfg).items()}
+
+    return {
+        "count": int(count), "mu": carry(mu, moment_dtype), "nu": carry(nu, moment_dtype),
+        "compensation": {} if compensation is None else carry(compensation, param_dtype),
+    }
 
 
 def default_device() -> torch.device:

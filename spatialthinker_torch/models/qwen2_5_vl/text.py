@@ -30,9 +30,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import attention
 from ...ops.decode_attention import decode_attention
+from ...ops.logprobs import matmul_fp32_out
 from ...ops.quant import embed_rows, fused_silu_quant_dot, is_quantized, linear, quantized_dot
 from .config import TextConfig
 from .rope import apply_rotary, compute_cos_sin, make_inv_freq
@@ -378,9 +380,15 @@ def forward_hidden(
     cache: Optional[KVCache] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,  # (B, Smax) validity of cache slots
     attend_to_cache: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack; returns (hidden_states (B, S, E), cache with
-    its length advanced by S — the same buffers, written in place)."""
+    its length advanced by S — the same buffers, written in place).
+
+    ``remat`` (training, no cache) wraps every decoder layer in
+    ``torch.utils.checkpoint``: only layer inputs are kept and each layer's
+    body is recomputed in the backward (the JAX package's ``remat="full"``;
+    its matmul-outputs-saved policy has no counterpart here)."""
     cfg = text.cfg
     if inputs_embeds is None:
         inputs_embeds = embed_rows(text.embed_tokens.weight, input_ids, dtype=text.norm.weight.dtype)
@@ -389,8 +397,13 @@ def forward_hidden(
         make_inv_freq(cfg.head_dim, cfg.rope_theta), dtype=torch.float32, device=x.device
     )
     cos, sin = compute_cos_sin(position_ids, inv_freq, cfg.mrope_section, dtype=x.dtype)
+    if remat and cache is not None:
+        raise ValueError("remat is for the training forward; a cache is written in place")
     for i, layer in enumerate(text.layers):
-        x = layer(x, cos, sin, segment_ids, cache, i, kv_segment_ids, attend_to_cache)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, cos, sin, segment_ids, None, i, use_reentrant=False)
+        else:
+            x = layer(x, cos, sin, segment_ids, cache, i, kv_segment_ids, attend_to_cache)
     if cache is not None:
         cache = KVCache(cache.k, cache.v, cache.length + x.shape[1], cache.k_scale, cache.v_scale)
     return text.norm(x), cache
@@ -405,9 +418,4 @@ def logits_from_hidden(text: TextModel, hidden: torch.Tensor) -> torch.Tensor:
         # rollout tree: the int8 dot; the per-vocab-row scales are the
         # per-output-column dequant the logits need
         return quantized_dot(hidden, head, 1, out_dtype=torch.float32)
-    flat = hidden.reshape(-1, hidden.shape[-1])
-    if flat.is_cuda and flat.dtype in (torch.bfloat16, torch.float16):
-        out = torch.mm(flat, head.t(), out_dtype=torch.float32)
-    else:
-        out = flat.float() @ head.float().t()
-    return out.reshape(*hidden.shape[:-1], head.shape[0])
+    return matmul_fp32_out(hidden, head)

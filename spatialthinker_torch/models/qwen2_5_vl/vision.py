@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import attention
 from .config import VisionConfig
@@ -110,8 +111,11 @@ def vision_forward(
     seg_full: torch.Tensor,       # (N,)
     seg_window: torch.Tensor,     # (N,)
     reverse_index: torch.Tensor,  # (N/unit,)
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Returns merged vision embeddings (N/unit, out_hidden) in natural order."""
+    """Returns merged vision embeddings (N/unit, out_hidden) in natural order.
+    ``remat`` checkpoints every block (training: block inputs are kept, the
+    body is recomputed in the backward)."""
     cfg = tower.cfg
     n = patches.shape[0]
     e, d = cfg.hidden_size, cfg.head_dim
@@ -125,7 +129,11 @@ def vision_forward(
     seg_window_w = seg_window.reshape(n // wlen, wlen)
     for i, block in enumerate(tower.blocks):
         full = i in cfg.fullatt_block_indexes
-        x = block(x, cos, sin, seg_full_b if full else seg_window_w)
+        seg = seg_full_b if full else seg_window_w
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, cos, sin, seg, use_reentrant=False)
+        else:
+            x = block(x, cos, sin, seg)
 
     # merger: RMSNorm, then fold each 2x2 merge unit into the feature dim
     m = tower.merger

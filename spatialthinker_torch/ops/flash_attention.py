@@ -1,19 +1,23 @@
-"""Flash-attention forward: the CUDA kernel (``csrc/flash_attention.cu``) and
-its plain PyTorch version.
+"""Flash attention: the CUDA kernels (``csrc/flash_attention.cu`` forward,
+``csrc/flash_attention_bwd.cu`` dQ and dK/dV) and their plain PyTorch
+versions, joined by a ``torch.autograd.Function``.
 
-Counterpart of ``spatialthinker_tpu/ops/flash_attention.py`` (forward only;
-the backward kernels come with training). ``flash_fwd`` returns the output
-and the per-row logsumexp, as ``_flash_fwd`` does, so ring attention and the
-backward can build on it.
+Counterpart of ``spatialthinker_tpu/ops/flash_attention.py``. ``flash_fwd``
+returns the output and the per-row logsumexp, as ``_flash_fwd`` does;
+``flash_bwd`` takes them back with dO and returns (dq, dk, dv), as
+``_flash_bwd`` does; ``flash_attention`` is the differentiable entry point
+(``_flash_attention_core``): its forward is ``flash_fwd`` and its backward
+``flash_bwd``, so one call serves inference and training.
 
-Contract (same as the TPU kernel ``_fwd_kernel_gqa``): q (B, Sq, Hq, D),
-k/v (B, Skv, Hkv, D), segment ids (B, S) int32 where 0 = padding. A query
-attends a key iff their segment ids are equal and nonzero and, when causal,
-``kv_pos <= causal_offset + q_pos``. Fully masked rows give o = 0 and
-lse = -1e30.
+Contract (same as the TPU kernels): q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D),
+segment ids (B, S) int32 where 0 = padding. A query attends a key iff their
+segment ids are equal and nonzero and, when causal,
+``kv_pos <= causal_offset + q_pos``. Fully masked rows give o = 0,
+lse = -1e30 and exact zeros in every gradient. The backward takes
+``causal_offset = 0`` only (cross-length chunked prefill is inference-only).
 
-The wrapper runs the plain version for CPU tensors only. A CUDA tensor
-launches the kernel or raises — nothing falls back.
+The wrappers run the plain versions for CPU tensors only. A CUDA tensor
+launches the kernels or raises -- nothing falls back.
 """
 
 from __future__ import annotations
@@ -69,7 +73,10 @@ def flash_fwd_plain(
     return o, lse.reshape(b, hq, sq)
 
 
-def _check_cuda_inputs(q, k, v, q_seg, kv_seg) -> None:
+def _check_cuda_inputs(q, k, v, q_seg, kv_seg, *, do=None, o=None, lse=None) -> None:
+    """Shape, dtype, device and layout checks shared by the forward and the
+    backward launch: both reject the same inputs with the same messages. The
+    backward passes its extra tensors (dO and o shaped like q, lse (B, Hq, Sq))."""
     b, sq, hq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does not fit q {tuple(q.shape)}")
@@ -82,9 +89,15 @@ def _check_cuda_inputs(q, k, v, q_seg, kv_seg) -> None:
         raise ValueError("flash kernel needs non-empty batch and sequences")
     if tuple(q_seg.shape) != (b, sq) or tuple(kv_seg.shape) != (b, skv):
         raise ValueError("segment ids must be (B, Sq) and (B, Skv)")
-    for name, t, dtype in (("q", q, torch.bfloat16), ("k", k, torch.bfloat16),
-                           ("v", v, torch.bfloat16), ("q_seg", q_seg, torch.int32),
-                           ("kv_seg", kv_seg, torch.int32)):
+    tensors = [("q", q, torch.bfloat16), ("k", k, torch.bfloat16), ("v", v, torch.bfloat16),
+               ("q_seg", q_seg, torch.int32), ("kv_seg", kv_seg, torch.int32)]
+    if do is not None:
+        if do.shape != q.shape or o.shape != q.shape:
+            raise ValueError(f"dO/o shape {tuple(do.shape)}/{tuple(o.shape)} does not fit q {tuple(q.shape)}")
+        if tuple(lse.shape) != (b, hq, sq):
+            raise ValueError(f"lse must be (B, Hq, Sq) = {(b, hq, sq)}, got {tuple(lse.shape)}")
+        tensors += [("dO", do, torch.bfloat16), ("o", o, torch.bfloat16), ("lse", lse, torch.float32)]
+    for name, t, dtype in tensors:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != dtype:
@@ -121,3 +134,130 @@ def flash_fwd(
 
 
 flash_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def flash_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_seg: torch.Tensor, kv_seg: torch.Tensor,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    *, causal: bool, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reference backward: the kernels' arithmetic in fp32 tensor ops from
+    (q, k, v, o, lse, dO) -- ``p = exp(scale q.k - lse)`` SELECTED to 0 outside
+    the mask (a fully masked row has lse = -1e30; a multiplied mask would give
+    NaN there), ``delta = rowsum(dO * o)``, ``ds = p (dO.v - delta)``, the
+    three products, and the sum over the G query heads of a kv group.
+    Returns (dq, dk, dv) in the dtypes of (q, k, v)."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    kf, vf = k.float(), v.float()
+    qg = q.reshape(b, sq, hkv, g, d).float() * scale
+    dog = do.reshape(b, sq, hkv, g, d).float()
+    delta = (dog * o.reshape(b, sq, hkv, g, d).float()).sum(-1)       # (B, Sq, Hkv, G)
+    delta = delta.permute(0, 2, 3, 1)[..., None]                       # (B, Hkv, G, Sq, 1)
+    mask = make_attention_mask(q_seg, kv_seg, causal)[:, None, None]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf)
+    p = torch.where(mask, torch.exp(s - lse.reshape(b, hkv, g, sq, 1)), 0.0)
+    del s
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dog, vf) - delta)
+    del p
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    return dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale) -> torch.Tensor:
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = csrc.library().st_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), dq.data_ptr(),
+            b, sq, skv, hq, hkv, d, int(causal), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    csrc.check_launch(rc, "flash backward dQ")
+    _launch_bwd_dq.launches += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        rc = csrc.library().st_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, skv, hq, hkv, d, int(causal), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    csrc.check_launch(rc, "flash backward dK/dV")
+    _launch_bwd_dkv.launches += 1
+    return dk, dv
+
+
+_launch_bwd_dq.launches = 0
+_launch_bwd_dkv.launches = 0
+
+
+def flash_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_seg: torch.Tensor, kv_seg: torch.Tensor,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    *, causal: bool, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) through the two CUDA kernels for CUDA tensors, the plain
+    version for CPU tensors. ``delta = rowsum(dO * o)`` is computed here in
+    fp32 tensor ops, outside the kernels, as the TPU launcher does."""
+    if not q.is_cuda:
+        return flash_bwd_plain(q, k, v, q_seg, kv_seg, o, lse, do, causal=causal, scale=scale)
+    _check_cuda_inputs(q, k, v, q_seg, kv_seg, do=do, o=o, lse=lse)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # (B, Hq, Sq)
+    dq = _launch_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale)
+    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward = ``flash_fwd`` (saves q, k, v, segment ids, o, lse), backward =
+    ``flash_bwd``. Segment ids are integer tensors and get no gradient; the
+    non-tensor arguments return None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale, causal_offset):
+        o, lse = flash_fwd(q, k, v, q_seg, kv_seg, causal=causal, scale=scale,
+                           causal_offset=causal_offset)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, o, lse)
+        ctx.causal, ctx.scale, ctx.causal_offset = causal, scale, causal_offset
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        if ctx.causal_offset:
+            raise NotImplementedError(
+                "flash backward with causal_offset (chunked-prefill cross attention) "
+                "is inference-only"
+            )
+        q, k, v, q_seg, kv_seg, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, q_seg, kv_seg, o, lse, do.contiguous(),
+                               causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_seg: torch.Tensor, kv_seg: torch.Tensor,
+    *, causal: bool, scale: float, causal_offset: int = 0,
+) -> torch.Tensor:
+    """Differentiable attention output (B, Sq, Hq, D)."""
+    return _FlashAttention.apply(q, k, v, q_seg, kv_seg, bool(causal), float(scale),
+                                 int(causal_offset))

@@ -13,6 +13,9 @@ The paged kernels repeat their plain versions' arithmetic page by page: the
 stats m, l within 2e-3 (fast-math-free fp32, other summation order), the
 bf16 output within 2e-2 (bf16 pools) or 1e-2 of an O(0.3) output (int8 and
 int4 pools; an int8 softmax weight on a rounding tie may flip by one step).
+The flash backward kernels round p and ds to bf16 before the second products
+where the plain version keeps fp32: each gradient within 1e-2 of its own
+largest magnitude (4e-3 to 7e-3 measured on an H100); padding rows exactly zero.
 The silu->int8 kernel: scales within 1e-5 relative, int8 values at most one
 step apart and fewer than 1 in 100 differing (ties; the division and the
 sigmoid differ in the last bit).
@@ -24,6 +27,7 @@ import torch
 
 from spatialthinker_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from spatialthinker_torch.ops import paged_attention as pa
+from spatialthinker_torch.ops import flash_attention as fa
 from spatialthinker_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 from spatialthinker_torch.ops.silu_quant import fused_silu_quantize, fused_silu_quantize_plain
 
@@ -89,6 +93,66 @@ def test_flash_kernel_matches_plain(dev, case):
     assert torch.all(o[dead] == 0)
 
 
+FLASH_BWD_CASES = [c for c in FLASH_CASES if c[7] == 0] + [
+    (2, 512, 512, 16, 2, 128, True, 0, "packed"),     # multi-tile packed text rows
+    (1, 1000, 1000, 16, 16, 80, False, 0, "packed"),  # vision full, ragged length
+    (3, 70, 70, 2, 2, 80, True, 0, "left_pad"),       # G = 1 causal, ragged
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_backward_kernels_match_plain(dev, case):
+    b, sq, skv, hq, hkv, d, causal, _, kind = case
+    rng = np.random.default_rng(sq + hq + d)
+    q = _bf16(rng, (b, sq, hq, d), dev)
+    k = _bf16(rng, (b, skv, hkv, d), dev)
+    v = _bf16(rng, (b, skv, hkv, d), dev)
+    do = _bf16(rng, (b, sq, hq, d), dev)
+    seg = torch.from_numpy(_segs(rng, b, skv, kind)).to(dev)
+    kw = dict(causal=causal, scale=d**-0.5)
+    o, lse = flash_fwd(q, k, v, seg, seg, **kw)
+    ref = fa.flash_bwd_plain(q, k, v, seg, seg, o, lse, do, **kw)
+    before = (fa._launch_bwd_dq.launches, fa._launch_bwd_dkv.launches)
+    got = fa.flash_bwd(q, k, v, seg, seg, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa._launch_bwd_dq.launches, fa._launch_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    dead = seg == 0
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(x.float()).all(), name
+        err = (x.float() - r.float()).abs().max().item()
+        assert err <= 1e-2 * r.float().abs().max().item(), (name, err)
+        assert torch.all(x[dead] == 0), name
+
+
+def test_flash_attention_function_backward_on_the_card(dev):
+    """The autograd Function end to end (also under checkpoint): gradients of
+    views into a fused projection equal the plain backward's."""
+    from torch.utils.checkpoint import checkpoint
+
+    rng = np.random.default_rng(11)
+    b, s, hq, hkv, d = 2, 160, 8, 2, 128
+    fused = _bf16(rng, (b, s, hq + 2 * hkv, d), dev).requires_grad_()
+    seg = torch.from_numpy(_segs(rng, b, s, "packed")).to(dev)
+    w = _bf16(rng, (b, s, hq, d), dev)
+
+    def run(x):
+        q, k, v = x[:, :, :hq].contiguous(), x[:, :, hq : hq + hkv].contiguous(), x[:, :, hq + hkv :].contiguous()
+        return (fa.flash_attention(q, k, v, seg, seg, causal=True, scale=d**-0.5).float() * w.float()).sum()
+
+    (g1,) = torch.autograd.grad(run(fused), fused)
+    (g2,) = torch.autograd.grad(checkpoint(run, fused, use_reentrant=False), fused)
+    q, k, v = fused[:, :, :hq].contiguous(), fused[:, :, hq : hq + hkv].contiguous(), fused[:, :, hq + hkv :].contiguous()
+    o, lse = flash_fwd(q, k, v, seg, seg, causal=True, scale=d**-0.5)
+    ref = torch.cat(fa.flash_bwd_plain(q, k, v, seg, seg, o, lse, w, causal=True, scale=d**-0.5), dim=2)
+    torch.cuda.synchronize()
+    assert torch.equal(g1, g2)
+    assert (g1.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+    with pytest.raises(NotImplementedError):
+        out = fa.flash_attention(q.detach().requires_grad_(), k, v, seg, seg, causal=True,
+                                 scale=d**-0.5, causal_offset=0 + 1)
+        out.sum().backward()
+
+
 @pytest.mark.parametrize("hq,hkv,s", [(16, 2, 640), (14, 2, 200), (16, 16, 128)])
 def test_decode_kernel_matches_plain(dev, hq, hkv, s):
     rng = np.random.default_rng(hq + s)
@@ -116,6 +180,8 @@ def test_kernels_raise_on_unsupported_cuda_input(dev):
         flash_fwd(q, q, q, seg, seg, causal=True, scale=1.0)
     with pytest.raises(ValueError):
         flash_fwd(q.float(), q.float(), q.float(), seg, seg, causal=True, scale=1.0)
+    with pytest.raises(ValueError):  # the backward refuses the same head dim
+        fa.flash_bwd(q, q, q, seg, seg, q, torch.zeros((1, 2, 8), device=dev), q, causal=True, scale=1.0)
     cache = torch.zeros((1, 1, 2, 8, 96), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         decode_attention(q[:, 0], cache, cache, seg, 0)
