@@ -13,14 +13,15 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    time the card could take: bytes over the memory rate or operations over
    the peak rate, whichever is larger) and, for the flash and dense-decode
    kernels, times ``F.scaled_dot_product_attention`` with the equivalent
-   mask as a yardstick (used nowhere in the port); the flash forward and the
+   mask as a yardstick (used nowhere in the port; for the quantized dense
+   caches on the dequantized cache); the flash forward and the
    two flash backward kernels are held against ``flash_fwd_plain`` and
    ``flash_bwd_plain`` on hand-made segment ids of the training path's three
    attention forms here and, after path d, on the segment ids its first
    micro-batch gave them (packed text rows, the vision pack of that
    micro-batch's images as one sequence and as windows), timed beside SDPA
    and its backward;
-4. drives three serving paths at full Qwen2.5-VL-3B width with seeded random weights
+4. drives six paths at full Qwen2.5-VL-3B width with seeded random weights
    made on the device, each with the kernels' launch counts set to 0 just
    before and read just after, and with the plain versions forbidden:
    a. the dense engine (bf16): 4 image requests through
@@ -30,12 +31,26 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
       ``int4_i8dot``, rows-mode + sequence-chunked prefill, shared prompt
       pages, a finite page pool and fewer slots than lanes (sampled, T=1);
    c. the paged engine with bf16 weights and bf16 pools (greedy);
-   then d. the training path: two GRPO steps through the functions of
+   then d. the training path: one GRPO step through the functions of
       ``spatialthinker_torch/trainer/grpo_trainer.py`` -- the paged rollout of
       path b, old log-probs (policy) and ref log-probs (a frozen copy) on
       packed multimodal rows, GRPO advantages, the packed actor update
       (dual-clip loss + ``low_var_kl``, per-layer checkpointing, the flash
-      backward kernels, AdamW), ``quantize_model`` again on the updated policy;
+      backward kernels, AdamW);
+   e. the trainer: ``build_config`` on the dotlist of the shipped
+      ``scripts/spatialthinker_3b_grpo.sh`` with the deploy-scale knobs cut
+      (16 prompts x n 8, prompt 512, response 64, 64 slots, page 256, one
+      card, the synthetic tokenizer, 2 steps, validation before training on 8
+      held-out rows), ``build_model`` (the 3B preset, seeded random weights),
+      seeded rows with 640 x 480 images through ``RLHFDataset.from_rows``, the
+      ``spatial_sgg`` reward, ``build_trainer(...).fit()``;
+   f. the rollout knobs that reach the other decode kernels, through the same
+      trainer's ``generate_sequences``: the dense engine (``rollout.name=jax``)
+      over an int8 cache, an int4 cache and an int4 cache with ``int4_i8dot``,
+      and the paged engine with int4 pools without ``int4_i8dot``;
+   and a checkpoint round trip at 3B widths and 4 layers: a trainer takes a
+   step and saves, a fresh trainer (built from the same initial weights, as a
+   resumed run is) loads, both take the next step;
 5. checks what came out: finite log-probs <= 0 of the expected shapes; the
    kernel-path prefill logits as close to an fp32 reference as the plain
    path's; the int4 path's rollout log-probs against the bf16 model's
@@ -50,7 +65,14 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    to the engine's as ``PROBS_DIFF_LIMIT``, packed = per-sample log-probs, the
    gradient of one packed row with the backward kernels against the plain
    backward behind the same kernel forward, and a non-finite
-   gradient that leaves parameters and optimizer state untouched;
+   gradient that leaves parameters and optimizer state untouched; for the
+   trainer: two ``step N`` records with finite ``actor/*``, ``critic/score/*``,
+   ``reward/*``, ``timing_s/*``, ``perf/*``, ``rollout/kv_*`` and a
+   ``rollout/probs_diff_mean`` within ``PROBS_DIFF_LIMIT``, a
+   ``val/reward_score``, parameters that moved and a reference copy that did
+   not; per knob case its kernel launched, the other decode kernels not, and
+   the engine's log-probs near the trainer's own; after the checkpoint round
+   trip equal metrics and parameters;
 6. prints one JSON line of kernel results, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -61,12 +83,17 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -78,6 +105,8 @@ import spatialthinker_torch.ops.paged_attention as pa
 import spatialthinker_torch.ops.silu_quant as sq
 from spatialthinker_torch import csrc
 from spatialthinker_torch.core.batch import RolloutBatch
+from spatialthinker_torch.core.config import build_config
+from spatialthinker_torch.data.dataset import DataLoader, RLHFDataset
 from spatialthinker_torch.eval.providers import TorchProvider
 from spatialthinker_torch.models.qwen2_5_vl import (
     forward, init_params, logits_from_hidden, prefill_forward, qwen25_vl_3b, window_patch_len,
@@ -91,6 +120,7 @@ from spatialthinker_torch.trainer.grpo_trainer import (
     compute_advantages, compute_log_probs_batched, packed_micro_batches, rollout_batch_from_result,
     to_device, update_actor_packed,
 )
+from spatialthinker_torch.trainer.main import build_model, build_trainer, load_tokenizer
 from spatialthinker_torch.trainer.metrics import Timer
 from spatialthinker_torch.trainer.train_step import (
     make_optimizer, make_packed_grad_fn, make_packed_update_fn,
@@ -107,7 +137,12 @@ LSE_ATOL = 5e-3  # fp32 logsumexp, fast-math exp/log in the kernel
 # within 2e-3; outputs of quantized pools are O(0.3) and an int8 softmax
 # weight on a rounding tie may flip by one step (1/127 of its row max).
 PAGED_STAT_ATOL = 2e-3
-PAGED_OUT_ATOL = {"bf16": 3e-2, "int8": 1e-2, "int4_i8": 1e-2}
+PAGED_OUT_ATOL = {"bf16": 3e-2, "int8": 1e-2, "int4_i8": 1e-2, "int4": 1e-2}
+# Quantized dense caches: the kernels repeat the plain version's arithmetic
+# with a running max instead of the global one; outputs are O(0.3), bf16, and
+# an int8 softmax weight on a rounding tie may flip by one step (1/127 of its
+# block's largest weight).
+DECODE_QUANT_ATOL = 1e-2
 # silu -> int8: values at most one step apart (ties), scales 1e-5 relative
 SILU_SCALE_RTOL = 1e-5
 # Full 3B prefill, last-position logits: both bf16 paths (kernels, plain
@@ -168,7 +203,32 @@ ACTOR = dict(
 )
 # global_batch_size 128 of the shipped script cut to 64: two optimizer steps per GRPO step
 TRAIN = dict(global_batch_size=64, micro_rows=4, experience_micro=16, lr=1e-6, strategy="adamw")
-GRPO_STEPS = 2
+GRPO_STEPS = 1
+# Path f: the dense engine over an int8 cache differs from path b's engine only
+# in the KV format (8 bits instead of 4), so its drift from the trainer's own
+# log-probs may exceed path b's measured probs_diff by at most this much.
+INT8_CACHE_EXTRA_DRIFT = 0.05
+# The checkpoint round trip: the loaded trainer repeats the saving trainer's
+# next step on the same batch with the same sampling stream. Nothing in that
+# step is random, so metrics agree to fp32 summation noise. With random weights
+# no response earns a reward, so the gradient is the KL term's, ~1e-9 a
+# parameter, and Adam turns its sign into a step of lr = 1e-6: where summation
+# noise flips a sign the two trainers' parameters end two steps apart.
+CKPT_METRIC_RTOL, CKPT_METRIC_ATOL = 1e-3, 1e-5
+CKPT_PARAM_ATOL = 2.5e-6
+TRAINER_SCRIPT = "scripts/spatialthinker_3b_grpo.sh"
+# the deploy-scale knobs of the shipped script, cut to one card and two short steps
+TRAINER_OVERRIDES = [
+    "worker.actor.model.model_path=Qwen/Qwen2.5-VL-3B-Instruct",
+    "worker.actor.model.tokenizer_path=synthetic",
+    "data.rollout_batch_size=16", "data.max_prompt_length=512", "data.max_response_length=64",
+    "worker.rollout.decode_batch_size=64", "worker.rollout.page_size=256",
+    "trainer.n_chips=1", "trainer.max_steps=2",
+    "trainer.val_before_train=true", "trainer.val_freq=-1", "trainer.save_freq=-1",
+    "trainer.logger=['console','jsonl']",
+]
+TRAINER_VAL_ROWS = 8
+CKPT_LAYERS = 4
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -266,7 +326,8 @@ def plain_attention(forward: bool = True):
 
 PLAIN_VERSIONS = [
     (fa, "flash_fwd_plain"), (fa, "flash_bwd_plain"), (da, "decode_attention_plain"), (pa, "paged_attention_plain"),
-    (pa, "paged_attention_int4_i8_plain"), (pa, "paged_attention_gathered"),
+    (pa, "paged_attention_int4_i8_plain"), (pa, "paged_attention_int4_plain"),
+    (pa, "paged_attention_gathered"),
     (sq, "fused_silu_quantize_plain"),
 ]
 
@@ -291,7 +352,9 @@ def forbid_plain_versions():
 def reset_counts() -> None:
     # looked up at call time: a wrapper may have been re-bound meanwhile
     for fn in (fa.flash_fwd, fa._launch_bwd_dq, fa._launch_bwd_dkv, da.decode_attention,
-               pa._launch_pool_kernel, pa._launch_int4_i8_kernel, sq.fused_silu_quantize):
+               da._launch_int8_kernel, da._launch_int4_kernel, da._launch_int4_i8_kernel,
+               pa._launch_pool_kernel, pa._launch_int4_i8_kernel, pa._launch_int4_kernel,
+               sq.fused_silu_quantize):
         fn.launches = 0
 
 
@@ -299,8 +362,12 @@ def read_counts() -> dict:
     return {
         "flash_fwd": fa.flash_fwd.launches, "flash_bwd_dq": fa._launch_bwd_dq.launches,
         "flash_bwd_dkv": fa._launch_bwd_dkv.launches, "decode_attention": da.decode_attention.launches,
+        "decode_attention_int8": da._launch_int8_kernel.launches,
+        "decode_attention_int4": da._launch_int4_kernel.launches,
+        "decode_attention_int4_i8": da._launch_int4_i8_kernel.launches,
         "paged_attention_pool": pa._launch_pool_kernel.launches,
         "paged_attention_int4_i8": pa._launch_int4_i8_kernel.launches,
+        "paged_attention_int4": pa._launch_int4_kernel.launches,
         "silu_quant": sq.fused_silu_quantize.launches,
     }
 
@@ -529,11 +596,74 @@ def check_decode(dev, cfg, rows: int, width: int, prompt_len: int):
                  bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)]
 
 
+def check_decode_quant(dev, cfg, kind: str, rows: int, width: int, prompt_len: int):
+    """A quantized dense-decode kernel vs the plain version at the trainer's
+    dense-engine shape (path f): every row of the rollout batch mid-generation
+    over the full layer stack, random stored values and scales, ragged
+    ``kv_seg`` (left padding per row, the unwritten tail) and one row with no
+    valid cell. The library yardstick is SDPA on the layer's DEQUANTIZED bf16
+    cache (the dequantization is not timed)."""
+    rng = np.random.default_rng({"int8": 12, "int4": 13, "int4_i8": 14}[kind])
+    tc = cfg.text
+    hq, hkv, d, n_layers = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim, tc.num_hidden_layers
+    int4 = kind != "int8"
+    shape = (n_layers, rows, hkv, width // 2 if int4 else width, d)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    lo, hi, dtype = (0, 256, torch.uint8) if int4 else (-127, 128, torch.int8)
+    kc = torch.randint(lo, hi, shape, dtype=dtype, device=dev, generator=gen)
+    vc = torch.randint(lo, hi, shape, dtype=dtype, device=dev, generator=gen)
+    s_lo, s_hi = (0.01, 0.1) if int4 else (0.001, 0.02)
+    ks, vs = ((torch.rand((n_layers, rows, hkv, width), device=dev, generator=gen) * (s_hi - s_lo) + s_lo)
+              .to(torch.bfloat16) for _ in range(2))
+    q = randn_bf16(rng, dev, rows, hq, d)
+    seg_np = np.zeros((rows, width), np.int32)
+    pads = rng.integers(0, 120, size=rows)
+    for i, pad in enumerate(pads):
+        seg_np[i, pad : prompt_len + MAX_NEW_TOKENS // 2] = 1
+    seg_np[rows - 1] = 0  # a row with no valid cell
+    seg = torch.from_numpy(seg_np).to(dev)
+    layer = n_layers - 1
+    scale = d**-0.5
+    i8 = kind == "int4_i8"
+    ref = da.decode_attention_plain(q, kc, vc, seg, layer, scale, ks, vs, i8)
+    out = da.decode_attention(q, kc, vc, seg, layer, ks, vs, int4_i8dot=i8)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    dead_ok = bool(torch.all(out[rows - 1] == 0))
+    plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, kc, vc, seg, layer, scale, ks, vs, i8), iters=10)
+    ms = cuda_ms(lambda: da.decode_attention(q, kc, vc, seg, layer, ks, vs, int4_i8dot=i8))
+    g = hq // hkv
+
+    def dequantized(cache, scales):
+        vals = cache[layer]
+        if int4:
+            vals = torch.cat([(vals & 15).to(torch.int8) - 8, (vals >> 4).to(torch.int8) - 8], dim=2)
+        return (vals.float() * scales[layer].float()[..., None]).to(torch.bfloat16).repeat_interleave(g, dim=1)
+
+    kt, vt = dequantized(kc, ks), dequantized(vc, vs)
+    qt = q[:, :, None, :]
+    mask = (seg != 0)[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale))
+    cells = int(seg.sum())
+    cell_bytes = 2 * hkv * (d * (0.5 if int4 else 1.0) + 2)  # k and v values + bf16 scales
+    b_ms, b_by = bound_ms(cells * cell_bytes + nbytes(q, out, seg), 4.0 * cells * hq * d,
+                          "int8" if i8 else "bf16")
+    print(f"decode {kind}: q{tuple(q.shape)} cache{tuple(kc.shape)} width={width} cells={cells} "
+          f"cache_bytes_per_launch={nbytes(kc[layer], vc[layer], ks[layer], vs[layer])} layer={layer} "
+          f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_dequantized_ms={lib_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    if not (err <= DECODE_QUANT_ATOL and dead_ok):
+        raise AssertionError(f"decode kernel ({kind}) disagrees with plain")
+    return [dict(shape=f"{kind}_cache_{rows}_rows_width_{width}", max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)]
+
+
 def check_paged(dev, cfg, kind: str, lanes: int, prompt_len: int, page: int, n_pages: int):
     """A paged kernel vs its plain version at the paged path's shapes: every
     lane of the engine (the trash lane has length 0) mid-generation, pages
     scattered over a pool of the path's size, the last layer."""
-    rng = np.random.default_rng({"bf16": 3, "int8": 4, "int4_i8": 5}[kind])
+    rng = np.random.default_rng({"bf16": 3, "int8": 4, "int4_i8": 5, "int4": 5}[kind])
+    packed = kind in ("int4_i8", "int4")
     tc = cfg.text
     hq, hkv, d, n_layers = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim, tc.num_hidden_layers
     lengths = rng.integers(prompt_len - 90, prompt_len + MAX_NEW_TOKENS - 16, size=lanes)
@@ -543,17 +673,17 @@ def check_paged(dev, cfg, kind: str, lanes: int, prompt_len: int, page: int, n_p
     for i, ell in enumerate(lengths):
         n = -(-int(ell) // page)
         table[i, :n] = rng.choice(np.arange(1, n_pages), size=n, replace=False)
-    rows = page // 2 if kind == "int4_i8" else page
+    rows = page // 2 if packed else page
     shape = (n_layers, n_pages, hkv, rows, d)
     scales = (None, None)
     if kind == "bf16":
         k, v = randn_bf16(rng, dev, *shape), randn_bf16(rng, dev, *shape)
     else:
-        dtype, lo, hi = (torch.uint8, 0, 256) if kind == "int4_i8" else (torch.int8, -127, 128)
+        dtype, lo, hi = (torch.uint8, 0, 256) if packed else (torch.int8, -127, 128)
         gen = torch.Generator(device=dev).manual_seed(7)
         k = torch.randint(lo, hi, shape, dtype=dtype, device=dev, generator=gen)
         v = torch.randint(lo, hi, shape, dtype=dtype, device=dev, generator=gen)
-        s_lo, s_hi = (0.01, 0.1) if kind == "int4_i8" else (0.001, 0.02)
+        s_lo, s_hi = (0.01, 0.1) if packed else (0.001, 0.02)
         scales = tuple(
             (torch.rand(shape[:3] + (page,), device=dev, generator=gen) * (s_hi - s_lo) + s_lo).to(torch.bfloat16)
             for _ in range(2)
@@ -563,7 +693,8 @@ def check_paged(dev, cfg, kind: str, lanes: int, prompt_len: int, page: int, n_p
     args = (q, k, v, torch.from_numpy(table).to(dev), torch.from_numpy(lengths.astype(np.int32)).to(dev),
             layer, *scales)
     i8 = kind == "int4_i8"
-    plain = pa.paged_attention_int4_i8_plain if i8 else pa.paged_attention_plain
+    plain = {"int4_i8": pa.paged_attention_int4_i8_plain,
+             "int4": pa.paged_attention_int4_plain}.get(kind, pa.paged_attention_plain)
     scale = d**-0.5
     o_ref, m_ref, l_ref = plain(*args, scale)
     o, m, l = pa.paged_attention(*args, return_stats=True, int4_i8dot=i8)
@@ -574,7 +705,7 @@ def check_paged(dev, cfg, kind: str, lanes: int, prompt_len: int, page: int, n_p
     plain_ms = cuda_ms(lambda: plain(*args, scale), iters=10)
     ms = cuda_ms(lambda: pa.paged_attention(*args, return_stats=True, int4_i8dot=i8))
     cells = int(lengths.sum())
-    value_bytes = {"bf16": 2.0, "int8": 1.0, "int4_i8": 0.5}[kind]
+    value_bytes = {"bf16": 2.0, "int8": 1.0, "int4_i8": 0.5, "int4": 0.5}[kind]
     cell_bytes = 2 * hkv * (d * value_bytes + (0 if kind == "bf16" else 2))  # k and v (+ scales)
     b_ms, b_by = bound_ms(cells * cell_bytes + nbytes(q, o, m, l, args[3], args[4]),
                           4.0 * cells * hq * d, "int8" if i8 else "bf16")
@@ -891,22 +1022,10 @@ def training_path(dev, model, qmodel_holder, host, paged_kw, card):
                 packed_logp_diff=float(lp_diff.mean()), first_micro=first_micro)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    card = smi_line()
-    print(card, flush=True)
-    t_start = time.perf_counter()
-
-    t0 = time.perf_counter()
-    csrc.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s ({csrc.library_path().name})", flush=True)
-
-    cfg = qwen25_vl_3b()
+def earlier_paths(dev, card, cfg) -> dict:
+    """The kernel-vs-plain checks of the serving and update kernels and paths
+    a-d. Everything that holds device memory dies with this frame; the
+    numbers the report needs come back."""
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -1161,6 +1280,311 @@ def main() -> int:
     dq_cases += synth_dq
     dkv_cases += synth_dkv
 
+    return dict(
+        flash_cases=flash_cases, dq_cases=dq_cases, dkv_cases=dkv_cases, decode_cases=decode_cases,
+        pool_cases=pool_cases, int4_cases=int4_cases, silu_cases=silu_cases,
+        dense_launches=dense_launches, paged_launches=paged_launches, bf16_launches=bf16_launches,
+        train_launches=train_launches, train=train, prompt_len=p, p16=p16,
+        decode_tok_s=decode_tok_s, prefill_s=prefill_s, peak_gb=peak_gb,
+        decode_tok_s_paged=decode_tok_s_paged, st=st, paged_peak_gb=paged_peak_gb,
+        probs_diff=probs_diff, first_agree=first_agree, rows_equal=rows_equal,
+        drift_paged=drift_paged, drift_dense=drift_dense, bf16_s=bf16_s,
+    )
+
+
+# ---------------------------------------------------------------------------
+# the trainer (paths e and f) and the checkpoint round trip
+# ---------------------------------------------------------------------------
+
+
+def script_dotlist(script: str) -> list:
+    """The key=value lines a shipped training script passes to the trainer
+    CLI, with the config file's path made absolute."""
+    root = Path(__file__).resolve().parent
+    out = []
+    for line in (root / script).read_text().splitlines():
+        line = line.strip().rstrip("\\").strip()
+        if re.fullmatch(r"[a-z_][a-z0-9_.]*=\S+", line):
+            out.append(f"config={root / 'scripts' / 'config.yaml'}" if line.startswith("config=") else line)
+    if not out:
+        raise AssertionError(f"no dotlist parsed from {script}")
+    return out
+
+
+def trainer_config(save_dir, extra=()):
+    return build_config(script_dotlist(TRAINER_SCRIPT) + TRAINER_OVERRIDES
+                        + [f"trainer.save_checkpoint_path={save_dir}", *extra])
+
+
+def scene_rows(n: int, seed: int) -> list:
+    """Seeded rows in the shape of the spatial dataset: a question with the
+    image size, a 640 x 480 image, a ground-truth trace with a scene graph."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        x0, y0 = (int(v) for v in rng.integers(0, 300, size=2))
+        scene = {"objects": [{"id": "mug.1", "bbox": [x0, y0, x0 + 120, y0 + 90]},
+                             {"id": "laptop.2", "bbox": [x0 + 150, y0 + 20, x0 + 330, y0 + 170]}],
+                 "relationships": [{"subject": "mug.1", "predicate": "left of", "object": "laptop.2"}]}
+        answer = ("<observe>A mug and a laptop.</observe>" f"<scene>{json.dumps(scene)}</scene>"
+                  "<think>The mug is on the left.</think><answer>yes</answer>")
+        rows.append({"problem": f"{QUESTIONS[i % len(QUESTIONS)]} (scene {i}) Image size: (640 x 480)",
+                     "answer": answer, "image": [(rng.random((480, 640, 3)) * 255).astype(np.uint8)]})
+    return rows
+
+
+METRIC_FAMILIES = ("actor/", "critic/score/", "reward/", "timing_s/", "perf/", "rollout/kv_")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention_int4_i8", "silu_quant")
+DECODE_KERNELS = ("decode_attention", "decode_attention_int8", "decode_attention_int4",
+                  "decode_attention_int4_i8", "paged_attention_pool", "paged_attention_int4_i8",
+                  "paged_attention_int4")
+
+
+def trainer_path(dev, card, work_dir):
+    """Path e: two steps of ``GRPOTrainer.fit`` at full 3B width on the shipped
+    script's dotlist. Returns (trainer, dataset, results)."""
+    config = trainer_config(work_dir)
+    t0 = time.perf_counter()
+    model = build_model(config)
+    tok = load_tokenizer(config.worker.actor.model.tokenizer_path, model.cfg)
+    rows = scene_rows(config.data.rollout_batch_size + TRAINER_VAL_ROWS, seed=21)
+    n_train = config.data.rollout_batch_size
+    train_ds = RLHFDataset.from_rows(rows[:n_train], tok, config.data, model.cfg)
+    val_ds = RLHFDataset.from_rows(rows[n_train:], tok, config.data, model.cfg)
+    trainer = build_trainer(config, tok, model, train_ds, val_ds)
+    torch.cuda.synchronize()
+    roll = config.worker.rollout
+    print(f"trainer: {TRAINER_SCRIPT} dotlist + {TRAINER_OVERRIDES}; built in "
+          f"{time.perf_counter() - t0:.2f} s; engine name={roll.name} page_size={roll.page_size} "
+          f"kv_cache_dtype={roll.kv_cache_dtype} quantization={roll.quantization} "
+          f"int4_i8dot={roll.int4_i8dot} slots={roll.decode_batch_size} n={roll.n}; resident "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB (policy, reference copy, moments)", flush=True)
+    p_sums = checksums(model.parameters())
+    ref_sums = checksums(trainer.ref_model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with forbid_plain_versions():
+        trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log = Path(work_dir) / f"{config.trainer.experiment_name}_metrics.jsonl"
+    records = {r["step"]: r for r in map(json.loads, log.read_text().splitlines())}
+    moved = sum(a != b for a, b in zip(p_sums, checksums(model.parameters())))
+    checks = {
+        "validation before training logged val/reward_score": "val/reward_score" in records.get(0, {}),
+        "two step records": {1, 2} <= set(records) and trainer.global_step == 2,
+        "parameters moved": moved > 0,
+        "reference copy untouched": checksums(trainer.ref_model.parameters()) == ref_sums,
+        "every kernel of a step launched": all(launches[k] > 0 for k in TRAIN_KERNELS),
+        "no dense decode kernel": launches["decode_attention"] == 0,
+        "pool sized from free memory": (trainer._paged_pool_cache or 0) > 0,
+    }
+    for step in (1, 2):
+        rec = records.get(step, {})
+        for family in METRIC_FAMILIES:
+            vals = [v for k, v in rec.items() if k.startswith(family)]
+            checks[f"step {step}: {family}* present and finite"] = bool(vals) and bool(np.isfinite(vals).all())
+        checks[f"step {step}: rollout/probs_diff_mean within the limit"] = (
+            rec.get("rollout/probs_diff_mean", np.inf) <= PROBS_DIFF_LIMIT)
+        if rec:
+            t = {k.split("/", 1)[1]: v for k, v in rec.items() if k.startswith("timing_s/")}
+            print(f"trainer step {step}: " + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(t.items()))
+                  + f"; throughput {rec['perf/throughput']:.1f} tok/s, mfu_actor {rec['perf/mfu_actor']:.4f}, "
+                  f"probs_diff_mean {rec['rollout/probs_diff_mean']:.4f}, reward/overall "
+                  f"{rec['reward/overall']:.4f}, actor/grad_norm {rec['actor/grad_norm']:.3e}, actor/kl_loss "
+                  f"{rec.get('actor/kl_loss', float('nan')):.3e}, response_length/mean "
+                  f"{rec['response_length/mean']:.1f}, kv peak_pages {rec['rollout/kv_peak_pages']:.0f} of "
+                  f"{rec['rollout/kv_total_pages']:.0f}, preemptions {rec['rollout/kv_preemptions']:.0f}  [{card}]",
+                  flush=True)
+    print(f"trainer fit: {fit_s:.2f} s for validation + 2 steps; val/reward_score "
+          f"{records.get(0, {}).get('val/reward_score')}; page pool the trainer chose "
+          f"{trainer._paged_pool_cache} pages of {roll.page_size}; parameter tensors moved {moved}; "
+          f"peak allocated {peak_gb:.2f} GB, reserved {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
+          f"[{card}]; launches {launches}", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"trainer-path checks failed: {failed}")
+    results = dict(fit_s=fit_s, launches=launches, peak_gb=peak_gb, pool_pages=trainer._paged_pool_cache,
+                   steps={s: {k: v for k, v in records[s].items() if k != "time"} for s in (1, 2)},
+                   val_reward_score=records[0]["val/reward_score"])
+    return trainer, train_ds, results
+
+
+KNOB_CASES = [
+    # label, rollout knobs, the kernel the case must reach, limit on probs_diff (None: path b's + extra)
+    ("dense_int8", dict(name="jax", kv_cache_dtype="int8", int4_i8dot=False), "decode_attention_int8", None),
+    ("dense_int4", dict(name="jax", kv_cache_dtype="int4", int4_i8dot=False), "decode_attention_int4",
+     PROBS_DIFF_LIMIT),
+    ("dense_int4_i8dot", dict(name="jax", kv_cache_dtype="int4", int4_i8dot=True),
+     "decode_attention_int4_i8", PROBS_DIFF_LIMIT),
+    ("paged_int4", dict(name="continuous", kv_cache_dtype="int4", int4_i8dot=False),
+     "paged_attention_int4", PROBS_DIFF_LIMIT),
+]
+
+
+def knob_paths(dev, card, trainer, train_ds, paged_probs_diff: float) -> dict:
+    """Path f: one rollout per knob case through the trainer's own
+    ``generate_sequences``, then the trainer's own log-probs of the same
+    tokens (what it logs as ``rollout/probs_diff_mean``)."""
+    roll = trainer.config.worker.rollout
+    batch = next(iter(DataLoader(train_ds, trainer.config.data.rollout_batch_size, shuffle=False)))
+    out = {}
+    for label, knobs, kernel, limit in KNOB_CASES:
+        limit = paged_probs_diff + INT8_CACHE_EXTRA_DRIFT if limit is None else limit
+        for key, value in knobs.items():
+            setattr(roll, key, value)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with forbid_plain_versions():
+            t0 = time.perf_counter()
+            rolled = trainer.generate_sequences(batch, trainer.sampling)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            counts = read_counts()
+            old = trainer.compute_log_probs_batched(rolled, trainer.model)
+        mask = rolled.tensors["response_mask"].astype(bool)
+        logp = rolled.tensors["rollout_log_probs"]
+        diff = float(np.abs(old - logp)[mask].mean())
+        others = {k: counts[k] for k in DECODE_KERNELS if k != kernel and counts[k]}
+        print(f"knob case {label}: {knobs} -> responses {rolled.tensors['responses'].shape} in {gen_s:.3f} s, "
+              f"{int(mask.sum())} tokens; launches {kernel}={counts[kernel]}, other decode kernels {others}; "
+              f"probs_diff_mean {diff:.4f} (limit {limit:.4f}); peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]", flush=True)
+        checks = {
+            "its kernel launched": counts[kernel] > 0, "no other decode kernel": not others,
+            "log-probs finite and <= 0": bool(np.isfinite(logp).all() and (logp <= 0).all()),
+            "every row has a token": bool((mask.sum(-1) >= 1).all()),
+            "probs_diff within the limit": diff <= limit,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"knob case {label} failed: {failed}")
+        out[label] = dict(launches=counts[kernel], probs_diff=diff, limit=limit, seconds=gen_s)
+        del rolled
+    return out
+
+
+LOGGED_NOT_COMPARED = ("timing_s/", "timing_per_token_ms/", "perf/", "rollout/kv_refill_s",
+                       "rollout/kv_decode_s")  # seconds and memory: not a function of the state
+
+
+def checkpoint_round_trip(dev, card, cfg, work_dir) -> dict:
+    """3B widths, ``CKPT_LAYERS`` text layers and vision blocks: trainer A takes
+    a step and saves; trainer B is built anew from the same initial weights (a
+    resumed run builds its policy, and from it the reference copy, from the
+    same model path), loads, and both take the next step on the same batch."""
+    vis = dataclasses.replace(cfg.vision, depth=CKPT_LAYERS, fullatt_block_indexes=(1, 3))
+    small = dataclasses.replace(
+        cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=CKPT_LAYERS), vision=vis)
+    # two trainers share the card here, so neither may size its page pool from
+    # the free memory it sees: the pool is fixed (rollout.kv_pages_override)
+    extra = ["data.rollout_batch_size=4", "worker.actor.global_batch_size=32", "trainer.max_steps=1",
+             "trainer.val_before_train=false", "trainer.logger=['console']",
+             f"worker.rollout.kv_pages_override={PAGED['total_pages']}"]
+    rows = scene_rows(4, seed=22)
+
+    def make(seed: int, more=()):
+        config = trainer_config(work_dir, [*extra, *more])
+        model = init_params(small, torch.Generator(device=dev).manual_seed(seed), dtype=torch.bfloat16)
+        tok = load_tokenizer("synthetic", small)
+        ds = RLHFDataset.from_rows(rows, tok, config.data, small)
+        return build_trainer(config, tok, model, ds), ds
+
+    a, ds = make(31)
+    with forbid_plain_versions():
+        a.fit()
+    t0 = time.perf_counter()
+    a.save_checkpoint()
+    save_s = time.perf_counter() - t0
+    step_dir = Path(work_dir) / "global_step_1"
+    size_gb = sum(f.stat().st_size for f in step_dir.iterdir()) / 1e9
+    b, _ = make(31, [f"trainer.load_checkpoint_path={work_dir}"])
+    differed = checksums(a.model.parameters()) != checksums(b.model.parameters())
+    t0 = time.perf_counter()
+    b.load_checkpoint()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded_equal = checksums(a.model.parameters()) == checksums(b.model.parameters())
+    metrics = []
+    with forbid_plain_versions():
+        for t in (a, b):
+            t.global_step += 1
+            metrics.append(t.train_step(next(iter(DataLoader(ds, 4, shuffle=False)))))
+    torch.cuda.synchronize()
+    keys = [k for k in metrics[0] if not k.startswith(LOGGED_NOT_COMPARED)]
+    worst = max(keys, key=lambda k: abs(metrics[0][k] - metrics[1][k]))
+    metrics_close = set(metrics[0]) == set(metrics[1]) and all(
+        np.isclose(metrics[0][k], metrics[1][k], rtol=CKPT_METRIC_RTOL, atol=CKPT_METRIC_ATOL) for k in keys)
+    param_diff = max(float((pa_.detach().float() - pb_.detach().float()).abs().max())
+                     for pa_, pb_ in zip(a.model.parameters(), b.model.parameters()))
+    n_params = sum(p_.numel() for p_ in a.model.parameters())
+    print(f"checkpoint round trip: {n_params / 1e9:.3f} B params at 3B widths, {CKPT_LAYERS} layers; "
+          f"saved {size_gb:.2f} GB in {save_s:.2f} s, loaded in {load_s:.2f} s; fresh trainer differed "
+          f"before the load {differed}, equal after {loaded_equal}, step {b.global_step - 1} restored, "
+          f"optimizer count {b.optimizer.state['count'] - 1}; next step: {len(keys)} metrics compared, "
+          f"largest difference {worst} {metrics[0][worst]:.6g} vs {metrics[1][worst]:.6g}; parameters "
+          f"max |difference| {param_diff:.3e} (limit {CKPT_PARAM_ATOL})  [{card}]", flush=True)
+    checks = {
+        "fresh trainer differed before the load": differed, "parameters equal after the load": loaded_equal,
+        "step restored": b.global_step == a.global_step == 2,
+        "optimizer count restored": b.optimizer.state["count"] == a.optimizer.state["count"],
+        "next step gives equal metrics": metrics_close,
+        "next step gives equal parameters": param_diff <= CKPT_PARAM_ATOL,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"checkpoint round trip failed: {failed}")
+    return dict(params=n_params, size_gb=size_gb, save_s=save_s, load_s=load_s, param_diff=param_diff)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = smi_line()
+    print(card, flush=True)
+    t_start = time.perf_counter()
+
+    t0 = time.perf_counter()
+    csrc.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s ({csrc.library_path().name})", flush=True)
+
+    cfg = qwen25_vl_3b()
+
+    # ---- the decode kernels the rollout knobs reach, against their plain versions ----
+    quant_rows = 16 * 8  # path f: 16 prompts x n 8 through the dense engine
+    int8_cases = check_decode_quant(dev, cfg, "int8", quant_rows, 640, 512)
+    int4_dense_cases = check_decode_quant(dev, cfg, "int4", quant_rows, 768, 512)
+    int4_i8_dense_cases = check_decode_quant(dev, cfg, "int4_i8", quant_rows, 768, 512)
+    paged_int4_cases = [check_paged(dev, cfg, "int4", PAGED["slots"] + 1, 512, PAGED["page_size"],
+                                    PAGED["total_pages"])]
+    torch.cuda.empty_cache()
+
+    # ---- the serving and update kernels, paths a-d ----
+    r = earlier_paths(dev, card, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"after paths a-d: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated", flush=True)
+
+    # ---- paths e and f: the trainer; then the checkpoint round trip ----
+    with tempfile.TemporaryDirectory() as work_dir:
+        trainer, train_ds, trainer_res = trainer_path(dev, card, work_dir)
+        knob_res = knob_paths(dev, card, trainer, train_ds, r["probs_diff"])
+        del trainer, train_ds
+        gc.collect()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work_dir:
+        ckpt_res = checkpoint_round_trip(dev, card, cfg, work_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     def entry(name, route, source, replaces, cases, n_launch, **extra):
         main_case = cases[0]
         return {
@@ -1171,39 +1595,52 @@ def main() -> int:
             "library_ms": main_case["library_ms"], "cases": cases, **extra,
         }
 
+    dense_l, paged_l, bf16_l, train_l = (r[k] for k in ("dense_launches", "paged_launches",
+                                                       "bf16_launches", "train_launches"))
+    trainer_l = trainer_res["launches"]
+    decode_cu = "spatialthinker_torch/csrc/decode_attention.cu"
+    paged_cu = "spatialthinker_torch/csrc/paged_attention.cu"
     print(json.dumps({"kernels": [
         entry("flash_fwd", "cuda", "spatialthinker_torch/csrc/flash_attention.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:45", flash_cases, paged_launches["flash_fwd"],
-              launches_dense_path=dense_launches["flash_fwd"],
-              launches_bf16_pool_path=bf16_launches["flash_fwd"],
-              launches_training_path=train_launches["flash_fwd"]),
+              "spatialthinker_tpu/ops/flash_attention.py:45", r["flash_cases"], paged_l["flash_fwd"],
+              launches_dense_path=dense_l["flash_fwd"], launches_bf16_pool_path=bf16_l["flash_fwd"],
+              launches_training_path=train_l["flash_fwd"], launches_trainer_path=trainer_l["flash_fwd"]),
         entry("flash_bwd_dq", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:192", dq_cases, train_launches["flash_bwd_dq"]),
+              "spatialthinker_tpu/ops/flash_attention.py:192", r["dq_cases"], train_l["flash_bwd_dq"],
+              launches_trainer_path=trainer_l["flash_bwd_dq"]),
         entry("flash_bwd_dkv", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:255", dkv_cases, train_launches["flash_bwd_dkv"]),
-        entry("decode_attention", "cuda", "spatialthinker_torch/csrc/decode_attention.cu",
-              "spatialthinker_tpu/ops/decode_attention.py:138", decode_cases,
-              dense_launches["decode_attention"]),
-        entry("paged_attention_pool", "cuda", "spatialthinker_torch/csrc/paged_attention.cu",
-              "spatialthinker_tpu/ops/paged_attention.py:113", pool_cases,
-              bf16_launches["paged_attention_pool"]),
-        entry("paged_attention_int4_i8", "cuda", "spatialthinker_torch/csrc/paged_attention.cu",
-              "spatialthinker_tpu/ops/paged_attention.py:338", int4_cases,
-              paged_launches["paged_attention_int4_i8"],
-              launches_training_path=train_launches["paged_attention_int4_i8"]),
+              "spatialthinker_tpu/ops/flash_attention.py:255", r["dkv_cases"], train_l["flash_bwd_dkv"],
+              launches_trainer_path=trainer_l["flash_bwd_dkv"]),
+        entry("decode_attention", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:138",
+              r["decode_cases"], dense_l["decode_attention"]),
+        entry("decode_attention_int8", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:138",
+              int8_cases, knob_res["dense_int8"]["launches"]),
+        entry("decode_attention_int4", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:192",
+              int4_dense_cases, knob_res["dense_int4"]["launches"]),
+        entry("decode_attention_int4_i8", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:257",
+              int4_i8_dense_cases, knob_res["dense_int4_i8dot"]["launches"]),
+        entry("paged_attention_pool", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:113",
+              r["pool_cases"], bf16_l["paged_attention_pool"]),
+        entry("paged_attention_int4", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:225",
+              paged_int4_cases, knob_res["paged_int4"]["launches"]),
+        entry("paged_attention_int4_i8", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:338",
+              r["int4_cases"], paged_l["paged_attention_int4_i8"],
+              launches_training_path=train_l["paged_attention_int4_i8"],
+              launches_trainer_path=trainer_l["paged_attention_int4_i8"]),
         entry("silu_quant", "triton", "spatialthinker_torch/ops/silu_quant.py",
-              "spatialthinker_tpu/ops/int8_matmul.py:128", silu_cases, paged_launches["silu_quant"],
-              launches_training_path=train_launches["silu_quant"]),
+              "spatialthinker_tpu/ops/int8_matmul.py:128", r["silu_cases"], paged_l["silu_quant"],
+              launches_training_path=train_l["silu_quant"], launches_trainer_path=trainer_l["silu_quant"]),
     ], "paths": {
-        "dense": {"decode_tok_s": decode_tok_s, "prefill_s": prefill_s, "peak_gb": peak_gb},
-        "paged_int4": {"decode_tok_s": decode_tok_s_paged, "prefill_s": st["refill_s"],
-                       "peak_gb": paged_peak_gb, "probs_diff": probs_diff,
-                       "first_token_agreement": first_agree, "stats": st},
-        "paged_bf16": {"rows_equal_dense": rows_equal, "drift": drift_paged, "dense_drift": drift_dense,
-                       "seconds": bf16_s},
-        "training": {"steps": train["steps"], "grad_norm_rel": train["grad_norm_rel"],
-                     "grad_cosine": train["grad_cosine"],
-                     "packed_logp_diff": train["packed_logp_diff"], "knobs": TRAIN},
+        "dense": {"decode_tok_s": r["decode_tok_s"], "prefill_s": r["prefill_s"], "peak_gb": r["peak_gb"]},
+        "paged_int4": {"decode_tok_s": r["decode_tok_s_paged"], "prefill_s": r["st"]["refill_s"],
+                       "peak_gb": r["paged_peak_gb"], "probs_diff": r["probs_diff"],
+                       "first_token_agreement": r["first_agree"], "stats": r["st"]},
+        "paged_bf16": {"rows_equal_dense": r["rows_equal"], "drift": r["drift_paged"],
+                       "dense_drift": r["drift_dense"], "seconds": r["bf16_s"]},
+        "training": {"steps": r["train"]["steps"], "grad_norm_rel": r["train"]["grad_norm_rel"],
+                     "grad_cosine": r["train"]["grad_cosine"],
+                     "packed_logp_diff": r["train"]["packed_logp_diff"], "knobs": TRAIN},
+        "trainer": trainer_res, "knobs": knob_res, "checkpoint": ckpt_res,
     }, "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

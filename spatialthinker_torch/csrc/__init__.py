@@ -40,8 +40,11 @@ _SIGNATURES = {
     "st_flash_bwd_dq": [_P] * 9 + [_I] * 7 + [_F, _P],
     # q, k, v, dO, lse, delta, q_seg, kv_seg, dk, dv, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
     "st_flash_bwd_dkv": [_P] * 10 + [_I] * 7 + [_F, _P],
-    # q, k_cache, v_cache, kv_seg, o, B, Hq, Hkv, S, D, layer, scale, stream
-    "st_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
+    # q, k_cache, v_cache, k_scale, v_scale, kv_seg, o, B, Hq, Hkv, S, D, layer, mode,
+    # block_rows, scale, stream
+    "st_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # mode, G, block_rows -> bytes of dynamic shared memory per block
+    "st_decode_attention_smem": [_I] * 3,
     # q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, o, m, l,
     # S, Hq, Hkv, page, D, P_max, n_pages, layer, mode, scale, stream
     "st_paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],

@@ -4,7 +4,9 @@
 // Replaces the Pallas TPU kernels of spatialthinker_tpu/ops/paged_attention.py:
 //   `_paged_kernel`          bf16 pools, and int8 pools with per-cell scales
 //                            (modes 0 and 1 here);
-//   `_paged_kernel_int4_i8`  int4 pools, both dots on int8 operands (mode 2).
+//   `_paged_kernel_int4_i8`  int4 pools, both dots on int8 operands (mode 2);
+//   `_paged_kernel_int4`     int4 pools, dots on the unsigned nibbles widened
+//                            to floating point (mode 3).
 // Same contract as `_pallas_paged`:
 //   q (S, Hq, 128) bf16; pools (L, N, Hkv, page, 128) bf16 | int8, or uint8
 //   (L, N, Hkv, page/2, 128) for int4 (byte row r of a page holds cell r in
@@ -30,6 +32,10 @@
 //     (k_scale * scale); weights times v_scale are quantized to int8 per row
 //     PER PAGE against that page's row max; p . v is an int8 dot debiased by
 //     -8 * sum(p) and restored by pscale. The int32 sums are exact.
+//   mode 3: scores = q . u in fp32 on the unsigned nibbles u = value + 8,
+//     debiased by -8 * sum(q), times (k_scale * scale); weights times v_scale
+//     are rounded to bf16 for the p . u dot, which is debiased by -8 * sum(p)
+//     with the UNROUNDED fp32 weights, as the TPU kernel does.
 //
 // What bounds it on the H100: bytes — a step reads every live cell once
 // (0.5 to 2 bytes per value) and does 4 * G operations per value, far under
@@ -58,22 +64,24 @@ constexpr int GMAX = 16;      // largest query group per kv head
 constexpr int TILE = 64;      // pool rows staged per tile
 constexpr int KV4_BIAS = 8;
 constexpr float NEG_INF = -1e30f;
-constexpr int MODE_BF16 = 0, MODE_INT8 = 1, MODE_INT4_I8 = 2;
+constexpr int MODE_BF16 = 0, MODE_INT8 = 1, MODE_INT4_I8 = 2, MODE_INT4 = 3;
 constexpr int MAX_SMEM = 232448;  // bytes a block may opt in to on sm_90
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+// both int4 modes read packed pages: byte row r = cells r and r + page/2
+__host__ __device__ inline bool packed(int mode) { return mode == MODE_INT4_I8 || mode == MODE_INT4; }
 
 // Shared-memory plan, computed alike on host and device.
 struct Layout {
-  int pg;          // padded score slots per page (mode 2: two padded halves)
-  int half_pad;    // mode 2: padded byte rows per page
+  int pg;          // padded score slots per page (int4: two padded halves)
+  int half_pad;    // int4: padded byte rows per page
   int tile_stride; // bytes per staged row (padded against bank conflicts)
   int off_s, off_ksc, off_vsc, off_p8, off_q, off_small, total;
 };
 
 __host__ __device__ inline Layout make_layout(int mode, int G, int page) {
   Layout L;
-  if (mode == MODE_INT4_I8) {
+  if (packed(mode)) {
     L.half_pad = round_up(page / 2, 4);
     L.pg = 2 * L.half_pad;
   } else {
@@ -136,7 +144,7 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
   float* ksc = reinterpret_cast<float*>(smem + L.off_ksc);
   float* vsc = reinterpret_cast<float*>(smem + L.off_vsc);
   signed char* p8 = reinterpret_cast<signed char*>(smem + L.off_p8);
-  float* qs = reinterpret_cast<float*>(smem + L.off_q);               // modes 0, 1
+  float* qs = reinterpret_cast<float*>(smem + L.off_q);               // modes 0, 1, 3
   signed char* q8 = reinterpret_cast<signed char*>(smem + L.off_q);   // mode 2
   float* small = reinterpret_cast<float*>(smem + L.off_small);
   float* m_sh = small;
@@ -156,7 +164,8 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
   const int half = page / 2;
   const int half_pad = L.half_pad;
   // pool rows per page and bytes per row
-  const int rows_per_page = MODE == MODE_INT4_I8 ? half : page;
+  constexpr bool PACKED = MODE == MODE_INT4_I8 || MODE == MODE_INT4;
+  const int rows_per_page = PACKED ? half : page;
   const int row_bytes = MODE == MODE_BF16 ? D * 2 : D;
 
   const __nv_bfloat16* qg = q + ((size_t)slot * Hq + (size_t)h * G) * D;
@@ -191,6 +200,15 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
     }
   } else {
     for (int i = tid; i < G * D; i += THREADS) qs[i] = __bfloat162float(qg[i]);
+    if (MODE == MODE_INT4) {  // sum(q) per head, for the -8 debias of the scores
+      for (int g = warp; g < G; g += THREADS / 32) {
+        float sq = 0.f;
+#pragma unroll
+        for (int j = 0; j < D / 32; ++j) sq += __bfloat162float(qg[(size_t)g * D + lane + 32 * j]);
+        sq = warp_sum(sq);
+        if (lane == 0) sumq_sh[g] = sq;
+      }
+    }
   }
 
   float acc[GMAX];  // column d = tid of every head's output
@@ -200,7 +218,7 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
   const int len = lengths[slot];
   const int n_pg = min((len + page - 1) / page, p_max);
   const int tok = tid % TILE;   // phase A: one staged row per thread ...
-  const int part = tid / TILE;  // ... modes 0/1: heads part, part+2, ..; mode 2: nibble half
+  const int part = tid / TILE;  // ... modes 0/1: heads part, part+2, ..; int4: nibble half
 
   for (int pi = 0; pi < n_pg; ++pi) {
     const int page_id = page_table[(size_t)slot * p_max + pi];
@@ -209,14 +227,14 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
     const unsigned char* vp = v_pool + page_row * (size_t)rows_per_page * row_bytes;
     const int cells = min(page, len - pi * page);  // valid cells of this page, >= 1
     // pool rows that hold a valid cell
-    const int rows = MODE == MODE_INT4_I8 ? min(half, cells) : cells;
+    const int rows = PACKED ? min(half, cells) : cells;
 
     __syncthreads();  // previous page fully consumed (and q / state initialised)
     if (MODE != MODE_BF16) {
       const __nv_bfloat16* ksp = k_scale + page_row * (size_t)page;
       const __nv_bfloat16* vsp = v_scale + page_row * (size_t)page;
       for (int c = tid; c < cells; c += THREADS) {
-        const int j = MODE == MODE_INT4_I8 ? (c >= half ? half_pad + c - half : c) : c;
+        const int j = PACKED ? (c >= half ? half_pad + c - half : c) : c;
         ksc[j] = __bfloat162float(ksp[c]) * scale;
         vsc[j] = __bfloat162float(vsp[c]);
       }
@@ -255,6 +273,31 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
               s_sh[g * PG + j] = s * ksc[j];
             }
           }
+        }
+      } else if (MODE == MODE_INT4) {
+        float sc[GMAX];
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) sc[g] = 0.f;
+#pragma unroll 2
+        for (int c = 0; c < D; c += 16) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(krow + c);
+          const unsigned char* b16 = reinterpret_cast<const unsigned char*>(&raw);
+          float kf[16];
+#pragma unroll
+          for (int e = 0; e < 16; ++e) kf[e] = static_cast<float>((b16[e] >> (4 * part)) & 15);
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g) {
+            if (g < G) {
+#pragma unroll
+              for (int e = 0; e < 16; ++e) sc[g] = fmaf(qs[g * D + c + e], kf[e], sc[g]);
+            }
+          }
+        }
+        if (r < half) {
+          const int j = part * half_pad + r;
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g)
+            if (g < G) s_sh[g * PG + j] = (sc[g] - KV4_BIAS * sumq_sh[g]) * ksc[j];
         }
       } else {
         float sc[GMAX / 2];
@@ -301,7 +344,7 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
       float mx = NEG_INF;
       for (int j = lane; j < PG; j += 32) {
         bool valid;
-        if (MODE == MODE_INT4_I8) {
+        if (PACKED) {
           const int hf = j >= half_pad;
           const int r = j - hf * half_pad;
           valid = r < half && hf * half + r < cells;
@@ -311,10 +354,10 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
         if (valid) mx = fmaxf(mx, srow[j]);
       }
       const float m_new = fmaxf(m_prev, warp_max(mx));
-      float psum = 0.f, pmax = 0.f;
+      float psum = 0.f, pmax = 0.f, pvsum = 0.f;
       for (int j = lane; j < PG; j += 32) {
         bool valid;
-        if (MODE == MODE_INT4_I8) {
+        if (PACKED) {
           const int hf = j >= half_pad;
           const int r = j - hf * half_pad;
           valid = r < half && hf * half + r < cells;
@@ -326,7 +369,8 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
           p = expf(srow[j] - m_new);
           psum += p;
           if (MODE != MODE_BF16) p *= vsc[j];
-          // modes 0/1: the p . v dot takes bf16 weights, as the TPU kernel does
+          pvsum += p;  // mode 3 debiases with the unrounded weights
+          // modes 0/1/3: the p . v dot takes bf16 weights, as the TPU kernel does
           if (MODE != MODE_INT4_I8) p = __bfloat162float(__float2bfloat16(p));
         }
         srow[j] = p;
@@ -348,6 +392,10 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
           pscale_sh[g] = pscale;
           sump_sh[g] = sp;
         }
+      }
+      if (MODE == MODE_INT4) {
+        pvsum = warp_sum(pvsum);
+        if (lane == 0) sump_sh[g] = pvsum;
       }
       if (lane == 0) {
         l_sh[g] = l_sh[g] * corr + psum;
@@ -393,6 +441,28 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
       for (int g = 0; g < GMAX; ++g)
         if (g < G)
           acc[g] += (static_cast<float>(iacc[g]) - KV4_BIAS * sump_sh[g]) * pscale_sh[g];
+    } else if (MODE == MODE_INT4) {
+      for (int t0 = 0; t0 < rows; t0 += TILE) {
+        __syncthreads();
+        load_tile(vp + (size_t)t0 * row_bytes, row_bytes, min(TILE, rows - t0), tile, L.tile_stride);
+        __syncthreads();
+        const int nt = min(TILE, rows - t0);
+        for (int t = 0; t < nt; ++t) {
+          const unsigned int byte = tile[t * L.tile_stride + tid];
+          const float lo = static_cast<float>(byte & 15u);
+          const float hi = static_cast<float>(byte >> 4);
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g) {
+            if (g < G) {
+              acc[g] = fmaf(s_sh[g * PG + t0 + t], lo, acc[g]);
+              acc[g] = fmaf(s_sh[g * PG + half_pad + t0 + t], hi, acc[g]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g)
+        if (g < G) acc[g] -= KV4_BIAS * sump_sh[g];
     } else {
       for (int t0 = 0; t0 < rows; t0 += TILE) {
         __syncthreads();
@@ -461,11 +531,11 @@ extern "C" int st_paged_attention(const void* q, const void* k_pool, const void*
                                   void* l, int S, int Hq, int Hkv, int page, int D_, int p_max,
                                   int n_pages, int layer, int mode, float scale, void* stream) {
   if (D_ != D || Hq % Hkv != 0 || Hq / Hkv > GMAX || page < 2 || page % 2 != 0 || S < 1 ||
-      mode < MODE_BF16 || mode > MODE_INT4_I8)
+      mode < MODE_BF16 || mode > MODE_INT4)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = make_layout(mode, Hq / Hkv, page).total;
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t rows = mode == MODE_INT4_I8 ? page / 2 : page;
+  const size_t rows = packed(mode) ? page / 2 : page;
   const size_t row_bytes = mode == MODE_BF16 ? D * 2 : D;
   const size_t layer_bytes = (size_t)n_pages * Hkv * rows * row_bytes;
   const unsigned char* kp = static_cast<const unsigned char*>(k_pool) + layer * layer_bytes;
@@ -485,8 +555,11 @@ extern "C" int st_paged_attention(const void* q, const void* k_pool, const void*
     case MODE_INT8:
       return launch<MODE_INT8>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, S, Hq, Hkv, page,
                                p_max, scale, smem, s);
-    default:
+    case MODE_INT4_I8:
       return launch<MODE_INT4_I8>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, S, Hq, Hkv,
                                   page, p_max, scale, smem, s);
+    default:
+      return launch<MODE_INT4>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, S, Hq, Hkv, page,
+                               p_max, scale, smem, s);
   }
 }

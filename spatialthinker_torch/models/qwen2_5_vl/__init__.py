@@ -4,7 +4,7 @@ from .host import (
     pad_vision_inputs, prepare_vision_aux, window_patch_len,
 )
 from .model import Qwen25VL, embed_inputs, fanout_rows, forward, merge_multimodal_embeds, prefill_forward, vision_to_device
-from .params import build_model, init_params, params_from_hf_state_dict, params_from_jax
+from .params import build_model, init_params, load_params, params_from_hf_state_dict, params_from_jax
 from .text import KVCache, forward_hidden, logits_from_hidden
 from .vision import vision_forward
 
@@ -15,6 +15,6 @@ __all__ = [
     "layout_patch_count", "pad_vision_inputs", "prepare_vision_aux", "window_patch_len",
     "Qwen25VL", "embed_inputs", "fanout_rows", "forward", "merge_multimodal_embeds",
     "prefill_forward", "vision_to_device",
-    "build_model", "init_params", "params_from_hf_state_dict", "params_from_jax",
+    "build_model", "init_params", "load_params", "params_from_hf_state_dict", "params_from_jax",
     "KVCache", "forward_hidden", "logits_from_hidden", "vision_forward",
 ]

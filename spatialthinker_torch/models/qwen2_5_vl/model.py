@@ -75,10 +75,12 @@ def forward(
     cache: Optional[KVCache] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     remat: bool = False,
+    int4_i8dot: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (hidden_states (B, S, E), updated cache). Differentiable when
     gradients are enabled and no cache is given (the training forward);
-    ``remat`` checkpoints each decoder layer and vision block."""
+    ``remat`` checkpoints each decoder layer and vision block; ``int4_i8dot``
+    picks the int8-dot decode kernel over an int4 cache."""
     return forward_hidden(
         model.text,
         inputs_embeds=embed_inputs(model, input_ids, vision, remat=remat),
@@ -87,6 +89,7 @@ def forward(
         cache=cache,
         kv_segment_ids=kv_segment_ids,
         remat=remat,
+        int4_i8dot=int4_i8dot,
     )
 
 

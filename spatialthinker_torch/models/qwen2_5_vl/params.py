@@ -21,16 +21,24 @@
   ``torch.Generator`` (normal * 0.02, zero biases, unit norms — the JAX
   package's init scheme).
 - ``build_model``: a state dict -> a ``Qwen25VL`` on a device.
+- ``load_params``: a local HF checkpoint directory (``config.json`` +
+  ``*.safetensors``; the ``safetensors`` package is imported only here) -> a
+  ``Qwen25VL`` on a device. ``trainer_state_from_jax``: a JAX trainer's
+  parameters, Adam moments, count and step as numpy trees -> what a port
+  trainer loads, so both trainers start a step from the same state.
 """
 
 from __future__ import annotations
 
+import glob
+import json
+import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-from .config import Qwen25VLConfig
+from .config import Qwen25VLConfig, TextConfig, VisionConfig
 from .model import Qwen25VL
 from .text import RMSNorm
 from ...ops.quant import QuantEmbedding, QuantLinear
@@ -291,3 +299,76 @@ def init_params(cfg: Qwen25VLConfig, generator: torch.Generator, device=None,
         else:
             p.normal_(0.0, 0.02, generator=generator)
     return model.eval()
+
+
+def config_from_hf_json(model_dir: str) -> Qwen25VLConfig:
+    """The port's config from an HF ``config.json`` on disk."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        hf = json.load(f)
+    text_src = hf.get("text_config", hf)
+    vis = hf["vision_config"]
+    text = TextConfig(
+        vocab_size=text_src["vocab_size"],
+        hidden_size=text_src["hidden_size"],
+        intermediate_size=text_src["intermediate_size"],
+        num_hidden_layers=text_src["num_hidden_layers"],
+        num_attention_heads=text_src["num_attention_heads"],
+        num_key_value_heads=text_src["num_key_value_heads"],
+        rms_norm_eps=text_src.get("rms_norm_eps", 1e-6),
+        rope_theta=text_src.get("rope_theta", 1e6),
+        mrope_section=tuple(text_src["rope_scaling"]["mrope_section"]),
+        tie_word_embeddings=hf.get("tie_word_embeddings", text_src.get("tie_word_embeddings", False)),
+    )
+    vision = VisionConfig(
+        depth=vis.get("depth", 32),
+        hidden_size=vis.get("hidden_size", 1280),
+        intermediate_size=vis.get("intermediate_size", 3420),
+        num_heads=vis.get("num_heads", 16),
+        in_channels=vis.get("in_channels", vis.get("in_chans", 3)),
+        patch_size=vis.get("patch_size", 14),
+        spatial_merge_size=vis.get("spatial_merge_size", 2),
+        temporal_patch_size=vis.get("temporal_patch_size", 2),
+        tokens_per_second=vis.get("tokens_per_second", 2),
+        window_size=vis.get("window_size", 112),
+        out_hidden_size=vis.get("out_hidden_size", text.hidden_size),
+        fullatt_block_indexes=tuple(vis.get("fullatt_block_indexes", (7, 15, 23, 31))),
+    )
+    return Qwen25VLConfig(
+        text=text,
+        vision=vision,
+        image_token_id=hf.get("image_token_id", 151655),
+        video_token_id=hf.get("video_token_id", 151656),
+        vision_start_token_id=hf.get("vision_start_token_id", 151652),
+        vision_end_token_id=hf.get("vision_end_token_id", 151653),
+        eos_token_id=hf.get("eos_token_id", 151645),
+    )
+
+
+def load_params(model_dir: str, *, device=None, dtype=torch.bfloat16) -> Qwen25VL:
+    """A ``Qwen25VL`` from a local HF checkpoint directory, on ``device``
+    (default: the current CUDA device)."""
+    from safetensors.torch import load_file
+
+    files = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files under {model_dir}")
+    state: Dict[str, torch.Tensor] = {}
+    for f in files:
+        state.update(load_file(f))
+    cfg = config_from_hf_json(model_dir)
+    return build_model(cfg, params_from_hf_state_dict(state, cfg), device=device, dtype=dtype)
+
+
+def trainer_state_from_jax(cfg: Qwen25VLConfig, *, params, mu, nu, count: int, step: int,
+                           compensation=None, moment_dtype=torch.float32,
+                           param_dtype=torch.float32) -> Dict[str, Any]:
+    """A JAX trainer's state (parameter tree, Adam moment trees, optimizer
+    count, global step; numpy leaves) -> ``{"params", "opt_state", "step"}``
+    in the layout ``GRPOTrainer.load_checkpoint`` reads from a checkpoint."""
+    return {
+        "params": {k: v.to(param_dtype) for k, v in params_from_jax(params, cfg).items()},
+        "opt_state": optimizer_state_from_jax(
+            cfg, count=count, mu=mu, nu=nu, compensation=compensation,
+            moment_dtype=moment_dtype, param_dtype=param_dtype),
+        "step": int(step),
+    }

@@ -151,10 +151,27 @@ def _unpack_kv4(packed: torch.Tensor, seq_axis: int) -> torch.Tensor:
     return torch.cat([low, high], dim=seq_axis)
 
 
+def repack_kv4(src: torch.Tensor, total: int) -> torch.Tensor:
+    """Re-lay a packed int4 buffer holding tokens [0, p) of a width-p cache
+    (L, B, Hkv, p/2, D) into the split-half layout of a width-``total`` cache
+    (L, B, Hkv, total/2, D): the nibble half of token t is t // (S/2), so a
+    width change is one unpack/repack pass over the prompt KV. Cells beyond
+    p hold the value 0 (stored nibble 8)."""
+    p = 2 * src.shape[3]
+    half_t = total // 2
+    toks = _unpack_kv4(src, seq_axis=3)  # (L, B, Hkv, p, D) int8
+    n_low = min(p, half_t)
+    low = F.pad(toks[:, :, :, :n_low], (0, 0, 0, half_t - n_low))
+    high = F.pad(toks[:, :, :, half_t:], (0, 0, 0, half_t - max(p - half_t, 0)))
+    return _pack_nibbles(low, high)
+
+
 def _update_kv4(arr: torch.Tensor, q4: torch.Tensor, layer_idx: int, start: int) -> torch.Tensor:
     """Write int4 token rows [start, start+s) of q4 (B, Hkv, s, D) into the
     packed (L, B, Hkv, Smax/2, D) uint8 buffer, in place; a write that crosses
-    the half boundary splits into a low-nibble and a high-nibble part."""
+    the half boundary splits into a low-nibble and a high-nibble part. The
+    decode step's single token touches one nibble of a byte whose other
+    nibble belongs to another token: a read-modify-write of that byte row."""
     half = arr.shape[3]
     s = q4.shape[2]
     qb = _biased(q4)
@@ -311,13 +328,14 @@ class DecoderLayer(nn.Module):
         layer_idx: int,
         kv_segment_ids: Optional[torch.Tensor] = None,  # (B, Smax) valid cells incl. cached prefix
         attend_to_cache: bool = False,  # chunked prefill: s > 1 queries see the cached prefix
+        int4_i8dot: bool = False,  # int4 cache: both decode dots on int8 operands
     ) -> torch.Tensor:
         """No cache: causal self-attention. With a cache: write this step's
         k/v at ``cache.length``; then prefill (s > 1) attends the prompt's own
         k/v, chunked prefill (``attend_to_cache``) the dequantized live cache
         prefix plus the chunk through the flash kernel with a static
-        ``causal_offset``, and decode (s == 1) the cache through the decode
-        kernel (bf16 caches only)."""
+        ``causal_offset``, and decode (s == 1) the cache, in whichever format
+        it is, through the decode kernels."""
         cfg = self.cfg
         b, s, _ = x.shape
         q, k, v = attention_inputs(self, cfg, x, cos, sin)
@@ -341,17 +359,15 @@ class DecoderLayer(nn.Module):
                     q, k_all.to(q.dtype), v_all.to(q.dtype), segment_ids=segment_ids,
                     kv_segment_ids=kv_seg, causal=True, causal_offset=cache.length,
                 )
-            elif cache.quantized:
-                raise NotImplementedError(
-                    "dense-cache decode over an int8 or int4 cache is not ported yet "
-                    "(the paged engine decodes quantized KV)"
-                )
             else:
-                # the query meets the cache in the cache's dtype (as the JAX
-                # package's decode path casts it), the output returns to x's
+                # a bf16 cache meets the query in the cache's dtype (as the JAX
+                # package's decode path casts it), a quantized one in x's; the
+                # output returns to x's
+                q1 = q[:, 0] if cache.quantized else q[:, 0].to(cache.k.dtype)
                 out = decode_attention(
-                    q[:, 0].to(cache.k.dtype).contiguous(), cache.k, cache.v,
+                    q1.contiguous(), cache.k, cache.v,
                     kv_segment_ids.to(torch.int32).contiguous(), layer_idx,
+                    cache.k_scale, cache.v_scale, int4_i8dot=int4_i8dot,
                 )[:, None].to(x.dtype)
 
         return finish_layer(self, cfg, x, out)
@@ -381,6 +397,7 @@ def forward_hidden(
     kv_segment_ids: Optional[torch.Tensor] = None,  # (B, Smax) validity of cache slots
     attend_to_cache: bool = False,
     remat: bool = False,
+    int4_i8dot: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack; returns (hidden_states (B, S, E), cache with
     its length advanced by S — the same buffers, written in place).
@@ -403,7 +420,7 @@ def forward_hidden(
         if remat and torch.is_grad_enabled():
             x = checkpoint(layer, x, cos, sin, segment_ids, None, i, use_reentrant=False)
         else:
-            x = layer(x, cos, sin, segment_ids, cache, i, kv_segment_ids, attend_to_cache)
+            x = layer(x, cos, sin, segment_ids, cache, i, kv_segment_ids, attend_to_cache, int4_i8dot)
     if cache is not None:
         cache = KVCache(cache.k, cache.v, cache.length + x.shape[1], cache.k_scale, cache.v_scale)
     return text.norm(x), cache

@@ -11,9 +11,10 @@ compacted tokens (validity is ``cell < length``):
 - int4 pools (uint8, (L, N, Hkv, page/2, D): byte row r of a page holds cell
   r in its low nibble and cell r + page/2 in its high nibble, +8 biased) with
   both dots on int8 operands (``int4_i8dot=True``): the TPU kernel
-  ``_paged_kernel_int4_i8`` -> ``_launch_int4_i8_kernel``. The bf16-dot int4
-  kernel (``int4_i8dot=False``) and the fused staging block (``staged=``)
-  are not ported and raise on every device.
+  ``_paged_kernel_int4_i8`` -> ``_launch_int4_i8_kernel``; or with the dots on
+  the unsigned nibbles widened to floating point (``int4_i8dot=False``): the
+  TPU kernel ``_paged_kernel_int4`` -> ``_launch_int4_kernel``. The fused
+  staging block (``staged=``) is not ported and raises on every device.
 
 Unused page-table entries point at page 0 (a reserved dummy) and are masked
 by the length. The result is (S, Hq, D) and, with ``return_stats``, the
@@ -22,9 +23,9 @@ callers that merge further cells by the flash combine. A slot of length 0
 gives o = 0, m = -1e30, l = 0.
 
 The plain versions walk the table page block by page block with the same
-arithmetic as the kernels (bf16-rounded softmax weights; for int4, q
-quantized per row and the weights per row per page against the running
-max). ``paged_attention_gathered`` is the exact dense-gather reference (the
+arithmetic as the kernels (bf16-rounded softmax weights; for int4 with int8
+dots, q quantized per row and the weights per row per page against the
+running max). ``paged_attention_gathered`` is the exact dense-gather reference (the
 JAX package's XLA fallback): dequantize, one masked softmax in fp32.
 
 The wrapper runs the plain versions for CPU tensors only. A CUDA tensor
@@ -44,21 +45,16 @@ KV4_BIAS = 8
 KERNEL_HEAD_DIM = 128
 KERNEL_MAX_GROUP = 16
 KERNEL_MAX_SMEM = 232448  # dynamic shared memory a block may opt in to on sm_90
-MODE_BF16, MODE_INT8, MODE_INT4_I8 = 0, 1, 2
+MODE_BF16, MODE_INT8, MODE_INT4_I8, MODE_INT4 = 0, 1, 2, 3
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _pool_mode(k_pool: torch.Tensor, k_scale, int4_i8dot: bool) -> int:
     if k_pool.dtype == torch.uint8:
-        if not int4_i8dot:
-            raise NotImplementedError(
-                "int4 pools with bf16 dots (int4_i8dot=False) are not ported yet; "
-                "run int4 pools with int4_i8dot=True"
-            )
         if k_scale is None:
             raise ValueError("int4 pools need k_scale and v_scale")
-        return MODE_INT4_I8
+        return MODE_INT4_I8 if int4_i8dot else MODE_INT4
     if k_pool.dtype == torch.int8:
         if k_scale is None:
             raise ValueError("int8 pools need k_scale and v_scale")
@@ -115,6 +111,52 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, lengths, layer_idx,
     return out, m.reshape(s_slots, hq), l.reshape(s_slots, hq)
 
 
+def _page_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """(S, Hkv, page/2, D) uint8 -> (S, Hkv, page, D) stored (+8 biased) nibble
+    values in page-cell order, fp32."""
+    return torch.cat([packed & 15, packed >> 4], dim=2).float()
+
+
+def paged_attention_int4_plain(q, k_pool, v_pool, page_table, lengths, layer_idx,
+                               k_scale, v_scale, scale) -> Stats:
+    """int4 pools, dots on the unsigned nibbles u = value + 8 (exact in bf16).
+    Per page: scores = (q . u - 8 * sum(q)) * (k_scale * scale); online
+    softmax; the weights times v_scale are rounded to bf16 for the p . u dot,
+    which is debiased by -8 * sum(p) with the UNROUNDED fp32 weights (the
+    order the kernels keep)."""
+    s_slots, hq, d = q.shape
+    hkv, half = k_pool.shape[2], k_pool.shape[3]
+    page = 2 * half
+    g = hq // hkv
+    qg = q.reshape(s_slots, hkv, g, d).float()
+    sumq = qg.sum(dim=-1, keepdim=True)
+    kl, vl = k_pool[layer_idx], v_pool[layer_idx]
+    m = torch.full((s_slots, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((s_slots, hkv, g, d), dtype=torch.float32, device=q.device)
+    cell = torch.arange(page, device=q.device)
+    lengths = lengths.to(torch.int64)
+    for pi in range(page_table.shape[1]):
+        ids = page_table[:, pi].to(torch.int64)
+        s = torch.einsum("shgd,shcd->shgc", qg, _page_nibbles(kl[ids])) - KV4_BIAS * sumq
+        s = s * (k_scale[layer_idx][ids].float() * scale)[:, :, None, :]
+        valid = (pi * page + cell)[None, :] < lengths[:, None]
+        valid = valid[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        p = p * v_scale[layer_idx][ids].float()[:, :, None, :]
+        pv = torch.einsum("shgc,shcd->shgd", p.to(torch.bfloat16).float(), _page_nibbles(vl[ids]))
+        pv = pv - KV4_BIAS * p.sum(dim=-1, keepdim=True)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    out = (acc / safe[..., None]).reshape(s_slots, hq, d).to(q.dtype)
+    return out, m.reshape(s_slots, hq), l.reshape(s_slots, hq)
+
+
 def paged_attention_int4_i8_plain(q, k_pool, v_pool, page_table, lengths, layer_idx,
                                   k_scale, v_scale, scale) -> Stats:
     """int4 pools, both dots on int8 operands. q quantizes per (head, row)
@@ -139,9 +181,7 @@ def paged_attention_int4_i8_plain(q, k_pool, v_pool, page_table, lengths, layer_
     acc = torch.zeros((s_slots, hkv, g, d), dtype=torch.float32, device=q.device)
     cell = torch.arange(page, device=q.device)
     lengths = lengths.to(torch.int64)
-
-    def nibbles(packed):  # (S, Hkv, half, D) uint8 -> (S, Hkv, page, D) biased values
-        return torch.cat([packed & 15, packed >> 4], dim=2).float()
+    nibbles = _page_nibbles
 
     for pi in range(page_table.shape[1]):
         ids = page_table[:, pi].to(torch.int64)
@@ -226,7 +266,7 @@ def _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scal
         raise ValueError(f"page_table {tuple(page_table.shape)} does not fit {s_slots} slots")
     if tuple(lengths.shape) != (s_slots,):
         raise ValueError(f"lengths must be ({s_slots},), got {tuple(lengths.shape)}")
-    pool_dtype = (torch.bfloat16, torch.int8, torch.uint8)[mode]
+    pool_dtype = (torch.bfloat16, torch.int8, torch.uint8, torch.uint8)[mode]
     tensors = [("q", q, torch.bfloat16), ("k_pool", k_pool, pool_dtype),
                ("v_pool", v_pool, pool_dtype), ("page_table", page_table, torch.int32),
                ("lengths", lengths, torch.int32)]
@@ -287,8 +327,16 @@ def _launch_int4_i8_kernel(*args) -> Stats:
     return res
 
 
+def _launch_int4_kernel(*args) -> Stats:
+    """int4 pools with the dots on the widened nibbles (mode 3 of the kernel)."""
+    res = _launch(*args, mode=MODE_INT4)
+    _launch_int4_kernel.launches += 1
+    return res
+
+
 _launch_pool_kernel.launches = 0
 _launch_int4_i8_kernel.launches = 0
+_launch_int4_kernel.launches = 0
 
 
 def paged_attention(
@@ -317,10 +365,16 @@ def paged_attention(
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     args = (q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, scale)
     if not q.is_cuda:
-        plain = paged_attention_int4_i8_plain if mode == MODE_INT4_I8 else paged_attention_plain
-        out = plain(*args)
+        if mode == MODE_INT4_I8:
+            out = paged_attention_int4_i8_plain(*args)
+        elif mode == MODE_INT4:
+            out = paged_attention_int4_plain(*args)
+        else:
+            out = paged_attention_plain(*args)
     elif mode == MODE_INT4_I8:
         out = _launch_int4_i8_kernel(*args)
+    elif mode == MODE_INT4:
+        out = _launch_int4_kernel(*args)
     else:
         out = _launch_pool_kernel(*args, mode=mode)
     return out if return_stats else out[0]

@@ -9,7 +9,7 @@ by log-probs, not tokens.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -22,6 +22,10 @@ class SamplingParams:
     top_p: float = 1.0
     top_k: int = -1
     n: int = 1
+
+    def override(self, **kwargs) -> "SamplingParams":
+        """A copy with the given fields replaced; ``None`` keeps a field."""
+        return replace(self, **{k: v for k, v in kwargs.items() if v is not None})
 
     @property
     def greedy(self) -> bool:

@@ -1,2 +1,3 @@
-"""The GRPO update path: optimizer, update step and per-step glue
-(counterpart of ``spatialthinker_tpu/trainer``)."""
+"""The trainer: the ``GRPOTrainer`` class and its CLI (``main.py``), the update
+step and optimizer, metrics, tracker and checkpoints (counterpart of
+``spatialthinker_tpu/trainer``)."""

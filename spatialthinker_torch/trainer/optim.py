@@ -107,6 +107,13 @@ class AdamW:
         stays. The next step starts them from zero."""
         self.state = {"count": self.state["count"], "mu": {}, "nu": {}, "compensation": {}}
 
+    def init(self, named_params: Iterable[Tuple[str, torch.Tensor]]) -> None:
+        """Allocate the moments (and compensation buffers) of every named
+        parameter now instead of at its first step, so that what a training
+        run keeps resident is resident before anything else is sized."""
+        for name, p in named_params:
+            self._leaf_state(name, p)
+
     @property
     def moment_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.strategy == "adamw_bf16" else torch.float32

@@ -13,6 +13,10 @@ The paged kernels repeat their plain versions' arithmetic page by page: the
 stats m, l within 2e-3 (fast-math-free fp32, other summation order), the
 bf16 output within 2e-2 (bf16 pools) or 1e-2 of an O(0.3) output (int8 and
 int4 pools; an int8 softmax weight on a rounding tie may flip by one step).
+The quantized dense-decode kernels (int8, int4, int4 with int8 dots) repeat
+their plain version's arithmetic with a running max instead of the global
+one: bf16 outputs of O(0.3) within 1e-2 (an int8 softmax weight on a rounding
+tie may flip by one step of 1/127 of its block's largest weight).
 The flash backward kernels round p and ds to bf16 before the second products
 where the plain version keeps fp32: each gradient within 1e-2 of its own
 largest magnitude (4e-3 to 7e-3 measured on an H100); padding rows exactly zero.
@@ -25,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from spatialthinker_torch.ops import decode_attention as da
 from spatialthinker_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from spatialthinker_torch.ops import paged_attention as pa
 from spatialthinker_torch.ops import flash_attention as fa
@@ -173,6 +178,70 @@ def test_decode_kernel_matches_plain(dev, hq, hkv, s):
         assert torch.all(out[2] == 0)
 
 
+def _quant_cache(dev, kind, b, hkv, s, n_layers=2, d=128, seed=0):
+    """A dense quantized cache of random stored values and scales, with a
+    ragged ``kv_seg``: left padding, holes, an unwritten tail, one empty row."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    int4 = kind != "int8"
+    shape = (n_layers, b, hkv, s // 2 if int4 else s, d)
+    lo, hi, dtype = (0, 256, torch.uint8) if int4 else (-127, 128, torch.int8)
+    k = torch.randint(lo, hi, shape, dtype=dtype, device=dev, generator=gen)
+    v = torch.randint(lo, hi, shape, dtype=dtype, device=dev, generator=gen)
+    s_lo, s_hi = (0.01, 0.1) if int4 else (0.001, 0.02)
+    ks, vs = ((torch.rand((n_layers, b, hkv, s), device=dev, generator=gen) * (s_hi - s_lo) + s_lo)
+              .to(torch.bfloat16) for _ in range(2))
+    seg = (torch.rand((b, s), device=dev, generator=gen) < 0.8).to(torch.int32)
+    seg[:, s - s // 6:] = 0
+    seg[0, : s // 3] = 0
+    seg[:, s // 3] = 1
+    seg[b - 1] = 0
+    return k, v, ks, vs, seg
+
+
+QUANT_DECODE_CASES = [
+    # kind, Hq, Hkv, S (int4: 768 = three 128-row blocks, 512 = one 256-row block,
+    # 200 = one 100-row block, 1024 = two 256-row blocks)
+    ("int8", 16, 2, 640), ("int8", 14, 2, 200), ("int8", 16, 16, 128),
+    ("int4", 16, 2, 768), ("int4", 14, 2, 512), ("int4", 16, 2, 200),
+    ("int4_i8", 16, 2, 768), ("int4_i8", 14, 2, 512), ("int4_i8", 16, 2, 200), ("int4_i8", 16, 4, 1024),
+]
+
+
+@pytest.mark.parametrize("kind,hq,hkv,s", QUANT_DECODE_CASES)
+def test_quantized_decode_kernels_match_plain(dev, kind, hq, hkv, s):
+    b, d = 5, 128
+    rng = np.random.default_rng(hq + s)
+    q = _bf16(rng, (b, hq, d), dev)
+    k, v, ks, vs, seg = _quant_cache(dev, kind, b, hkv, s, seed=s)
+    counter = {"int8": da._launch_int8_kernel, "int4": da._launch_int4_kernel,
+               "int4_i8": da._launch_int4_i8_kernel}[kind]
+    i8 = kind == "int4_i8"
+    for layer in (0, 1):
+        ref = decode_attention_plain(q, k, v, seg, layer, d**-0.5, ks, vs, i8)
+        before = counter.launches, decode_attention.launches
+        out = decode_attention(q, k, v, seg, layer, ks, vs, int4_i8dot=i8)
+        torch.cuda.synchronize()
+        assert (counter.launches, decode_attention.launches) == (before[0] + 1, before[1])
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+        assert torch.all(out[b - 1] == 0) and out[0].abs().max() > 0
+
+
+def test_quantized_decode_wrapper_raises_on_unsupported_cuda_input(dev):
+    q = _bf16(np.random.default_rng(0), (5, 16, 128), dev)
+    k, v, ks, vs, seg = _quant_cache(dev, "int4", 5, 2, 512)
+    with pytest.raises(ValueError):  # fp32 query
+        decode_attention(q.float(), k, v, seg, 0, ks, vs)
+    with pytest.raises(ValueError):  # scales of the packed width
+        decode_attention(q, k, v, seg, 0, ks[..., :256].contiguous(), vs[..., :256].contiguous())
+    with pytest.raises(ValueError):  # kv_seg of the packed width
+        decode_attention(q, k, v, seg[:, :256].contiguous(), 0, ks, vs)
+    with pytest.raises(ValueError, match="needs k_scale"):
+        decode_attention(q, k, v, seg, 0)
+    with pytest.raises(ValueError, match="shared memory"):  # one block of 3,000 byte rows
+        kb, vb, ksb, vsb, segb = _quant_cache(dev, "int4", 1, 1, 6000, n_layers=1)
+        decode_attention(q[:1], kb, vb, segb, 0, ksb, vsb, int4_i8dot=True)
+
+
 def test_kernels_raise_on_unsupported_cuda_input(dev):
     q = torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=dev)
     seg = torch.ones((1, 8), dtype=torch.int32, device=dev)
@@ -230,16 +299,22 @@ PAGED_CASES = [
     ("int4", 8, 1024, (1500, 1024, 3, 2048)),
     ("int4", 7, 6, (11, 6, 1, 17, 0)),
     ("int4", 16, 130, (300, 131, 65, 66)),
+    ("int4_bf16dot", 8, 256, (600, 256, 37, 0, 511)),
+    ("int4_bf16dot", 8, 1024, (1500, 1024, 3, 2048)),
+    ("int4_bf16dot", 7, 6, (11, 6, 1, 17, 0)),
+    ("int4_bf16dot", 16, 130, (300, 131, 65, 66)),
 ]
 
 
 @pytest.mark.parametrize("kind,g,page,lengths", PAGED_CASES)
 def test_paged_kernels_match_plain(dev, kind, g, page, lengths):
     rng = np.random.default_rng(page + g)
-    args = _paged_case(rng, dev, kind, g, page, lengths)
+    args = _paged_case(rng, dev, kind.split("_")[0], g, page, lengths)
     i8 = kind == "int4"
-    plain = pa.paged_attention_int4_i8_plain if i8 else pa.paged_attention_plain
-    counter = pa._launch_int4_i8_kernel if i8 else pa._launch_pool_kernel
+    plain, counter = {
+        "int4": (pa.paged_attention_int4_i8_plain, pa._launch_int4_i8_kernel),
+        "int4_bf16dot": (pa.paged_attention_int4_plain, pa._launch_int4_kernel),
+    }.get(kind, (pa.paged_attention_plain, pa._launch_pool_kernel))
     o_ref, m_ref, l_ref = plain(*args, 128**-0.5)
     before = counter.launches
     o, m, l = pa.paged_attention(*args, return_stats=True, int4_i8dot=i8)
@@ -275,7 +350,9 @@ def test_paged_and_silu_wrappers_raise_on_unsupported_cuda_input(dev):
     rng = np.random.default_rng(0)
     args = list(_paged_case(rng, dev, "int4", 8, 256, (300, 10)))
     with pytest.raises(NotImplementedError):
-        pa.paged_attention(*args, int4_i8dot=False)
+        pa.paged_attention(*args, int4_i8dot=False, staged=(None,) * 5)
+    with pytest.raises(ValueError):  # fp32 query
+        pa.paged_attention(args[0].float(), *args[1:], int4_i8dot=False)
     with pytest.raises(ValueError):  # fp32 query
         pa.paged_attention(args[0].float(), *args[1:], int4_i8dot=True)
     with pytest.raises(ValueError):  # int64 table

@@ -163,6 +163,13 @@ def test_qwen_synthetic_tokenizer_uses_the_config_ids():
     "spatialthinker_torch.csrc", "spatialthinker_torch.utils.synthetic_tokenizer",
     "spatialthinker_torch.core", "spatialthinker_torch.rollout.paged", "spatialthinker_torch.ops.quant",
     "spatialthinker_torch.ops.silu_quant", "spatialthinker_torch.ops.paged_attention",
+    "spatialthinker_torch.ops.decode_attention", "spatialthinker_torch.algos", "spatialthinker_torch.rewards",
+    "spatialthinker_torch.core.config", "spatialthinker_torch.data.dataset",
+    "spatialthinker_torch.utils.seqlen_balancing", "spatialthinker_torch.utils.flops_counter",
+    "spatialthinker_torch.utils.tokenizer", "spatialthinker_torch.utils.profiling",
+    "spatialthinker_torch.trainer.metrics", "spatialthinker_torch.trainer.tracker",
+    "spatialthinker_torch.trainer.checkpoint", "spatialthinker_torch.trainer.grpo_trainer",
+    "spatialthinker_torch.trainer.main", "chip_smoke", "profile_rollout",
 ])
 def test_port_imports_no_jax(module):
     """Importing a module of the port pulls in neither jax, nor anything of
@@ -174,3 +181,19 @@ def test_port_imports_no_jax(module):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
+
+def test_no_source_line_of_the_port_imports_jax_or_the_jax_package():
+    """The same pinned in the sources: no ``import`` / ``from`` line of the
+    package, of ``chip_smoke.py`` or of ``profile_rollout.py`` names jax or
+    ``spatialthinker_tpu`` (a lazy import inside a function would slip past
+    the module-import check above)."""
+    import re
+
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|spatialthinker_tpu)\b")
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "profile_rollout.py")]
+    for root, dirs, names in os.walk(os.path.join(REPO, "spatialthinker_torch")):
+        dirs[:] = [d for d in dirs if d != "build"]  # csrc/build holds build outputs, not sources
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 50
+    bad = [(f, i + 1) for f in files for i, line in enumerate(open(f)) if pattern.match(line)]
+    assert not bad, bad

@@ -17,6 +17,13 @@ Tolerances:
   of an O(0.3) value; a weight that sits on an int8 rounding tie may flip
   by one step of 1/127 of its row max). Against the exact fallback, the
   reference test's envelope: m 2e-2, l 5e-2, relative output norm 3e-2;
+- int4 pools with the dots on the widened nibbles (``int4_i8dot=False``):
+  the plain version repeats the interpret-mode kernel's arithmetic (bf16
+  weights in the dot, fp32 weights in the -8 debias): m, l within 1e-5,
+  output within 2e-3 (one bf16 ulp of the O(0.3) output; a weight on a bf16
+  rounding boundary may round the other way); against the exact fallback
+  (which rounds every dequantized k and v to bf16, 0.4% of a value) m, l
+  within 5e-3 and the output within 5e-3;
 - ``paged_attention_gathered`` is the fallback itself: 1e-5.
 """
 
@@ -132,6 +139,26 @@ def test_plain_int4_i8_vs_pallas_and_fallback(g, lengths):
         assert np.all(o[dead] == 0) and np.all(l[dead] == 0)
 
 
+@pytest.mark.parametrize("g,lengths", [(2, (300, 256, 37, 512)), (7, (300, 1, 0, 511))])
+def test_plain_int4_vs_pallas_and_fallback(g, lengths):
+    """``_paged_kernel_int4`` (no ``int4_i8dot``) at the int8-dot test's shapes."""
+    case = _case("int4", np.random.default_rng(32), page=256, g=g, lengths=lengths)
+    t_args = _torch_args(*case, qdtype=torch.bfloat16)
+    o, m, l = _np(pa.paged_attention(*t_args, return_stats=True, int4_i8dot=False))
+    o_k, m_k, l_k = _np(_pallas_paged(*_jax_args(*case, qdtype=jnp.bfloat16), int4_i8dot=False))
+    o_x, m_x, l_x = _np(_xla_paged(*_jax_args(*case, qdtype=jnp.bfloat16)))
+    np.testing.assert_allclose(m, m_k, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(l, l_k, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(o, o_k, rtol=0, atol=2e-3)
+    live = np.asarray(lengths) > 0
+    np.testing.assert_allclose(m[live], m_x[live], rtol=5e-3, atol=5e-3)
+    np.testing.assert_allclose(l[live], l_x[live], rtol=5e-3, atol=5e-3)
+    np.testing.assert_allclose(o, o_x, rtol=0, atol=5e-3)
+    if not live.all():
+        dead = int(np.argmin(live))
+        assert np.all(o[dead] == 0) and np.all(l[dead] == 0)
+
+
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
 def test_gathered_reference_is_the_xla_fallback(kind):
     case = _case(kind, np.random.default_rng(5), n_pages=13, page=64 if kind != "int4" else 128)
@@ -160,9 +187,8 @@ def test_odd_half_page_and_default_scale():
 def test_unported_modes_raise_on_cpu_too():
     case = _case("int4", np.random.default_rng(1))
     t_args = _torch_args(*case, qdtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="int4_i8dot"):
-        pa.paged_attention(*t_args, int4_i8dot=False)
-    with pytest.raises(NotImplementedError, match="staged"):
-        pa.paged_attention(*t_args, int4_i8dot=True, staged=(None,) * 5)
+    for i8 in (False, True):
+        with pytest.raises(NotImplementedError, match="staged"):
+            pa.paged_attention(*t_args, int4_i8dot=i8, staged=(None,) * 5)
     with pytest.raises(ValueError, match="need k_scale"):
         pa.paged_attention(*t_args[:6], None, None, int4_i8dot=True)

@@ -226,8 +226,8 @@ def test_unported_options_raise(models):
     _, model = models
     with pytest.raises(NotImplementedError, match="fuse_staged"):
         _run(model, _prompts(0), slots=2, page_size=4, fuse_staged=True)
-    with pytest.raises(NotImplementedError, match="int4_i8dot"):
-        _run(model, _prompts(0), "int4", slots=2, page_size=4, decode_chunk_size=2)
+    with pytest.raises(NotImplementedError, match="fuse_staged"):
+        _run(model, _prompts(0), "int4", slots=2, page_size=4, decode_chunk_size=2, fuse_staged=True)
     with pytest.raises(TypeError):
         _run(model, _prompts(0), slots=2, page_size=4, mesh=object())
 

@@ -9,6 +9,18 @@ package's, on the tiny config with images and left-padded prompts.
   engines decode from a bf16 KV cache (rollout.kv_cache_dtype: bfloat16) and
   round the query and softmax weights to bf16 there: about 3e-3 apart on
   this config, so atol 1e-2;
+- greedy ``generate`` over an int8 and an int4 cache (n=1 and n=2, whole,
+  sequence-chunked and rows-mode prefill): on the CPU the JAX engine decodes
+  through its exact dequantizing fallback, so with the port's decode
+  attention swapped for an exact dequantizing reference the engines must
+  match token for token (the cache bytes are the same), log-probs within
+  2e-3 (a chunked prefill attends its own dequantized KV; an int4 step on a
+  rounding boundary moves a logit by that much, as in
+  ``tests/test_torch_prefill_modes.py``). With the port's own plain versions
+  (the kernels' arithmetic: bf16 weights, and with ``int4_i8dot`` int8
+  rounding of q and of the softmax weights, ~0.4% of a row max each) the
+  first token is equal and the log-probs of the tokens both engines chose
+  stay within 2e-2;
 - the sampling helpers match the JAX ones on the same logits: the masks
   exactly, log-probs within 1e-6 (fp32, one reduction).
 """
@@ -27,6 +39,8 @@ from spatialthinker_tpu.models.qwen2_5_vl import forward_logits as jax_forward_l
 from spatialthinker_tpu.rollout import sampling as jax_sampling
 from spatialthinker_tpu.rollout.engine import generate as jax_generate
 from spatialthinker_torch.models.qwen2_5_vl import VisionInputs
+from spatialthinker_torch.models.qwen2_5_vl import text as torch_text
+from spatialthinker_torch.ops import decode_attention as da
 from spatialthinker_torch.rollout import sampling
 from spatialthinker_torch.rollout.engine import generate
 from spatialthinker_torch.utils.synthetic_tokenizer import QwenSyntheticTokenizer
@@ -92,6 +106,73 @@ def test_greedy_generate_matches_jax(models, batch, n):
     np.testing.assert_allclose(
         got.rollout_log_probs.numpy(), np.asarray(ref.rollout_log_probs), atol=1e-4, rtol=1e-4
     )
+
+
+JAX_KV = {"int8": jnp.int8, "int4": jnp.uint8}
+TORCH_KV = {"int8": torch.int8, "int4": torch.uint8}
+
+
+def _exact_decode(q, k_cache, v_cache, kv_seg, layer_idx, k_scale=None, v_scale=None, scale=None,
+                  int4_i8dot=False):
+    """Dequantize the layer, one exact masked softmax in fp32 (the JAX
+    package's ``_xla_decode``)."""
+    k_l, v_l = torch_text._layer_kv(k_cache, v_cache, layer_idx, q.dtype, k_scale, v_scale)
+    as_stack = lambda t: t.transpose(1, 2)[None].float()  # noqa: E731  (1, B, Hkv, S, D)
+    return da.decode_attention_plain(q.float(), as_stack(k_l), as_stack(v_l), kv_seg, 0,
+                                     scale if scale is not None else q.shape[-1] ** -0.5).to(q.dtype)
+
+
+def _quantized_runs(models, batch, kv, n, i8dot=False, **prefill):
+    jax_params, model = models
+    inputs = _engine_inputs(batch)
+    pack = _vision(batch)
+    ref = jax_generate(
+        jax_params, JAX_CFG, *(jnp.asarray(a) for a in inputs),
+        max_new_tokens=R, sampling=jax_sampling.SamplingParams(temperature=0.0),
+        key=jax.random.key(0), vision=jax.tree.map(jnp.asarray, pack), n=n,
+        kv_cache_dtype=JAX_KV[kv], int4_i8dot=i8dot, **prefill,
+    )
+
+    def run():
+        return generate(
+            model, *(to_torch(a) for a in inputs), max_new_tokens=R,
+            sampling=sampling.SamplingParams(temperature=0.0), generator=torch.Generator().manual_seed(0),
+            vision=VisionInputs(*(to_torch(a) for a in pack[:5])), n=n,
+            kv_cache_dtype=TORCH_KV[kv], int4_i8dot=i8dot, **prefill,
+        )
+
+    return ref, run
+
+
+@pytest.mark.parametrize("prefill", [{}, {"prefill_chunk": 16}, {"prefill_rows": 2},
+                                     {"prefill_rows": 2, "prefill_chunk": 16}],
+                         ids=["whole", "chunked", "rows", "rows_chunked"])
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+def test_greedy_quantized_cache_matches_jax(models, batch, kv, n, prefill, monkeypatch):
+    ref, run = _quantized_runs(models, batch, kv, n, **prefill)
+    monkeypatch.setattr(torch_text, "decode_attention", _exact_decode)
+    got = run()
+    assert got.responses.shape == (3 * n, R)
+    np.testing.assert_array_equal(got.responses.numpy(), np.asarray(ref.responses))
+    np.testing.assert_array_equal(got.response_mask.numpy(), np.asarray(ref.response_mask))
+    np.testing.assert_allclose(got.rollout_log_probs.numpy(), np.asarray(ref.rollout_log_probs),
+                               atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("kv,i8dot", [("int8", False), ("int4", False), ("int4", True)],
+                         ids=["int8", "int4", "int4_i8dot"])
+def test_greedy_quantized_cache_plain_versions_stay_close_to_jax(models, batch, kv, i8dot):
+    """The same runs through the port's own plain versions (what its kernels
+    compute), grouped n=2: the first token comes from the prefill alone."""
+    ref, run = _quantized_runs(models, batch, kv, 2, i8dot=i8dot)
+    got = run()
+    same = got.responses.numpy() == np.asarray(ref.responses)
+    assert same[:, 0].all()
+    agree = np.cumprod(same, axis=1).astype(bool) & np.asarray(ref.response_mask, bool)
+    assert agree.mean() > 0.5
+    np.testing.assert_allclose(got.rollout_log_probs.numpy()[agree], np.asarray(ref.rollout_log_probs)[agree],
+                               rtol=0, atol=2e-2)
 
 
 def test_sampled_grouped_logprobs_match_jax_teacher_forcing(models, batch):
