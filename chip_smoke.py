@@ -20,8 +20,12 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    attention forms here and, after path d, on the segment ids its first
    micro-batch gave them (packed text rows, the vision pack of that
    micro-batch's images as one sequence and as windows), timed beside SDPA
-   and its backward;
-4. drives six paths at full Qwen2.5-VL-3B width with seeded random weights
+   and its backward; the int4 MLP kernels (gate_up + silu, down) at m = 136,
+   128 and 8 rows of the 3B widths, timed beside ``torch._int_mm`` on the
+   int8 copy of the same weights (a yardstick: no PyTorch call computes the
+   int4 function), and one 3B MLP at m = 256, where the eligibility rule
+   refuses the down kernel, taking the int8 path with neither kernel launched;
+4. drives seven paths at full Qwen2.5-VL-3B width with seeded random weights
    made on the device, each with the kernels' launch counts set to 0 just
    before and read just after, and with the plain versions forbidden:
    a. the dense engine (bf16): 4 image requests through
@@ -32,8 +36,9 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
       pages, a finite page pool and fewer slots than lanes (sampled, T=1);
    c. the paged engine with bf16 weights and bf16 pools (greedy);
    then d. the training path: one GRPO step through the functions of
-      ``spatialthinker_torch/trainer/grpo_trainer.py`` -- the paged rollout of
-      path b, old log-probs (policy) and ref log-probs (a frozen copy) on
+      ``spatialthinker_torch/trainer/grpo_trainer.py``, at 3B widths with
+      ``TRAIN_LAYERS`` of the 36 text layers -- the paged rollout of
+      path b's requests, old log-probs (policy) and ref log-probs (a frozen copy) on
       packed multimodal rows, GRPO advantages, the packed actor update
       (dual-clip loss + ``low_var_kl``, per-layer checkpointing, the flash
       backward kernels, AdamW);
@@ -47,7 +52,14 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    f. the rollout knobs that reach the other decode kernels, through the same
       trainer's ``generate_sequences``: the dense engine (``rollout.name=jax``)
       over an int8 cache, an int4 cache and an int4 cache with ``int4_i8dot``,
-      and the paged engine with int4 pools without ``int4_i8dot``;
+      the paged engine with int4 pools without ``int4_i8dot``, the continuous
+      engine (``page_size=0``) over an int8 cache, and the dense engine with
+      the w4a8 copy (128 rows through the int4 MLP kernels);
+   g. the same trainer with path e's dotlist and four knobs changed
+      (``rollout.name=continuous``, ``page_size=0``, ``quantization=w4a8``,
+      ``decode_batch_size=128``): ONE ``train_step`` — 16 prompts x n 8
+      through 136 lanes of the continuous engine, the int4 MLP kernels at
+      every decode step, the real reward, old / ref log-probs, the update;
    and a checkpoint round trip at 3B widths and 4 layers: a trainer takes a
    step and saves, a fresh trainer (built from the same initial weights, as a
    resumed run is) loads, both take the next step;
@@ -58,7 +70,8 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    ``rollout/probs_diff``) and its greedy first tokens against the dense
    engine's; the bf16-pool paged path against the dense engine (equal first
    tokens, and no further from the teacher-forced bf16 model than the dense
-   engine is, see ``ENGINE_DRIFT_RATIO``); for the training path: finite
+   engine is, see ``ENGINE_DRIFT_RATIO``); the int4 MLP kernels within
+   ``INT4_REL_TOL`` of their plain versions; for the training path: finite
    metrics, a positive gradient norm, parameters that moved and a reference
    copy that did not, a first mini-batch whose forward recomputes the old
    log-probs (``actor/ppo_kl`` ~ 0, nothing clipped), old log-probs as close
@@ -70,9 +83,20 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    ``reward/*``, ``timing_s/*``, ``perf/*``, ``rollout/kv_*`` and a
    ``rollout/probs_diff_mean`` within ``PROBS_DIFF_LIMIT``, a
    ``val/reward_score``, parameters that moved and a reference copy that did
-   not; per knob case its kernel launched, the other decode kernels not, and
-   the engine's log-probs near the trainer's own; after the checkpoint round
-   trip equal metrics and parameters;
+   not; per knob case its kernels launched, the other decode kernels not, and
+   the engine's log-probs near the trainer's own; two controls (the
+   dense_w4a8 case with the int4 copies' gate and up halves swapped, and with
+   each layer on the next layer's copies) land above
+   ``W4_PROBS_DIFF_LIMIT``; for path g 136 lanes, both
+   int4 kernels and the int4 int8-dot decode kernel launched 36 times per
+   decode step, the silu junction at prefill, no paged kernel, a token in
+   every row, finite log-probs <= 0 and ``rollout/probs_diff_mean`` within
+   ``W4_PROBS_DIFF_LIMIT``; on the inputs one decode call of path g and of
+   the continuous_int8 case really had (``record_call``: the last layer at
+   the middle decode step, the slot cache with the prompt, the gap and the
+   ring cells) the decode kernel against its plain version, and on path g's
+   refill prefill the silu junction against its plain version; after the
+   checkpoint round trip equal metrics and parameters;
 6. prints one JSON line of kernel results, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -85,6 +109,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import gc
+import inspect
 import json
 import re
 import statistics
@@ -92,7 +117,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -101,8 +126,11 @@ import torch.nn.functional as F
 
 import spatialthinker_torch.ops.decode_attention as da
 import spatialthinker_torch.ops.flash_attention as fa
+import spatialthinker_torch.ops.int4_mlp as i4
 import spatialthinker_torch.ops.paged_attention as pa
 import spatialthinker_torch.ops.silu_quant as sq
+import spatialthinker_torch.rollout.continuous as tcont
+import spatialthinker_torch.trainer.grpo_trainer as gt
 from spatialthinker_torch import csrc
 from spatialthinker_torch.core.batch import RolloutBatch
 from spatialthinker_torch.core.config import build_config
@@ -111,10 +139,12 @@ from spatialthinker_torch.eval.providers import TorchProvider
 from spatialthinker_torch.models.qwen2_5_vl import (
     forward, init_params, logits_from_hidden, prefill_forward, qwen25_vl_3b, window_patch_len,
 )
-from spatialthinker_torch.models.qwen2_5_vl.text import KVCache
-from spatialthinker_torch.ops.quant import quantize_model
+from spatialthinker_torch.models.qwen2_5_vl.text import MLP, KVCache
+from spatialthinker_torch.ops.quant import (
+    QuantLinear, int8_matmul, quantize_activation, quantize_model, quantize_weight,
+)
 from spatialthinker_torch.rollout.engine import generate
-from spatialthinker_torch.rollout.paged import effective_prefill_chunk, generate_paged
+from spatialthinker_torch.rollout.paged import generate_paged
 from spatialthinker_torch.rollout.sampling import SamplingParams
 from spatialthinker_torch.trainer.grpo_trainer import (
     compute_advantages, compute_log_probs_batched, packed_micro_batches, rollout_batch_from_result,
@@ -145,6 +175,13 @@ PAGED_OUT_ATOL = {"bf16": 3e-2, "int8": 1e-2, "int4_i8": 1e-2, "int4": 1e-2}
 DECODE_QUANT_ATOL = 1e-2
 # silu -> int8: values at most one step apart (ties), scales 1e-5 relative
 SILU_SCALE_RTOL = 1e-5
+# int4 MLP kernels vs plain: the row quantize is the plain version's to the
+# bit and the int32 group dots are exact; the fp32 order of the group sums,
+# the silu's last bit and the bf16 rounding of the output remain: the largest
+# error within 1e-2 of the largest output magnitude (two bf16 ulps).
+INT4_REL_TOL = 1e-2
+INT4_MS = (136, 128, 8)  # path g's lanes (128 slots + trash, to a multiple of 8), path f's 128 rows, small
+INT4_FALLBACK_M = 256    # the JAX package's rule admits gate_up here and refuses down: the MLP is int8
 # Full 3B prefill, last-position logits: both bf16 paths (kernels, plain
 # attention) drift from an fp32 plain-path reference by bf16 rounding through
 # 36 text layers and 32 vision blocks. The kernel path must stay within twice
@@ -204,10 +241,21 @@ ACTOR = dict(
 # global_batch_size 128 of the shipped script cut to 64: two optimizer steps per GRPO step
 TRAIN = dict(global_batch_size=64, micro_rows=4, experience_micro=16, lr=1e-6, strategy="adamw")
 GRPO_STEPS = 1
+# Path d runs at 3B widths with 12 of the 36 text layers (the whole vision
+# tower): path e takes the same step at full depth through the trainer, and
+# the smoke has to stay within half its time limit on a slow host.
+TRAIN_LAYERS = 12
 # Path f: the dense engine over an int8 cache differs from path b's engine only
 # in the KV format (8 bits instead of 4), so its drift from the trainer's own
 # log-probs may exceed path b's measured probs_diff by at most this much.
 INT8_CACHE_EXTRA_DRIFT = 0.05
+# Paths g and f with w4a8: int4 g128 MLP weights carry ~11% RMS error per
+# weight on normal weights (tests/test_int4_mlp.py bounds the product at 15%)
+# against ~0.5% for int8, so the engine drifts further from the trainer's bf16
+# log-probs than W8A8's 0.09 (path e): 0.43 on an H100. The limit's other
+# side is measured in every run: ``w4_controls`` repeats the dense_w4a8 case
+# with miswired int4 copies, and each must land above it.
+W4_PROBS_DIFF_LIMIT = 0.5
 # The checkpoint round trip: the loaded trainer repeats the saving trainer's
 # next step on the same batch with the same sampling stream. Nothing in that
 # step is random, so metrics agree to fp32 summation noise. With random weights
@@ -328,7 +376,7 @@ PLAIN_VERSIONS = [
     (fa, "flash_fwd_plain"), (fa, "flash_bwd_plain"), (da, "decode_attention_plain"), (pa, "paged_attention_plain"),
     (pa, "paged_attention_int4_i8_plain"), (pa, "paged_attention_int4_plain"),
     (pa, "paged_attention_gathered"),
-    (sq, "fused_silu_quantize_plain"),
+    (sq, "fused_silu_quantize_plain"), (i4, "w4_gateup_silu_plain"), (i4, "w4_matmul_plain"),
 ]
 
 
@@ -354,7 +402,7 @@ def reset_counts() -> None:
     for fn in (fa.flash_fwd, fa._launch_bwd_dq, fa._launch_bwd_dkv, da.decode_attention,
                da._launch_int8_kernel, da._launch_int4_kernel, da._launch_int4_i8_kernel,
                pa._launch_pool_kernel, pa._launch_int4_i8_kernel, pa._launch_int4_kernel,
-               sq.fused_silu_quantize):
+               sq.fused_silu_quantize, i4.w4_gateup_silu, i4.w4_matmul):
         fn.launches = 0
 
 
@@ -369,6 +417,7 @@ def read_counts() -> dict:
         "paged_attention_int4_i8": pa._launch_int4_i8_kernel.launches,
         "paged_attention_int4": pa._launch_int4_kernel.launches,
         "silu_quant": sq.fused_silu_quantize.launches,
+        "int4_gateup": i4.w4_gateup_silu.launches, "int4_down": i4.w4_matmul.launches,
     }
 
 
@@ -601,8 +650,7 @@ def check_decode_quant(dev, cfg, kind: str, rows: int, width: int, prompt_len: i
     dense-engine shape (path f): every row of the rollout batch mid-generation
     over the full layer stack, random stored values and scales, ragged
     ``kv_seg`` (left padding per row, the unwritten tail) and one row with no
-    valid cell. The library yardstick is SDPA on the layer's DEQUANTIZED bf16
-    cache (the dequantization is not timed)."""
+    valid cell."""
     rng = np.random.default_rng({"int8": 12, "int4": 13, "int4_i8": 14}[kind])
     tc = cfg.text
     hq, hkv, d, n_layers = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim, tc.num_hidden_layers
@@ -622,14 +670,26 @@ def check_decode_quant(dev, cfg, kind: str, rows: int, width: int, prompt_len: i
         seg_np[i, pad : prompt_len + MAX_NEW_TOKENS // 2] = 1
     seg_np[rows - 1] = 0  # a row with no valid cell
     seg = torch.from_numpy(seg_np).to(dev)
-    layer = n_layers - 1
+    return decode_quant_case(cfg, kind, q, kc, vc, seg, n_layers - 1, ks, vs,
+                             f"{kind}_cache_{rows}_rows_width_{width}")
+
+
+def decode_quant_case(cfg, kind: str, q, kc, vc, seg, layer: int, ks, vs, label: str):
+    """One quantized dense-decode call, kernel vs plain version on the same
+    inputs: the largest difference, the rows with no valid cell left at 0,
+    both times, the bound from the valid cells, and SDPA on the layer's
+    DEQUANTIZED bf16 cache as the library yardstick (the dequantization is
+    not timed)."""
+    tc = cfg.text
+    hq, hkv, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    int4, i8 = kind != "int8", kind == "int4_i8"
     scale = d**-0.5
-    i8 = kind == "int4_i8"
     ref = da.decode_attention_plain(q, kc, vc, seg, layer, scale, ks, vs, i8)
     out = da.decode_attention(q, kc, vc, seg, layer, ks, vs, int4_i8dot=i8)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    dead_ok = bool(torch.all(out[rows - 1] == 0))
+    dead = (seg == 0).all(dim=1)
+    dead_ok = bool(torch.all(out[dead] == 0))
     plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, kc, vc, seg, layer, scale, ks, vs, i8), iters=10)
     ms = cuda_ms(lambda: da.decode_attention(q, kc, vc, seg, layer, ks, vs, int4_i8dot=i8))
     g = hq // hkv
@@ -644,18 +704,65 @@ def check_decode_quant(dev, cfg, kind: str, rows: int, width: int, prompt_len: i
     qt = q[:, :, None, :]
     mask = (seg != 0)[:, None, None, :]
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale))
-    cells = int(seg.sum())
+    cells = int((seg != 0).sum())
     cell_bytes = 2 * hkv * (d * (0.5 if int4 else 1.0) + 2)  # k and v values + bf16 scales
     b_ms, b_by = bound_ms(cells * cell_bytes + nbytes(q, out, seg), 4.0 * cells * hq * d,
                           "int8" if i8 else "bf16")
-    print(f"decode {kind}: q{tuple(q.shape)} cache{tuple(kc.shape)} width={width} cells={cells} "
-          f"cache_bytes_per_launch={nbytes(kc[layer], vc[layer], ks[layer], vs[layer])} layer={layer} "
-          f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_dequantized_ms={lib_ms:.4f} "
-          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    print(f"decode {kind} [{label}]: q{tuple(q.shape)} cache{tuple(kc.shape)} cells={cells} "
+          f"rows_without_cells={int(dead.sum())} cache_bytes_per_launch="
+          f"{nbytes(kc[layer], vc[layer], ks[layer], vs[layer])} layer={layer} max_abs_err={err:.3e} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_dequantized_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
+          flush=True)
     if not (err <= DECODE_QUANT_ATOL and dead_ok):
-        raise AssertionError(f"decode kernel ({kind}) disagrees with plain")
-    return [dict(shape=f"{kind}_cache_{rows}_rows_width_{width}", max_abs_err=err, ms=ms,
-                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)]
+        raise AssertionError(f"decode kernel ({kind}, {label}) disagrees with plain")
+    return [dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=lib_ms)]
+
+
+@contextmanager
+def record_call(module, name: str, pick: int):
+    """Pass every call of ``module.name`` through and keep a copy of the
+    tensors of call number ``pick`` (from 0): the real inputs a main path gave
+    a kernel, to hold the kernel against its plain version afterwards."""
+    real = getattr(module, name)
+    seen, kept = [0], {}
+
+    def copy_of(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def recording(*args, **kwargs):
+        if seen[0] == pick:
+            kept["args"] = tuple(copy_of(a) for a in args)
+            kept["kwargs"] = {k: copy_of(v) for k, v in kwargs.items()}
+        seen[0] += 1
+        return real(*args, **kwargs)
+
+    recording.launches = getattr(real, "launches", 0)
+    setattr(module, name, recording)
+    try:
+        yield kept
+    finally:
+        setattr(module, name, real)
+    if "args" not in kept:
+        raise AssertionError(f"{name} was called {seen[0]} times, not the {pick + 1} needed to record one")
+
+
+def decode_pick(cfg) -> int:
+    """The decode-attention call to record: the last layer at the middle decode step."""
+    layers = cfg.text.num_hidden_layers
+    return layers * (MAX_NEW_TOKENS // 2) + layers - 1
+
+
+def recorded_decode_case(cfg, kind: str, rec, path: str):
+    """The kernel vs its plain version on the inputs one continuous-engine
+    decode call really had (``decode_pick``: the slot cache with the prompt,
+    the unwritten gap and the ring cells; the trash and padding lanes
+    without a valid cell)."""
+    q, kc, vc, seg, layer, ks, vs = rec["args"]
+    if rec["kwargs"].get("int4_i8dot", False) != (kind == "int4_i8"):
+        raise AssertionError(f"recorded decode call is not the {kind} mode")
+    label = f"{path}_{q.shape[0]}_lanes_step_{MAX_NEW_TOKENS // 2}_width_{seg.shape[1]}"
+    return decode_quant_case(cfg, kind, q, kc, vc, seg, layer, ks, vs, label)
 
 
 def check_paged(dev, cfg, kind: str, lanes: int, prompt_len: int, page: int, n_pages: int):
@@ -721,8 +828,11 @@ def check_paged(dev, cfg, kind: str, lanes: int, prompt_len: int, page: int, n_p
 def check_silu(dev, cfg, m: int):
     """silu -> int8 junction kernel vs plain at the prefill's (rows x chunk, 2I)."""
     rng = np.random.default_rng(6)
-    inter = cfg.text.intermediate_size
-    gu = randn_bf16(rng, dev, m, 2 * inter)
+    return silu_case(randn_bf16(rng, dev, m, 2 * cfg.text.intermediate_size), f"prefill_rows_{m}")
+
+
+def silu_case(gu, label: str):
+    m, inter = gu.shape[0], gu.shape[1] // 2
     q_ref, s_ref = sq.fused_silu_quantize_plain(gu)
     q, s = sq.fused_silu_quantize(gu)
     torch.cuda.synchronize()
@@ -733,13 +843,107 @@ def check_silu(dev, cfg, m: int):
     plain_ms = cuda_ms(lambda: sq.fused_silu_quantize_plain(gu), iters=10)
     ms = cuda_ms(lambda: sq.fused_silu_quantize(gu))
     b_ms, b_by = bound_ms(nbytes(gu, q, s), 12.0 * m * inter, "fp32")
-    print(f"silu_quant: gu{tuple(gu.shape)} max_abs_err={err:.0f} (int8 steps) differing={flips:.2e} "
+    print(f"silu_quant [{label}]: gu{tuple(gu.shape)} max_abs_err={err:.0f} (int8 steps) differing={flips:.2e} "
           f"scale_rel_err={scale_err:.2e} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
           flush=True)
     if not (err <= 1 and flips < 1e-2 and scale_err <= SILU_SCALE_RTOL):
-        raise AssertionError("silu_quant kernel disagrees with plain")
-    return [dict(shape=f"prefill_rows_{m}", max_abs_err=err, differing=flips, scale_rel_err=scale_err,
+        raise AssertionError(f"silu_quant kernel disagrees with plain ({label})")
+    return [dict(shape=label, max_abs_err=err, differing=flips, scale_rel_err=scale_err,
                  ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+
+
+def _int4_case(name, m, fn, plain_fn, lib_fn, n_bytes, n_ops):
+    ref = plain_fn()
+    out = fn()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    plain_ms = cuda_ms(plain_fn, iters=5, warmup=1)
+    ms = cuda_ms(fn)
+    lib_ms = cuda_ms(lib_fn)
+    b_ms, b_by = bound_ms(n_bytes(out), n_ops, "int8")
+    return out, dict(shape=f"{name}_m{m}", max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def check_int4(dev, cfg, m: int):
+    """The int4 MLP kernels (#13 gate_up + silu, #14 down) vs their plain
+    versions at the 3B widths and ``m`` rows, group 128; down takes the
+    gate_up output as its input. Library yardstick: ``torch._int_mm`` on the
+    INT8 copy of the same weights at the same m on pre-quantized rows (plus
+    silu * up for gate_up) — int8 weights, yardstick only: no PyTorch call
+    computes the int4 function."""
+    rng = np.random.default_rng(30 + m)
+    tc = cfg.text
+    e, inter = tc.hidden_size, tc.intermediate_size
+    gen = torch.Generator(device=dev).manual_seed(31)
+    gu_w = torch.randn((2 * inter, e), device=dev, generator=gen) * 0.02
+    dn_w = torch.randn((e, inter), device=dev, generator=gen) * 0.02
+    gu4, dn4 = i4.Int4Weight.from_weight(gu_w, 128), i4.Int4Weight.from_weight(dn_w, 128)
+    gu8, dn8 = quantize_weight(gu_w, 1)["qvalue"], quantize_weight(dn_w, 1)["qvalue"]  # the W8A8 copies
+    del gu_w, dn_w
+    x = randn_bf16(rng, dev, m, e)
+    xq, _ = quantize_activation(x)
+
+    def gateup_lib():
+        acc = int8_matmul(xq, gu8.t())
+        return F.silu(acc[:, :inter].float()) * acc[:, inter:].float()
+
+    h, gu_case = _int4_case(
+        "gate_up", m, lambda: i4.w4_gateup_silu(x, gu4), lambda: i4.w4_gateup_silu_plain(x, gu4.q4, gu4.gscale),
+        gateup_lib, lambda out: nbytes(x, gu4.q4, gu4.gscale, out), 2.0 * m * e * 2 * inter)
+    hq, _ = quantize_activation(h)
+    _, dn_case = _int4_case(
+        "down", m, lambda: i4.w4_matmul(h, dn4), lambda: i4.w4_matmul_plain(h, dn4.q4, dn4.gscale),
+        lambda: int8_matmul(hq, dn8.t()), lambda out: nbytes(h, dn4.q4, dn4.gscale, out),
+        2.0 * m * inter * e)
+    for name, c in (("gate_up+silu", gu_case), ("down", dn_case)):
+        print(f"int4 {name}: m={m} E={e} I={inter} group 128 max_abs_err={c['max_abs_err']:.3e} "
+              f"(of max |out|: {c['rel_err']:.2e}, tol {INT4_REL_TOL}) ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
+              f"int_mm_int8_weights_ms={c['library_ms']:.4f} bound_ms={c['bound_ms']:.5f} ({c['bound_by']})",
+              flush=True)
+        if not c["rel_err"] <= INT4_REL_TOL:
+            raise AssertionError(f"int4 {name} kernel disagrees with plain at m={m}")
+    return gu_case, dn_case
+
+
+def check_int4_fallback(dev, cfg):
+    """One 3B MLP of a w4a8 copy at m = INT4_FALLBACK_M, where the JAX
+    package's rule admits gate_up and refuses down: the whole MLP takes the
+    int8 path (equal to the same MLP with the int4 copies switched off) and
+    neither int4 kernel launches. At m = 136 both launch and the result is
+    the int4 function's."""
+    tc = cfg.text
+    gen = torch.Generator(device=dev).manual_seed(33)
+    mlp = MLP(tc, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for lin in (mlp.gate_up_proj, mlp.down_proj):
+            lin.weight.normal_(0.0, 0.02, generator=gen)
+    mlp.gate_up_w4 = i4.Int4Weight.from_weight(mlp.gate_up_proj.weight, 128)
+    mlp.down_w4 = i4.Int4Weight.from_weight(mlp.down_proj.weight, 128)
+    mlp.gate_up_proj = QuantLinear.from_linear(mlp.gate_up_proj)
+    mlp.down_proj = QuantLinear.from_linear(mlp.down_proj)
+    out = {}
+    for m in (INT4_FALLBACK_M, INT4_MS[0]):
+        x = randn_bf16(np.random.default_rng(m), dev, 1, m, tc.hidden_size)
+        reset_counts()
+        with forbid_plain_versions(), torch.no_grad():
+            y = mlp(x)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            mlp.w4 = False
+            y8 = mlp(x)
+            mlp.w4 = True
+        out[m] = dict(gateup=counts["int4_gateup"], down=counts["int4_down"], int8_equal=bool(torch.equal(y, y8)))
+    print(f"int4 fallback: m={INT4_FALLBACK_M} launches gate_up {out[INT4_FALLBACK_M]['gateup']} down "
+          f"{out[INT4_FALLBACK_M]['down']}, output equal to the int8 path {out[INT4_FALLBACK_M]['int8_equal']}; "
+          f"m={INT4_MS[0]} launches {out[INT4_MS[0]]['gateup']} / {out[INT4_MS[0]]['down']}, equal to the int8 "
+          f"path {out[INT4_MS[0]]['int8_equal']}", flush=True)
+    fb, on = out[INT4_FALLBACK_M], out[INT4_MS[0]]
+    if not (fb["gateup"] == fb["down"] == 0 and fb["int8_equal"]
+            and on["gateup"] == on["down"] == 1 and not on["int8_equal"]):
+        raise AssertionError("the int4 MLP's fallback to the int8 path does not follow the eligibility rule")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -858,8 +1062,9 @@ def checksums(tensors) -> list:
 
 
 def training_path(dev, model, qmodel_holder, host, paged_kw, card):
-    """Path d: two GRPO steps at full 3B width, then the checks that need the
-    plain versions or a second forward (outside the counted run)."""
+    """Path d: ``GRPO_STEPS`` GRPO steps of ``model`` (3B widths), then the
+    checks that need the plain versions or a second forward (outside the
+    counted run)."""
     cfg = model.cfg
     prompts = prompt_batch(host)
     host_inputs = (host["input_ids"], host["segment_ids"], host["position_ids"], host["gen_pos_start"])
@@ -1053,7 +1258,7 @@ def earlier_paths(dev, card, cfg) -> dict:
     int4_cases = [check_paged(dev, cfg, "int4_i8", lanes, p, page, n_pages)]
     pool_cases = [check_paged(dev, cfg, "bf16", PAGED_REQUESTS + 1, p, page, n_pages),
                   check_paged(dev, cfg, "int8", lanes, p, page, n_pages)]
-    rows_chunk = effective_prefill_chunk(p, PAGED["prefill_rows"], 0, PAGED["max_num_batched_tokens"])
+    rows_chunk = tcont.effective_prefill_chunk(p, PAGED["prefill_rows"], 0, PAGED["max_num_batched_tokens"])
     silu_cases = check_silu(dev, cfg, PAGED["prefill_rows"] * (rows_chunk or p))
     torch.cuda.empty_cache()
 
@@ -1149,7 +1354,7 @@ def earlier_paths(dev, card, cfg) -> dict:
     host = provider16.prepare_host(prompts16, images16)
     p16 = host["input_ids"].shape[1]
     prompt_lens = host["segment_ids"].sum(-1)
-    chunk = effective_prefill_chunk(p16, PAGED["prefill_rows"], 0, PAGED["max_num_batched_tokens"])
+    chunk = tcont.effective_prefill_chunk(p16, PAGED["prefill_rows"], 0, PAGED["max_num_batched_tokens"])
     print(f"paged requests: {PAGED_REQUESTS} prompts x group_n {PAGED['group_n']}, padded length {p16}, "
           f"prompt tokens {int(prompt_lens.min())}..{int(prompt_lens.max())}, prefill rows "
           f"{PAGED['prefill_rows']} x chunk {chunk} of {p16}; {PAGED}", flush=True)
@@ -1261,12 +1466,14 @@ def earlier_paths(dev, card, cfg) -> dict:
     if not (bf16_launches["paged_attention_pool"] > 0 and bf16_launches["flash_fwd"] > 0):
         raise AssertionError("the bf16-pool path did not launch its kernels")
 
-    # ---- path d: two GRPO steps (rollout, log-probs, advantages, packed update) ----
-    del dense, g4, g16, paged, prep16
+    # ---- path d: one GRPO step (rollout, log-probs, advantages, packed update) ----
+    del dense, g4, g16, paged, prep16, qmodel
     torch.cuda.empty_cache()
-    holder = {"model": qmodel, "quantize_s": 0.0}
-    del qmodel
-    train = training_path(dev, model, holder, host, paged_kw, card)
+    train_cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=TRAIN_LAYERS))
+    train_model = init_params(train_cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+    holder = {"model": None, "quantize_s": 0.0}  # the rollout quantizes the policy it trains
+    train = training_path(dev, train_model, holder, host, paged_kw, card)
+    del train_model
     train_launches = train["launches"]
 
     # the flash kernels once more, on the segment ids the update's first
@@ -1338,6 +1545,8 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention_
 DECODE_KERNELS = ("decode_attention", "decode_attention_int8", "decode_attention_int4",
                   "decode_attention_int4_i8", "paged_attention_pool", "paged_attention_int4_i8",
                   "paged_attention_int4")
+PAGED_KERNELS = ("paged_attention_pool", "paged_attention_int4_i8", "paged_attention_int4")
+INT4_KERNELS = ("int4_gateup", "int4_down")
 
 
 def trainer_path(dev, card, work_dir):
@@ -1414,48 +1623,69 @@ def trainer_path(dev, card, work_dir):
 
 
 KNOB_CASES = [
-    # label, rollout knobs, the kernel the case must reach, limit on probs_diff (None: path b's + extra)
-    ("dense_int8", dict(name="jax", kv_cache_dtype="int8", int4_i8dot=False), "decode_attention_int8", None),
-    ("dense_int4", dict(name="jax", kv_cache_dtype="int4", int4_i8dot=False), "decode_attention_int4",
+    # label, rollout knobs, the kernels the case must reach, limit on probs_diff (None: path b's + extra)
+    ("dense_int8", dict(name="jax", kv_cache_dtype="int8", int4_i8dot=False), ("decode_attention_int8",), None),
+    ("dense_int4", dict(name="jax", kv_cache_dtype="int4", int4_i8dot=False), ("decode_attention_int4",),
      PROBS_DIFF_LIMIT),
     ("dense_int4_i8dot", dict(name="jax", kv_cache_dtype="int4", int4_i8dot=True),
-     "decode_attention_int4_i8", PROBS_DIFF_LIMIT),
+     ("decode_attention_int4_i8",), PROBS_DIFF_LIMIT),
     ("paged_int4", dict(name="continuous", kv_cache_dtype="int4", int4_i8dot=False),
-     "paged_attention_int4", PROBS_DIFF_LIMIT),
+     ("paged_attention_int4",), PROBS_DIFF_LIMIT),
+    # the continuous engine with W8A8 weights over an int8 slot cache (#4')
+    ("continuous_int8", dict(name="continuous", page_size=0, kv_cache_dtype="int8", int4_i8dot=False),
+     ("decode_attention_int8",), None),
+    # the dense engine with the w4a8 copy: 128 rows decode through the int4 MLP
+    ("dense_w4a8", dict(name="jax", kv_cache_dtype="int4", int4_i8dot=True, quantization="w4a8"),
+     ("decode_attention_int4_i8", "int4_gateup", "int4_down"), W4_PROBS_DIFF_LIMIT),
 ]
 
 
-def knob_paths(dev, card, trainer, train_ds, paged_probs_diff: float) -> dict:
-    """Path f: one rollout per knob case through the trainer's own
-    ``generate_sequences``, then the trainer's own log-probs of the same
-    tokens (what it logs as ``rollout/probs_diff_mean``)."""
+def knob_rollout(trainer, batch, knobs: dict):
+    """One rollout through the trainer's own ``generate_sequences`` with these
+    rollout knobs, then the trainer's own log-probs of the same tokens (what
+    it logs as ``rollout/probs_diff_mean``), plain versions forbidden.
+    Returns (rolled, launches, generation seconds, probs_diff)."""
     roll = trainer.config.worker.rollout
+    for key, value in knobs.items():
+        setattr(roll, key, value)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with forbid_plain_versions():
+        t0 = time.perf_counter()
+        rolled = trainer.generate_sequences(batch, trainer.sampling)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = read_counts()
+        old = trainer.compute_log_probs_batched(rolled, trainer.model)
+    mask = rolled.tensors["response_mask"].astype(bool)
+    diff = float(np.abs(old - rolled.tensors["rollout_log_probs"])[mask].mean())
+    return rolled, counts, gen_s, diff
+
+
+def knob_paths(dev, card, trainer, train_ds, paged_probs_diff: float) -> dict:
+    """Path f: one rollout per knob case (``knob_rollout``). The continuous
+    engine's case also keeps one decode call's inputs and holds its kernel
+    against the plain version on them."""
     batch = next(iter(DataLoader(train_ds, trainer.config.data.rollout_batch_size, shuffle=False)))
     out = {}
-    for label, knobs, kernel, limit in KNOB_CASES:
+    for label, knobs, kernels, limit in KNOB_CASES:
         limit = paged_probs_diff + INT8_CACHE_EXTRA_DRIFT if limit is None else limit
-        for key, value in knobs.items():
-            setattr(roll, key, value)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        with forbid_plain_versions():
-            t0 = time.perf_counter()
-            rolled = trainer.generate_sequences(batch, trainer.sampling)
-            torch.cuda.synchronize()
-            gen_s = time.perf_counter() - t0
-            counts = read_counts()
-            old = trainer.compute_log_probs_batched(rolled, trainer.model)
+        continuous = knobs.get("page_size") == 0
+        recorder = record_call(tcont, "decode_attention", decode_pick(trainer.model_cfg)) if continuous \
+            else nullcontext()
+        with recorder as rec:
+            rolled, counts, gen_s, diff = knob_rollout(trainer, batch, knobs)
         mask = rolled.tensors["response_mask"].astype(bool)
         logp = rolled.tensors["rollout_log_probs"]
-        diff = float(np.abs(old - logp)[mask].mean())
-        others = {k: counts[k] for k in DECODE_KERNELS if k != kernel and counts[k]}
+        launched = {k: counts[k] for k in kernels}
+        others = {k: counts[k] for k in DECODE_KERNELS + INT4_KERNELS if k not in kernels and counts[k]}
         print(f"knob case {label}: {knobs} -> responses {rolled.tensors['responses'].shape} in {gen_s:.3f} s, "
-              f"{int(mask.sum())} tokens; launches {kernel}={counts[kernel]}, other decode kernels {others}; "
+              f"{int(mask.sum())} tokens; launches {launched}, other decode kernels {others}; "
               f"probs_diff_mean {diff:.4f} (limit {limit:.4f}); peak allocated "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]", flush=True)
         checks = {
-            "its kernel launched": counts[kernel] > 0, "no other decode kernel": not others,
+            "its kernels launched": all(launched.values()), "no other decode kernel": not others,
             "log-probs finite and <= 0": bool(np.isfinite(logp).all() and (logp <= 0).all()),
             "every row has a token": bool((mask.sum(-1) >= 1).all()),
             "probs_diff within the limit": diff <= limit,
@@ -1463,9 +1693,141 @@ def knob_paths(dev, card, trainer, train_ds, paged_probs_diff: float) -> dict:
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
             raise AssertionError(f"knob case {label} failed: {failed}")
-        out[label] = dict(launches=counts[kernel], probs_diff=diff, limit=limit, seconds=gen_s)
+        out[label] = dict(launches=launched, probs_diff=diff, limit=limit, seconds=gen_s)
+        if continuous:
+            kind = "int4_i8" if knobs["int4_i8dot"] else knobs["kv_cache_dtype"]
+            out[label]["decode_cases"] = recorded_decode_case(trainer.model_cfg, kind, rec, label)
+        del rolled, rec
+    return out
+
+
+# Controls for W4_PROBS_DIFF_LIMIT: the dense_w4a8 case with its int4 copies
+# miswired the way a wiring fault would (the trainer's rollout copy altered
+# after ``quantize_model``); each must land above the limit.
+W4_CONTROLS = ("gate_up_halves_swapped", "next_layers_copy")
+
+
+def miswire(model, how: str):
+    mlps = [layer.mlp for layer in model.text.layers]
+    if how == "gate_up_halves_swapped":  # silu(up) * gate
+        for mlp in mlps:
+            w, i = mlp.gate_up_w4, mlp.gate_up_w4.q4.shape[0] // 2
+            w.q4 = torch.cat([w.q4[i:], w.q4[:i]])
+            w.gscale = torch.cat([w.gscale[:, i:], w.gscale[:, :i]], dim=1)
+    else:  # layer j runs layer j + 1's int4 copies
+        copies = [(mlp.gate_up_w4, mlp.down_w4) for mlp in mlps]
+        for j, mlp in enumerate(mlps):
+            mlp.gate_up_w4, mlp.down_w4 = copies[(j + 1) % len(mlps)]
+    return model
+
+
+def w4_controls(card, trainer, train_ds) -> dict:
+    """The dense_w4a8 knob case with each of ``W4_CONTROLS``: the int4
+    kernels still launch, and ``rollout/probs_diff_mean`` must exceed
+    ``W4_PROBS_DIFF_LIMIT`` -- the limit tells a sound copy from these."""
+    batch = next(iter(DataLoader(train_ds, trainer.config.data.rollout_batch_size, shuffle=False)))
+    knobs = next(k for label, k, _, _ in KNOB_CASES if label == "dense_w4a8")
+    real = gt.quantize_model
+    out = {}
+    for how in W4_CONTROLS:
+        gt.quantize_model = lambda model, mode="int8", how=how: miswire(real(model, mode=mode), how)
+        rolled, counts, gen_s, diff = knob_rollout(trainer, batch, knobs)
+        gt.quantize_model = real
+        print(f"w4 control {how}: probs_diff_mean {diff:.4f} (must exceed {W4_PROBS_DIFF_LIMIT}); launches "
+              f"gate_up {counts['int4_gateup']} down {counts['int4_down']}; {gen_s:.3f} s  [{card}]", flush=True)
+        if not (diff > W4_PROBS_DIFF_LIMIT and counts["int4_gateup"] > 0 and counts["int4_down"] > 0):
+            raise AssertionError(f"W4_PROBS_DIFF_LIMIT does not tell a sound int4 copy from {how}")
+        out[how] = dict(probs_diff=diff, seconds=gen_s)
         del rolled
     return out
+
+
+# Path g: path e's dotlist with four knobs changed; the rest (int4 KV with
+# int8 dots, 16 prompts x n 8, prompt 512, response 64) stays
+PATH_G_KNOBS = dict(name="continuous", page_size=0, quantization="w4a8", decode_batch_size=128)
+
+
+def continuous_w4a8_path(dev, card, trainer, train_ds) -> dict:
+    """Path g: ONE ``train_step`` of path e's trainer with the continuous
+    engine and the w4a8 rollout copy (the trainer reads the knobs at each
+    rollout): 128 samples through 128 slots = 136 lanes, the real
+    ``spatial_sgg`` reward, old / ref log-probs and the update. The engine's
+    own result is kept (a wrapper around the trainer's ``generate_continuous``
+    that returns it unchanged) for the row checks and its stats."""
+    roll = trainer.config.worker.rollout
+    for key, value in PATH_G_KNOBS.items():
+        setattr(roll, key, value)
+    batch = next(iter(DataLoader(train_ds, trainer.config.data.rollout_batch_size, shuffle=False)))
+    engine = {}
+    real = gt.generate_continuous
+
+    def keep(*args, **kwargs):
+        engine["result"] = real(*args, **kwargs)
+        return engine["result"]
+
+    gt.generate_continuous = keep
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    layers = trainer.model_cfg.text.num_hidden_layers
+    with record_call(tcont, "decode_attention", decode_pick(trainer.model_cfg)) as decode_rec, \
+            record_call(sq, "fused_silu_quantize", layers - 1) as silu_rec:
+        reset_counts()
+        with forbid_plain_versions():
+            trainer.global_step += 1
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        counts = read_counts()
+    gt.generate_continuous = real
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = engine["result"]
+    st = res.stats
+    chunk = inspect.signature(real).parameters["decode_chunk_size"].default
+    steps = st["chunks"] * chunk
+    mask = res.response_mask.astype(bool)
+    logp = res.rollout_log_probs
+    n_rows = trainer.config.data.rollout_batch_size * roll.n
+    timing = {k.split("/", 1)[1]: v for k, v in metrics.items() if k.startswith("timing_s/")}
+    gen_tokens = int(mask.sum())
+    print(f"path g (continuous + w4a8): {PATH_G_KNOBS} on {TRAINER_SCRIPT}; {n_rows} samples through "
+          f"{st['lanes']} lanes: {st['refills']} refills {st['refill_s']:.3f} s, {st['chunks']} decode chunks of "
+          f"{chunk} ({steps} steps) {st['decode_s']:.3f} s = {(gen_tokens - n_rows) / st['decode_s']:.1f} tok/s; "
+          f"step {step_s:.3f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(timing.items()))
+          + f"; throughput {metrics['perf/throughput']:.1f} tok/s, probs_diff_mean "
+          f"{metrics['rollout/probs_diff_mean']:.4f} (limit {W4_PROBS_DIFF_LIMIT}), reward/overall "
+          f"{metrics['reward/overall']:.4f}, response_length/mean {metrics['response_length/mean']:.1f}; "
+          f"peak allocated {peak_gb:.2f} GB  [{card}]", flush=True)
+    print(f"path g launches: {counts}", flush=True)
+    print(f"path g metrics: {json.dumps(metrics)}", flush=True)
+    checks = {
+        "136 lanes": st["lanes"] == -(-(roll.decode_batch_size + 1) // 8) * 8 == 136,
+        "int4 gate_up: 36 per decode step": counts["int4_gateup"] == layers * steps,
+        "int4 down: 36 per decode step": counts["int4_down"] == layers * steps,
+        "int4 int8-dot decode kernel launched": counts["decode_attention_int4_i8"] == layers * steps,
+        "silu junction launched (prefill)": counts["silu_quant"] > 0,
+        "flash kernels launched": all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+        "no paged kernel": not any(counts[k] for k in PAGED_KERNELS),
+        "no other dense decode kernel": not any(
+            counts[k] for k in ("decode_attention", "decode_attention_int8", "decode_attention_int4")),
+        "every row has a token": bool((mask.sum(-1) >= 1).all()) and res.responses.shape[0] == n_rows,
+        "log-probs finite and <= 0": bool(np.isfinite(logp).all() and (logp <= 0).all()),
+        "metrics finite": all(np.isfinite(v) for v in metrics.values()),
+        "probs_diff within the limit": metrics["rollout/probs_diff_mean"] <= W4_PROBS_DIFF_LIMIT,
+        "no paged telemetry": not any(k.startswith("rollout/kv_") for k in metrics),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"path g checks failed: {failed}")
+    # #6 and #12 against their plain versions on inputs this step gave them
+    decode_cases = recorded_decode_case(trainer.model_cfg, "int4_i8", decode_rec, "path_g")
+    gu = silu_rec["args"][0]
+    silu_cases = silu_case(gu, f"path_g_refill_rows_{gu.shape[0]}")
+    del decode_rec, silu_rec, gu
+    return dict(launches=counts, stats=st, step_s=step_s, decode_steps=steps, peak_gb=peak_gb,
+                decode_tok_s=(gen_tokens - n_rows) / st["decode_s"],
+                metrics={k: v for k, v in metrics.items() if k != "time"},
+                decode_cases=decode_cases, silu_cases=silu_cases)
 
 
 LOGGED_NOT_COMPARED = ("timing_s/", "timing_per_token_ms/", "perf/", "rollout/kv_refill_s",
@@ -1565,6 +1927,13 @@ def main() -> int:
     int4_i8_dense_cases = check_decode_quant(dev, cfg, "int4_i8", quant_rows, 768, 512)
     paged_int4_cases = [check_paged(dev, cfg, "int4", PAGED["slots"] + 1, 512, PAGED["page_size"],
                                     PAGED["total_pages"])]
+    # the int4 MLP kernels at path g's lanes, path f's rows and a small batch; the fallback rule
+    int4_gu_cases, int4_dn_cases = [], []
+    for m in INT4_MS:
+        gu_case, dn_case = check_int4(dev, cfg, m)
+        int4_gu_cases.append(gu_case)
+        int4_dn_cases.append(dn_case)
+    int4_fallback = check_int4_fallback(dev, cfg)
     torch.cuda.empty_cache()
 
     # ---- the serving and update kernels, paths a-d ----
@@ -1577,6 +1946,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work_dir:
         trainer, train_ds, trainer_res = trainer_path(dev, card, work_dir)
         knob_res = knob_paths(dev, card, trainer, train_ds, r["probs_diff"])
+        control_res = w4_controls(card, trainer, train_ds)
+        g_res = continuous_w4a8_path(dev, card, trainer, train_ds)
         del trainer, train_ds
         gc.collect()
         torch.cuda.empty_cache()
@@ -1614,22 +1985,38 @@ def main() -> int:
         entry("decode_attention", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:138",
               r["decode_cases"], dense_l["decode_attention"]),
         entry("decode_attention_int8", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:138",
-              int8_cases, knob_res["dense_int8"]["launches"]),
+              int8_cases + knob_res["continuous_int8"]["decode_cases"],
+              knob_res["dense_int8"]["launches"]["decode_attention_int8"],
+              launches_continuous_int8=knob_res["continuous_int8"]["launches"]["decode_attention_int8"]),
         entry("decode_attention_int4", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:192",
-              int4_dense_cases, knob_res["dense_int4"]["launches"]),
+              int4_dense_cases, knob_res["dense_int4"]["launches"]["decode_attention_int4"]),
         entry("decode_attention_int4_i8", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:257",
-              int4_i8_dense_cases, knob_res["dense_int4_i8dot"]["launches"]),
+              int4_i8_dense_cases + g_res["decode_cases"],
+              knob_res["dense_int4_i8dot"]["launches"]["decode_attention_int4_i8"],
+              launches_path_g=g_res["launches"]["decode_attention_int4_i8"],
+              launches_dense_w4a8=knob_res["dense_w4a8"]["launches"]["decode_attention_int4_i8"]),
         entry("paged_attention_pool", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:113",
               r["pool_cases"], bf16_l["paged_attention_pool"]),
         entry("paged_attention_int4", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:225",
-              paged_int4_cases, knob_res["paged_int4"]["launches"]),
+              paged_int4_cases, knob_res["paged_int4"]["launches"]["paged_attention_int4"]),
         entry("paged_attention_int4_i8", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:338",
               r["int4_cases"], paged_l["paged_attention_int4_i8"],
               launches_training_path=train_l["paged_attention_int4_i8"],
               launches_trainer_path=trainer_l["paged_attention_int4_i8"]),
         entry("silu_quant", "triton", "spatialthinker_torch/ops/silu_quant.py",
-              "spatialthinker_tpu/ops/int8_matmul.py:128", r["silu_cases"], paged_l["silu_quant"],
-              launches_training_path=train_l["silu_quant"], launches_trainer_path=trainer_l["silu_quant"]),
+              "spatialthinker_tpu/ops/int8_matmul.py:128", r["silu_cases"] + g_res["silu_cases"],
+              paged_l["silu_quant"],
+              launches_training_path=train_l["silu_quant"], launches_trainer_path=trainer_l["silu_quant"],
+              launches_path_g=g_res["launches"]["silu_quant"]),
+        # library_ms of the int4 kernels: torch._int_mm on the INT8 copy of the weights (yardstick only)
+        entry("int4_gateup_silu", "cuda", "spatialthinker_torch/csrc/int4_mlp.cu",
+              "spatialthinker_tpu/ops/int4_mlp.py:150", int4_gu_cases, g_res["launches"]["int4_gateup"],
+              launches_dense_w4a8=knob_res["dense_w4a8"]["launches"]["int4_gateup"],
+              library="torch._int_mm, int8 weights, yardstick only"),
+        entry("int4_down", "cuda", "spatialthinker_torch/csrc/int4_mlp.cu",
+              "spatialthinker_tpu/ops/int4_mlp.py:168", int4_dn_cases, g_res["launches"]["int4_down"],
+              launches_dense_w4a8=knob_res["dense_w4a8"]["launches"]["int4_down"],
+              library="torch._int_mm, int8 weights, yardstick only", fallback=int4_fallback),
     ], "paths": {
         "dense": {"decode_tok_s": r["decode_tok_s"], "prefill_s": r["prefill_s"], "peak_gb": r["peak_gb"]},
         "paged_int4": {"decode_tok_s": r["decode_tok_s_paged"], "prefill_s": r["st"]["refill_s"],
@@ -1640,7 +2027,8 @@ def main() -> int:
         "training": {"steps": r["train"]["steps"], "grad_norm_rel": r["train"]["grad_norm_rel"],
                      "grad_cosine": r["train"]["grad_cosine"],
                      "packed_logp_diff": r["train"]["packed_logp_diff"], "knobs": TRAIN},
-        "trainer": trainer_res, "knobs": knob_res, "checkpoint": ckpt_res,
+        "trainer": trainer_res, "knobs": knob_res, "w4_controls": control_res, "continuous_w4a8": g_res,
+        "checkpoint": ckpt_res,
     }, "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,6 @@ with the ROADMAP item that brings them, never ignored:
   value above 1.
 - ``optim.stream``, ``ref.offload``, ``sharding.host_offload_params`` and
   ``host_offload_optimizer``: ROADMAP A14 (state that lives on the host).
-- ``rollout.quantization=w4a8``: ROADMAP B8.
 
 ``sharding.remat_policy=dots`` (save matmul outputs) has no counterpart: the
 trainer checkpoints layer inputs and says so once. The JAX tree's
@@ -164,7 +163,7 @@ class SamplingOverride:
 
 @dataclass
 class RolloutConfig:
-    name: str = "jax"               # "jax" = the dense engine; "continuous" + page_size > 0 = paged
+    name: str = "jax"               # "jax" = the dense engine; "continuous": page_size 0 continuous, > 0 paged
     n: int = 5                      # samples per prompt
     temperature: float = 1.0
     top_p: float = 1.0
@@ -175,7 +174,7 @@ class RolloutConfig:
     # the paged engine's page pool is sized from the card's free memory x this
     gpu_memory_utilization: float = 0.9
     kv_cache_dtype: str = "bfloat16"  # {bfloat16, int8, int4}
-    quantization: str = "none"      # {none, int8 = W8A8 decoder matmuls}; w4a8 rejected (ROADMAP B8)
+    quantization: str = "none"      # {none, int8 = W8A8 decoder matmuls, w4a8 = + int4 MLP decode copies}
     page_size: int = 128            # tokens per KV page (paged attention granularity)
     kv_pages_override: int = 0      # > 0: fixed page-pool size instead of the measurement
     # int4 KV: both decode-attention dots on int8 operands (q and the softmax
@@ -327,21 +326,17 @@ class PPOConfig:
                 f"trainer.nnodes={self.trainer.nnodes}: the port runs one process on one "
                 "GPU; several hosts come with ROADMAP A13 (multi-GPU)"
             )
-        if self.worker.rollout.quantization == "w4a8":
-            raise ValueError(
-                "rollout.quantization='w4a8' is not ported: the int4 MLP decode "
-                "kernels come with ROADMAP B8"
-            )
-        if self.worker.rollout.quantization not in ("none", "int8"):
+        if self.worker.rollout.quantization not in ("none", "int8", "w4a8"):
             raise ValueError(
                 f"rollout.quantization={self.worker.rollout.quantization!r}: "
-                "supported values are 'none' and 'int8' (W8A8)"
+                "supported values are 'none', 'int8' (W8A8) and 'w4a8' (W8A8 + int4 "
+                "MLP decode copies)"
             )
         if self.worker.rollout.name not in ("jax", "continuous"):
             raise ValueError(
                 f"rollout.name={self.worker.rollout.name!r}: supported values are 'jax' "
                 "(the dense engine; the name is the JAX tree's) and 'continuous' "
-                "(with page_size > 0: the paged engine)"
+                "(page_size 0: the continuous engine; page_size > 0: the paged engine)"
             )
         if self.worker.rollout.kv_cache_dtype not in ("bfloat16", "int8", "int4"):
             raise ValueError(

@@ -24,6 +24,7 @@ CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR / "build"
 SOURCES = (
     "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "paged_attention.cu",
+    "int4_mlp.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "st_paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
     # mode, G, page -> bytes of dynamic shared memory per block
     "st_paged_attention_smem": [_I] * 3,
+    # x, xq, xs, xsum, q4, gscale, out, m, k, n_cols, group, gateup, out_f32, stream
+    "st_int4_mlp": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

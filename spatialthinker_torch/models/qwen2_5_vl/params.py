@@ -11,7 +11,10 @@
   ``embed_tokens``) gives ``<module>.qvalue`` / ``<module>.scale`` entries
   instead of ``<module>.weight``, and ``build_model`` makes those modules
   ``QuantLinear`` / ``QuantEmbedding`` — both packages then start from the
-  same int8 values.
+  same int8 values. A w4a8 tree's int4 MLP copies (``gate_up_w4`` /
+  ``down_w4``: ``q4`` (L, K/2, N), ``gscale`` (L, K/group, N)) give
+  ``mlp.<name>.q4`` in the port's (N, K/2) layout and ``.gscale`` as it is,
+  and ``build_model`` makes them ``Int4Weight`` modules.
 - ``params_to_jax``: the way back for an unquantized tree -- a port state
   dict (parameters, gradients or optimizer moments keyed by parameter name)
   as numpy in the JAX tree's layout, so tests compare updated parameters leaf
@@ -41,6 +44,7 @@ import torch
 from .config import Qwen25VLConfig, TextConfig, VisionConfig
 from .model import Qwen25VL
 from .text import RMSNorm
+from ...ops.int4_mlp import Int4Weight
 from ...ops.quant import QuantEmbedding, QuantLinear
 
 StateDict = Dict[str, torch.Tensor]
@@ -148,6 +152,10 @@ def params_from_jax(tree: Mapping[str, Any], cfg: Qwen25VLConfig) -> StateDict:
         put(dst + "mlp.gate_up_proj", layers["mlp"]["gate_up_proj"], i,
             lambda a: a.T if a.ndim == 2 else a.transpose(0, 2, 1).reshape(-1, a.shape[1]))
         put(dst + "mlp.down_proj", layers["mlp"]["down_proj"], i, lambda a: a.T)
+        for name in ("gate_up_w4", "down_w4"):  # w4a8 tree: (K/2, N) -> the port's (N, K/2)
+            if name in layers["mlp"]:
+                out[dst + f"mlp.{name}.q4"] = _t(np.asarray(layers["mlp"][name]["q4"][i]).T)
+                out[dst + f"mlp.{name}.gscale"] = _t(layers["mlp"][name]["gscale"][i])
         out[dst + "input_layernorm.weight"] = _t(layers["input_layernorm"][i])
         out[dst + "post_attention_layernorm.weight"] = _t(layers["post_attention_layernorm"][i])
     if not cfg.text.tie_word_embeddings:
@@ -277,7 +285,14 @@ def build_model(cfg: Qwen25VLConfig, state: Mapping[str, torch.Tensor], *,
             else:
                 setattr(holder, name, QuantLinear(qvalue, scale, getattr(holder, name).bias))
             loaded[key], loaded[prefix + ".scale"] = qvalue, scale
-        elif not (leaf == "scale" and prefix + ".qvalue" in state):
+        elif leaf == "q4":
+            parent, _, name = prefix.rpartition(".")
+            q4 = value.to(device=device, dtype=torch.uint8)
+            gscale = state[prefix + ".gscale"].to(device=device, dtype=torch.float32)
+            setattr(model.get_submodule(parent), name, Int4Weight(q4, gscale))
+            loaded[key], loaded[prefix + ".gscale"] = q4, gscale
+        elif not ((leaf == "scale" and prefix + ".qvalue" in state)
+                  or (leaf == "gscale" and prefix + ".q4" in state)):
             loaded[key] = value.to(device=device, dtype=dtype)
     model.load_state_dict(loaded, strict=True, assign=True)
     return model.eval()

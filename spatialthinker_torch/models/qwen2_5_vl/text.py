@@ -13,7 +13,8 @@ the JAX package's fusions in PyTorch's (out, in) form:
 
 Every decoder matmul goes through ``ops.quant.linear`` on the module's
 ``weight``, so the int8 rollout copy (``ops.quant.quantize_model``) runs the
-W8A8 path with no second code path.
+W8A8 path with no second code path; the w4a8 copy's MLP runs its int4 decode
+copies first (``ops.int4_mlp.w4_swiglu``).
 
 The KV cache is head-major (L, B, Hkv, Smax, D) and written in place: bf16,
 int8 (per token-head bf16 scales) or int4 (uint8 marker: two tokens per
@@ -35,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ...ops.attention import attention
 from ...ops.decode_attention import decode_attention
 from ...ops.logprobs import matmul_fp32_out
+from ...ops.int4_mlp import w4_swiglu
 from ...ops.quant import embed_rows, fused_silu_quant_dot, is_quantized, linear, quantized_dot
 from .config import TextConfig
 from .rope import apply_rotary, compute_cos_sin, make_inv_freq
@@ -229,15 +231,24 @@ class MLP(nn.Module):
         e, inter = cfg.hidden_size, cfg.intermediate_size
         self.gate_up_proj = nn.Linear(e, 2 * inter, bias=False, device=device, dtype=dtype)
         self.down_proj = nn.Linear(inter, e, bias=False, device=device, dtype=dtype)
+        # w4a8 tree: int4 decode copies (ops.int4_mlp.Int4Weight), else None
+        self.gate_up_w4 = None
+        self.down_w4 = None
 
     fused_silu = True  # quantized tree: fuse the junction at prefill-sized m
+    w4 = True          # w4a8 tree: use the int4 copies where the shape admits them
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """SwiGLU (the JAX package's ``swiglu_mlp``) over the fused gate_up.
-        On the quantized tree prefill-sized m (>= 1024 rows, a multiple of 8)
-        goes through the fused silu->int8 junction and the int8 down dot;
-        decode-sized m runs silu + ``linear``."""
+        """SwiGLU (the JAX package's ``swiglu_mlp``) over the fused gate_up, in
+        its order: on the w4a8 tree the int4 copies first (``w4_swiglu``, None
+        where the shape is refused); on the quantized tree prefill-sized m
+        (>= 1024 rows, a multiple of 8) through the fused silu->int8 junction
+        and the int8 down dot; otherwise silu + ``linear``."""
         gup, down = self.gate_up_proj.weight, self.down_proj.weight
+        if self.gate_up_w4 is not None and self.w4:
+            out = w4_swiglu(x, self.gate_up_w4, self.down_w4, out_dtype=x.dtype)
+            if out is not None:
+                return out
         gu = linear(x, gup, contract_axis=1)
         if is_quantized(gup) and self.fused_silu:
             fused = fused_silu_quant_dot(gu, down, out_dtype=x.dtype)

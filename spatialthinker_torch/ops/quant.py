@@ -20,8 +20,11 @@ The int8 product is a library matmul (``torch._int_mm``), as it is an XLA
 refuses fewer than 17 rows and unaligned k/n: the rows are zero-padded here
 (decode with few lanes), unaligned k or n raises.
 
-Only ``mode="int8"`` of ``quantize_model`` is ported; ``w4a8`` raises. The
-JAX package's opt-in prefill-dequant mode (off by default) is not ported.
+``quantize_model(mode="w4a8")`` adds int4 decode copies of each MLP's
+gate_up and down weights (``ops.int4_mlp.Int4Weight``); the MLP runs them
+through ``ops.int4_mlp.w4_swiglu`` where the JAX package's eligibility rule
+admits the shape and takes the int8 path otherwise. The JAX package's opt-in
+prefill-dequant mode (off by default) is not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from typing import Dict, Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .int4_mlp import Int4Weight
 
 QWeight = Dict[str, torch.Tensor]
 
@@ -188,6 +193,15 @@ class QuantEmbedding(nn.Module):
         return {"qvalue": self.qvalue, "scale": self.scale}
 
 
+def _pick_w4_group(k: int) -> Optional[int]:
+    """The int4 group size along a contraction of ``k``: the largest of 128 /
+    64 / 32 / 16 / 8 with 2 * group dividing k (split-half packing)."""
+    for g in (128, 64, 32, 16, 8):
+        if k % (2 * g) == 0:
+            return g
+    return None
+
+
 @torch.no_grad()
 def quantize_model(model, mode: str = "int8", fused_silu: bool = True):
     """A rollout copy of ``model`` (a ``Qwen25VL``) whose text decoder-stack
@@ -197,13 +211,22 @@ def quantize_model(model, mode: str = "int8", fused_silu: bool = True):
     parameters, shared by reference — no copy. The pass runs layer by layer,
     so its fp32 temporaries are one layer's.
 
+    ``mode="w4a8"`` also packs each MLP's gate_up and down weights into int4
+    decode copies (``mlp.gate_up_w4``, ``mlp.down_w4``) where both
+    contractions admit a group size; decode-sized m then streams half the MLP
+    weight bytes while prefill keeps the int8 path.
+
     ``fused_silu=False`` keeps the MLP junction unfused at every m (the JAX
-    package's ``SPATIALTHINKER_FUSED_SILU=0``)."""
-    if mode == "w4a8":
-        raise NotImplementedError("quantization=w4a8 (int4 MLP decode copies) is not ported yet")
-    if mode != "int8":
+    package's ``SPATIALTHINKER_FUSED_SILU=0``). The JAX package's
+    ``SPATIALTHINKER_W4=0`` (int4 copies built, never run) is an MLP's ``w4``
+    attribute set to False."""
+    if mode not in ("int8", "w4a8"):
         raise ValueError(f"unknown quantization mode {mode!r}")
     from ..models.qwen2_5_vl.model import Qwen25VL
+
+    tc = model.cfg.text
+    g_e, g_i = _pick_w4_group(tc.hidden_size), _pick_w4_group(tc.intermediate_size)
+    want_w4 = mode == "w4a8" and g_e is not None and g_i is not None
 
     out = Qwen25VL(model.cfg, device="meta", dtype=model.text.norm.weight.dtype)
     out.vision = model.vision
@@ -217,6 +240,9 @@ def quantize_model(model, mode: str = "int8", fused_silu: bool = True):
         dst.mlp.gate_up_proj = QuantLinear.from_linear(src.mlp.gate_up_proj)
         dst.mlp.down_proj = QuantLinear.from_linear(src.mlp.down_proj)
         dst.mlp.fused_silu = fused_silu
+        if want_w4:
+            dst.mlp.gate_up_w4 = Int4Weight.from_weight(src.mlp.gate_up_proj.weight, g_e)
+            dst.mlp.down_w4 = Int4Weight.from_weight(src.mlp.down_proj.weight, g_i)
     emb = quantize_weight(src_text.embed_tokens.weight.detach(), 1)
     dst_text.embed_tokens = QuantEmbedding(emb["qvalue"], emb["scale"])
     if not model.cfg.text.tie_word_embeddings:

@@ -53,27 +53,8 @@ from ..models.qwen2_5_vl.text import (
 )
 from ..ops.paged_attention import paged_attention
 from ..ops.quant import embed_rows
+from .continuous import effective_prefill_chunk
 from .sampling import SamplingParams, get_response_mask, sample_tokens, sampled_token_logp
-
-
-def effective_prefill_chunk(
-    prompt_len: int, rows: int, prefill_chunk_size: int, max_num_batched_tokens: int
-) -> int:
-    """Tokens per row per prefill forward (0 = unchunked). The binding
-    constraint is rows * chunk <= max_num_batched_tokens; prefill_chunk_size
-    caps the chunk directly. Chunks of 128 or more round DOWN to a multiple
-    of 128 — rounding a budget-derived chunk up would exceed
-    max_num_batched_tokens, the knob that bounds prefill activation memory."""
-    chunk = prompt_len
-    if max_num_batched_tokens > 0 and rows > 0:
-        chunk = min(chunk, max_num_batched_tokens // rows)
-    if prefill_chunk_size > 0:
-        chunk = min(chunk, prefill_chunk_size)
-    if chunk >= prompt_len:
-        return 0
-    if chunk >= 128:
-        chunk = chunk // 128 * 128
-    return max(chunk, 1)
 
 
 @dataclass

@@ -56,7 +56,8 @@ from ..models.qwen2_5_vl.params import default_device
 from ..ops.quant import quantize_model
 from ..rewards.manager import RewardManager
 from ..rollout.engine import generate
-from ..rollout.paged import effective_prefill_chunk, generate_paged, prefill_transient_bytes
+from ..rollout.continuous import effective_prefill_chunk, generate_continuous
+from ..rollout.paged import generate_paged, prefill_transient_bytes
 from ..rollout.sampling import SamplingParams
 from ..utils.flops_counter import FlopsCounter, compute_mfu
 from ..utils.profiling import device_memory_metrics, maybe_trace
@@ -392,12 +393,6 @@ class GRPOTrainer:
                 f"worker.actor.global_batch_size = {gbs}"
             )
         roll = config.worker.rollout
-        if roll.name == "continuous" and roll.page_size <= 0:
-            raise ValueError(
-                "rollout.name='continuous' with page_size=0 selects the continuous engine, "
-                "which is not ported (ROADMAP A9); set page_size > 0 for the paged engine or "
-                "rollout.name='jax' for the dense one"
-            )
         self.use_kl_in_reward = not algo.disable_kl and not algo.use_kl_loss
         self.use_kl_loss = not algo.disable_kl and algo.use_kl_loss
         self.use_ref = not algo.disable_kl
@@ -447,12 +442,6 @@ class GRPOTrainer:
         self.padding_free = actor.padding_free
         if self.padding_free:
             self.packed_update_fn = make_packed_update_fn(model, self.optimizer, **update_kwargs)
-
-        # rollout W8A8 quantization: the decoder-stack matmul weights are
-        # quantized anew each rollout phase (the optimizer just rewrote them)
-        self.quantize_fn = None
-        if roll.quantization == "int8":
-            self.quantize_fn = lambda m: quantize_model(m, mode="int8")
 
         self.sampling = SamplingParams(
             temperature=roll.temperature, top_p=roll.top_p, top_k=roll.top_k, n=roll.n,
@@ -534,10 +523,14 @@ class GRPOTrainer:
     def generate_sequences(self, batch: RolloutBatch, sampling: SamplingParams,
                            generator: Optional[torch.Generator] = None) -> RolloutBatch:
         """Decode n samples per prompt, attach responses + masks + full seqs.
-        Both engines prefill each unique prompt once; the host-side tensors
-        are repeated to match the [prompt0 x n, ...] row order. (The JAX
-        trainer's per-sample prefill exists for meshes whose batch axis does
-        not divide the unique prompts; one device always groups.)"""
+        ``rollout.name`` picks the engine: ``jax`` the dense one,
+        ``continuous`` the continuous one (``page_size`` 0) or the paged one
+        (``page_size`` > 0), with ``decode_batch_size`` slots (``min(rows,
+        32)`` when it is 0 or less). Every engine prefills each unique prompt
+        once; the host-side tensors are repeated to match the [prompt0 x n,
+        ...] row order. (The JAX trainer's per-sample prefill exists for
+        meshes whose batch axis does not divide the unique prompts; one device
+        always groups.)"""
         n = sampling.n
         generator = generator if generator is not None else self._rollout_generator(0)
         self._last_rollout_stats = {}  # per-rollout telemetry, never stale
@@ -545,20 +538,21 @@ class GRPOTrainer:
             # the update's cached blocks do not fit the rollout's (one pool is
             # gigabytes in one piece): hand them back instead of growing
             torch.cuda.empty_cache()
+        roll = self.config.worker.rollout
+        # the rollout copy follows the knobs as they stand at this rollout
+        # (W8A8, or W8A8 + int4 MLP decode copies), quantized anew each time:
+        # the optimizer just rewrote the weights
         gen_model = self.model
-        if self.quantize_fn is not None:
-            gen_model = self.quantize_fn(self.model)
+        if roll.quantization != "none":
+            gen_model = quantize_model(self.model, mode=roll.quantization)
         base = trim_prompt_padding(batch)
         repeated = base.repeat(n, interleave=True) if n > 1 else base
 
-        roll = self.config.worker.rollout
         kv_dtype = KV_CACHE_DTYPES[roll.kv_cache_dtype]
         base_pos = np.transpose(base.tensors["position_ids"], (1, 0, 2))  # (3, B, P)
         if roll.name == "continuous":
             slots = roll.decode_batch_size
-            result = generate_paged(
-                gen_model, base.tensors["input_ids"], base.tensors["segment_ids"], base_pos,
-                base.tensors["gen_pos_start"],
+            common = dict(
                 max_new_tokens=roll.response_length,
                 sampling=sampling.override(n=1),
                 generator=generator,
@@ -572,12 +566,19 @@ class GRPOTrainer:
                 refill_batch=roll.refill_batch,
                 group_n=n,
                 int4_i8dot=roll.int4_i8dot,
-                page_size=roll.page_size,
-                total_pages=self._paged_pool_size(roll.page_size, kv_dtype),
             )
-            self._last_rollout_stats = {
-                f"rollout/kv_{k}": float(v) for k, v in result.stats.items()
-            }
+            args = (gen_model, base.tensors["input_ids"], base.tensors["segment_ids"], base_pos,
+                    base.tensors["gen_pos_start"])
+            if roll.page_size > 0:
+                result = generate_paged(
+                    *args, **common, page_size=roll.page_size,
+                    total_pages=self._paged_pool_size(roll.page_size, kv_dtype),
+                )
+                self._last_rollout_stats = {
+                    f"rollout/kv_{k}": float(v) for k, v in result.stats.items()
+                }
+            else:  # the continuous engine (its stats stay out of the logged metrics, as in JAX)
+                result = generate_continuous(*args, **common)
         else:
             rows = roll.prefill_rows
             if not (0 < rows < len(base)):
@@ -610,8 +611,8 @@ class GRPOTrainer:
             repeated, _to_numpy(result.responses), _to_numpy(result.response_mask),
             _to_numpy(result.rollout_log_probs),
         )
-        # the int8 copy, the cache or the pools go before the log-prob and
-        # update forwards need the room
+        # the quantized copy (int4 copies included), the cache or the pools
+        # go before the log-prob and update forwards need the room
         del gen_model, result
         if self.device.type == "cuda":
             torch.cuda.empty_cache()

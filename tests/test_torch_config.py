@@ -66,7 +66,6 @@ REJECTED = [
     ("worker.ref.offload=true", "A14"), ("worker.actor.sharding.host_offload_params=true", "A14"),
     ("worker.actor.sharding.host_offload_optimizer=true", "A14"),
     ("worker.ref.sharding.host_offload_params=true", "A14"),
-    ("worker.rollout.quantization=w4a8", "B8"),
 ]
 
 
@@ -85,6 +84,21 @@ def test_unported_knobs_raise_with_their_roadmap_item(override, item):
 def test_unknown_values_raise(override, match):
     with pytest.raises(ValueError, match=match):
         tc.build_config([override])
+
+
+@pytest.mark.parametrize("extra", [
+    ["worker.rollout.quantization=w4a8"],
+    ["worker.rollout.name=continuous", "worker.rollout.page_size=0", "worker.rollout.quantization=w4a8",
+     "worker.rollout.decode_batch_size=128"],
+], ids=["w4a8", "continuous_w4a8"])
+def test_w4a8_and_the_continuous_engine_parse_as_the_jax_tree(extra):
+    """The knobs that bring the continuous engine and the int4 MLP copies, on
+    the shipped 3B dotlist: accepted, and the same tree as JAX's."""
+    argv = _dotlist("spatialthinker_3b_grpo.sh") + extra
+    ours = tc.build_config(argv)
+    assert tc.to_dict(ours) == jc.to_dict(jc.build_config(argv))
+    assert ours.worker.rollout.quantization == "w4a8"
+    assert ours.worker.rollout.page_size == (0 if len(extra) > 1 else 1024)
 
 
 def test_int4_pages_need_an_even_size_only():

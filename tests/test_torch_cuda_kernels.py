@@ -23,6 +23,10 @@ largest magnitude (4e-3 to 7e-3 measured on an H100); padding rows exactly zero.
 The silu->int8 kernel: scales within 1e-5 relative, int8 values at most one
 step apart and fewer than 1 in 100 differing (ties; the division and the
 sigmoid differ in the last bit).
+The int4 MLP kernels: the row quantize is the plain version's to the bit and
+the int32 group dots are exact, so only the order of the fp32 group sums,
+the silu's last bit and the bf16 rounding of the output differ: the largest
+error within 1e-2 of the largest output magnitude (two bf16 ulps).
 """
 
 import numpy as np
@@ -33,6 +37,7 @@ from spatialthinker_torch.ops import decode_attention as da
 from spatialthinker_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from spatialthinker_torch.ops import paged_attention as pa
 from spatialthinker_torch.ops import flash_attention as fa
+from spatialthinker_torch.ops import int4_mlp as i4
 from spatialthinker_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 from spatialthinker_torch.ops.silu_quant import fused_silu_quantize, fused_silu_quantize_plain
 
@@ -364,3 +369,53 @@ def test_paged_and_silu_wrappers_raise_on_unsupported_cuda_input(dev):
         fused_silu_quantize(torch.zeros((4, 7), device=dev))
     with pytest.raises(ValueError):
         fused_silu_quantize(torch.zeros((4, 8), dtype=torch.int32, device=dev))
+
+
+INT4_CASES = [  # m, K, N (gate_up: I), group
+    (136, 2048, 11008, 128), (8, 512, 256, 64), (2, 256, 128, 32), (26, 1024, 512, 128),
+]
+
+
+def _int4_case(dev, m, k, n_cols, group, seed):
+    rng = np.random.default_rng(seed)
+    x = _bf16(rng, (m, k), dev)
+    w = torch.from_numpy((rng.normal(size=(n_cols, k)) * 0.02).astype(np.float32)).to(dev)
+    return x, i4.Int4Weight.from_weight(w, group)
+
+
+@pytest.mark.parametrize("m,k,i,group", INT4_CASES)
+def test_int4_gateup_kernel_matches_plain(dev, m, k, i, group):
+    x, w = _int4_case(dev, m, k, 2 * i, group, seed=m)
+    before = i4.w4_gateup_silu.launches
+    out = i4.w4_gateup_silu(x, w)
+    torch.cuda.synchronize()
+    assert i4.w4_gateup_silu.launches == before + 1
+    ref = i4.w4_gateup_silu_plain(x, w.q4, w.gscale)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, i)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,n,k,group", INT4_CASES)
+def test_int4_down_kernel_matches_plain(dev, m, n, k, group, out_dtype):
+    x, w = _int4_case(dev, m, k, n, group, seed=m + 1)
+    before = i4.w4_matmul.launches
+    out = i4.w4_matmul(x, w, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert i4.w4_matmul.launches == before + 1
+    ref = i4.w4_matmul_plain(x, w.q4, w.gscale, out_dtype=torch.float32)
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    err = (out.float() - ref).abs().max().item()
+    assert err <= 1e-2 * ref.abs().max().item(), err
+
+
+def test_int4_wrappers_raise_on_unsupported_cuda_input(dev):
+    x, w = _int4_case(dev, 8, 256, 256, 128, seed=3)
+    with pytest.raises(ValueError, match="bf16 activations"):
+        i4.w4_matmul(x.float(), w)
+    with pytest.raises(ValueError, match="group sizes"):
+        i4.w4_matmul(x, i4.Int4Weight.from_weight(torch.zeros(256, 256, device=dev), 16))
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        i4.w4_matmul(x, w, out_dtype=torch.float16)
+    assert i4.w4_matmul(x[:7], w) is None  # the rule refuses an odd m before any launch

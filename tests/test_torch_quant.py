@@ -143,8 +143,16 @@ def test_carried_quantized_tree_builds_the_same_model():
 
 
 def test_unported_modes_raise():
+    """Only ``int8`` and ``w4a8`` exist; on the tiny preset ``w4a8`` packs its
+    int4 copies (groups 32 and 64), which the eligibility rule never runs
+    (the down copy's 64 columns are no multiple of 128, as in JAX)."""
     _, model = both_models(seed=3)
-    with pytest.raises(NotImplementedError, match="w4a8"):
-        tq.quantize_model(model, mode="w4a8")
     with pytest.raises(ValueError, match="unknown quantization"):
         tq.quantize_model(model, mode="fp8")
+    w4 = tq.quantize_model(model, mode="w4a8")
+    mlp = w4.text.layers[0].mlp
+    assert (mlp.gate_up_w4.group, mlp.down_w4.group) == (32, 64) and mlp.w4
+    assert tq.quantize_model(model, mode="int8").text.layers[0].mlp.gate_up_w4 is None
+    x = torch.randn(1, 4, CFG.text.hidden_size)
+    torch.testing.assert_close(mlp(x), tq.quantize_model(model, mode="int8").text.layers[0].mlp(x),
+                               rtol=0, atol=0)

@@ -224,6 +224,70 @@ def test_train_step_matches_jax_trainer(tmp_path, variant):
         assert trainer.kl_ctrl.kl_coef != cfg.algorithm.kl_coef  # the adaptive controller moved
 
 
+CONTINUOUS_W4A8 = ["worker.rollout.name=continuous", "worker.rollout.page_size=0",
+                   "worker.rollout.quantization=w4a8", "worker.rollout.kv_cache_dtype=int4",
+                   "worker.rollout.int4_i8dot=true"]
+
+
+def test_train_step_continuous_w4a8_matches_jax_trainer(tmp_path, monkeypatch):
+    """The slice as a whole: ``train_step`` with the continuous engine and the
+    w4a8 rollout copy, generation included, against the JAX trainer on the
+    same batch. The model is the tiny preset widened to E = 128, I = 256 so
+    both int4 kernels engage (``tests/test_torch_int4_mlp.w4_configs``); 8
+    rows through 16 lanes decode with the int4 MLP. Greedy rollouts on both
+    sides (the frameworks' generators differ), the port's decode attention
+    swapped for JAX's exact CPU fallback as ``tests/test_torch_continuous.py``
+    does, JAX forced onto its int4 path off the TPU; each trainer quantizes
+    its own weights at the rollout. Every metric outside timing and perf
+    within 1e-4. The port's engine is held against JAX's by
+    ``tests.test_torch_continuous.assert_same_up_to_ties`` (an activation on
+    a rounding boundary may round one step apart in the two packages); the
+    update then runs on JAX's rollout in both trainers, so such a step cannot
+    move the metrics."""
+    from spatialthinker_tpu.rollout import continuous as jcont
+    from spatialthinker_torch.rollout import continuous as tcont
+    from tests.test_torch_continuous import _w4a8_models, assert_same_up_to_ties
+    from tests.test_torch_rollout import _exact_decode
+
+    monkeypatch.setenv("SPATIALTHINKER_W4", "force")
+    monkeypatch.setattr(tcont, "decode_attention", _exact_decode)
+    jcfg, jax_params, model = _w4a8_models(seed=9)
+    trainer, cfg = build(tmp_path, *CONTINUOUS_W4A8, model=model)
+    assert (cfg.worker.rollout.name, cfg.worker.rollout.page_size, cfg.worker.rollout.quantization) == (
+        "continuous", 0, "w4a8")
+    ref_cfg = jc.build_config(_dotlist(tmp_path, *CONTINUOUS_W4A8))
+    ref = JaxTrainer(ref_cfg, trainer.tokenizer, jcfg, jax_params, train_dataloader=None,
+                     reward_fn=_reward_fn, mesh=create_mesh(1, 1, 1, devices=jax.devices()[:1]))
+    trainer.reward_fn = _reward_fn
+    trainer.sampling = trainer.sampling.override(temperature=0.0)
+    ref.sampling = ref.sampling.override(temperature=0.0)
+    engines, jax_results = [], []
+    real_jax, real = jcont.generate_continuous, tcont.generate_continuous
+    monkeypatch.setattr(jcont, "generate_continuous",
+                        lambda *a, **k: jax_results.append(real_jax(*a, **k)) or jax_results[-1])
+
+    def port_engine(*a, **k):
+        engines.append(k)
+        got = real(*a, **k)
+        assert_same_up_to_ties(got, jax_results[-1])
+        return got._replace(**{f: np.asarray(getattr(jax_results[-1], f))
+                               for f in ("responses", "response_mask", "rollout_log_probs")})
+
+    monkeypatch.setattr("spatialthinker_torch.trainer.grpo_trainer.generate_continuous", port_engine)
+    batch = next(iter(DataLoader(trainer.train_dataloader.dataset, 4, shuffle=False)))
+    trainer.global_step = ref.global_step = 1
+    want = ref.train_step(_as(JaxRolloutBatch, batch))
+    got = trainer.train_step(_as(RolloutBatch, batch))
+    assert len(jax_results) == 1 and len(engines) == 1
+    assert engines[0]["slots"] == 8 and engines[0]["kv_cache_dtype"] == torch.uint8
+    keys = sorted(k for k in want if not k.startswith(NOT_COMPARED))
+    assert keys == sorted(k for k in got if not k.startswith(NOT_COMPARED))
+    assert not any(k.startswith("rollout/kv_") for k in got)  # no paged telemetry, as in JAX
+    for key in keys:
+        np.testing.assert_allclose(got[key], want[key], atol=1e-4, rtol=1e-4, err_msg=key)
+    assert got["reward/parity"] > 0 and "rollout/probs_diff_mean" in got
+
+
 def test_trainer_state_from_jax_starts_both_trainers_alike(tmp_path):
     """The JAX trainer's numpy trees (parameters, moments, count, step) load
     into a port trainer that was built from other weights."""
@@ -349,7 +413,6 @@ def test_main_on_a_jsonl_file(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,match", [
     (["trainer.n_chips=2"], "ROADMAP A13"),
     (["algorithm.adv_estimator=gae"], "ROADMAP A10"),
-    (["worker.rollout.name=continuous", "worker.rollout.page_size=0"], "ROADMAP A9"),
     (["worker.rollout.n=1"], "needs worker.rollout.n > 1"),
     (["worker.actor.global_batch_size=3"], "must be divisible"),
 ])
