@@ -25,7 +25,11 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    int8 copy of the same weights (a yardstick: no PyTorch call computes the
    int4 function), and one 3B MLP at m = 256, where the eligibility rule
    refuses the down kernel, taking the int8 path with neither kernel launched;
-4. drives seven paths at full Qwen2.5-VL-3B width with seeded random weights
+   the fused W8A8 kernel at the five 3B linears (qkv, o, gate_up, down, the
+   tied head with fp32 logits) and m = 65, 129, 136 and 4,096 rows, which must
+   equal the plain chain bit for bit, timed beside ``torch._int_mm`` alone on
+   the pre-quantized x (the library call for the dot);
+4. drives eight paths at full Qwen2.5-VL-3B width with seeded random weights
    made on the device, each with the kernels' launch counts set to 0 just
    before and read just after, and with the plain versions forbidden:
    a. the dense engine (bf16): 4 image requests through
@@ -35,6 +39,10 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
       ``int4_i8dot``, rows-mode + sequence-chunked prefill, shared prompt
       pages, a finite page pool and fewer slots than lanes (sampled, T=1);
    c. the paged engine with bf16 weights and bf16 pools (greedy);
+   h. path b's configuration with ``fuse_staged=True``: the staging ring
+      attended inside the paged kernel (its staged block), beside path b's
+      decode rate; then greedy fused runs with bf16 (path c's configuration),
+      int8 and int4 (no int8 dots) pools;
    then d. the training path: one GRPO step through the functions of
       ``spatialthinker_torch/trainer/grpo_trainer.py``, at 3B widths with
       ``TRAIN_LAYERS`` of the 36 text layers -- the paged rollout of
@@ -96,7 +104,13 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    the middle decode step, the slot cache with the prompt, the gap and the
    ring cells) the decode kernel against its plain version, and on path g's
    refill prefill the silu junction against its plain version; after the
-   checkpoint round trip equal metrics and parameters;
+   checkpoint round trip equal metrics and parameters; every path with W8A8
+   weights (b, d, e, f, g, h) launches the W8A8 kernel and never
+   ``torch._int_mm`` (a counting wrapper is installed); the W8A8 kernel is
+   held against the plain chain on one decode call of path b and on path g's
+   refill prefill, and the staged block against the plain versions on one
+   mid-chunk call of path h and of each fused greedy run, with the ring's
+   cells live;
 6. prints one JSON line of kernel results, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -127,9 +141,12 @@ import torch.nn.functional as F
 import spatialthinker_torch.ops.decode_attention as da
 import spatialthinker_torch.ops.flash_attention as fa
 import spatialthinker_torch.ops.int4_mlp as i4
+import spatialthinker_torch.ops.int8_matmul as i8m
 import spatialthinker_torch.ops.paged_attention as pa
+import spatialthinker_torch.ops.quant as tq
 import spatialthinker_torch.ops.silu_quant as sq
 import spatialthinker_torch.rollout.continuous as tcont
+import spatialthinker_torch.rollout.paged as tpaged
 import spatialthinker_torch.trainer.grpo_trainer as gt
 from spatialthinker_torch import csrc
 from spatialthinker_torch.core.batch import RolloutBatch
@@ -182,6 +199,10 @@ SILU_SCALE_RTOL = 1e-5
 INT4_REL_TOL = 1e-2
 INT4_MS = (136, 128, 8)  # path g's lanes (128 slots + trash, to a multiple of 8), path f's 128 rows, small
 INT4_FALLBACK_M = 256    # the JAX package's rule admits gate_up here and refuses down: the MLP is int8
+# The fused W8A8 kernel repeats the plain chain (quantize, int32 dot, two
+# rounded scale products) exactly: equal bit for bit. Rows: path b's lanes
+# (64 slots + trash), 128 slots + trash, path g's lanes, a refill prefill.
+W8A8_MS = (65, 129, 136, 4096)
 # Full 3B prefill, last-position logits: both bf16 paths (kernels, plain
 # attention) drift from an fp32 plain-path reference by bf16 rounding through
 # 36 text layers and 32 vision blocks. The kernel path must stay within twice
@@ -377,7 +398,20 @@ PLAIN_VERSIONS = [
     (pa, "paged_attention_int4_i8_plain"), (pa, "paged_attention_int4_plain"),
     (pa, "paged_attention_gathered"),
     (sq, "fused_silu_quantize_plain"), (i4, "w4_gateup_silu_plain"), (i4, "w4_matmul_plain"),
+    (i8m, "fused_w8a8_matmul_plain"), (i8m, "w8a8_matmul_prequantized_plain"),
 ]
+
+_LIBRARY_INT_MM = torch._int_mm
+
+
+def counted_int_mm(*args, **kwargs):
+    """``torch._int_mm`` with a call count (installed by ``main``): the library
+    matmul the W8A8 kernel replaced must not run on a main path."""
+    counted_int_mm.launches += 1
+    return _LIBRARY_INT_MM(*args, **kwargs)
+
+
+counted_int_mm.launches = 0
 
 
 @contextmanager
@@ -402,8 +436,10 @@ def reset_counts() -> None:
     for fn in (fa.flash_fwd, fa._launch_bwd_dq, fa._launch_bwd_dkv, da.decode_attention,
                da._launch_int8_kernel, da._launch_int4_kernel, da._launch_int4_i8_kernel,
                pa._launch_pool_kernel, pa._launch_int4_i8_kernel, pa._launch_int4_kernel,
-               sq.fused_silu_quantize, i4.w4_gateup_silu, i4.w4_matmul):
+               sq.fused_silu_quantize, i4.w4_gateup_silu, i4.w4_matmul, i8m.fused_w8a8_matmul,
+               i8m.w8a8_matmul_prequantized, counted_int_mm):
         fn.launches = 0
+    pa._launch.staged_launches = 0
 
 
 def read_counts() -> dict:
@@ -418,7 +454,15 @@ def read_counts() -> dict:
         "paged_attention_int4": pa._launch_int4_kernel.launches,
         "silu_quant": sq.fused_silu_quantize.launches,
         "int4_gateup": i4.w4_gateup_silu.launches, "int4_down": i4.w4_matmul.launches,
+        "w8a8": i8m.fused_w8a8_matmul.launches, "w8a8_prequantized": i8m.w8a8_matmul_prequantized.launches,
+        "paged_staged": pa._launch.staged_launches, "int_mm": counted_int_mm.launches,
     }
+
+
+def w8a8_checks(counts: dict) -> dict:
+    """The W8A8 route of a path with quantized weights: kernel A launched, the
+    library's ``_int_mm`` not at all."""
+    return {"W8A8 kernel launched": counts["w8a8"] > 0, "no torch._int_mm": counts["int_mm"] == 0}
 
 
 def requests(n: int, seed: int = 0):
@@ -720,21 +764,25 @@ def decode_quant_case(cfg, kind: str, q, kc, vc, seg, layer: int, ks, vs, label:
 
 
 @contextmanager
-def record_call(module, name: str, pick: int):
+def record_call(module, name: str, pick: int, when=None):
     """Pass every call of ``module.name`` through and keep a copy of the
-    tensors of call number ``pick`` (from 0): the real inputs a main path gave
-    a kernel, to hold the kernel against its plain version afterwards."""
+    tensors of call number ``pick`` (from 0; counting only the calls for which
+    ``when(*args, **kwargs)`` holds, if given): the real inputs a main path
+    gave a kernel, to hold the kernel against its plain version afterwards."""
     real = getattr(module, name)
     seen, kept = [0], {}
 
     def copy_of(a):
+        if isinstance(a, tuple):
+            return tuple(copy_of(x) for x in a)
         return a.clone() if isinstance(a, torch.Tensor) else a
 
     def recording(*args, **kwargs):
-        if seen[0] == pick:
-            kept["args"] = tuple(copy_of(a) for a in args)
-            kept["kwargs"] = {k: copy_of(v) for k, v in kwargs.items()}
-        seen[0] += 1
+        if when is None or when(*args, **kwargs):
+            if seen[0] == pick:
+                kept["args"] = tuple(copy_of(a) for a in args)
+                kept["kwargs"] = {k: copy_of(v) for k, v in kwargs.items()}
+            seen[0] += 1
         return real(*args, **kwargs)
 
     recording.launches = getattr(real, "launches", 0)
@@ -823,6 +871,110 @@ def check_paged(dev, cfg, kind: str, lanes: int, prompt_len: int, page: int, n_p
         raise AssertionError(f"paged kernel ({kind}) disagrees with plain")
     return dict(shape=f"{kind}_pools_{lanes}_lanes", max_abs_err=err, stat_err=stat_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def w8a8_linears(cfg) -> dict:
+    """The five W8A8 products of a decode step: (K, N, output dtype)."""
+    tc = cfg.text
+    hd = tc.head_dim
+    return {
+        "qkv": (tc.hidden_size, (tc.num_attention_heads + 2 * tc.num_key_value_heads) * hd, torch.bfloat16),
+        "o": (tc.num_attention_heads * hd, tc.hidden_size, torch.bfloat16),
+        "gate_up": (tc.hidden_size, 2 * tc.intermediate_size, torch.bfloat16),
+        "down": (tc.intermediate_size, tc.hidden_size, torch.bfloat16),
+        "head": (tc.hidden_size, tc.vocab_size, torch.float32),  # the tied head's fp32 logits
+    }
+
+
+def w8a8_case(x, w, ws, out_dtype, label: str) -> dict:
+    """Kernel A (quantize prologue + int8 GEMM + epilogue) vs the plain chain
+    on the same inputs: bit-equal; times of both, of ``torch._int_mm`` alone on
+    the pre-quantized x (the library call for the dot; yardstick only) and the
+    bound (x, w, scales read once, the output written once; 2 m N K int8
+    operations)."""
+    out = i8m.fused_w8a8_matmul(x, w, ws, out_dtype)
+    ref = i8m.fused_w8a8_matmul_plain(x, w, ws, out_dtype)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    equal = torch.equal(out, ref)
+    xq, _ = i8m.quantize_rows(x)
+    w_kn = w.t()
+    ms = cuda_ms(lambda: i8m.fused_w8a8_matmul(x, w, ws, out_dtype))
+    plain_ms = cuda_ms(lambda: i8m.fused_w8a8_matmul_plain(x, w, ws, out_dtype), iters=10)
+    lib_ms = cuda_ms(lambda: i8m.int8_matmul(xq, w_kn))
+    (m, k), n = x.shape, w.shape[0]
+    b_ms, b_by = bound_ms(nbytes(x, w, ws, out), 2.0 * m * n * k, "int8")
+    print(f"w8a8 [{label}]: x{tuple(x.shape)} {str(x.dtype)[6:]} w({n}, {k}) -> {str(out_dtype)[6:]} "
+          f"max_abs_err={err:.3e} bit_equal={equal} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"int_mm_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    if not equal:
+        raise AssertionError(f"W8A8 kernel differs from the plain chain [{label}]")
+    return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def check_w8a8(dev, cfg) -> list:
+    """Kernel A at the five 3B linears and ``W8A8_MS`` rows, on seeded int8
+    weights with per-row scales (the ``QuantLinear`` layout)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = []
+    for name, (k, n, out_dtype) in w8a8_linears(cfg).items():
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        ws = torch.rand((n,), generator=gen, device=dev) * 2e-3 + 1e-4
+        for m in W8A8_MS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            cases.append(w8a8_case(x, w, ws, out_dtype, f"{name}_m{m}"))
+        del w, ws
+        torch.cuda.empty_cache()
+    return cases
+
+
+def recorded_w8a8_case(rec, label: str) -> dict:
+    """Kernel A vs the plain chain on one call a main path really made."""
+    x, w, ws, out_dtype = rec["args"]
+    return w8a8_case(x, w, ws, out_dtype, f"{label}_m{x.shape[0]}_n{w.shape[0]}")
+
+
+def staged_case(rec, kind: str, label: str) -> dict:
+    """The paged kernel with its staged block vs the plain version with the
+    same ring, on one recorded decode call (mid-chunk: ring cells live); timed
+    with and without the ring. Bound: the live pool and ring cells' bytes
+    (k, v and their scales) plus q, the table, the lengths, the ring's
+    validity and the outputs; 4 Hq D operations per live cell."""
+    args, kw = rec["args"], rec["kwargs"]
+    q, k_pool, v_pool, table, lengths, layer, k_scale, v_scale = args
+    staged, i8 = kw["staged"], kw.get("int4_i8dot", False)
+    if i8 != (kind == "int4_i8") or staged is None:
+        raise AssertionError(f"recorded paged call is not the fused {kind} mode")
+    plain = {"int4_i8": pa.paged_attention_int4_i8_plain,
+             "int4": pa.paged_attention_int4_plain}.get(kind, pa.paged_attention_plain)
+    scale = q.shape[-1] ** -0.5
+    o_ref, m_ref, l_ref = plain(*args, scale, staged)
+    o, m, l = pa.paged_attention(*args, return_stats=True, int4_i8dot=i8, staged=staged)
+    torch.cuda.synchronize()
+    err = (o.float() - o_ref.float()).abs().max().item()
+    stat_err = max((m - m_ref).abs().max().item(), ((l - l_ref).abs() / (1 + l_ref.abs())).max().item())
+    ms = cuda_ms(lambda: pa.paged_attention(*args, return_stats=True, int4_i8dot=i8, staged=staged))
+    ms_pool_only = cuda_ms(lambda: pa.paged_attention(*args, return_stats=True, int4_i8dot=i8))
+    plain_ms = cuda_ms(lambda: plain(*args, scale, staged), iters=5)
+    hq, d = q.shape[1], q.shape[2]
+    hkv = k_pool.shape[2]
+    cells, ring = int(lengths.sum()), int((staged[4] != 0).sum())
+    value_bytes = {"bf16": 2.0, "int8": 1.0, "int4_i8": 0.5, "int4": 0.5}[kind]
+    scale_bytes = 0 if kind == "bf16" else 2
+    pool_bytes = cells * 2 * hkv * (d * value_bytes + scale_bytes)
+    ring_bytes = ring * 2 * hkv * (d * (2 if kind == "bf16" else 1) + scale_bytes)
+    b_ms, b_by = bound_ms(pool_bytes + ring_bytes + nbytes(q, o, m, l, table, lengths, staged[4]),
+                          4.0 * (cells + ring) * hq * d, "int8" if i8 else "bf16")
+    print(f"staged {kind} [{label}]: q{tuple(q.shape)} pool cells {cells} ring cells {ring} of "
+          f"{tuple(staged[4].shape)} layer {layer} max_abs_err={err:.3e} stat_err={stat_err:.3e} "
+          f"ms={ms:.4f} (without the ring {ms_pool_only:.4f}) plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    if not (ring > 0 and err <= PAGED_OUT_ATOL[kind] and stat_err <= PAGED_STAT_ATOL):
+        raise AssertionError(f"paged kernel with its staged block ({kind}) disagrees with plain [{label}]")
+    return dict(shape=f"{label}_{kind}_{q.shape[0]}_lanes_{ring}_ring_cells", max_abs_err=err,
+                stat_err=stat_err, ms=ms, ms_without_ring=ms_pool_only, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def check_silu(dev, cfg, m: int):
@@ -1166,7 +1318,8 @@ def training_path(dev, model, qmodel_holder, host, paged_kw, card):
             info["optimizer_steps"] == len(rolled) // TRAIN["global_batch_size"] >= 2)
         checks[f"step {s}: every kernel of the step launched"] = all(
             info["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                                              "paged_attention_int4_i8", "silu_quant"))
+                                              "paged_attention_int4_i8", "silu_quant", "w8a8"))
+        checks[f"step {s}: no torch._int_mm"] = info["launches"]["int_mm"] == 0
     checks["reference copy untouched"] = checksums(ref_model.parameters()) == ref_sums
     checks["optimizer count"] = optimizer.state["count"] == sum(i["optimizer_steps"] for i in steps)
 
@@ -1367,16 +1520,21 @@ def earlier_paths(dev, card, cfg) -> dict:
         patches_list=host["patches_list"], grids_list=host["grids_list"], **PAGED,
     )
     host_inputs = (host["input_ids"], host["segment_ids"], host["position_ids"], host["gen_pos_start"])
+    n_layers = cfg.text.num_hidden_layers
+    decode_rows = lambda x, *a, **k: x.shape[0] == lanes  # noqa: E731
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    with forbid_plain_versions():
-        t0 = time.perf_counter()
-        paged = generate_paged(qmodel, *host_inputs, sampling=SamplingParams(temperature=1.0),
-                               generator=torch.Generator(device=dev).manual_seed(2), **paged_kw)
-        torch.cuda.synchronize()
-        paged_s = time.perf_counter() - t0
-    paged_launches = read_counts()
+    # kernel A's decode calls: 4 linears per layer and the head per step; keep
+    # step 8's first gate_up
+    with record_call(tq, "fused_w8a8_matmul", (4 * n_layers + 1) * 8 + 2, when=decode_rows) as w8_rec:
+        reset_counts()
+        with forbid_plain_versions():
+            t0 = time.perf_counter()
+            paged = generate_paged(qmodel, *host_inputs, sampling=SamplingParams(temperature=1.0),
+                                   generator=torch.Generator(device=dev).manual_seed(2), **paged_kw)
+            torch.cuda.synchronize()
+            paged_s = time.perf_counter() - t0
+        paged_launches = read_counts()
     paged_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = paged.stats
     n_lanes_out = PAGED_REQUESTS * PAGED["group_n"]
@@ -1403,10 +1561,14 @@ def earlier_paths(dev, card, cfg) -> dict:
         "int4 paged kernel launched": paged_launches["paged_attention_int4_i8"] > 0,
         "silu junction launched": paged_launches["silu_quant"] > 0,
         "no dense decode kernel": paged_launches["decode_attention"] == 0,
+        "ring merged outside the kernel": paged_launches["paged_staged"] == 0,
+        **w8a8_checks(paged_launches),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"paged-path checks failed: {failed}")
+    w8a8_cases = [recorded_w8a8_case(w8_rec, "path_b_decode")]
+    del w8_rec
 
     # rollout/probs_diff: lane 0 of every prompt, the bf16 model on the same tokens
     prep16 = provider16.prepare(prompts16, images16)
@@ -1466,6 +1628,71 @@ def earlier_paths(dev, card, cfg) -> dict:
     if not (bf16_launches["paged_attention_pool"] > 0 and bf16_launches["flash_fwd"] > 0):
         raise AssertionError("the bf16-pool path did not launch its kernels")
 
+    # ---- path h: path b with the staging ring fused into the paged kernel ----
+    # keep one mid-chunk attention call (step 8 of the first chunk, last layer)
+    h_pick = n_layers * (PAGED["decode_chunk_size"] // 2) + n_layers - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with record_call(tpaged, "paged_attention", h_pick) as h_rec:
+        reset_counts()
+        with forbid_plain_versions():
+            t0 = time.perf_counter()
+            fused = generate_paged(qmodel, *host_inputs, sampling=SamplingParams(temperature=1.0),
+                                   generator=torch.Generator(device=dev).manual_seed(2), fuse_staged=True,
+                                   **paged_kw)
+            torch.cuda.synchronize()
+            fused_s = time.perf_counter() - t0
+        h_launches = read_counts()
+    h_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st_h = fused.stats
+    hlogp, hmask = fused.rollout_log_probs, fused.response_mask
+    decode_tok_s_fused = (int(hmask.sum()) - n_lanes_out) / st_h["decode_s"]
+    ref_h = teacher_forced_logps(model, prep16, fused.responses[lane0], hmask[lane0])
+    sel_h = hmask[lane0].astype(bool)
+    probs_diff_h = float(np.abs(hlogp[lane0][sel_h] - ref_h[sel_h]).mean())
+    print(f"path h (path b, ring fused): responses {fused.responses.shape} in {fused_s:.3f} s; refills "
+          f"{st_h['refills']}, chunks {st_h['chunks']}, peak_pages {st_h['peak_pages']}; prefill "
+          f"{st_h['refill_s']:.3f} s; decode {decode_tok_s_fused:.1f} tok/s over {st_h['decode_s']:.3f} s "
+          f"(path b unfused in this run: {decode_tok_s_paged:.1f} tok/s over {st['decode_s']:.3f} s); "
+          f"probs_diff {probs_diff_h:.4f} (limit {PROBS_DIFF_LIMIT}); peak allocated {h_peak_gb:.2f} GB "
+          f"[{card}]", flush=True)
+    print(f"path-h launches: {h_launches}", flush=True)
+    checks = {
+        "shape": fused.responses.shape == (n_lanes_out, MAX_NEW_TOKENS),
+        "log-probs finite and <= 0": bool(np.isfinite(hlogp).all() and (hlogp <= 0).all()),
+        "tokens in vocab": bool(((fused.responses >= 0) & (fused.responses < cfg.text.vocab_size)).all()),
+        "every lane has a token": bool((hmask.sum(-1) >= 1).all()),
+        "every int4 paged launch ran the ring": (
+            h_launches["paged_staged"] == h_launches["paged_attention_int4_i8"] > 0),
+        "silu junction launched": h_launches["silu_quant"] > 0,
+        "probs_diff within the limit": probs_diff_h <= PROBS_DIFF_LIMIT,
+        **w8a8_checks(h_launches),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"path-h checks failed: {failed}")
+    staged_cases = [staged_case(h_rec, "int4_i8", "path_h")]
+    del h_rec, fused
+
+    # the staged block in the other three pool modes, on a mid-chunk call of a
+    # greedy fused run each (bf16 pools: path c's configuration)
+    small_pick = n_layers * (agree_kw["decode_chunk_size"] // 2) + n_layers - 1
+    for kind, engine_model, kv in (("bf16", model, torch.bfloat16), ("int8", qmodel, torch.int8),
+                                   ("int4", qmodel, torch.uint8)):
+        with record_call(tpaged, "paged_attention", small_pick) as rec:
+            reset_counts()
+            with forbid_plain_versions():
+                run = generate_paged(engine_model, *host_inputs, sampling=greedy,
+                                     generator=torch.Generator(device=dev).manual_seed(3), fuse_staged=True,
+                                     **dict(agree_kw, kv_cache_dtype=kv, int4_i8dot=False))
+                torch.cuda.synchronize()
+            counts = read_counts()
+        kernel = "paged_attention_int4" if kind == "int4" else "paged_attention_pool"
+        if not (counts["paged_staged"] == counts[kernel] > 0 and np.isfinite(run.rollout_log_probs).all()):
+            raise AssertionError(f"fused {kind}-pool run: launches {counts}")
+        staged_cases.append(staged_case(rec, kind, f"greedy_{kind}_pools"))
+        del rec, run
+
     # ---- path d: one GRPO step (rollout, log-probs, advantages, packed update) ----
     del dense, g4, g16, paged, prep16, qmodel
     torch.cuda.empty_cache()
@@ -1489,7 +1716,9 @@ def earlier_paths(dev, card, cfg) -> dict:
 
     return dict(
         flash_cases=flash_cases, dq_cases=dq_cases, dkv_cases=dkv_cases, decode_cases=decode_cases,
-        pool_cases=pool_cases, int4_cases=int4_cases, silu_cases=silu_cases,
+        pool_cases=pool_cases, int4_cases=int4_cases, silu_cases=silu_cases, w8a8_cases=w8a8_cases,
+        staged_cases=staged_cases, h_launches=h_launches, decode_tok_s_fused=decode_tok_s_fused,
+        st_h=st_h, probs_diff_h=probs_diff_h, h_peak_gb=h_peak_gb,
         dense_launches=dense_launches, paged_launches=paged_launches, bf16_launches=bf16_launches,
         train_launches=train_launches, train=train, prompt_len=p, p16=p16,
         decode_tok_s=decode_tok_s, prefill_s=prefill_s, peak_gb=peak_gb,
@@ -1541,7 +1770,7 @@ def scene_rows(n: int, seed: int) -> list:
 
 
 METRIC_FAMILIES = ("actor/", "critic/score/", "reward/", "timing_s/", "perf/", "rollout/kv_")
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention_int4_i8", "silu_quant")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention_int4_i8", "silu_quant", "w8a8")
 DECODE_KERNELS = ("decode_attention", "decode_attention_int8", "decode_attention_int4",
                   "decode_attention_int4_i8", "paged_attention_pool", "paged_attention_int4_i8",
                   "paged_attention_int4")
@@ -1589,6 +1818,7 @@ def trainer_path(dev, card, work_dir):
         "reference copy untouched": checksums(trainer.ref_model.parameters()) == ref_sums,
         "every kernel of a step launched": all(launches[k] > 0 for k in TRAIN_KERNELS),
         "no dense decode kernel": launches["decode_attention"] == 0,
+        "no torch._int_mm": launches["int_mm"] == 0,
         "pool sized from free memory": (trainer._paged_pool_cache or 0) > 0,
     }
     for step in (1, 2):
@@ -1689,11 +1919,13 @@ def knob_paths(dev, card, trainer, train_ds, paged_probs_diff: float) -> dict:
             "log-probs finite and <= 0": bool(np.isfinite(logp).all() and (logp <= 0).all()),
             "every row has a token": bool((mask.sum(-1) >= 1).all()),
             "probs_diff within the limit": diff <= limit,
+            **w8a8_checks(counts),
         }
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
             raise AssertionError(f"knob case {label} failed: {failed}")
-        out[label] = dict(launches=launched, probs_diff=diff, limit=limit, seconds=gen_s)
+        out[label] = dict(launches=launched, probs_diff=diff, limit=limit, seconds=gen_s,
+                          w8a8_launches=counts["w8a8"])
         if continuous:
             kind = "int4_i8" if knobs["int4_i8dot"] else knobs["kv_cache_dtype"]
             out[label]["decode_cases"] = recorded_decode_case(trainer.model_cfg, kind, rec, label)
@@ -1769,8 +2001,10 @@ def continuous_w4a8_path(dev, card, trainer, train_ds) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     layers = trainer.model_cfg.text.num_hidden_layers
+    prefill_rows = lambda x, *a, **k: x.shape[0] >= tq.FUSED_SILU_MIN_M  # noqa: E731
     with record_call(tcont, "decode_attention", decode_pick(trainer.model_cfg)) as decode_rec, \
-            record_call(sq, "fused_silu_quantize", layers - 1) as silu_rec:
+            record_call(sq, "fused_silu_quantize", layers - 1) as silu_rec, \
+            record_call(tq, "fused_w8a8_matmul", 2, when=prefill_rows) as w8_rec:
         reset_counts()
         with forbid_plain_versions():
             trainer.global_step += 1
@@ -1815,6 +2049,7 @@ def continuous_w4a8_path(dev, card, trainer, train_ds) -> dict:
         "metrics finite": all(np.isfinite(v) for v in metrics.values()),
         "probs_diff within the limit": metrics["rollout/probs_diff_mean"] <= W4_PROBS_DIFF_LIMIT,
         "no paged telemetry": not any(k.startswith("rollout/kv_") for k in metrics),
+        **w8a8_checks(counts),
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1823,11 +2058,12 @@ def continuous_w4a8_path(dev, card, trainer, train_ds) -> dict:
     decode_cases = recorded_decode_case(trainer.model_cfg, "int4_i8", decode_rec, "path_g")
     gu = silu_rec["args"][0]
     silu_cases = silu_case(gu, f"path_g_refill_rows_{gu.shape[0]}")
-    del decode_rec, silu_rec, gu
+    w8a8_cases = [recorded_w8a8_case(w8_rec, "path_g_refill")]
+    del decode_rec, silu_rec, gu, w8_rec
     return dict(launches=counts, stats=st, step_s=step_s, decode_steps=steps, peak_gb=peak_gb,
                 decode_tok_s=(gen_tokens - n_rows) / st["decode_s"],
                 metrics={k: v for k, v in metrics.items() if k != "time"},
-                decode_cases=decode_cases, silu_cases=silu_cases)
+                decode_cases=decode_cases, silu_cases=silu_cases, w8a8_cases=w8a8_cases)
 
 
 LOGGED_NOT_COMPARED = ("timing_s/", "timing_per_token_ms/", "perf/", "rollout/kv_refill_s",
@@ -1909,6 +2145,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch._int_mm = counted_int_mm
     dev = torch.device("cuda", 0)
     card = smi_line()
     print(card, flush=True)
@@ -1934,6 +2171,7 @@ def main() -> int:
         int4_gu_cases.append(gu_case)
         int4_dn_cases.append(dn_case)
     int4_fallback = check_int4_fallback(dev, cfg)
+    w8a8_cases = check_w8a8(dev, cfg)
     torch.cuda.empty_cache()
 
     # ---- the serving and update kernels, paths a-d ----
@@ -2017,6 +2255,19 @@ def main() -> int:
               "spatialthinker_tpu/ops/int4_mlp.py:168", int4_dn_cases, g_res["launches"]["int4_down"],
               launches_dense_w4a8=knob_res["dense_w4a8"]["launches"]["int4_down"],
               library="torch._int_mm, int8 weights, yardstick only", fallback=int4_fallback),
+        # library_ms: torch._int_mm alone on the pre-quantized x (the dot without quantize or epilogue)
+        entry("w8a8_matmul", "cuda", "spatialthinker_torch/csrc/int8_matmul.cu",
+              "spatialthinker_tpu/ops/int8_matmul.py:46", r["w8a8_cases"] + g_res["w8a8_cases"] + w8a8_cases,
+              paged_l["w8a8"], replaces_also="spatialthinker_tpu/ops/int8_matmul.py:65",
+              library="torch._int_mm on the pre-quantized x",
+              launches_prequantized_path_b=paged_l["w8a8_prequantized"],
+              launches_path_h=r["h_launches"]["w8a8"], launches_training_path=train_l["w8a8"],
+              launches_trainer_path=trainer_l["w8a8"], launches_path_g=g_res["launches"]["w8a8"],
+              launches_knob_cases={k: v["w8a8_launches"] for k, v in knob_res.items()},
+              int_mm_on_main_paths=sum(x["int_mm"] for x in (paged_l, r["h_launches"], train_l, trainer_l,
+                                                             g_res["launches"]))),
+        entry("paged_staged_block", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:59",
+              r["staged_cases"], r["h_launches"]["paged_staged"]),
     ], "paths": {
         "dense": {"decode_tok_s": r["decode_tok_s"], "prefill_s": r["prefill_s"], "peak_gb": r["peak_gb"]},
         "paged_int4": {"decode_tok_s": r["decode_tok_s_paged"], "prefill_s": r["st"]["refill_s"],
@@ -2024,6 +2275,9 @@ def main() -> int:
                        "first_token_agreement": r["first_agree"], "stats": r["st"]},
         "paged_bf16": {"rows_equal_dense": r["rows_equal"], "drift": r["drift_paged"],
                        "dense_drift": r["drift_dense"], "seconds": r["bf16_s"]},
+        "paged_int4_fused_ring": {"decode_tok_s": r["decode_tok_s_fused"], "prefill_s": r["st_h"]["refill_s"],
+                                  "peak_gb": r["h_peak_gb"], "probs_diff": r["probs_diff_h"],
+                                  "stats": r["st_h"], "unfused_decode_tok_s": r["decode_tok_s_paged"]},
         "training": {"steps": r["train"]["steps"], "grad_norm_rel": r["train"]["grad_norm_rel"],
                      "grad_cosine": r["train"]["grad_cosine"],
                      "packed_logp_diff": r["train"]["packed_logp_diff"], "knobs": TRAIN},

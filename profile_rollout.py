@@ -18,7 +18,9 @@ int4 pools, int8 dots, 16 requests x 8 samples through 64 slots) and puts
 ``torch.profiler`` around ONE decode chunk of 16 steps (the third; the
 second and fourth are timed unprofiled): top device kernels, kernels per
 step, device time per step, busy share as profiled and device time over the
-unprofiled wall per step.
+unprofiled wall per step. It does so twice in one run: with the staging ring
+merged after the pool kernel (the default), then with the ring fused into it
+(``generate_paged(fuse_staged=True)``).
 
 ``--engine train`` profiles the actor update of ``chip_smoke.py``'s training
 path: 16 image prompts with 64 response tokens each are packed into rows, and
@@ -66,8 +68,7 @@ DECODE_STEPS = 16
 PROFILED_CHUNK = 2  # of the paged run's decode chunks (0 warms up; 1 and 3 are timed unprofiled)
 
 
-def profile_paged_chunk(model, cfg, dev, card) -> None:
-    qmodel = quantize_model(model, mode="int8")
+def profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged: bool) -> None:
     provider = TorchProvider(model, cfg, QwenSyntheticTokenizer(cfg), max_new_tokens=MAX_NEW_TOKENS,
                              max_prompt_length=1024, prompt_bucket=512)
     host = provider.prepare_host(*requests(PAGED_REQUESTS, seed=3))
@@ -95,7 +96,8 @@ def profile_paged_chunk(model, cfg, dev, card) -> None:
             qmodel, host["input_ids"], host["segment_ids"], host["position_ids"], host["gen_pos_start"],
             max_new_tokens=MAX_NEW_TOKENS, sampling=SamplingParams(temperature=1.0),
             generator=torch.Generator(device=dev).manual_seed(2), kv_cache_dtype=torch.uint8,
-            int4_i8dot=True, patches_list=host["patches_list"], grids_list=host["grids_list"], **PAGED,
+            int4_i8dot=True, patches_list=host["patches_list"], grids_list=host["grids_list"],
+            fuse_staged=fuse_staged, **PAGED,
         )
     finally:
         paged_engine.decode_chunk_paged = real
@@ -104,10 +106,13 @@ def profile_paged_chunk(model, cfg, dev, card) -> None:
     device_s = sum(e.device_time for e in kernels) / 1e6
     wall = walls[PROFILED_CHUNK]
     unprof = statistics.median([walls[PROFILED_CHUNK - 1], walls[PROFILED_CHUNK + 1]])
-    print(f"paged run: stats {result.stats}; chunk walls s {[round(w, 4) for w in walls]}", flush=True)
+    ring = "fused into the pool kernel" if fuse_staged else "merged after the pool kernel"
+    print(f"paged run, staging ring {ring}: stats {result.stats}; chunk walls s "
+          f"{[round(w, 4) for w in walls]}", flush=True)
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=18,
                                     max_name_column_width=60), flush=True)
-    print(f"paged decode chunk of {steps} steps at {PAGED['slots']} slots: profiled wall {wall:.4f} s, "
+    print(f"paged decode chunk of {steps} steps at {PAGED['slots']} slots, ring {ring}: profiled wall "
+          f"{wall:.4f} s, "
           f"device {device_s:.4f} s, busy share {device_s / wall:.3f}, kernels per step "
           f"{len(kernels) / steps:.0f}; per step: device {device_s / steps * 1e3:.3f} ms, unprofiled wall "
           f"{unprof / steps * 1e3:.3f} ms, device / unprofiled wall {device_s / unprof:.3f}  [{card}]",
@@ -227,7 +232,9 @@ def main() -> int:
     cfg = qwen25_vl_3b()
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
     if args.engine == "paged":
-        profile_paged_chunk(model, cfg, dev, card)
+        qmodel = quantize_model(model, mode="int8")
+        for fuse_staged in (False, True):
+            profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged)
         return 0
     if args.engine == "train":
         profile_train_step(model, cfg, dev, card)

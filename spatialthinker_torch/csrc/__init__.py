@@ -24,7 +24,7 @@ CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR / "build"
 SOURCES = (
     "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "paged_attention.cu",
-    "int4_mlp.cu",
+    "int4_mlp.cu", "int8_matmul.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,12 +47,15 @@ _SIGNATURES = {
     # mode, G, block_rows -> bytes of dynamic shared memory per block
     "st_decode_attention_smem": [_I] * 3,
     # q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, o, m, l,
-    # S, Hq, Hkv, page, D, P_max, n_pages, layer, mode, scale, stream
-    "st_paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
-    # mode, G, page -> bytes of dynamic shared memory per block
-    "st_paged_attention_smem": [_I] * 3,
+    # stage_k, stage_v, stage_ks, stage_vs, stage_seg,
+    # S, Hq, Hkv, page, D, P_max, n_pages, layer, mode, C, scale, stream
+    "st_paged_attention": [_P] * 15 + [_I] * 10 + [_F, _P],
+    # mode, G, page, C -> bytes of dynamic shared memory per block
+    "st_paged_attention_smem": [_I] * 4,
     # x, xq, xs, xsum, q4, gscale, out, m, k, n_cols, group, gateup, out_f32, stream
     "st_int4_mlp": [_P] * 7 + [_I] * 6 + [_P],
+    # x, x_f32, xq, xs, w, ws, out, out_f32, m, n, k, quantize, stream
+    "st_int8_matmul": [_P, _I] + [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -51,6 +51,23 @@
 // What it does not do yet: tensor-core dots (mma/wgmma s8), cp.async or TMA
 // double buffering, and a split of long slots across CTAs; with S * Hkv CTAs
 // of 4 warps a small batch fills only part of the 132 SMs.
+//
+// The staged block (every mode, when C > 0). Replaces the TPU helper
+// `_staged_block_update` (spatialthinker_tpu/ops/paged_attention.py), which
+// #7, #8 and #9 run on their last grid step under `staged=`: after the last
+// page and before the flush, one more online-softmax update over the slot's
+// C cells of the decode staging ring (the chunk's tokens not yet installed
+// in the pools). The ring is dense and slot-major, (L, S, Hkv, C, 128): bf16
+// cells under bf16 pools, int8 cells with bf16 per-cell scales (L, S, Hkv, C)
+// under int8 AND int4 pools (ring cells are never packed); stage_seg (S, C)
+// int32 marks the live cells (seg != 0), which need not be a prefix. The
+// update is the TPU helper's: scores = bf16(q) . bf16(k) in fp32 — the float
+// q also in mode 2, never its int8 copy — times (k_scale * scale) with
+// scales, else times scale; dead cells masked; m, l and acc corrected;
+// weights times v_scale rounded to bf16 for the p . v dot. It reuses the
+// pool loop's staging tile and score buffer, and its three phases are those
+// of modes 0/1 over one "page" of C cells. With the ring fused, the returned
+// (m, l) are final: the caller has nothing left to merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,11 +92,12 @@ __host__ __device__ inline bool packed(int mode) { return mode == MODE_INT4_I8 |
 struct Layout {
   int pg;          // padded score slots per page (int4: two padded halves)
   int half_pad;    // int4: padded byte rows per page
+  int cp;          // padded score slots of the staged block (0: no ring)
   int tile_stride; // bytes per staged row (padded against bank conflicts)
-  int off_s, off_ksc, off_vsc, off_p8, off_q, off_small, total;
+  int off_s, off_ksc, off_vsc, off_p8, off_q, off_qf, off_seg, off_small, total;
 };
 
-__host__ __device__ inline Layout make_layout(int mode, int G, int page) {
+__host__ __device__ inline Layout make_layout(int mode, int G, int page, int C) {
   Layout L;
   if (packed(mode)) {
     L.half_pad = round_up(page / 2, 4);
@@ -88,13 +106,19 @@ __host__ __device__ inline Layout make_layout(int mode, int G, int page) {
     L.half_pad = 0;
     L.pg = round_up(page, 4);
   }
+  L.cp = round_up(C, 4);
+  const int slots = L.pg > L.cp ? L.pg : L.cp;  // the score buffer serves pages and the ring
   L.tile_stride = mode == MODE_BF16 ? (D + 8) * 2 : D + 16;
   int off = TILE * L.tile_stride;
-  L.off_s = off;          off += G * L.pg * 4;
-  L.off_ksc = off;        off += L.pg * 4;
-  L.off_vsc = off;        off += L.pg * 4;
+  L.off_s = off;          off += G * slots * 4;
+  L.off_ksc = off;        off += slots * 4;
+  L.off_vsc = off;        off += slots * 4;
   L.off_p8 = off;         off += mode == MODE_INT4_I8 ? round_up(G * L.pg, 16) : 0;
   L.off_q = off;          off += mode == MODE_INT4_I8 ? GMAX * D : GMAX * D * 4;
+  // the staged block's float q: mode 2 keeps only the int8 q above
+  L.off_qf = mode == MODE_INT4_I8 && C > 0 ? off : L.off_q;
+  off += mode == MODE_INT4_I8 && C > 0 ? GMAX * D * 4 : 0;
+  L.off_seg = off;        off += L.cp * 4;
   L.off_small = off;      off += 8 * GMAX * 4;
   L.total = off;
   return L;
@@ -135,10 +159,15 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ v_scale,
              const int* __restrict__ page_table, const int* __restrict__ lengths,
              __nv_bfloat16* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
-             int Hq, int Hkv, int page, int p_max, float scale) {
+             const unsigned char* __restrict__ stage_k,  // layer base of the ring (C > 0)
+             const unsigned char* __restrict__ stage_v,
+             const __nv_bfloat16* __restrict__ stage_ks,  // layer base (quantized pools)
+             const __nv_bfloat16* __restrict__ stage_vs,
+             const int* __restrict__ stage_seg,
+             int Hq, int Hkv, int page, int p_max, int C, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = Hq / Hkv;
-  const Layout L = make_layout(MODE, G, page);
+  const Layout L = make_layout(MODE, G, page, C);
   unsigned char* tile = smem;
   float* s_sh = reinterpret_cast<float*>(smem + L.off_s);
   float* ksc = reinterpret_cast<float*>(smem + L.off_ksc);
@@ -146,6 +175,8 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
   signed char* p8 = reinterpret_cast<signed char*>(smem + L.off_p8);
   float* qs = reinterpret_cast<float*>(smem + L.off_q);               // modes 0, 1, 3
   signed char* q8 = reinterpret_cast<signed char*>(smem + L.off_q);   // mode 2
+  float* qf = reinterpret_cast<float*>(smem + L.off_qf);              // staged block, every mode
+  int* seg_sh = reinterpret_cast<int*>(smem + L.off_seg);
   float* small = reinterpret_cast<float*>(smem + L.off_small);
   float* m_sh = small;
   float* l_sh = small + GMAX;
@@ -173,6 +204,8 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
     m_sh[tid] = NEG_INF;
     l_sh[tid] = 0.f;
   }
+  if (MODE == MODE_INT4_I8 && C > 0)
+    for (int i = tid; i < G * D; i += THREADS) qf[i] = __bfloat162float(qg[i]);
   if (MODE == MODE_INT4_I8) {
     // q -> int8 once, one scale per (head, row)
     for (int g = warp; g < G; g += THREADS / 32) {
@@ -484,6 +517,108 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
+  if (C > 0) {
+    // ---- the staged block: one more online-softmax update over the ring ----
+    constexpr int st_row_bytes = MODE == MODE_BF16 ? D * 2 : D;  // bf16 | int8 cells
+    const int CP = L.cp;
+    const size_t cell0 = ((size_t)slot * Hkv + h) * C;  // the (slot, head)'s first cell
+    const unsigned char* skp = stage_k + cell0 * st_row_bytes;
+    const unsigned char* svp = stage_v + cell0 * st_row_bytes;
+    __syncthreads();  // the pages' last phase C is done with the tile and the scores
+    for (int c = tid; c < C; c += THREADS) {
+      seg_sh[c] = stage_seg[(size_t)slot * C + c] != 0;
+      if (MODE != MODE_BF16) {
+        ksc[c] = __bfloat162float(stage_ks[cell0 + c]) * scale;
+        vsc[c] = __bfloat162float(stage_vs[cell0 + c]);
+      }
+    }
+    for (int t0 = 0; t0 < C; t0 += TILE) {  // phase A: scores from the float q
+      __syncthreads();
+      load_tile(skp + (size_t)t0 * st_row_bytes, st_row_bytes, min(TILE, C - t0), tile, L.tile_stride);
+      __syncthreads();
+      const unsigned char* krow = tile + tok * L.tile_stride;
+      float sc[GMAX / 2];
+#pragma unroll
+      for (int j = 0; j < GMAX / 2; ++j) sc[j] = 0.f;
+#pragma unroll
+      for (int c = 0; c < D; c += 8) {
+        float kf[8];
+        if (MODE == MODE_BF16) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(krow + c * 2);
+          const __nv_bfloat16* k8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) kf[e] = __bfloat162float(k8[e]);
+        } else {
+          const uint2 raw = *reinterpret_cast<const uint2*>(krow + c);
+          const signed char* k8 = reinterpret_cast<const signed char*>(&raw);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) kf[e] = static_cast<float>(k8[e]);
+        }
+#pragma unroll
+        for (int j = 0; j < GMAX / 2; ++j) {
+          const int g = part + 2 * j;
+          if (g < G) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) sc[j] = fmaf(qf[g * D + c + e], kf[e], sc[j]);
+          }
+        }
+      }
+      const int r = t0 + tok;
+      if (r < C) {
+#pragma unroll
+        for (int j = 0; j < GMAX / 2; ++j) {
+          const int g = part + 2 * j;
+          if (g < G) s_sh[g * CP + r] = MODE == MODE_BF16 ? sc[j] * scale : sc[j] * ksc[r];
+        }
+      }
+    }
+    __syncthreads();
+    for (int g = warp; g < G; g += THREADS / 32) {  // phase B, one warp per head
+      float* srow = s_sh + g * CP;
+      const float m_prev = m_sh[g];
+      float mx = NEG_INF;
+      for (int j = lane; j < C; j += 32)
+        if (seg_sh[j]) mx = fmaxf(mx, srow[j]);
+      const float m_new = fmaxf(m_prev, warp_max(mx));
+      float psum = 0.f;
+      for (int j = lane; j < C; j += 32) {
+        float p = 0.f;
+        if (seg_sh[j]) {
+          p = expf(srow[j] - m_new);
+          psum += p;
+          if (MODE != MODE_BF16) p *= vsc[j];
+          p = __bfloat162float(__float2bfloat16(p));  // the p . v dot takes bf16 weights
+        }
+        srow[j] = p;
+      }
+      const float corr = expf(m_prev - m_new);
+      psum = warp_sum(psum);
+      if (lane == 0) {
+        l_sh[g] = l_sh[g] * corr + psum;
+        m_sh[g] = m_new;
+        corr_sh[g] = corr;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g)  // phase C: p . v, one output column per thread
+      if (g < G) acc[g] *= corr_sh[g];
+    for (int t0 = 0; t0 < C; t0 += TILE) {
+      __syncthreads();
+      load_tile(svp + (size_t)t0 * st_row_bytes, st_row_bytes, min(TILE, C - t0), tile, L.tile_stride);
+      __syncthreads();
+      const int nt = min(TILE, C - t0);
+      for (int t = 0; t < nt; ++t) {
+        const float vv = MODE == MODE_BF16
+            ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(tile + t * L.tile_stride)[tid])
+            : static_cast<float>(reinterpret_cast<const signed char*>(tile + t * L.tile_stride)[tid]);
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g)
+          if (g < G) acc[g] = fmaf(s_sh[g * CP + t0 + t], vv, acc[g]);
+      }
+    }
+  }
+
   __syncthreads();
   __nv_bfloat16* og = o + ((size_t)slot * Hq + (size_t)h * G) * D;
 #pragma unroll
@@ -499,10 +634,20 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// The ring's layer bases, by the caller (all null when C = 0).
+struct Staged {
+  const unsigned char* k;
+  const unsigned char* v;
+  const __nv_bfloat16* ks;
+  const __nv_bfloat16* vs;
+  const int* seg;
+  int C;
+};
+
 template <int MODE>
 int launch(const void* q, const unsigned char* kp, const unsigned char* vp, const void* ks,
            const void* vs, const void* table, const void* lengths, void* o, void* m, void* l,
-           int S, int Hq, int Hkv, int page, int p_max, float scale, int smem,
+           const Staged& st, int S, int Hq, int Hkv, int page, int p_max, float scale, int smem,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(paged_kernel<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -511,29 +656,34 @@ int launch(const void* q, const unsigned char* kp, const unsigned char* vp, cons
       static_cast<const __nv_bfloat16*>(q), kp, vp, static_cast<const __nv_bfloat16*>(ks),
       static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(o), static_cast<float*>(m),
-      static_cast<float*>(l), Hq, Hkv, page, p_max, scale);
+      static_cast<float*>(l), st.k, st.v, st.ks, st.vs, st.seg, Hq, Hkv, page, p_max, st.C, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Dynamic shared memory (bytes) one CTA needs; the wrapper refuses shapes
-// beyond the card's opt-in limit before launching.
-extern "C" int st_paged_attention_smem(int mode, int G, int page) {
-  return make_layout(mode, G, page).total;
+// beyond the card's opt-in limit before launching. C = staged ring cells (0: none).
+extern "C" int st_paged_attention_smem(int mode, int G, int page, int C) {
+  return make_layout(mode, G, page, C).total;
 }
 
-// `page` is in token cells for every mode. Returns cudaGetLastError() after
-// the launch (0 = launched).
+// `page` is in token cells for every mode. The staging ring (C > 0): stage_k,
+// stage_v (L, S, Hkv, C, 128) bf16 (mode 0) | int8 (modes 1-3), stage_ks,
+// stage_vs (L, S, Hkv, C) bf16 (modes 1-3), stage_seg (S, C) int32; with
+// C = 0 they are not read. Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int st_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                   const void* k_scale, const void* v_scale,
                                   const void* page_table, const void* lengths, void* o, void* m,
-                                  void* l, int S, int Hq, int Hkv, int page, int D_, int p_max,
-                                  int n_pages, int layer, int mode, float scale, void* stream) {
+                                  void* l, const void* stage_k, const void* stage_v,
+                                  const void* stage_ks, const void* stage_vs, const void* stage_seg,
+                                  int S, int Hq, int Hkv, int page, int D_, int p_max,
+                                  int n_pages, int layer, int mode, int C, float scale, void* stream) {
   if (D_ != D || Hq % Hkv != 0 || Hq / Hkv > GMAX || page < 2 || page % 2 != 0 || S < 1 ||
-      mode < MODE_BF16 || mode > MODE_INT4)
+      mode < MODE_BF16 || mode > MODE_INT4 || C < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = make_layout(mode, Hq / Hkv, page).total;
+  const int smem = make_layout(mode, Hq / Hkv, page, C).total;
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const size_t rows = packed(mode) ? page / 2 : page;
   const size_t row_bytes = mode == MODE_BF16 ? D * 2 : D;
@@ -547,19 +697,31 @@ extern "C" int st_paged_attention(const void* q, const void* k_pool, const void*
     ks = static_cast<const __nv_bfloat16*>(k_scale) + layer * layer_cells;
     vs = static_cast<const __nv_bfloat16*>(v_scale) + layer * layer_cells;
   }
+  Staged st{nullptr, nullptr, nullptr, nullptr, nullptr, C};
+  if (C > 0) {
+    const size_t ring_cells = (size_t)S * Hkv * C;  // cells of one layer of the ring
+    const size_t cell_bytes = mode == MODE_BF16 ? D * 2 : D;
+    st.k = static_cast<const unsigned char*>(stage_k) + layer * ring_cells * cell_bytes;
+    st.v = static_cast<const unsigned char*>(stage_v) + layer * ring_cells * cell_bytes;
+    if (mode != MODE_BF16) {
+      st.ks = static_cast<const __nv_bfloat16*>(stage_ks) + layer * ring_cells;
+      st.vs = static_cast<const __nv_bfloat16*>(stage_vs) + layer * ring_cells;
+    }
+    st.seg = static_cast<const int*>(stage_seg);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case MODE_BF16:
-      return launch<MODE_BF16>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, S, Hq, Hkv, page,
-                               p_max, scale, smem, s);
+      return launch<MODE_BF16>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv,
+                               page, p_max, scale, smem, s);
     case MODE_INT8:
-      return launch<MODE_INT8>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, S, Hq, Hkv, page,
-                               p_max, scale, smem, s);
+      return launch<MODE_INT8>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv,
+                               page, p_max, scale, smem, s);
     case MODE_INT4_I8:
-      return launch<MODE_INT4_I8>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, S, Hq, Hkv,
+      return launch<MODE_INT4_I8>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv,
                                   page, p_max, scale, smem, s);
     default:
-      return launch<MODE_INT4>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, S, Hq, Hkv, page,
-                               p_max, scale, smem, s);
+      return launch<MODE_INT4>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv,
+                               page, p_max, scale, smem, s);
   }
 }

@@ -13,8 +13,18 @@ compacted tokens (validity is ``cell < length``):
   both dots on int8 operands (``int4_i8dot=True``): the TPU kernel
   ``_paged_kernel_int4_i8`` -> ``_launch_int4_i8_kernel``; or with the dots on
   the unsigned nibbles widened to floating point (``int4_i8dot=False``): the
-  TPU kernel ``_paged_kernel_int4`` -> ``_launch_int4_kernel``. The fused
-  staging block (``staged=``) is not ported and raises on every device.
+  TPU kernel ``_paged_kernel_int4`` -> ``_launch_int4_kernel``.
+
+``staged=`` fuses the decode staging ring into the same call (the TPU
+helper ``_staged_block_update`` that #7, #8 and #9 run on their last grid
+step): ``(stage_k, stage_v, stage_ks | None, stage_vs | None, stage_seg)``
+with stage_k / stage_v (L, S, Hkv, C, D) bf16 under bf16 pools and int8
+(never packed) with bf16 per-cell scales (L, S, Hkv, C) under int8 and int4
+pools, and stage_seg (S, C) int32 (a cell is live where it is nonzero). After
+the last page one more online-softmax block attends the slot's live ring
+cells: scores bf16(q) . bf16(k) in fp32 (the float q in every mode), times
+(k_scale * scale) or scale, the weights times v_scale rounded to bf16 for
+the p . v dot. The returned (m, l) then cover pool and ring cells.
 
 Unused page-table entries point at page 0 (a reserved dummy) and are masked
 by the length. The result is (S, Hq, D) and, with ``return_stats``, the
@@ -48,6 +58,7 @@ KERNEL_MAX_SMEM = 232448  # dynamic shared memory a block may opt in to on sm_90
 MODE_BF16, MODE_INT8, MODE_INT4_I8, MODE_INT4 = 0, 1, 2, 3
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+Staged = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor], torch.Tensor]
 
 
 def _pool_mode(k_pool: torch.Tensor, k_scale, int4_i8dot: bool) -> int:
@@ -69,8 +80,44 @@ def _page_cells(k_pool: torch.Tensor) -> int:
     return k_pool.shape[3] * (2 if k_pool.dtype == torch.uint8 else 1)
 
 
+def _staged_update(q, m, l, acc, staged: Staged, layer_idx: int, scale: float):
+    """The staged block (the TPU helper ``_staged_block_update``): one more
+    online-softmax update of (m, l, acc), each (S, Hkv, G[, D]) fp32, over
+    the slots' live staging-ring cells."""
+    st_k, st_v, st_ks, st_vs, seg = staged
+    s_slots, hkv, g, d = acc.shape
+    qb = q.reshape(s_slots, hkv, g, d).to(torch.bfloat16).float()
+    k = st_k[layer_idx].to(torch.bfloat16).float()  # (S, Hkv, C, D)
+    v = st_v[layer_idx].to(torch.bfloat16).float()
+    s = torch.einsum("shgd,shcd->shgc", qb, k)
+    if st_ks is not None:
+        s = s * (st_ks[layer_idx].float() * scale)[:, :, None, :]
+    else:
+        s = s * scale
+    valid = (seg != 0)[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.where(valid, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    if st_vs is not None:
+        p = p * st_vs[layer_idx].float()[:, :, None, :]
+    pv = torch.einsum("shgc,shcd->shgd", p.to(torch.bfloat16).float(), v)
+    return m_new, l, acc * corr[..., None] + pv
+
+
+def _finish(q, m, l, acc, staged, layer_idx, scale) -> Stats:
+    """The flush: the staged block if any, then o = acc / l (0 where l = 0)."""
+    if staged is not None:
+        m, l, acc = _staged_update(q, m, l, acc, staged, layer_idx, scale)
+    s_slots, hq, d = q.shape
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    out = (acc / safe[..., None]).reshape(s_slots, hq, d).to(q.dtype)
+    return out, m.reshape(s_slots, hq), l.reshape(s_slots, hq)
+
+
 def paged_attention_plain(q, k_pool, v_pool, page_table, lengths, layer_idx,
-                          k_scale, v_scale, scale) -> Stats:
+                          k_scale, v_scale, scale, staged: Optional[Staged] = None) -> Stats:
     """bf16 / int8 pools, page block by page block: fp32 scores (int8 k times
     its cell scale), online softmax against the running max, weights (times
     the v cell scale) rounded to bf16 for the p . v product."""
@@ -106,9 +153,7 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, lengths, layer_idx,
         pv = torch.einsum("shgc,shcd->shgd", p.to(torch.bfloat16).float(), v)
         acc = acc * corr[..., None] + pv
         m = m_new
-    safe = torch.where(l == 0, torch.ones_like(l), l)
-    out = (acc / safe[..., None]).reshape(s_slots, hq, d).to(q.dtype)
-    return out, m.reshape(s_slots, hq), l.reshape(s_slots, hq)
+    return _finish(q, m, l, acc, staged, layer_idx, scale)
 
 
 def _page_nibbles(packed: torch.Tensor) -> torch.Tensor:
@@ -118,7 +163,7 @@ def _page_nibbles(packed: torch.Tensor) -> torch.Tensor:
 
 
 def paged_attention_int4_plain(q, k_pool, v_pool, page_table, lengths, layer_idx,
-                               k_scale, v_scale, scale) -> Stats:
+                               k_scale, v_scale, scale, staged: Optional[Staged] = None) -> Stats:
     """int4 pools, dots on the unsigned nibbles u = value + 8 (exact in bf16).
     Per page: scores = (q . u - 8 * sum(q)) * (k_scale * scale); online
     softmax; the weights times v_scale are rounded to bf16 for the p . u dot,
@@ -152,13 +197,11 @@ def paged_attention_int4_plain(q, k_pool, v_pool, page_table, lengths, layer_idx
         pv = pv - KV4_BIAS * p.sum(dim=-1, keepdim=True)
         acc = acc * corr[..., None] + pv
         m = m_new
-    safe = torch.where(l == 0, torch.ones_like(l), l)
-    out = (acc / safe[..., None]).reshape(s_slots, hq, d).to(q.dtype)
-    return out, m.reshape(s_slots, hq), l.reshape(s_slots, hq)
+    return _finish(q, m, l, acc, staged, layer_idx, scale)
 
 
 def paged_attention_int4_i8_plain(q, k_pool, v_pool, page_table, lengths, layer_idx,
-                                  k_scale, v_scale, scale) -> Stats:
+                                  k_scale, v_scale, scale, staged: Optional[Staged] = None) -> Stats:
     """int4 pools, both dots on int8 operands. q quantizes per (head, row)
     once; per page the biased nibbles meet it in an integer dot, debiased by
     -8 * sum(q) and rescaled by qscale * (k_scale * scale); the softmax
@@ -203,15 +246,15 @@ def paged_attention_int4_i8_plain(q, k_pool, v_pool, page_table, lengths, layer_
         pv = (pv - KV4_BIAS * sump) * pscale
         acc = acc * corr[..., None] + pv
         m = m_new
-    safe = torch.where(l == 0, torch.ones_like(l), l)
-    out = (acc / safe[..., None]).reshape(s_slots, hq, d).to(q.dtype)
-    return out, m.reshape(s_slots, hq), l.reshape(s_slots, hq)
+    return _finish(q, m, l, acc, staged, layer_idx, scale)
 
 
 def paged_attention_gathered(q, k_pool, v_pool, page_table, lengths, layer_idx,
-                             k_scale=None, v_scale=None, scale=None) -> Stats:
+                             k_scale=None, v_scale=None, scale=None,
+                             staged: Optional[Staged] = None) -> Stats:
     """Exact reference for any pool format: gather the slot's pages to a dense
-    (S, Hkv, P_max*page, D) view, dequantize, one masked softmax in fp32."""
+    (S, Hkv, P_max*page, D) view, dequantize, one masked softmax in fp32
+    (with ``staged``, over the pool cells and the live ring cells together)."""
     s_slots, hq, d = q.shape
     scale = scale if scale is not None else d**-0.5
     hkv = k_pool.shape[2]
@@ -236,6 +279,14 @@ def paged_attention_gathered(q, k_pool, v_pool, page_table, lengths, layer_idx,
         v_l = (v_l * gather(v_scale).float()[..., None]).to(q.dtype).float()
     mask = torch.arange(p_max * page, device=q.device)[None, :] < lengths.to(torch.int64)[:, None]
     mask = mask[:, None, None, :]
+    if staged is not None:
+        st_k, st_v, st_ks, st_vs, seg = staged
+        k_st, v_st = st_k[layer_idx].float(), st_v[layer_idx].float()  # (S, Hkv, C, D)
+        if st_ks is not None:
+            k_st = k_st * st_ks[layer_idx].float()[..., None]
+            v_st = v_st * st_vs[layer_idx].float()[..., None]
+        k_l, v_l = torch.cat([k_l, k_st], dim=2), torch.cat([v_l, v_st], dim=2)
+        mask = torch.cat([mask, (seg != 0)[:, None, None, :]], dim=3)
     qg = q.reshape(s_slots, hkv, g, d).float()
     s = torch.einsum("shgd,shtd->shgt", qg, k_l) * scale
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
@@ -247,8 +298,31 @@ def paged_attention_gathered(q, k_pool, v_pool, page_table, lengths, layer_idx,
     return out.reshape(s_slots, hq, d).to(q.dtype), m.reshape(s_slots, hq), l.reshape(s_slots, hq)
 
 
+def _check_staged(staged: Staged, q, k_pool, mode: int):
+    """Shapes and types of the staging ring; returns its tensors for the launch."""
+    st_k, st_v, st_ks, st_vs, seg = staged
+    s_slots = q.shape[0]
+    n_layers, _, hkv, _, d = k_pool.shape
+    if st_k.dim() != 5 or st_k.shape != st_v.shape:
+        raise ValueError(f"stage_k / stage_v shapes {tuple(st_k.shape)}/{tuple(st_v.shape)}")
+    c = st_k.shape[3]
+    if tuple(st_k.shape) != (n_layers, s_slots, hkv, c, d) or c < 1:
+        raise ValueError(f"the ring must be ({n_layers}, {s_slots}, {hkv}, C, {d}), got {tuple(st_k.shape)}")
+    if tuple(seg.shape) != (s_slots, c):
+        raise ValueError(f"stage_seg must be ({s_slots}, {c}), got {tuple(seg.shape)}")
+    tensors = [("stage_k", st_k, torch.bfloat16 if mode == MODE_BF16 else torch.int8),
+               ("stage_v", st_v, torch.bfloat16 if mode == MODE_BF16 else torch.int8),
+               ("stage_seg", seg, torch.int32)]
+    if mode != MODE_BF16:
+        for name, t in (("stage_ks", st_ks), ("stage_vs", st_vs)):
+            if t is None or tuple(t.shape) != tuple(st_k.shape[:4]):
+                raise ValueError(f"{name} must be {tuple(st_k.shape[:4])} under quantized pools")
+            tensors.append((name, t, torch.bfloat16))
+    return tensors
+
+
 def _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale,
-                       mode: int) -> None:
+                       mode: int, staged: Optional[Staged] = None) -> None:
     s_slots, hq, d = q.shape
     if k_pool.dim() != 5 or k_pool.shape != v_pool.shape or k_pool.dtype != v_pool.dtype:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
@@ -275,6 +349,8 @@ def _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scal
         if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
             raise ValueError(f"scales must be {want}, got {tuple(k_scale.shape)}/{tuple(v_scale.shape)}")
         tensors += [("k_scale", k_scale, torch.bfloat16), ("v_scale", v_scale, torch.bfloat16)]
+    if staged is not None:
+        tensors += _check_staged(staged, q, k_pool, mode)
     for name, t, dtype in tensors:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -285,31 +361,39 @@ def _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scal
 
 
 def _launch(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, scale,
-            mode: int) -> Stats:
-    _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, mode)
+            staged: Optional[Staged], mode: int) -> Stats:
+    _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, mode,
+                       staged)
     s_slots, hq, d = q.shape
     n_pages, hkv = k_pool.shape[1], k_pool.shape[2]
     page = _page_cells(k_pool)
+    c = 0 if staged is None else staged[0].shape[3]
     lib = csrc.library()
-    smem = lib.st_paged_attention_smem(mode, hq // hkv, page)
+    smem = lib.st_paged_attention_smem(mode, hq // hkv, page, c)
     if smem > KERNEL_MAX_SMEM:
         raise ValueError(
-            f"page size {page} with {hq // hkv} query heads per kv head needs {smem} bytes of "
-            f"shared memory per block; the card allows {KERNEL_MAX_SMEM}"
+            f"page size {page} with {hq // hkv} query heads per kv head and {c} ring cells needs "
+            f"{smem} bytes of shared memory per block; the card allows {KERNEL_MAX_SMEM}"
         )
     out = torch.empty_like(q)
     m = torch.empty((s_slots, hq), dtype=torch.float32, device=q.device)
     l = torch.empty((s_slots, hq), dtype=torch.float32, device=q.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    ring = (None,) * 5 if staged is None else staged
     with torch.cuda.device(q.device):
         rc = lib.st_paged_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr() if k_scale is not None else None,
-            v_scale.data_ptr() if v_scale is not None else None,
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-            s_slots, hq, hkv, page, d, page_table.shape[1], n_pages, int(layer_idx), mode,
+            *(ptr(t) for t in ring),
+            s_slots, hq, hkv, page, d, page_table.shape[1], n_pages, int(layer_idx), mode, c,
             float(scale), torch.cuda.current_stream().cuda_stream,
         )
     csrc.check_launch(rc, "paged attention")
+    if staged is not None:
+        _launch.staged_launches += 1
     return out, m, l
 
 
@@ -334,6 +418,7 @@ def _launch_int4_kernel(*args) -> Stats:
     return res
 
 
+_launch.staged_launches = 0  # launches of any mode that ran the staged block
 _launch_pool_kernel.launches = 0
 _launch_int4_i8_kernel.launches = 0
 _launch_int4_kernel.launches = 0
@@ -351,19 +436,17 @@ def paged_attention(
     scale: Optional[float] = None,
     return_stats: bool = False,
     int4_i8dot: bool = False,
-    staged=None,
+    staged: Optional[Staged] = None,
 ):
     """Attention of one decode token per slot over its page-table pages of
-    layer ``layer_idx``. Returns (S, Hq, D); with ``return_stats`` also the
-    partial-softmax stats (m, l), each (S, Hq)."""
-    if staged is not None:
-        raise NotImplementedError(
-            "the fused staging block (staged=) is not ported; merge the staged cells "
-            "with the returned (m, l) stats"
-        )
+    layer ``layer_idx`` and, with ``staged``, the slot's live staging-ring
+    cells. Returns (S, Hq, D); with ``return_stats`` also the partial-softmax
+    stats (m, l), each (S, Hq)."""
     mode = _pool_mode(k_pool, k_scale, int4_i8dot)
+    if staged is not None and (staged[2] is None) != (mode == MODE_BF16):
+        raise ValueError("ring scales (stage_ks, stage_vs) come with quantized pools, and only with them")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    args = (q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, scale)
+    args = (q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, scale, staged)
     if not q.is_cuda:
         if mode == MODE_INT4_I8:
             out = paged_attention_int4_i8_plain(*args)

@@ -15,10 +15,12 @@ order. ``QuantLinear`` and ``QuantEmbedding`` hold one inside the model;
 their ``weight`` attribute is that dict, so ``linear`` / ``embed_rows``
 dispatch on a module's ``weight`` whether it is quantized or plain.
 
-The int8 product is a library matmul (``torch._int_mm``), as it is an XLA
-``dot_general`` outside any kernel in the JAX package. On CUDA ``_int_mm``
-refuses fewer than 17 rows and unaligned k/n: the rows are zero-padded here
-(decode with few lanes), unaligned k or n raises.
+On CUDA the whole product — the activation quantize, the int8 dot and the
+scale epilogue — is one hand-written kernel (``ops.int8_matmul``, the port
+of the JAX package's fused W8A8 Pallas kernels), equal to the chain below
+bit for bit; rows that are already quantized (the silu junction) run the
+same kernel without its quantize prologue. On the CPU the chain runs as
+plain tensor ops with ``torch._int_mm`` for the exact int32 dot.
 
 ``quantize_model(mode="w4a8")`` adds int4 decode copies of each MLP's
 gate_up and down weights (``ops.int4_mlp.Int4Weight``); the MLP runs them
@@ -37,12 +39,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from .int4_mlp import Int4Weight
+from .int8_matmul import fused_w8a8_matmul, int8_matmul, w8a8_epilogue, w8a8_matmul_prequantized
+from .int8_matmul import quantize_rows as quantize_activation  # per-token (last-dim) int8, scale (..., 1)
 
 QWeight = Dict[str, torch.Tensor]
 
 _EPS = 1e-8
 FUSED_SILU_MIN_M = 1024  # below it (decode) the junction stays unfused
-_INT_MM_MIN_ROWS = 17    # torch._int_mm on CUDA needs more than 16 rows
 
 
 def is_quantized(w) -> bool:
@@ -60,15 +63,6 @@ def quantize_weight(w: torch.Tensor, contract_axis: int) -> QWeight:
     return {"qvalue": q, "scale": scale}
 
 
-def quantize_activation(x: torch.Tensor):
-    """Symmetric per-token (last-dim) dynamic int8. Returns (q, scale (..., 1))."""
-    xf = x.float()
-    a = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(a, min=_EPS) / 127.0
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-    return q, scale
-
-
 def _as_kn(qvalue: torch.Tensor, contract_axis: int) -> torch.Tensor:
     """The weight as a (K, N) matrix, N = the non-contracted dims flattened in
     order. A view for the model's (N, K) weights (contract_axis 1)."""
@@ -78,19 +72,14 @@ def _as_kn(qvalue: torch.Tensor, contract_axis: int) -> torch.Tensor:
     return moved.reshape(moved.shape[0], -1)
 
 
-def int8_matmul(xq: torch.Tensor, w_kn: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact."""
-    m, k = xq.shape
-    if not xq.is_cuda:
-        return torch._int_mm(xq, w_kn)
-    n = w_kn.shape[1]
-    if k % 8 or n % 8:
-        raise ValueError(f"int8 matmul on CUDA needs k and n in multiples of 8, got k={k} n={n}")
-    if m >= _INT_MM_MIN_ROWS:
-        return torch._int_mm(xq.contiguous(), w_kn)
-    padded = xq.new_zeros((32, k))
-    padded[:m] = xq
-    return torch._int_mm(padded, w_kn)[:m]
+def _kernel_weight(qvalue: torch.Tensor, contract_axis: int) -> torch.Tensor:
+    """The (N, K) row-major int8 matrix the CUDA kernel takes: the model's
+    2-D weights contracted on axis 1, as they are."""
+    if qvalue.dim() != 2 or contract_axis != 1:
+        raise ValueError(
+            f"the W8A8 kernel takes 2-D (N, K) weights contracted on axis 1, got "
+            f"{tuple(qvalue.shape)} on axis {contract_axis}")
+    return qvalue
 
 
 def prequantized_dot(xq: torch.Tensor, xs: torch.Tensor, qw: QWeight, contract_axis: int,
@@ -100,16 +89,27 @@ def prequantized_dot(xq: torch.Tensor, xs: torch.Tensor, qw: QWeight, contract_a
     qw's non-contracted dims in order."""
     qv = qw["qvalue"]
     lead = xq.shape[:-1]
-    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), _as_kn(qv, contract_axis))
-    out = acc.float() * xs.reshape(-1, 1) * qw["scale"].reshape(1, -1)
+    x2 = xq.reshape(-1, xq.shape[-1])
+    if xq.is_cuda:
+        out = w8a8_matmul_prequantized(x2.contiguous(), xs.reshape(-1).contiguous(),
+                                       _kernel_weight(qv, contract_axis), qw["scale"], out_dtype)
+    else:
+        out = w8a8_epilogue(int8_matmul(x2, _as_kn(qv, contract_axis)), xs, qw["scale"], out_dtype)
     free = qv.shape[:contract_axis] + qv.shape[contract_axis + 1:]
-    return out.to(out_dtype).reshape(*lead, *free)
+    return out.reshape(*lead, *free)
 
 
 def quantized_dot(x: torch.Tensor, qw: QWeight, contract_axis: int, out_dtype=None) -> torch.Tensor:
-    """x (..., K) @ qw (K at ``contract_axis``), both operands int8."""
-    xq, xs = quantize_activation(x)
-    return prequantized_dot(xq, xs, qw, contract_axis, out_dtype if out_dtype is not None else x.dtype)
+    """x (..., K) @ qw (K at ``contract_axis``), both operands int8: the fused
+    kernel for a CUDA tensor, the quantize -> ``_int_mm`` -> epilogue chain
+    for a CPU tensor (the same values)."""
+    out_dtype = out_dtype if out_dtype is not None else x.dtype
+    if not x.is_cuda:
+        xq, xs = quantize_activation(x)
+        return prequantized_dot(xq, xs, qw, contract_axis, out_dtype)
+    w = _kernel_weight(qw["qvalue"], contract_axis)
+    out = fused_w8a8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w, qw["scale"], out_dtype)
+    return out.reshape(*x.shape[:-1], w.shape[0])
 
 
 def fused_silu_quant_dot(gu: torch.Tensor, qdown: QWeight, out_dtype,

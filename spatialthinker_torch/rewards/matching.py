@@ -3,8 +3,11 @@
 Behavioral parity with verl/utils/reward_score/spatial_sgg.py:140-246,
 but cost matrices are built with vectorized geometry (pairwise_ciou) and a
 batched similarity matrix instead of per-pair python loops. The assignment
-solve is ``scipy.optimize.linear_sum_assignment`` (the JAX package's optional
-C++ Jonker-Volgenant solver gives the same assignments and is not copied).
+solve is ``scipy.optimize.linear_sum_assignment``. The JAX package's C++
+Jonker-Volgenant solver (not copied) finds an optimal assignment too, but
+where costs tie (duplicate predictions, equal boxes) the two may pick
+different optimal mappings. The rewards built on the mappings stay equal
+(``tests/test_torch_rewards.py::test_rewards_equal_on_tied_costs``).
 """
 
 from __future__ import annotations

@@ -17,13 +17,15 @@ a small dense staging ring at the chunk-uniform index ``ring``; the pool
 kernel (``ops.paged_attention``) attends the installed cells and returns
 partial-softmax stats; the chunk's staged cells attend in plain tensor ops
 and merge by the flash combine; ``_install_stage`` moves the ring into the
-pools once per chunk. Pools and slot state are updated in place.
+pools once per chunk. With ``fuse_staged`` the pool kernel attends the ring
+cells itself (its staged block) and nothing is merged: one call per layer.
+Pools and slot state are updated in place.
 
 Scatter plans keep fixed shapes per refill geometry: unused entries target
 the reserved dummy page 0 and padded queue rows the trash lane ``slots``;
 page 0 may receive writes and is always masked by the lengths.
 
-Not ported: the multi-device branch (``mesh=``) and ``fuse_staged``.
+Not ported: the multi-device branch (``mesh=``).
 """
 
 from __future__ import annotations
@@ -267,12 +269,15 @@ def prefill_paged(
 
 
 def _paged_decode_layer(layer, cfg, x, cos, sin, state: PagedState, layer_idx: int,
-                        stage_seg: torch.Tensor, int4_i8dot: bool = False) -> torch.Tensor:
+                        stage_seg: torch.Tensor, int4_i8dot: bool = False,
+                        fuse_staged: bool = False) -> torch.Tensor:
     """One decoder layer, one token per slot. The new token's KV is written
     into the staging ring at the uniform index ``state.ring``; the pool kernel
     attends the installed cells and returns (o, m, l); the chunk's staged
     cells attend in one vectorized block over all slots and merge by the
-    flash combine. The pools are read-only during the chunk."""
+    flash combine — or, with ``fuse_staged``, the pool kernel attends the
+    ring cells too and its output is final. The pools are read-only during
+    the chunk."""
     int4 = state.k_pool.dtype == torch.uint8
     ring = state.ring
     x2 = x[:, None, :]
@@ -293,6 +298,13 @@ def _paged_decode_layer(layer, cfg, x, cos, sin, state: PagedState, layer_idx: i
     s, d = x.shape[0], q.shape[-1]
     scale = d**-0.5
     qh = q[:, 0].to(x.dtype).contiguous()
+    if fuse_staged:
+        out = paged_attention(
+            qh, state.k_pool, state.v_pool, state.page_table, state.length, layer_idx,
+            state.k_scale, state.v_scale, int4_i8dot=int4_i8dot,
+            staged=(state.stage_k, state.stage_v, state.stage_ks, state.stage_vs, stage_seg),
+        ).to(x.dtype)
+        return finish_layer(layer, cfg, x2, out[:, None])[:, 0]
     o1, m1, l1 = paged_attention(
         qh, state.k_pool, state.v_pool, state.page_table, state.length, layer_idx,
         state.k_scale, state.v_scale, return_stats=True, int4_i8dot=int4_i8dot,
@@ -337,8 +349,6 @@ def decode_chunk_paged(model: Qwen25VL, state: PagedState, sampling: SamplingPar
     once at the end of the chunk. ``state.length`` stays the INSTALLED cell
     count during the chunk (the pool kernel masks by it); it advances at
     install."""
-    if fuse_staged:
-        raise NotImplementedError("fuse_staged (staged cells inside the pool kernel) is not ported")
     cfg = model.cfg
     t = cfg.text
     text = model.text
@@ -366,7 +376,7 @@ def decode_chunk_paged(model: Qwen25VL, state: PagedState, sampling: SamplingPar
         )
         for i, layer in enumerate(text.layers):
             x = _paged_decode_layer(layer, t, x, cos, sin, state, i, state.stage_seg,
-                                    int4_i8dot=int4_i8dot)
+                                    int4_i8dot=int4_i8dot, fuse_staged=fuse_staged)
         hidden = text.norm(x[:, None, :])
         logits = logits_from_hidden(text, hidden)[:, 0, :]
 
@@ -513,9 +523,9 @@ def generate_paged(
     ``total_pages`` KV page pool, on the device that holds ``model``. Output
     row i*group_n + j is sample j of prompt i. ``stats`` reports page-pool
     telemetry (peak pages, preemptions, total pages), the refill and decode
-    chunk counts and the seconds spent in each."""
-    if fuse_staged:
-        raise NotImplementedError("fuse_staged (staged cells inside the pool kernel) is not ported")
+    chunk counts and the seconds spent in each. ``fuse_staged`` attends the
+    staging ring inside the pool kernel instead of merging it after.
+    """
     cfg = model.cfg
     device = model.text.norm.weight.device
     input_ids = np.asarray(input_ids)
@@ -809,7 +819,7 @@ def generate_paged(
         t0 = time.perf_counter()
         ensure_capacity()
         decode_chunk_paged(model, state, sampling, decode_chunk_size, generator,
-                           int4_i8dot=int4_i8dot)
+                           int4_i8dot=int4_i8dot, fuse_staged=fuse_staged)
         # the one fetch per chunk: which slots finished during it
         running = h_active & ~h_finished
         finished_np = state.finished.cpu().numpy().astype(bool)

@@ -441,7 +441,10 @@ class GRPOTrainer:
         )
         self.padding_free = actor.padding_free
         if self.padding_free:
-            self.packed_update_fn = make_packed_update_fn(model, self.optimizer, **update_kwargs)
+            self.packed_update_fn = make_packed_update_fn(
+                model, self.optimizer, freeze_vision_tower=actor.model.freeze_vision_tower,
+                **update_kwargs,
+            )
 
         self.sampling = SamplingParams(
             temperature=roll.temperature, top_p=roll.top_p, top_k=roll.top_k, n=roll.n,

@@ -252,10 +252,12 @@ def make_grad_fn(model: Qwen25VL, *, max_grad_norm: float = 1.0, grad_accum_dtyp
 
 
 def make_packed_grad_fn(model: Qwen25VL, *, max_grad_norm: float = 1.0,
-                        grad_accum_dtype=torch.float32, **loss_knobs):
+                        grad_accum_dtype=torch.float32, freeze_vision_tower: bool = False,
+                        **loss_knobs):
     """Packed-row variant of ``make_grad_fn`` (``packed_actor_loss_fn``)."""
     return _make_grad_fn(model, packed_actor_loss_fn, max_grad_norm=max_grad_norm,
-                         grad_accum_dtype=grad_accum_dtype, **loss_knobs)
+                         grad_accum_dtype=grad_accum_dtype,
+                         freeze_vision_tower=freeze_vision_tower, **loss_knobs)
 
 
 def apply_optimizer_step(optimizer: AdamW, grads, model: Qwen25VL, *, finite: bool,
@@ -286,13 +288,17 @@ def make_update_fn(model: Qwen25VL, optimizer: AdamW, *, freeze_vision_tower: bo
     return update
 
 
-def make_packed_update_fn(model: Qwen25VL, optimizer: AdamW, **knobs):
-    """Packed-row variant of ``make_update_fn``: micro dim on every tensor."""
-    grad_step = make_packed_grad_fn(model, **knobs)
+def make_packed_update_fn(model: Qwen25VL, optimizer: AdamW, *,
+                          freeze_vision_tower: bool = False, **knobs):
+    """Packed-row variant of ``make_update_fn``: micro dim on every tensor.
+    ``freeze_vision_tower`` holds here as on the unpacked path (the JAX
+    package's packed update ignores it)."""
+    grad_step = make_packed_grad_fn(model, freeze_vision_tower=freeze_vision_tower, **knobs)
 
     def update(micro_batches: PackedTrainBatch, vision: Optional[VisionInputs] = None):
         grads, metrics, finite, factor = grad_step(micro_batches, vision)
-        apply_optimizer_step(optimizer, grads, model, finite=finite, grad_scale=factor)
+        apply_optimizer_step(optimizer, grads, model, finite=finite, grad_scale=factor,
+                             freeze_vision_tower=freeze_vision_tower)
         return metrics
 
     return update

@@ -27,6 +27,10 @@ The int4 MLP kernels: the row quantize is the plain version's to the bit and
 the int32 group dots are exact, so only the order of the fp32 group sums,
 the silu's last bit and the bf16 rounding of the output differ: the largest
 error within 1e-2 of the largest output magnitude (two bf16 ulps).
+The fused W8A8 kernel: the row quantize divides as the plain version does,
+the int32 dot is exact and the epilogue rounds the same two products in the
+same order: equal bit for bit.
+The staged block of the paged kernels: the paged tolerances above.
 """
 
 import numpy as np
@@ -38,6 +42,7 @@ from spatialthinker_torch.ops.decode_attention import decode_attention, decode_a
 from spatialthinker_torch.ops import paged_attention as pa
 from spatialthinker_torch.ops import flash_attention as fa
 from spatialthinker_torch.ops import int4_mlp as i4
+from spatialthinker_torch.ops import int8_matmul as i8
 from spatialthinker_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
 from spatialthinker_torch.ops.silu_quant import fused_silu_quantize, fused_silu_quantize_plain
 
@@ -334,6 +339,105 @@ def test_paged_kernels_match_plain(dev, kind, g, page, lengths):
             assert torch.all(o[i] == 0) and torch.all(l[i] == 0) and torch.all(m[i] == -1e30)
 
 
+def _ring(rng, dev, kind, lengths, c, hkv=2, n_layers=2, d=128):
+    """A staging ring for the pools of ``_paged_case``: bf16 cells under bf16
+    pools, int8 cells (int4 values under int4 pools) with bf16 scales
+    otherwise; about half the cells live, slot 0 with none."""
+    shape = (n_layers, len(lengths), hkv, c, d)
+    if kind == "bf16":
+        k, v, ks, vs = _bf16(rng, shape, dev), _bf16(rng, shape, dev), None, None
+    else:
+        lim, lo, hi = (127, 0.001, 0.02) if kind == "int8" else (7, 0.01, 0.1)
+        k, v = (torch.from_numpy(rng.integers(-lim, lim + 1, size=shape).astype(np.int8)).to(dev)
+                for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(lo, hi, size=shape[:-1]).astype(np.float32)).to(dev, torch.bfloat16)
+                  for _ in range(2))
+    seg = (rng.random((len(lengths), c)) < 0.5).astype(np.int32)
+    seg[0] = 0
+    for i, ell in enumerate(lengths):
+        if ell == 0:
+            seg[i, 0] = 1  # a slot with ring cells and no pool cell
+    return k, v, ks, vs, torch.from_numpy(seg).to(dev)
+
+
+STAGED_CASES = [  # kind, G, page, lengths, ring cells
+    ("bf16", 8, 256, (600, 256, 37, 0, 511), 16),
+    ("int8", 8, 256, (600, 256, 37, 0, 511), 16),
+    ("int4", 8, 256, (600, 256, 37, 0, 511), 16),
+    ("int4_bf16dot", 8, 256, (600, 256, 37, 0, 511), 16),
+    ("int4", 7, 6, (11, 6, 1, 17, 0), 80),  # a ring over two staging tiles
+    ("int8", 7, 130, (300, 131, 0, 390), 3),
+]
+
+
+@pytest.mark.parametrize("kind,g,page,lengths,c", STAGED_CASES)
+def test_staged_block_matches_plain(dev, kind, g, page, lengths, c):
+    """The staged block (``staged=``) in every mode of the paged kernel
+    against the plain versions with the same ring."""
+    rng = np.random.default_rng(page + g + c)
+    pool = kind.split("_")[0]
+    args = _paged_case(rng, dev, pool, g, page, lengths)
+    ring = _ring(rng, dev, pool, lengths, c)
+    i8 = kind == "int4"
+    plain = {"int4": pa.paged_attention_int4_i8_plain,
+             "int4_bf16dot": pa.paged_attention_int4_plain}.get(kind, pa.paged_attention_plain)
+    o_ref, m_ref, l_ref = plain(*args, 128**-0.5, ring)
+    before = pa._launch.staged_launches
+    o, m, l = pa.paged_attention(*args, return_stats=True, int4_i8dot=i8, staged=ring)
+    torch.cuda.synchronize()
+    assert pa._launch.staged_launches == before + 1
+    torch.testing.assert_close(m, m_ref, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(l, l_ref, atol=2e-3, rtol=2e-3)
+    tol = 2e-2 if kind == "bf16" else 1e-2
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    unfused = pa.paged_attention(*args, return_stats=True, int4_i8dot=i8)
+    assert not torch.equal(unfused[2], l)  # the ring cells entered
+
+
+W8A8_LINEARS = {  # 3B: (K, N, out dtype)
+    "qkv": (2048, 2560, torch.bfloat16), "o": (2048, 2048, torch.bfloat16),
+    "gate_up": (2048, 22016, torch.bfloat16), "down": (11008, 2048, torch.bfloat16),
+    "head": (2048, 151936, torch.float32),
+}
+
+
+@pytest.mark.parametrize("m", [1, 8, 65, 129, 136, 4096])
+@pytest.mark.parametrize("name", list(W8A8_LINEARS))
+def test_w8a8_kernel_bit_equal_to_plain(dev, name, m):
+    k, n, out_dtype = W8A8_LINEARS[name]
+    gen = torch.Generator(device=dev).manual_seed(k + n + m)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    x[m // 2] = 0  # the eps floor
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    ws = torch.rand((n,), generator=gen, device=dev) * 1e-3
+    before = i8.fused_w8a8_matmul.launches
+    out = i8.fused_w8a8_matmul(x, w, ws, out_dtype)
+    torch.cuda.synchronize()
+    assert i8.fused_w8a8_matmul.launches == before + 1
+    assert out.dtype == out_dtype and tuple(out.shape) == (m, n)
+    assert torch.equal(out, i8.fused_w8a8_matmul_plain(x, w, ws, out_dtype))
+    if m in (65, 4096):  # the prologue off: rows quantized elsewhere
+        xq, xs = i8.quantize_rows(x)
+        pre = i8.w8a8_matmul_prequantized(xq, xs, w, ws, out_dtype)
+        assert torch.equal(pre, out)
+
+
+def test_w8a8_kernel_takes_fp32_x_and_raises_on_unsupported_shapes(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((33, 512), generator=gen, device=dev)
+    w = torch.randint(-127, 128, (384, 512), generator=gen, device=dev, dtype=torch.int8)
+    ws = torch.rand((384,), generator=gen, device=dev) * 1e-3
+    assert torch.equal(i8.fused_w8a8_matmul(x, w, ws), i8.fused_w8a8_matmul_plain(x, w, ws))
+    with pytest.raises(ValueError, match="multiple of 32"):  # K % 32
+        i8.fused_w8a8_matmul(x[:, :500].contiguous(), w[:, :500].contiguous(), ws)
+    with pytest.raises(ValueError, match="multiple of 8"):  # N % 8
+        i8.fused_w8a8_matmul(x, w[:380], ws[:380])
+    with pytest.raises(ValueError):  # fp16 output
+        i8.fused_w8a8_matmul(x, w, ws, torch.float16)
+    with pytest.raises(ValueError):  # a transposed (non-contiguous) weight
+        i8.fused_w8a8_matmul(x[:, :384].contiguous(), w[:, :384].t(), ws[:384].contiguous())
+
+
 @pytest.mark.parametrize("m,i,dtype", [(1024, 11008, torch.bfloat16), (8, 18944, torch.bfloat16),
                                        (33, 86, torch.float32)])
 def test_silu_quant_kernel_matches_plain(dev, m, i, dtype):
@@ -354,7 +458,7 @@ def test_silu_quant_kernel_matches_plain(dev, m, i, dtype):
 def test_paged_and_silu_wrappers_raise_on_unsupported_cuda_input(dev):
     rng = np.random.default_rng(0)
     args = list(_paged_case(rng, dev, "int4", 8, 256, (300, 10)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ring scales"):  # a ring without scales under int4 pools
         pa.paged_attention(*args, int4_i8dot=False, staged=(None,) * 5)
     with pytest.raises(ValueError):  # fp32 query
         pa.paged_attention(args[0].float(), *args[1:], int4_i8dot=False)

@@ -185,10 +185,105 @@ def test_odd_half_page_and_default_scale():
 
 
 def test_unported_modes_raise_on_cpu_too():
+    """Inputs the kernels refuse are refused on the CPU too: int4 pools
+    without scales, and ring scales that do not match the pool format."""
     case = _case("int4", np.random.default_rng(1))
     t_args = _torch_args(*case, qdtype=torch.bfloat16)
-    for i8 in (False, True):
-        with pytest.raises(NotImplementedError, match="staged"):
-            pa.paged_attention(*t_args, int4_i8dot=i8, staged=(None,) * 5)
     with pytest.raises(ValueError, match="need k_scale"):
         pa.paged_attention(*t_args[:6], None, None, int4_i8dot=True)
+    ring = _ring("int4", np.random.default_rng(2), n_layers=2, s_slots=5, hkv=2, c=4, d=128)
+    for i8 in (False, True):
+        with pytest.raises(ValueError, match="ring scales"):
+            pa.paged_attention(*t_args, int4_i8dot=i8, staged=(*ring[0][:2], None, None, ring[0][4]))
+
+
+def _ring(kind, rng, n_layers, s_slots, hkv, c, d, empty_slot=None):
+    """A staging ring (torch, JAX): bf16 cells under bf16 pools, int8 cells
+    (the int4 values, unpacked, under int4 pools) with bf16 scales otherwise;
+    about half the cells live, slot 0 with none, ``empty_slot`` with some."""
+    shape = (n_layers, s_slots, hkv, c, d)
+    if kind == "bf16":
+        k, v = (_bf16_exact(rng.normal(size=shape)) for _ in range(2))
+        scales = (None, None)
+    else:
+        lim, lo, hi = (127, 0.001, 0.02) if kind == "int8" else (7, 0.01, 0.1)  # as the pools
+        k, v = (rng.integers(-lim, lim + 1, size=shape).astype(np.int8) for _ in range(2))
+        scales = tuple(_bf16_exact(rng.uniform(lo, hi, size=shape[:-1])) for _ in range(2))
+    seg = (rng.random((s_slots, c)) < 0.5).astype(np.int32)
+    seg[0] = 0
+    if empty_slot is not None:
+        seg[empty_slot, :2] = 1
+    kv_t = torch.bfloat16 if kind == "bf16" else torch.int8
+    t = (torch.from_numpy(k).to(kv_t), torch.from_numpy(v).to(kv_t),
+         *(None if a is None else torch.from_numpy(a).to(torch.bfloat16) for a in scales), torch.from_numpy(seg))
+    j = (jnp.asarray(k, jnp.bfloat16) if kind == "bf16" else jnp.asarray(k),
+         jnp.asarray(v, jnp.bfloat16) if kind == "bf16" else jnp.asarray(v),
+         *(None if a is None else jnp.asarray(a, jnp.bfloat16) for a in scales), jnp.asarray(seg))
+    return t, j
+
+
+STAGED_TOL = {  # (vs the interpret-mode kernel, vs the exact fallback), this file's envelopes per pool kind
+    "bf16": dict(o=1e-4, ml=1e-5, fo=2e-3, fm=1e-5, fl=1e-5),
+    "int8": dict(o=1e-4, ml=1e-5, fo=2e-3, fm=1e-5, fl=1e-5),
+    "int4": dict(o=2e-3, ml=1e-5, fo=5e-3, fm=5e-3, fl=5e-3),
+}
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "int4_i8"])
+def test_plain_staged_vs_pallas_and_fallback(kind):
+    """The staged block (the TPU helper ``_staged_block_update``, fused into
+    the last grid step of #7 / #8 / #9) in every pool mode: the plain
+    versions with ``staged=`` against the JAX kernels in interpret mode and
+    against the exact fallback's one softmax over pool and ring cells. The
+    ring has dead cells, slot 0 has none live, and slot 1 has no pool cell,
+    only ring cells. q holds bf16-exact values (the staged block rounds q to
+    bf16, the fallback does not). Tolerances: this file's for each pool kind
+    (int4 with int8 dots: the fallback envelope m 2e-2, l 5e-2, relative
+    output norm 3e-2)."""
+    pool = "int4" if kind.startswith("int4") else kind
+    page = 256 if pool == "int4" else 128
+    lengths = (300, 0, 37, 256) if pool == "int4" else (200, 0, 37, 256, 128)
+    rng = np.random.default_rng(41)
+    case = list(_case(pool, rng, page=page, g=4, lengths=lengths))
+    case[0] = _bf16_exact(case[0])
+    ring_t, ring_j = _ring(pool, rng, 2, len(lengths), 2, 16, 128, empty_slot=1)
+    i8 = kind == "int4_i8"
+    qd_t, qd_j = (torch.bfloat16, jnp.bfloat16) if pool == "int4" else (torch.float32, None)
+    if pool == "bf16":
+        t_args = (torch.from_numpy(case[0]), *(torch.from_numpy(a).to(torch.bfloat16) for a in case[1:3]),
+                  torch.from_numpy(case[4]), torch.from_numpy(case[5]), 1, None, None)
+    else:
+        t_args = _torch_args(*case, qdtype=qd_t)
+    o, m, l = _np(pa.paged_attention(*t_args, return_stats=True, int4_i8dot=i8, staged=ring_t))
+    kw = dict(int4_i8dot=i8) if pool == "int4" else {}
+    o_k, m_k, l_k = _np(_pallas_paged(*_jax_args(*case, qdtype=qd_j), staged=ring_j, **kw))
+    o_x, m_x, l_x = _np(_xla_paged(*_jax_args(*case, qdtype=qd_j), staged=ring_j))
+    tol = STAGED_TOL[pool]
+    np.testing.assert_allclose(o, o_k, rtol=0, atol=tol["o"])
+    np.testing.assert_allclose(m, m_k, rtol=tol["ml"], atol=tol["ml"])
+    np.testing.assert_allclose(l, l_k, rtol=tol["ml"], atol=tol["ml"])
+    if i8:
+        np.testing.assert_allclose(m, m_x, rtol=2e-2, atol=2e-2)
+        np.testing.assert_allclose(l, l_x, rtol=5e-2, atol=5e-2)
+        assert np.linalg.norm(o - o_x) / np.linalg.norm(o_x) < 3e-2
+    else:
+        np.testing.assert_allclose(m, m_x, rtol=tol["fm"], atol=tol["fm"])
+        np.testing.assert_allclose(l, l_x, rtol=tol["fl"], atol=tol["fl"])
+        pooled = [i for i in range(len(lengths)) if i != 1]
+        np.testing.assert_allclose(o[pooled], o_x[pooled], rtol=0, atol=tol["fo"])
+        # the ring-only slot averages a few cells, so the bf16 rounding of
+        # its weights (2**-9 relative each) does not average out: bounded by
+        # 2**-9 of its largest dequantized v (2**-8 with the fallback's int4
+        # rounding of v added)
+        v1 = ring_t[1][1, 1].float() * (1 if ring_t[3] is None else ring_t[3][1, 1].float()[..., None])
+        bound = 2.0 ** (-8 if pool == "int4" else -9) * float(v1.abs().max())
+        assert np.abs(o[1] - o_x[1]).max() <= bound
+    # the ring-only slot attends its ring cells; the gathered reference agrees
+    assert l[1].min() > 0 and np.abs(o[1]).max() > 0
+    o_g, m_g, l_g = _np(pa.paged_attention_gathered(*t_args, scale=128**-0.5, staged=ring_t))
+    np.testing.assert_allclose(m_g, m_x, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(l_g, l_x, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(o_g, o_x, rtol=1e-5, atol=1e-5)
+    # the ring fused = the unfused stats merged with the ring by the flash combine
+    o_u, m_u, l_u = _np(pa.paged_attention(*t_args, return_stats=True, int4_i8dot=i8))
+    assert not np.allclose(l_u, l)

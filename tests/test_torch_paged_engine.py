@@ -224,12 +224,62 @@ def test_pool_too_small_for_one_sequence_raises(models):
 
 def test_unported_options_raise(models):
     _, model = models
-    with pytest.raises(NotImplementedError, match="fuse_staged"):
-        _run(model, _prompts(0), slots=2, page_size=4, fuse_staged=True)
-    with pytest.raises(NotImplementedError, match="fuse_staged"):
-        _run(model, _prompts(0), "int4", slots=2, page_size=4, decode_chunk_size=2, fuse_staged=True)
     with pytest.raises(TypeError):
         _run(model, _prompts(0), slots=2, page_size=4, mesh=object())
+
+
+def _exact_fused(q, k_pool, v_pool, table, lengths, layer, k_scale=None, v_scale=None, *,
+                 return_stats=False, staged=None, **_):
+    res = pa.paged_attention_gathered(q, k_pool, v_pool, table, lengths, layer, k_scale, v_scale,
+                                      staged=staged)
+    return res if return_stats else res[0]
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "int4"])
+def test_fused_staged_greedy_matches_jax(models, kv, monkeypatch):
+    """``generate_paged(fuse_staged=True)`` (the ring attended inside the
+    pool kernel's plain version) against the JAX package's, and against the
+    port's own unfused run, as the JAX package's
+    ``tests/test_paged.py::test_paged_matches_dense_greedy`` holds its fused
+    engine. Decode chunks of 3 over pages of 4 cells install across half
+    pages (an int4 byte row holds cells c and c + 2) and page boundaries.
+    Tolerances as ``test_greedy_matches_jax_token_for_token``: token for
+    token, log-probs within 2e-3 (bf16 softmax weights page by page against
+    the exact fallback); int4 pools within 5e-3, the envelope
+    ``tests/test_torch_paged_attention.py`` gives that plain version against
+    the fallback, which rounds every dequantized k and v to bf16; and within
+    1e-4 with the port's attention swapped for its exact gathered
+    reference."""
+    jax_params, model = models
+    prompts = _prompts(4)
+    kw = dict(slots=4, decode_chunk_size=3, page_size=4, group_n=2, fuse_staged=True)
+    ref = _jax_run(jax_params, prompts, kv, **kw)
+    got = _run(model, prompts, kv, **kw)
+    _assert_same(got, ref, logp_atol=5e-3 if kv == "int4" else 2e-3)
+    _assert_same(got, _run(model, prompts, kv, **{**kw, "fuse_staged": False}), logp_atol=2e-3)
+    assert got.stats["chunks"] >= 3
+    monkeypatch.setattr(tp, "paged_attention", _exact_fused)
+    _assert_same(_run(model, prompts, kv, **kw), ref, logp_atol=1e-4)
+
+
+def test_fused_staged_int4_i8dot_against_jax(models, monkeypatch):
+    """The shipped pool format (int4 with int8 dots) with the ring fused:
+    the same envelope as ``test_int4_i8dot_against_jax`` (the staged block
+    itself dots in bf16 in every mode), and token for token with the exact
+    attention."""
+    jax_params, model = models
+    prompts = _prompts(1)
+    kw = dict(slots=4, decode_chunk_size=3, page_size=4, int4_i8dot=True, fuse_staged=True)
+    ref = _jax_run(jax_params, prompts, "int4", **kw)
+    got = _run(model, prompts, "int4", **kw)
+    same = got.responses == np.asarray(ref.responses)
+    assert same[:, 0].all()
+    agree = np.cumprod(same, axis=1).astype(bool) & np.asarray(ref.response_mask, bool)
+    assert agree.mean() > 0.5
+    np.testing.assert_allclose(got.rollout_log_probs[agree], np.asarray(ref.rollout_log_probs)[agree],
+                               rtol=0, atol=2e-2)
+    monkeypatch.setattr(tp, "paged_attention", _exact_fused)
+    _assert_same(_run(model, prompts, "int4", **kw), ref)
 
 
 @pytest.mark.parametrize("kv", ["bf16", "int8", "int4"])

@@ -107,3 +107,43 @@ def test_reward_manager_equal(name, workers):
     np.testing.assert_array_equal(got_r, ref_r)
     assert got_m == ref_m
     assert got_r.shape == responses.shape and (got_r != 0).sum() <= len(ids)
+
+
+def _tie_prone_scene(rng):
+    """A scene graph on a grid (equal boxes, few labels) and a prediction
+    holding duplicates of its objects and other grid cells: cost matrices
+    with tied entries, where two optimal assignments may differ."""
+    labels = ["cat", "dog", "box"]
+    cells = [[x, y, x + 20, y + 20] for x in range(0, 100, 20) for y in range(0, 100, 20)]
+    n_gt = int(rng.integers(2, 6))
+    gt = [{"id": f"{labels[int(rng.integers(3))]}.{i}", "bbox": cells[int(c)]}
+          for i, c in enumerate(rng.choice(len(cells), size=n_gt, replace=False))]
+    pred = []
+    for i in range(int(rng.integers(1, 8))):
+        if rng.random() < 0.6:  # a duplicate of a ground-truth object (same label and box)
+            o = gt[int(rng.integers(n_gt))]
+            pred.append({"id": o["id"].split(".")[0] + f".{10 + i}", "bbox": list(o["bbox"])})
+        else:
+            pred.append({"id": f"{labels[int(rng.integers(3))]}.{10 + i}", "bbox": cells[int(rng.integers(len(cells)))]})
+    rel = lambda objs: [{"subject": objs[0]["id"], "predicate": "left of", "object": objs[-1]["id"]}]  # noqa: E731
+    return {"objects": gt, "relationships": rel(gt)}, {"objects": pred, "relationships": rel(pred)}
+
+
+def test_rewards_equal_on_tied_costs():
+    """On tied costs scipy's solver and the JAX package's C++ one may pick
+    different optimal mappings (the port does not pin them); the rewards the
+    mappings feed are equal all the same."""
+    from spatialthinker_tpu.rewards import spatial_sgg as js
+    from spatialthinker_torch.rewards import spatial_sgg as ts
+
+    rng = np.random.default_rng(0)
+    duplicated = 0
+    for _ in range(300):
+        gt, pred = _tie_prone_scene(rng)
+        boxes = [tuple(o["bbox"]) for o in pred["objects"]]
+        duplicated += len(set(boxes)) < len(boxes)
+        g, p = (ts._normalize_objects(s["objects"], 100, 100) for s in (gt, pred))
+        assert ts.compute_obj_score(g, p) == js.compute_obj_score(g, p)
+        assert ts.spatial_reward(pred, gt, 100, 100) == js.spatial_reward(pred, gt, 100, 100)
+        assert ts.relaxed_spatial_reward(pred, gt, 100, 100) == js.relaxed_spatial_reward(pred, gt, 100, 100)
+    assert duplicated > 100  # the scenes really tie

@@ -335,3 +335,49 @@ def test_freeze_vision_tower_and_remat_and_nan_skip(models):
     assert not np.isfinite(float(metrics["actor/grad_norm"]))
     assert all(torch.equal(model.state_dict()[k], snap[k]) for k in snap)
     assert all(torch.equal(opt.state["mu"][k], mu[k]) for k in mu) and opt.state["count"] == 1
+
+
+def test_packed_update_with_frozen_vision_matches_jax_unpacked_update(models):
+    """``freeze_vision_tower`` on the packed update (the trainer's default
+    path): every ``vision.*`` parameter stays bit-equal and gets no Adam
+    moment, and the text parameters equal those of the JAX package's
+    UNPACKED update with the freeze (its packed update ignores the knob, a
+    reference caveat) on micro-batches of the same samples as the packed
+    rows. Tolerances as in the packed-update parity test above."""
+    import copy
+
+    jax_params, model0 = models
+    model = copy.deepcopy(model0)
+    a = rollout_arrays(3, True)
+    per_token = {k: a[k] for k in ("old_log_probs", "ref_log_probs", "advantages")}
+    packed, slot_map = pack_train_rows(a["input_ids"], a["segment_ids"], a["position_ids"], a["responses"],
+                                       a["response_mask"], a["gen_pos_start"], per_token, 64)
+    n_rows = packed.input_ids.shape[0]
+    rows_of = [[i for i in sorted(range(4), key=lambda i: int(slot_map.dst_start[i]))
+                if slot_map.row[i] == g] for g in range(n_rows)]
+    assert n_rows == 2 and [len(r) for r in rows_of] == [2, 2]
+
+    order = [i for rows in rows_of for i in rows]
+    tb = {k: _micro(v[:, order] if k == "position_ids" else v[order], n_rows)
+          for k, v in train_batch_arrays(a).items()}
+    jvis = jpk.stack_vision_packs([_vision(jpk, JAX_CFG.vision, a, r) for r in rows_of], JAX_CFG.vision)
+    jopt = jts.make_optimizer(LR, weight_decay=0.1)
+    new_params, _, ref_metrics = jax.jit(jts.make_update_fn(
+        JAX_CFG, jopt, remat=True, freeze_vision_tower=True, **KNOBS))(
+        jax_params, jopt.init(jax_params), jts.TrainBatch(**{k: jnp.asarray(v) for k, v in tb.items()}),
+        _jax_vision(jvis))
+
+    tvis = tpk.stack_vision_packs([_vision(tpk, CFG.vision, a, r) for r in rows_of], CFG.vision)
+    pb = {k: _micro(v, n_rows) for k, v in packed._asdict().items()}
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = tts.make_optimizer(LR, weight_decay=0.1)
+    metrics = tts.make_packed_update_fn(model, opt, remat=True, freeze_vision_tower=True, **KNOBS)(
+        _torch_batch(tts.PackedTrainBatch, pb), _torch_vision(tvis))
+    after = model.state_dict()
+    assert all(torch.equal(after[k], before[k]) for k in before if k.startswith("vision."))
+    assert not any(k.startswith("vision.") for k in opt.state["mu"])
+    assert opt.state["mu"] and all(k.startswith("text.") for k in opt.state["mu"])
+    assert all(p.requires_grad for p in model.parameters())
+    for k in ref_metrics:
+        np.testing.assert_allclose(float(metrics[k]), float(ref_metrics[k]), err_msg=k, **TOL)
+    _params_close(model, new_params, LR)

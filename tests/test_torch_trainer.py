@@ -345,6 +345,25 @@ def test_checkpoint_save_load_same_next_step(tmp_path):
         c.load_checkpoint()
 
 
+def test_frozen_vision_tower_on_the_packed_update(tmp_path):
+    """``freeze_vision_tower`` on the default packed update: the tower keeps
+    its values (weight decay included), and every Adam moment a step uses
+    exists from the trainer's construction on, before the page pool is sized
+    from free memory: a step allocates none."""
+    trainer, _ = build(tmp_path, "worker.actor.model.freeze_vision_tower=true")
+    assert trainer.padding_free
+    moments = set(trainer.optimizer.state["mu"])
+    assert moments and not any(k.startswith("vision.") for k in moments)
+    vision = {k: v.clone() for k, v in trainer.model.state_dict().items() if k.startswith("vision.")}
+    text = {k: v.clone() for k, v in trainer.model.state_dict().items() if k.startswith("text.")}
+    trainer.reward_fn = _reward_fn
+    trainer.train_step(next(iter(trainer.train_dataloader)))
+    assert set(trainer.optimizer.state["mu"]) == moments and trainer.optimizer.state["count"] == 1
+    after = trainer.model.state_dict()
+    assert vision and all(torch.equal(after[k], v) for k, v in vision.items())
+    assert any(not torch.equal(after[k], v) for k, v in text.items())
+
+
 @pytest.mark.parametrize("variant", ["rloo_disable_kl", "use_rollout_log_probs", "remax", "reinforce_unpacked"])
 def test_train_step_variants(tmp_path, variant):
     extra = {
