@@ -15,12 +15,13 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    kernels, times ``F.scaled_dot_product_attention`` with the equivalent
    mask as a yardstick (used nowhere in the port; for the quantized dense
    caches on the dequantized cache); the flash forward and the
-   two flash backward kernels are held against ``flash_fwd_plain`` and
-   ``flash_bwd_plain`` on hand-made segment ids of the training path's three
-   attention forms here and, after path d, on the segment ids its first
-   micro-batch gave them (packed text rows, the vision pack of that
-   micro-batch's images as one sequence and as windows), timed beside SDPA
-   and its backward; the int4 MLP kernels (gate_up + silu, down) at m = 136,
+   flash backward (pre-pass, dQ, dK/dV) are held against ``flash_fwd_plain``,
+   ``flash_bwd_prep_plain`` and ``flash_bwd_plain`` on hand-made segment ids
+   of the training path's three attention forms here and, after path d, on
+   the segment ids its first micro-batch gave them (packed text rows, the
+   vision pack of that micro-batch's images as one sequence and as windows),
+   timed beside SDPA and its backward, with the share of tile pairs the
+   backward runs and two backward calls that must agree bit for bit; the int4 MLP kernels (gate_up + silu, down) at m = 136,
    128 and 8 rows of the 3B widths, timed beside ``torch._int_mm`` on the
    int8 copy of the same weights (a yardstick: no PyTorch call computes the
    int4 function), and one 3B MLP at m = 256, where the eligibility rule
@@ -239,6 +240,9 @@ ENGINE_DRIFT_RATIO = 2.0
 # bf16; each gradient within this share of its own largest magnitude
 # (4e-3 to 7e-3 measured on an H100).
 BWD_REL_TOL = 1e-2
+# The backward's pre-pass: delta = rowsum(dO * o) over D = 80 / 128 bf16
+# products in fp32, summed in another order than the eager expression.
+PREP_DELTA_ATOL = 1e-4
 # Training path. No optimizer step lies between the old log-probs and the first
 # mini-batch of a step, so that mini-batch's forward recomputes them up to
 # bf16 and packing noise (other row neighbours, other matmul shapes).
@@ -394,7 +398,8 @@ def plain_attention(forward: bool = True):
 
 
 PLAIN_VERSIONS = [
-    (fa, "flash_fwd_plain"), (fa, "flash_bwd_plain"), (da, "decode_attention_plain"), (pa, "paged_attention_plain"),
+    (fa, "flash_fwd_plain"), (fa, "flash_bwd_plain"), (fa, "flash_bwd_prep_plain"),
+    (da, "decode_attention_plain"), (pa, "paged_attention_plain"),
     (pa, "paged_attention_int4_i8_plain"), (pa, "paged_attention_int4_plain"),
     (pa, "paged_attention_gathered"),
     (sq, "fused_silu_quantize_plain"), (i4, "w4_gateup_silu_plain"), (i4, "w4_matmul_plain"),
@@ -433,7 +438,7 @@ def forbid_plain_versions():
 
 def reset_counts() -> None:
     # looked up at call time: a wrapper may have been re-bound meanwhile
-    for fn in (fa.flash_fwd, fa._launch_bwd_dq, fa._launch_bwd_dkv, da.decode_attention,
+    for fn in (fa.flash_fwd, fa._launch_bwd_prep, fa._launch_bwd_dq, fa._launch_bwd_dkv, da.decode_attention,
                da._launch_int8_kernel, da._launch_int4_kernel, da._launch_int4_i8_kernel,
                pa._launch_pool_kernel, pa._launch_int4_i8_kernel, pa._launch_int4_kernel,
                sq.fused_silu_quantize, i4.w4_gateup_silu, i4.w4_matmul, i8m.fused_w8a8_matmul,
@@ -444,7 +449,8 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {
-        "flash_fwd": fa.flash_fwd.launches, "flash_bwd_dq": fa._launch_bwd_dq.launches,
+        "flash_fwd": fa.flash_fwd.launches, "flash_bwd_prep": fa._launch_bwd_prep.launches,
+        "flash_bwd_dq": fa._launch_bwd_dq.launches,
         "flash_bwd_dkv": fa._launch_bwd_dkv.launches, "decode_attention": da.decode_attention.launches,
         "decode_attention_int8": da._launch_int8_kernel.launches,
         "decode_attention_int4": da._launch_int4_kernel.launches,
@@ -572,15 +578,18 @@ def training_cases(cfg, prefix, seg_text, seg_full, seg_win):
 
 
 def check_flash_training(dev, cases):
-    """The flash forward and the two backward kernels vs their plain versions
+    """The flash forward and the backward kernels vs their plain versions
     (run head by head) on the training path's attention forms: packed text
     rows (causal), vision full attention and the batched windows form (D = 80,
     non-causal). ``cases`` are (name, (Hq, Hkv, D), segment ids (B, S), causal).
-    Each backward kernel is timed on its own (delta precomputed); the library
-    yardsticks are SDPA with the equivalent mask and its backward, which
-    computes dq, dk and dv together. Returns (forward, dQ, dK/dV) results."""
+    The backward runs twice and must agree bit for bit. Each backward kernel
+    is timed on its own (the pre-pass's outputs precomputed) and the whole
+    backward (pre-pass, dQ, dK/dV) as one call; the library yardsticks are
+    SDPA with the equivalent mask and its backward, which computes dq, dk and
+    dv together. ``live_tile_share`` is the share of (q tile, kv tile) pairs
+    the backward kernels run. Returns (forward, pre-pass, dQ, dK/dV) results."""
     rng = np.random.default_rng(8)
-    fwd_cases, dq_cases, dkv_cases = [], [], []
+    fwd_cases, prep_cases, dq_cases, dkv_cases = [], [], [], []
     for name, (hq, hkv, d), seg_np, causal in cases:
         seg = torch.from_numpy(seg_np).to(dev)
         bb, s_len = seg.shape
@@ -596,21 +605,32 @@ def check_flash_training(dev, cases):
         del o_ref, lse_ref
         ref = flash_bwd_plain_by_head(q, k, v, seg, seg, o, lse, do, **kw)
         got = fa.flash_bwd(q, k, v, seg, seg, o, lse, do, **kw)
+        again = fa.flash_bwd(q, k, v, seg, seg, o, lse, do, **kw)
         torch.cuda.synchronize()
+        deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
         errs, rels, zeros = {}, {}, True
         for gname, x, r in zip(("dq", "dk", "dv"), got, ref):
             errs[gname] = (x.float() - r.float()).abs().max().item()
             rels[gname] = errs[gname] / r.float().abs().max().item()
             zeros = zeros and bool(torch.isfinite(x.float()).all()) and bool(torch.all(x[dead] == 0))
-        del ref, got
+        del ref, got, again
+        delta, q_rng, kv_rng = fa._launch_bwd_prep(do, o, seg, seg)
+        want = fa.flash_bwd_prep_plain(do, o, seg, seg)
+        prep_err = (delta - want[0]).abs().max().item()
+        ranges_equal = torch.equal(q_rng, want[1]) and torch.equal(kv_rng, want[2])
+        live_share = fa.live_tile_pairs(q_rng, kv_rng, causal).float().mean().item()
+        n_tile_pairs = q_rng.shape[0] * q_rng.shape[1] * kv_rng.shape[1]
+        del want
         fwd_plain_ms = cuda_ms(lambda: flash_fwd_plain_by_head(q, k, v, seg, seg, **kw), iters=5, warmup=1)
         fwd_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, seg, seg, **kw))
         plain_ms = cuda_ms(lambda: flash_bwd_plain_by_head(q, k, v, seg, seg, o, lse, do, **kw),
                            iters=5, warmup=1)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        args = (q, k, v, do, lse, delta, seg, seg, causal, d**-0.5)
+        prep_ms = cuda_ms(lambda: fa._launch_bwd_prep(do, o, seg, seg))
+        prep_plain_ms = cuda_ms(lambda: fa.flash_bwd_prep_plain(do, o, seg, seg))
+        args = (q, k, v, do, lse, delta, seg, seg, q_rng, kv_rng, causal, d**-0.5)
         dq_ms = cuda_ms(lambda: fa._launch_bwd_dq(*args))
         dkv_ms = cuda_ms(lambda: fa._launch_bwd_dkv(*args))
+        pair_ms = cuda_ms(lambda: fa.flash_bwd(q, k, v, seg, seg, o, lse, do, **kw))
         # the one PyTorch call for the same function: SDPA, and its backward
         mask = fa.make_attention_mask(seg, seg, causal)[:, None]
         pairs = int(mask.sum())
@@ -624,7 +644,8 @@ def check_flash_training(dev, cases):
         dot = do.transpose(1, 2).contiguous()
         lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters=10)
         fwd_b, fwd_by = bound_ms(nbytes(q, k, v, o, lse, seg, seg), 4.0 * pairs * hq * d, "bf16")
-        common = nbytes(q, k, v, do, lse, delta, seg, seg)
+        prep_b, prep_by = bound_ms(nbytes(do, o, seg, seg, delta, q_rng, kv_rng), 2.0 * do.numel(), "fp32")
+        common = nbytes(q, k, v, do, lse, delta, seg, seg, q_rng, kv_rng)
         dq_b, dq_by = bound_ms(common + nbytes(q), 6.0 * pairs * hq * d, "bf16")
         dkv_b, dkv_by = bound_ms(common + nbytes(k, v), 8.0 * pairs * hq * d, "bf16")
         print(f"flash forward {name}: q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal} "
@@ -633,23 +654,36 @@ def check_flash_training(dev, cases):
         print(f"flash backward {name}: q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal} "
               f"max_abs_err dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e} "
               f"(of max |grad|: {rels['dq']:.2e} {rels['dk']:.2e} {rels['dv']:.2e}, tol {BWD_REL_TOL}) "
-              f"padding_rows_zero={zeros} dq_ms={dq_ms:.4f} (bound {dq_b:.5f}, {dq_by}) "
-              f"dkv_ms={dkv_ms:.4f} (bound {dkv_b:.5f}, {dkv_by}) plain_ms={plain_ms:.4f} "
-              f"sdpa_bwd_ms={lib_ms:.4f}", flush=True)
+              f"padding_rows_zero={zeros} bit_identical_twice={deterministic} "
+              f"live_tile_share={live_share:.4f} (of {n_tile_pairs} tile pairs; "
+              f"unmasked pair share {pairs / (bb * s_len * s_len):.4f}) "
+              f"prep_ms={prep_ms:.4f} (plain {prep_plain_ms:.4f}, bound {prep_b:.5f}, {prep_by}; "
+              f"delta err {prep_err:.2e}, ranges equal {ranges_equal}) "
+              f"dq_ms={dq_ms:.4f} (bound {dq_b:.5f}, {dq_by}) "
+              f"dkv_ms={dkv_ms:.4f} (bound {dkv_b:.5f}, {dkv_by}) pair_ms={pair_ms:.4f} "
+              f"(pre-pass + dQ + dK/dV, one call) plain_ms={plain_ms:.4f} sdpa_bwd_ms={lib_ms:.4f}", flush=True)
         if not fwd_ok:
             raise AssertionError(f"flash kernel disagrees with plain on {name}")
         if not (max(rels.values()) <= BWD_REL_TOL and zeros):
             raise AssertionError(f"flash backward kernels disagree with plain on {name}")
+        if not deterministic:
+            raise AssertionError(f"flash backward kernels gave two different results on {name}")
+        if not (prep_err <= PREP_DELTA_ATOL and ranges_equal):
+            raise AssertionError(f"flash backward pre-pass disagrees with plain on {name}")
         fwd_cases.append(dict(shape=name, max_abs_err=fwd_err, lse_err=lse_err, ms=fwd_ms,
                               plain_ms=fwd_plain_ms, bound_ms=fwd_b, bound_by=fwd_by, library_ms=fwd_lib_ms))
+        bwd = dict(pair_ms=pair_ms, sdpa_bwd_ms=lib_ms, live_tile_share=live_share,
+                   bit_identical_twice=deterministic)
+        prep_cases.append(dict(shape=name, max_abs_err=prep_err, ms=prep_ms, plain_ms=prep_plain_ms,
+                               bound_ms=prep_b, bound_by=prep_by, library_ms=None, **bwd))
         dq_cases.append(dict(shape=name, max_abs_err=errs["dq"], rel_err=rels["dq"], ms=dq_ms,
-                             plain_ms=plain_ms, bound_ms=dq_b, bound_by=dq_by, library_ms=lib_ms))
+                             plain_ms=plain_ms, bound_ms=dq_b, bound_by=dq_by, library_ms=lib_ms, **bwd))
         dkv_cases.append(dict(shape=name, max_abs_err=max(errs["dk"], errs["dv"]),
                               rel_err=max(rels["dk"], rels["dv"]), ms=dkv_ms, plain_ms=plain_ms,
-                              bound_ms=dkv_b, bound_by=dkv_by, library_ms=lib_ms))
-        del q, k, v, do, o, lse, delta, args, mask, qt, kt, vt, out, dot
+                              bound_ms=dkv_b, bound_by=dkv_by, library_ms=lib_ms, **bwd))
+        del q, k, v, do, o, lse, delta, q_rng, kv_rng, args, mask, qt, kt, vt, out, dot
         torch.cuda.empty_cache()
-    return fwd_cases, dq_cases, dkv_cases
+    return fwd_cases, prep_cases, dq_cases, dkv_cases
 
 
 def check_decode(dev, cfg, rows: int, width: int, prompt_len: int):
@@ -1317,7 +1351,7 @@ def training_path(dev, model, qmodel_holder, host, paged_kw, card):
         checks[f"step {s}: optimizer steps"] = (
             info["optimizer_steps"] == len(rolled) // TRAIN["global_batch_size"] >= 2)
         checks[f"step {s}: every kernel of the step launched"] = all(
-            info["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+            info["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv",
                                               "paged_attention_int4_i8", "silu_quant", "w8a8"))
         checks[f"step {s}: no torch._int_mm"] = info["launches"]["int_mm"] == 0
     checks["reference copy untouched"] = checksums(ref_model.parameters()) == ref_sums
@@ -1402,7 +1436,7 @@ def earlier_paths(dev, card, cfg) -> dict:
 
     # ---- every kernel against its plain version ----
     flash_cases = check_flash(dev, prep, cfg)
-    synth_fwd, synth_dq, synth_dkv = check_flash_training(dev, synthetic_training_cases(cfg))
+    synth_fwd, synth_prep, synth_dq, synth_dkv = check_flash_training(dev, synthetic_training_cases(cfg))
     n_samp = 5
     width = -(-(p + MAX_NEW_TOKENS) // 128) * 128
     decode_cases = check_decode(dev, cfg, len(prompts) * n_samp, width, p)
@@ -1708,14 +1742,16 @@ def earlier_paths(dev, card, cfg) -> dict:
     first = train.pop("first_micro")
     print(f"first micro-batch of the update: text rows {first['seg_text'].shape}, vision pack "
           f"{first['seg_full'].shape[0]} patch slots holding {first['images']} images", flush=True)
-    path_fwd, dq_cases, dkv_cases = check_flash_training(
+    path_fwd, prep_cases, dq_cases, dkv_cases = check_flash_training(
         dev, training_cases(cfg, "update", first["seg_text"], first["seg_full"], first["seg_window"]))
     flash_cases += path_fwd + synth_fwd
+    prep_cases += synth_prep
     dq_cases += synth_dq
     dkv_cases += synth_dkv
 
     return dict(
-        flash_cases=flash_cases, dq_cases=dq_cases, dkv_cases=dkv_cases, decode_cases=decode_cases,
+        flash_cases=flash_cases, prep_cases=prep_cases, dq_cases=dq_cases, dkv_cases=dkv_cases,
+        decode_cases=decode_cases,
         pool_cases=pool_cases, int4_cases=int4_cases, silu_cases=silu_cases, w8a8_cases=w8a8_cases,
         staged_cases=staged_cases, h_launches=h_launches, decode_tok_s_fused=decode_tok_s_fused,
         st_h=st_h, probs_diff_h=probs_diff_h, h_peak_gb=h_peak_gb,
@@ -1770,7 +1806,8 @@ def scene_rows(n: int, seed: int) -> list:
 
 
 METRIC_FAMILIES = ("actor/", "critic/score/", "reward/", "timing_s/", "perf/", "rollout/kv_")
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention_int4_i8", "silu_quant", "w8a8")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention_int4_i8",
+                 "silu_quant", "w8a8")
 DECODE_KERNELS = ("decode_attention", "decode_attention_int8", "decode_attention_int4",
                   "decode_attention_int4_i8", "paged_attention_pool", "paged_attention_int4_i8",
                   "paged_attention_int4")
@@ -2040,7 +2077,8 @@ def continuous_w4a8_path(dev, card, trainer, train_ds) -> dict:
         "int4 down: 36 per decode step": counts["int4_down"] == layers * steps,
         "int4 int8-dot decode kernel launched": counts["decode_attention_int4_i8"] == layers * steps,
         "silu junction launched (prefill)": counts["silu_quant"] > 0,
-        "flash kernels launched": all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+        "flash kernels launched": all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_prep", "flash_bwd_dq",
+                                                               "flash_bwd_dkv")),
         "no paged kernel": not any(counts[k] for k in PAGED_KERNELS),
         "no other dense decode kernel": not any(
             counts[k] for k in ("decode_attention", "decode_attention_int8", "decode_attention_int4")),
@@ -2214,6 +2252,11 @@ def main() -> int:
               "spatialthinker_tpu/ops/flash_attention.py:45", r["flash_cases"], paged_l["flash_fwd"],
               launches_dense_path=dense_l["flash_fwd"], launches_bf16_pool_path=bf16_l["flash_fwd"],
               launches_training_path=train_l["flash_fwd"], launches_trainer_path=trainer_l["flash_fwd"]),
+        # the backward's pre-pass (delta and the segment range tables) takes the place of
+        # the XLA rowsum of _flash_bwd; no one PyTorch call computes it
+        entry("flash_bwd_prep", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
+              "spatialthinker_tpu/ops/flash_attention.py:343", r["prep_cases"], train_l["flash_bwd_prep"],
+              launches_trainer_path=trainer_l["flash_bwd_prep"]),
         entry("flash_bwd_dq", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
               "spatialthinker_tpu/ops/flash_attention.py:192", r["dq_cases"], train_l["flash_bwd_dq"],
               launches_trainer_path=trainer_l["flash_bwd_dq"]),

@@ -121,8 +121,9 @@ def profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged: bool) -> Non
 
 KERNEL_KINDS = (
     ("attention forward (flash_fwd_kernel)", ("flash_fwd_kernel",)),
+    ("attention backward pre-pass (flash_bwd_prep_kernel)", ("flash_bwd_prep_kernel",)),
     ("attention backward dQ (flash_bwd_dq_kernel)", ("flash_bwd_dq_kernel",)),
-    ("attention backward dK/dV (flash_bwd_dkv_kernel)", ("flash_bwd_dkv_kernel",)),
+    ("attention backward dK/dV (flash_bwd_dkv_kernel, flash_bwd_dkv_reduce_kernel)", ("flash_bwd_dkv",)),
     ("GEMMs (library matmuls)", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "gemv")),
 )
 

@@ -37,10 +37,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, q_seg, kv_seg, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, causal_offset, scale, stream
     "st_flash_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
-    # q, k, v, dO, lse, delta, q_seg, kv_seg, dq, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
-    "st_flash_bwd_dq": [_P] * 9 + [_I] * 7 + [_F, _P],
-    # q, k, v, dO, lse, delta, q_seg, kv_seg, dk, dv, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
-    "st_flash_bwd_dkv": [_P] * 10 + [_I] * 7 + [_F, _P],
+    # dO, o, q_seg, kv_seg, delta, q_rng, kv_rng, B, Sq, Skv, Hq, D, stream
+    "st_flash_bwd_prep": [_P] * 7 + [_I] * 5 + [_P],
+    # q, k, v, dO, lse, delta, q_seg, kv_seg, q_rng, kv_rng, dq, B, Sq, Skv, Hq, Hkv, D, causal,
+    # scale, stream
+    "st_flash_bwd_dq": [_P] * 11 + [_I] * 7 + [_F, _P],
+    # q, k, v, dO, lse, delta, q_seg, kv_seg, q_rng, kv_rng, dk, dv, part_dk, part_dv,
+    # B, Sq, Skv, Hq, Hkv, D, n_split, heads_per_split, causal, scale, stream
+    "st_flash_bwd_dkv": [_P] * 14 + [_I] * 9 + [_F, _P],
     # q, k_cache, v_cache, k_scale, v_scale, kv_seg, o, B, Hq, Hkv, S, D, layer, mode,
     # block_rows, scale, stream
     "st_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],

@@ -1,6 +1,6 @@
 """Flash attention: the CUDA kernels (``csrc/flash_attention.cu`` forward,
-``csrc/flash_attention_bwd.cu`` dQ and dK/dV) and their plain PyTorch
-versions, joined by a ``torch.autograd.Function``.
+``csrc/flash_attention_bwd.cu`` pre-pass, dQ and dK/dV) and their plain
+PyTorch versions, joined by a ``torch.autograd.Function``.
 
 Counterpart of ``spatialthinker_tpu/ops/flash_attention.py``. ``flash_fwd``
 returns the output and the per-row logsumexp, as ``_flash_fwd`` does;
@@ -16,6 +16,14 @@ segment ids are equal and nonzero and, when causal,
 lse = -1e30 and exact zeros in every gradient. The backward takes
 ``causal_offset = 0`` only (cross-length chunked prefill is inference-only).
 
+The backward's pre-pass writes delta = rowsum(dO * o) and the segment-id
+range table of q_seg and kv_seg: int32 (B, ceil(S / RANGE_TILE), 2), per
+tile of RANGE_TILE rows the smallest and largest NONZERO id, (INT32_MAX,
+INT32_MIN) for a tile of padding only. The dQ and dK/dV kernels run a
+(q tile, kv tile) pair only when the two ranges intersect and, when causal,
+the kv tile is not wholly above the diagonal (``live_tile_pairs``): exact
+for any layout, since disjoint ranges share no nonzero id.
+
 The wrappers run the plain versions for CPU tensors only. A CUDA tensor
 launches the kernels or raises -- nothing falls back.
 """
@@ -30,6 +38,9 @@ from .. import csrc
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (80, 128)  # vision and text heads of the 3B/7B presets
+RANGE_TILE = 32               # rows per tile of the backward's range table
+DKV_ROWS = 64                 # kv rows per CTA of the dK/dV kernel
+INT32_MAX, INT32_MIN = 2**31 - 1, -(2**31)
 
 
 def make_attention_mask(
@@ -173,15 +184,77 @@ def flash_bwd_plain(
     return dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _launch_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale) -> torch.Tensor:
+def tile_ranges(seg: torch.Tensor) -> torch.Tensor:
+    """(B, S) segment ids -> int32 (B, ceil(S / RANGE_TILE), 2): the smallest
+    and largest nonzero id of each tile, (INT32_MAX, INT32_MIN) where the tile
+    holds padding only."""
+    b, s = seg.shape
+    n = -(-s // RANGE_TILE)
+    tiles = torch.zeros((b, n * RANGE_TILE), dtype=torch.int64, device=seg.device)
+    tiles[:, :s] = seg
+    tiles = tiles.reshape(b, n, RANGE_TILE)
+    live = tiles != 0
+    lo = torch.where(live, tiles, INT32_MAX).amin(-1)
+    hi = torch.where(live, tiles, INT32_MIN).amax(-1)
+    return torch.stack([lo, hi], dim=-1).to(torch.int32).contiguous()
+
+
+def flash_bwd_prep_plain(do: torch.Tensor, o: torch.Tensor, q_seg: torch.Tensor, kv_seg: torch.Tensor):
+    """The pre-pass in tensor ops: (delta (B, Hq, Sq) fp32, q ranges, kv ranges)."""
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return delta, tile_ranges(q_seg), tile_ranges(kv_seg)
+
+
+def live_tile_pairs(q_rng: torch.Tensor, kv_rng: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Bool (B, nQt, nKt): the (q tile, kv tile) pairs the backward kernels
+    run -- ranges that intersect and, when causal, kv tile <= q tile."""
+    lo = torch.maximum(q_rng[:, :, None, 0], kv_rng[:, None, :, 0])
+    hi = torch.minimum(q_rng[:, :, None, 1], kv_rng[:, None, :, 1])
+    live = lo <= hi
+    if causal:
+        nq, nk = q_rng.shape[1], kv_rng.shape[1]
+        live &= torch.ones((nq, nk), dtype=torch.bool, device=live.device).tril()
+    return live
+
+
+def dkv_splits(b: int, skv: int, hkv: int, g: int, n_sms: int) -> Tuple[int, int]:
+    """(n_split, heads_per_split) of the dK/dV grid: the G heads of a kv group
+    are cut into splits (powers of two, at most G) until the grid holds two
+    CTAs per SM, so a short batch (text rows: 128 CTAs) still fills the card."""
+    ctas = -(-skv // DKV_ROWS) * hkv * b
+    n = 1
+    while n < g and ctas * n < 2 * n_sms:
+        n *= 2
+    per = -(-g // min(n, g))
+    return -(-g // per), per
+
+
+def _launch_bwd_prep(do, o, q_seg, kv_seg):
+    b, sq, hq, d = do.shape
+    skv = kv_seg.shape[1]
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=do.device)
+    q_rng = torch.empty((b, -(-sq // RANGE_TILE), 2), dtype=torch.int32, device=do.device)
+    kv_rng = torch.empty((b, -(-skv // RANGE_TILE), 2), dtype=torch.int32, device=do.device)
+    with torch.cuda.device(do.device):
+        rc = csrc.library().st_flash_bwd_prep(
+            do.data_ptr(), o.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), delta.data_ptr(),
+            q_rng.data_ptr(), kv_rng.data_ptr(), b, sq, skv, hq, d,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    csrc.check_launch(rc, "flash backward pre-pass")
+    _launch_bwd_prep.launches += 1
+    return delta, q_rng, kv_rng
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, q_rng, kv_rng, causal, scale) -> torch.Tensor:
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = csrc.library().st_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), dq.data_ptr(),
-            b, sq, skv, hq, hkv, d, int(causal), float(scale),
+            delta.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), q_rng.data_ptr(), kv_rng.data_ptr(),
+            dq.data_ptr(), b, sq, skv, hq, hkv, d, int(causal), float(scale),
             torch.cuda.current_stream().cuda_stream,
         )
     csrc.check_launch(rc, "flash backward dQ")
@@ -189,15 +262,23 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale) -> tor
     return dq
 
 
-def _launch_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
+def _launch_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, q_rng, kv_rng, causal, scale):
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    n_split, per = dkv_splits(b, skv, hkv, hq // hkv,
+                              torch.cuda.get_device_properties(q.device).multi_processor_count)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # fp32 partials of the head splits, summed in split order by the kernel's second pass
+    part_dk = part_dv = None
+    if n_split > 1:
+        part_dk, part_dv = torch.empty((2, n_split) + tuple(k.shape), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = csrc.library().st_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, skv, hq, hkv, d, int(causal), float(scale),
+            delta.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), q_rng.data_ptr(), kv_rng.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), part_dk.data_ptr() if n_split > 1 else None,
+            part_dv.data_ptr() if n_split > 1 else None,
+            b, sq, skv, hq, hkv, d, n_split, per, int(causal), float(scale),
             torch.cuda.current_stream().cuda_stream,
         )
     csrc.check_launch(rc, "flash backward dK/dV")
@@ -205,6 +286,7 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
     return dk, dv
 
 
+_launch_bwd_prep.launches = 0
 _launch_bwd_dq.launches = 0
 _launch_bwd_dkv.launches = 0
 
@@ -215,15 +297,15 @@ def flash_bwd(
     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
     *, causal: bool, scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) through the two CUDA kernels for CUDA tensors, the plain
-    version for CPU tensors. ``delta = rowsum(dO * o)`` is computed here in
-    fp32 tensor ops, outside the kernels, as the TPU launcher does."""
+    """(dq, dk, dv) through the three CUDA kernels (pre-pass, dQ, dK/dV) for
+    CUDA tensors, the plain version for CPU tensors."""
     if not q.is_cuda:
         return flash_bwd_plain(q, k, v, q_seg, kv_seg, o, lse, do, causal=causal, scale=scale)
     _check_cuda_inputs(q, k, v, q_seg, kv_seg, do=do, o=o, lse=lse)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # (B, Hq, Sq)
-    dq = _launch_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale)
-    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale)
+    delta, q_rng, kv_rng = _launch_bwd_prep(do, o, q_seg, kv_seg)
+    args = (q, k, v, do, lse, delta, q_seg, kv_seg, q_rng, kv_rng, causal, scale)
+    dq = _launch_bwd_dq(*args)
+    dk, dv = _launch_bwd_dkv(*args)
     return dq, dk, dv
 
 

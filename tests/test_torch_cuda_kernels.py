@@ -19,7 +19,9 @@ one: bf16 outputs of O(0.3) within 1e-2 (an int8 softmax weight on a rounding
 tie may flip by one step of 1/127 of its block's largest weight).
 The flash backward kernels round p and ds to bf16 before the second products
 where the plain version keeps fp32: each gradient within 1e-2 of its own
-largest magnitude (4e-3 to 7e-3 measured on an H100); padding rows exactly zero.
+largest magnitude (4e-3 to 7e-3 measured on an H100); padding rows exactly zero;
+two calls bit-identical. Their pre-pass: delta within fp32 summation order
+(atol 1e-4 on sums of 80-128 products of O(1) values), range tables equal.
 The silu->int8 kernel: scales within 1e-5 relative, int8 values at most one
 step apart and fewer than 1 in 100 differing (ties; the division and the
 sigmoid differ in the last bit).
@@ -71,6 +73,24 @@ def _segs(rng, b, s, kind):
         seg[:, : s // 3] = 1
         seg[:, s // 3 : 2 * s // 3] = 2
         seg[:, 2 * s // 3 :] = 0
+    elif kind == "nine_images":  # nine unequal images in one sequence, a padded tail
+        seg[:] = 0
+        start = 0
+        for i, n in enumerate((310, 150, 220, 90, 260, 175, 205, 130, 240)):
+            seg[:, start : start + n] = i + 1
+            start += n
+    elif kind == "non_monotone":  # ids 1, 2, 1 (one id in two places), then 3 and padding
+        seg[:, : s // 4], seg[:, s // 4 : s // 2], seg[:, s // 2 : 3 * s // 4] = 1, 2, 1
+        seg[:, 3 * s // 4 : s - 37] = 3
+        seg[:, s - 37 :] = 0
+    elif kind == "text_rows":  # the update's packed text rows: 2-3 samples per row
+        seg[:] = 0
+        for row in range(b):
+            cuts = ((400, 790, 1000), (520, 980), (330, 660, 940), (470, 900, 1024))[row % 4]
+            start = 0
+            for i, end in enumerate(cuts):
+                seg[row, start : min(end, s)] = i + 1
+                start = end
     return seg
 
 
@@ -112,6 +132,10 @@ FLASH_BWD_CASES = [c for c in FLASH_CASES if c[7] == 0] + [
     (2, 512, 512, 16, 2, 128, True, 0, "packed"),     # multi-tile packed text rows
     (1, 1000, 1000, 16, 16, 80, False, 0, "packed"),  # vision full, ragged length
     (3, 70, 70, 2, 2, 80, True, 0, "left_pad"),       # G = 1 causal, ragged
+    (1, 2000, 2000, 4, 4, 80, False, 0, "nine_images"),  # vision full: nine unequal images
+    (2, 400, 400, 4, 4, 80, False, 0, "non_monotone"),   # ids 1, 2, 1
+    (3, 1000, 1000, 4, 4, 80, False, 0, "left_pad"),     # left padding, vision heads
+    (4, 1024, 1024, 16, 2, 128, True, 0, "text_rows"),   # G = 8 at 4 x 1,024: head splits
 ]
 
 
@@ -137,6 +161,64 @@ def test_flash_backward_kernels_match_plain(dev, case):
         err = (x.float() - r.float()).abs().max().item()
         assert err <= 1e-2 * r.float().abs().max().item(), (name, err)
         assert torch.all(x[dead] == 0), name
+
+
+@pytest.mark.parametrize("case", [FLASH_BWD_CASES[i] for i in (-1, -4, -3)])
+def test_flash_backward_kernels_are_deterministic(dev, case):
+    """Two calls on the same inputs give bit-identical dq, dk and dv (no
+    atomics; the head splits' partials are summed in a fixed order)."""
+    b, sq, skv, hq, hkv, d, causal, _, kind = case
+    rng = np.random.default_rng(7 + sq)
+    q, do = _bf16(rng, (b, sq, hq, d), dev), _bf16(rng, (b, sq, hq, d), dev)
+    k, v = _bf16(rng, (b, skv, hkv, d), dev), _bf16(rng, (b, skv, hkv, d), dev)
+    seg = torch.from_numpy(_segs(rng, b, skv, kind)).to(dev)
+    kw = dict(causal=causal, scale=d**-0.5)
+    o, lse = flash_fwd(q, k, v, seg, seg, **kw)
+    first = fa.flash_bwd(q, k, v, seg, seg, o, lse, do, **kw)
+    second = fa.flash_bwd(q, k, v, seg, seg, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("kind", ["nine_images", "non_monotone", "left_pad", "text_rows"])
+def test_flash_backward_prep_kernel_matches_plain(dev, kind):
+    """The pre-pass: delta within fp32 summation order of the eager rowsum,
+    the range tables equal."""
+    b, s, hq, d = (4, 1024, 16, 128) if kind == "text_rows" else (3, 2000, 4, 80)
+    rng = np.random.default_rng(5)
+    do, o = _bf16(rng, (b, s, hq, d), dev), _bf16(rng, (b, s, hq, d), dev)
+    seg = torch.from_numpy(_segs(rng, b, s, kind)).to(dev)
+    kv_seg = torch.from_numpy(_segs(rng, b, s + 45, "packed")).to(dev)
+    want = fa.flash_bwd_prep_plain(do, o, seg, kv_seg)
+    before = fa._launch_bwd_prep.launches
+    got = fa._launch_bwd_prep(do, o, seg, kv_seg)
+    torch.cuda.synchronize()
+    assert fa._launch_bwd_prep.launches == before + 1
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=1e-5)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_flash_backward_kernels_cross_lengths(dev):
+    """Sq != Skv, q_seg != kv_seg, not causal (another shard's k/v): the tile
+    skip reads each side's own range table."""
+    rng = np.random.default_rng(12)
+    b, sq, skv, hq, hkv, d = 2, 150, 420, 8, 2, 128
+    q, do = _bf16(rng, (b, sq, hq, d), dev), _bf16(rng, (b, sq, hq, d), dev)
+    k, v = _bf16(rng, (b, skv, hkv, d), dev), _bf16(rng, (b, skv, hkv, d), dev)
+    kv_seg = np.repeat(np.arange(1, 8, dtype=np.int32), 60)[None].repeat(b, 0)
+    q_seg = np.ascontiguousarray(kv_seg[:, 100:250])
+    q_seg[1, :40] = 0
+    q_seg, kv_seg = torch.from_numpy(q_seg).to(dev), torch.from_numpy(kv_seg).to(dev)
+    kw = dict(causal=False, scale=d**-0.5)
+    o, lse = flash_fwd(q, k, v, q_seg, kv_seg, **kw)
+    ref = fa.flash_bwd_plain(q, k, v, q_seg, kv_seg, o, lse, do, **kw)
+    got = fa.flash_bwd(q, k, v, q_seg, kv_seg, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert torch.all(got[0][q_seg == 0] == 0)
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        err = (x.float() - r.float()).abs().max().item()
+        assert err <= 1e-2 * r.float().abs().max().item(), (name, err)
 
 
 def test_flash_attention_function_backward_on_the_card(dev):
