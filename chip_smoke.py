@@ -14,14 +14,18 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    the peak rate, whichever is larger) and, for the flash and dense-decode
    kernels, times ``F.scaled_dot_product_attention`` with the equivalent
    mask as a yardstick (used nowhere in the port; for the quantized dense
-   caches on the dequantized cache); the flash forward and the
+   caches on the dequantized cache); the flash forward (its range launch
+   and the kernel, one call: both counted, the range tables held against
+   ``tile_ranges``) and the
    flash backward (pre-pass, dQ, dK/dV) are held against ``flash_fwd_plain``,
    ``flash_bwd_prep_plain`` and ``flash_bwd_plain`` on hand-made segment ids
    of the training path's three attention forms here and, after path d, on
    the segment ids its first micro-batch gave them (packed text rows, the
-   vision pack of that micro-batch's images as one sequence and as windows),
-   timed beside SDPA and its backward, with the share of tile pairs the
-   backward runs and two backward calls that must agree bit for bit; the int4 MLP kernels (gate_up + silu, down) at m = 136,
+   vision pack of that micro-batch's images as one sequence and as windows)
+   and on the inputs of its first log-prob vision call (``record_call``: the
+   16 images of a piece as one sequence),
+   timed beside SDPA and its backward, with the share of tile pairs each
+   direction runs and two backward calls that must agree bit for bit; the int4 MLP kernels (gate_up + silu, down) at m = 136,
    128 and 8 rows of the 3B widths, timed beside ``torch._int_mm`` on the
    int8 copy of the same weights (a yardstick: no PyTorch call computes the
    int4 function), and one 3B MLP at m = 256, where the eligibility rule
@@ -270,6 +274,10 @@ GRPO_STEPS = 1
 # tower): path e takes the same step at full depth through the trainer, and
 # the smoke has to stay within half its time limit on a slow host.
 TRAIN_LAYERS = 12
+# A log-prob piece of 16 samples runs the vision tower over their 16 images as
+# one sequence (32,768 slots); its full-attention forward is recorded in path d
+# as the first vision call of at least this many slots.
+LOGPROB_VISION_MIN_SLOTS = 20000
 # Path f: the dense engine over an int8 cache differs from path b's engine only
 # in the KV format (8 bits instead of 4), so its drift from the trainer's own
 # log-probs may exceed path b's measured probs_diff by at most this much.
@@ -438,7 +446,8 @@ def forbid_plain_versions():
 
 def reset_counts() -> None:
     # looked up at call time: a wrapper may have been re-bound meanwhile
-    for fn in (fa.flash_fwd, fa._launch_bwd_prep, fa._launch_bwd_dq, fa._launch_bwd_dkv, da.decode_attention,
+    for fn in (fa.flash_fwd, fa._launch_ranges, fa._launch_bwd_prep, fa._launch_bwd_dq, fa._launch_bwd_dkv,
+               da.decode_attention,
                da._launch_int8_kernel, da._launch_int4_kernel, da._launch_int4_i8_kernel,
                pa._launch_pool_kernel, pa._launch_int4_i8_kernel, pa._launch_int4_kernel,
                sq.fused_silu_quantize, i4.w4_gateup_silu, i4.w4_matmul, i8m.fused_w8a8_matmul,
@@ -449,7 +458,8 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {
-        "flash_fwd": fa.flash_fwd.launches, "flash_bwd_prep": fa._launch_bwd_prep.launches,
+        "flash_fwd": fa.flash_fwd.launches, "flash_ranges": fa._launch_ranges.launches,
+        "flash_bwd_prep": fa._launch_bwd_prep.launches,
         "flash_bwd_dq": fa._launch_bwd_dq.launches,
         "flash_bwd_dkv": fa._launch_bwd_dkv.launches, "decode_attention": da.decode_attention.launches,
         "decode_attention_int8": da._launch_int8_kernel.launches,
@@ -463,6 +473,12 @@ def read_counts() -> dict:
         "w8a8": i8m.fused_w8a8_matmul.launches, "w8a8_prequantized": i8m.w8a8_matmul_prequantized.launches,
         "paged_staged": pa._launch.staged_launches, "int_mm": counted_int_mm.launches,
     }
+
+
+def flash_checks(counts: dict) -> dict:
+    """The flash forward of a path: launched, each launch behind its range launch."""
+    return {"flash launched": counts["flash_fwd"] > 0,
+            "flash range tables with every forward": counts["flash_ranges"] == counts["flash_fwd"]}
 
 
 def w8a8_checks(counts: dict) -> dict:
@@ -492,7 +508,8 @@ def check_flash(dev, prep, cfg):
     """Flash kernel vs plain at the main paths' shapes: text prefill (causal,
     left-padded), vision full attention and windows (D=80), and the
     causal-offset chunk the paged path's chunked prefill gives it (4 rows x
-    256 queries against the 512-cell prefix)."""
+    256 queries against the 512-cell prefix). Returns (forward results,
+    range-launch results)."""
     rng = np.random.default_rng(1)
     tc, vc = cfg.text, cfg.vision
     seg_text = prep["prompt_segment_ids"].to(torch.int32).contiguous()
@@ -512,37 +529,71 @@ def check_flash(dev, prep, cfg):
         ("causal_offset_chunk", (b, chunk, tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim),
          seg_text[:, chunk:].contiguous(), seg_text, True, chunk, p),
     ]
-    results = []
+    results, range_results = [], []
     for name, (bb, sq_len, hq, hkv, d), q_seg, kv_seg, causal, off, skv in cases:
         q, k, v = (randn_bf16(rng, dev, bb, s, h, d) for s, h in ((sq_len, hq), (skv, hkv), (skv, hkv)))
-        kw = dict(causal=causal, scale=d**-0.5, causal_offset=off)
-        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, q_seg, kv_seg, **kw)
-        o, lse = fa.flash_fwd(q, k, v, q_seg, kv_seg, **kw)
-        torch.cuda.synchronize()
-        err = (o.float() - o_ref.float()).abs().max().item()
-        lse_err = (lse - lse_ref).abs().max().item()
-        dead_ok = bool(torch.all(o[q_seg == 0] == 0))
-        plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, q_seg, kv_seg, **kw), iters=10)
-        ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, q_seg, kv_seg, **kw))
-        # the one PyTorch call for the same function: SDPA with the equivalent mask
-        mask = fa.make_attention_mask(q_seg, kv_seg, causal, off)[:, None]
-        pairs = int(mask.sum())
-        g = hq // hkv
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in
-                      (q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=d**-0.5),
-                         iters=10)
-        b_ms, b_by = bound_ms(nbytes(q, k, v, o, lse, q_seg, kv_seg), 4.0 * pairs * hq * d, "bf16")
-        print(f"flash {name}: q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal} offset={off} "
-              f"max_abs_err={err:.3e} lse_err={lse_err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})", flush=True)
-        if not (err <= OUT_ATOL and lse_err <= LSE_ATOL and dead_ok):
-            raise AssertionError(f"flash kernel disagrees with plain on {name}")
-        results.append(dict(shape=name, max_abs_err=err, lse_err=lse_err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-        del q, k, v, o, lse, o_ref, lse_ref, mask, qt, kt, vt
+        fwd, ranges = flash_fwd_case(name, q, k, v, q_seg, kv_seg, causal, off)
+        results.append(fwd)
+        range_results.append(ranges)
+        del q, k, v
         torch.cuda.empty_cache()
-    return results
+    return results, range_results
+
+
+def flash_fwd_case(name, q, k, v, q_seg, kv_seg, causal, off, by_head=False, plain_iters=10):
+    """The forward kernel (range launch + forward, one call) against
+    ``flash_fwd_plain`` (head by head with ``by_head``), timed beside the
+    plain version and SDPA with the equivalent mask; ``live_tile_share`` is
+    the share of (q tile, kv tile) pairs the forward runs. Then the range
+    launch alone against ``tile_ranges``. Returns (forward, range) results."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    kw = dict(causal=causal, scale=d**-0.5, causal_offset=off)
+    plain = flash_fwd_plain_by_head if by_head else fa.flash_fwd_plain
+    o_ref, lse_ref = plain(q, k, v, q_seg, kv_seg, **kw)
+    before = fa._launch_ranges.launches, fa.flash_fwd.launches
+    o, lse = fa.flash_fwd(q, k, v, q_seg, kv_seg, **kw)
+    torch.cuda.synchronize()
+    one_each = (fa._launch_ranges.launches, fa.flash_fwd.launches) == (before[0] + 1, before[1] + 1)
+    err = (o.float() - o_ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    dead_ok = bool(torch.all(o[q_seg == 0] == 0))
+    del o_ref, lse_ref
+    q_rng, kv_rng = fa._launch_ranges(q_seg, kv_seg)
+    want = fa.tile_ranges(q_seg), fa.tile_ranges(kv_seg)
+    ranges_equal = torch.equal(q_rng, want[0]) and torch.equal(kv_rng, want[1])
+    live_share = fa.fwd_live_tiles(want[0], want[1], causal, off, sq, skv).float().mean().item()
+    plain_ms = cuda_ms(lambda: plain(q, k, v, q_seg, kv_seg, **kw), iters=plain_iters,
+                       warmup=1 if plain_iters < 10 else 3)
+    ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, q_seg, kv_seg, **kw))
+    ranges_ms = cuda_ms(lambda: fa._launch_ranges(q_seg, kv_seg))
+    ranges_plain_ms = cuda_ms(lambda: (fa.tile_ranges(q_seg), fa.tile_ranges(kv_seg)))
+    # the one PyTorch call for the same function: SDPA with the equivalent mask
+    mask = fa.make_attention_mask(q_seg, kv_seg, causal, off)[:, None]
+    pairs = int(mask.sum())
+    g = hq // hkv
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in
+                  (q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=d**-0.5),
+                     iters=min(plain_iters, 10))
+    b_ms, b_by = bound_ms(nbytes(q, k, v, o, lse, q_seg, kv_seg), 4.0 * pairs * hq * d, "bf16")
+    rb_ms, rb_by = bound_ms(nbytes(q_seg, kv_seg, q_rng, kv_rng), 0.0, "bf16")
+    print(f"flash {name}: q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal} offset={off} "
+          f"max_abs_err={err:.3e} lse_err={lse_err:.3e} padding_rows_zero={dead_ok} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+          f"live_tile_share={live_share:.4f} (unmasked pair share {pairs / (b * sq * skv):.4f}); range launch "
+          f"counted once={one_each}, tables equal={ranges_equal}, ranges_ms={ranges_ms:.4f} "
+          f"(plain {ranges_plain_ms:.4f}, bound {rb_ms:.5f})", flush=True)
+    if not (err <= OUT_ATOL and lse_err <= LSE_ATOL and dead_ok and one_each):
+        raise AssertionError(f"flash kernel disagrees with plain on {name}")
+    if not ranges_equal:
+        raise AssertionError(f"flash range launch disagrees with tile_ranges on {name}")
+    fwd = dict(shape=name, max_abs_err=err, lse_err=lse_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, live_tile_share=live_share)
+    ranges = dict(shape=name, max_abs_err=0.0, ms=ranges_ms, plain_ms=ranges_plain_ms, bound_ms=rb_ms,
+                  bound_by=rb_by, library_ms=None)
+    del o, lse, mask, qt, kt, vt
+    return fwd, ranges
 
 
 def synthetic_training_cases(cfg):
@@ -597,11 +648,14 @@ def check_flash_training(dev, cases):
         k, v = randn_bf16(rng, dev, bb, s_len, hkv, d), randn_bf16(rng, dev, bb, s_len, hkv, d)
         kw = dict(causal=causal, scale=d**-0.5)
         dead = seg == 0
+        ranges_before = fa._launch_ranges.launches
         o, lse = fa.flash_fwd(q, k, v, seg, seg, **kw)
+        ranges_counted = fa._launch_ranges.launches == ranges_before + 1
         o_ref, lse_ref = flash_fwd_plain_by_head(q, k, v, seg, seg, **kw)
         fwd_err = (o.float() - o_ref.float()).abs().max().item()
         lse_err = (lse - lse_ref).abs().max().item()
-        fwd_ok = fwd_err <= OUT_ATOL and lse_err <= LSE_ATOL and bool(torch.all(o[dead] == 0))
+        fwd_ok = (fwd_err <= OUT_ATOL and lse_err <= LSE_ATOL and bool(torch.all(o[dead] == 0))
+                  and ranges_counted)
         del o_ref, lse_ref
         ref = flash_bwd_plain_by_head(q, k, v, seg, seg, o, lse, do, **kw)
         got = fa.flash_bwd(q, k, v, seg, seg, o, lse, do, **kw)
@@ -620,6 +674,8 @@ def check_flash_training(dev, cases):
         ranges_equal = torch.equal(q_rng, want[1]) and torch.equal(kv_rng, want[2])
         live_share = fa.live_tile_pairs(q_rng, kv_rng, causal).float().mean().item()
         n_tile_pairs = q_rng.shape[0] * q_rng.shape[1] * kv_rng.shape[1]
+        fwd_live = fa.fwd_live_tiles(q_rng, kv_rng, causal, 0, s_len, s_len)
+        fwd_share = fwd_live.float().mean().item()
         del want
         fwd_plain_ms = cuda_ms(lambda: flash_fwd_plain_by_head(q, k, v, seg, seg, **kw), iters=5, warmup=1)
         fwd_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, seg, seg, **kw))
@@ -650,7 +706,9 @@ def check_flash_training(dev, cases):
         dkv_b, dkv_by = bound_ms(common + nbytes(k, v), 8.0 * pairs * hq * d, "bf16")
         print(f"flash forward {name}: q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal} "
               f"max_abs_err={fwd_err:.3e} lse_err={lse_err:.3e} ms={fwd_ms:.4f} plain_ms={fwd_plain_ms:.4f} "
-              f"sdpa_ms={fwd_lib_ms:.4f} bound_ms={fwd_b:.5f} ({fwd_by})", flush=True)
+              f"sdpa_ms={fwd_lib_ms:.4f} bound_ms={fwd_b:.5f} ({fwd_by}) live_tile_share={fwd_share:.4f} "
+              f"(of {fwd_live.numel()} tile pairs of {fa.FWD_Q_ROWS} x {fa.FWD_KV_ROWS} rows); range launch "
+              f"counted once={ranges_counted}", flush=True)
         print(f"flash backward {name}: q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal} "
               f"max_abs_err dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e} "
               f"(of max |grad|: {rels['dq']:.2e} {rels['dk']:.2e} {rels['dv']:.2e}, tol {BWD_REL_TOL}) "
@@ -671,7 +729,8 @@ def check_flash_training(dev, cases):
         if not (prep_err <= PREP_DELTA_ATOL and ranges_equal):
             raise AssertionError(f"flash backward pre-pass disagrees with plain on {name}")
         fwd_cases.append(dict(shape=name, max_abs_err=fwd_err, lse_err=lse_err, ms=fwd_ms,
-                              plain_ms=fwd_plain_ms, bound_ms=fwd_b, bound_by=fwd_by, library_ms=fwd_lib_ms))
+                              plain_ms=fwd_plain_ms, bound_ms=fwd_b, bound_by=fwd_by, library_ms=fwd_lib_ms,
+                              live_tile_share=fwd_share))
         bwd = dict(pair_ms=pair_ms, sdpa_bwd_ms=lib_ms, live_tile_share=live_share,
                    bit_identical_twice=deterministic)
         prep_cases.append(dict(shape=name, max_abs_err=prep_err, ms=prep_ms, plain_ms=prep_plain_ms,
@@ -681,7 +740,7 @@ def check_flash_training(dev, cases):
         dkv_cases.append(dict(shape=name, max_abs_err=max(errs["dk"], errs["dv"]),
                               rel_err=max(rels["dk"], rels["dv"]), ms=dkv_ms, plain_ms=plain_ms,
                               bound_ms=dkv_b, bound_by=dkv_by, library_ms=lib_ms, **bwd))
-        del q, k, v, do, o, lse, delta, q_rng, kv_rng, args, mask, qt, kt, vt, out, dot
+        del q, k, v, do, o, lse, delta, q_rng, kv_rng, fwd_live, args, mask, qt, kt, vt, out, dot
         torch.cuda.empty_cache()
     return fwd_cases, prep_cases, dq_cases, dkv_cases
 
@@ -1293,7 +1352,9 @@ def training_path(dev, model, qmodel_holder, host, paged_kw, card):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     rolled = None
-    with forbid_plain_versions():
+    logprob_vision = record_call(fa, "flash_attention", 0,
+                                 when=lambda q, *a, **kw: q.shape[1] >= LOGPROB_VISION_MIN_SLOTS)
+    with forbid_plain_versions(), logprob_vision as logprob_call:
         for step in range(1, GRPO_STEPS + 1):
             before = read_counts()
             sums_before = checksums(model.parameters())
@@ -1351,7 +1412,8 @@ def training_path(dev, model, qmodel_holder, host, paged_kw, card):
         checks[f"step {s}: optimizer steps"] = (
             info["optimizer_steps"] == len(rolled) // TRAIN["global_batch_size"] >= 2)
         checks[f"step {s}: every kernel of the step launched"] = all(
-            info["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv",
+            info["launches"][k] > 0 for k in ("flash_fwd", "flash_ranges", "flash_bwd_prep", "flash_bwd_dq",
+                                              "flash_bwd_dkv",
                                               "paged_attention_int4_i8", "silu_quant", "w8a8"))
         checks[f"step {s}: no torch._int_mm"] = info["launches"]["int_mm"] == 0
     checks["reference copy untouched"] = checksums(ref_model.parameters()) == ref_sums
@@ -1411,7 +1473,7 @@ def training_path(dev, model, qmodel_holder, host, paged_kw, card):
     if failed:
         raise AssertionError(f"training-path checks failed: {failed}")
     return dict(steps=steps, launches=launches, grad_norm_rel=grad_rel, grad_cosine=grad_cos,
-                packed_logp_diff=float(lp_diff.mean()), first_micro=first_micro)
+                packed_logp_diff=float(lp_diff.mean()), first_micro=first_micro, logprob_call=logprob_call)
 
 
 def earlier_paths(dev, card, cfg) -> dict:
@@ -1435,7 +1497,7 @@ def earlier_paths(dev, card, cfg) -> dict:
           f"{prep['vision'].patches.shape[0]} vision patch slots", flush=True)
 
     # ---- every kernel against its plain version ----
-    flash_cases = check_flash(dev, prep, cfg)
+    flash_cases, range_cases = check_flash(dev, prep, cfg)
     synth_fwd, synth_prep, synth_dq, synth_dkv = check_flash_training(dev, synthetic_training_cases(cfg))
     n_samp = 5
     width = -(-(p + MAX_NEW_TOKENS) // 128) * 128
@@ -1519,7 +1581,7 @@ def earlier_paths(dev, card, cfg) -> dict:
         "log-probs <= 0": bool((logp <= 0).all()),
         "sampled tokens in vocab": bool(((result.responses >= 0) & (result.responses < cfg.text.vocab_size)).all()),
         "every row has a token": bool((mask.sum(-1) >= 1).all()),
-        "flash launched": dense_launches["flash_fwd"] > 0,
+        **flash_checks(dense_launches),
         "decode launched": dense_launches["decode_attention"] > 0,
     }
     failed = [k for k, ok in checks.items() if not ok]
@@ -1591,7 +1653,7 @@ def earlier_paths(dev, card, cfg) -> dict:
         "lanes of a group differ (sampled)": bool((paged.responses[0] != paged.responses[1]).any()),
         "prompt pages shared": st["peak_pages"] < unshared,
         "several refills": st["refills"] >= 2,
-        "flash launched": paged_launches["flash_fwd"] > 0,
+        **flash_checks(paged_launches),
         "int4 paged kernel launched": paged_launches["paged_attention_int4_i8"] > 0,
         "silu junction launched": paged_launches["silu_quant"] > 0,
         "no dense decode kernel": paged_launches["decode_attention"] == 0,
@@ -1659,8 +1721,8 @@ def earlier_paths(dev, card, cfg) -> dict:
         raise AssertionError("paged bf16 pools vs dense engine: first tokens differ")
     if not drift_paged <= ENGINE_DRIFT_RATIO * drift_dense:
         raise AssertionError("the bf16-pool paged engine drifts further from the model than the dense engine")
-    if not (bf16_launches["paged_attention_pool"] > 0 and bf16_launches["flash_fwd"] > 0):
-        raise AssertionError("the bf16-pool path did not launch its kernels")
+    if not (bf16_launches["paged_attention_pool"] > 0 and all(flash_checks(bf16_launches).values())):
+        raise AssertionError(f"the bf16-pool path did not launch its kernels: {bf16_launches}")
 
     # ---- path h: path b with the staging ring fused into the paged kernel ----
     # keep one mid-chunk attention call (step 8 of the first chunk, last layer)
@@ -1744,13 +1806,26 @@ def earlier_paths(dev, card, cfg) -> dict:
           f"{first['seg_full'].shape[0]} patch slots holding {first['images']} images", flush=True)
     path_fwd, prep_cases, dq_cases, dkv_cases = check_flash_training(
         dev, training_cases(cfg, "update", first["seg_text"], first["seg_full"], first["seg_window"]))
-    flash_cases += path_fwd + synth_fwd
+    # the forward once more, on the inputs of path d's first log-prob vision call
+    # (old log-probs, first piece, the first full-attention block)
+    rec = train.pop("logprob_call")
+    q, k, v, q_seg, kv_seg = rec["args"]
+    print(f"log-prob vision call of path d: q{tuple(q.shape)}, {int(q_seg.max())} images in "
+          f"{q_seg.shape[1]} patch slots ({int((q_seg != 0).sum())} live)", flush=True)
+    logprob_fwd, logprob_ranges = flash_fwd_case(
+        f"path_d_logprob_vision_full_{q_seg.shape[1]}", q, k, v, q_seg, kv_seg, rec["kwargs"]["causal"],
+        rec["kwargs"]["causal_offset"], by_head=True, plain_iters=2)
+    del rec, q, k, v, q_seg, kv_seg
+    torch.cuda.empty_cache()
+    flash_cases += path_fwd + synth_fwd + [logprob_fwd]
+    range_cases.append(logprob_ranges)
     prep_cases += synth_prep
     dq_cases += synth_dq
     dkv_cases += synth_dkv
 
     return dict(
-        flash_cases=flash_cases, prep_cases=prep_cases, dq_cases=dq_cases, dkv_cases=dkv_cases,
+        flash_cases=flash_cases, range_cases=range_cases, prep_cases=prep_cases, dq_cases=dq_cases,
+        dkv_cases=dkv_cases,
         decode_cases=decode_cases,
         pool_cases=pool_cases, int4_cases=int4_cases, silu_cases=silu_cases, w8a8_cases=w8a8_cases,
         staged_cases=staged_cases, h_launches=h_launches, decode_tok_s_fused=decode_tok_s_fused,
@@ -1806,8 +1881,8 @@ def scene_rows(n: int, seed: int) -> list:
 
 
 METRIC_FAMILIES = ("actor/", "critic/score/", "reward/", "timing_s/", "perf/", "rollout/kv_")
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv", "paged_attention_int4_i8",
-                 "silu_quant", "w8a8")
+TRAIN_KERNELS = ("flash_fwd", "flash_ranges", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv",
+                 "paged_attention_int4_i8", "silu_quant", "w8a8")
 DECODE_KERNELS = ("decode_attention", "decode_attention_int8", "decode_attention_int4",
                   "decode_attention_int4_i8", "paged_attention_pool", "paged_attention_int4_i8",
                   "paged_attention_int4")
@@ -2077,8 +2152,8 @@ def continuous_w4a8_path(dev, card, trainer, train_ds) -> dict:
         "int4 down: 36 per decode step": counts["int4_down"] == layers * steps,
         "int4 int8-dot decode kernel launched": counts["decode_attention_int4_i8"] == layers * steps,
         "silu junction launched (prefill)": counts["silu_quant"] > 0,
-        "flash kernels launched": all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_prep", "flash_bwd_dq",
-                                                               "flash_bwd_dkv")),
+        "flash kernels launched": all(counts[k] > 0 for k in ("flash_fwd", "flash_ranges", "flash_bwd_prep",
+                                                               "flash_bwd_dq", "flash_bwd_dkv")),
         "no paged kernel": not any(counts[k] for k in PAGED_KERNELS),
         "no other dense decode kernel": not any(
             counts[k] for k in ("decode_attention", "decode_attention_int8", "decode_attention_int4")),
@@ -2252,6 +2327,12 @@ def main() -> int:
               "spatialthinker_tpu/ops/flash_attention.py:45", r["flash_cases"], paged_l["flash_fwd"],
               launches_dense_path=dense_l["flash_fwd"], launches_bf16_pool_path=bf16_l["flash_fwd"],
               launches_training_path=train_l["flash_fwd"], launches_trainer_path=trainer_l["flash_fwd"]),
+        # the forward's range tables (part of #1's design: the TPU kernel skips blocks by the causal
+        # diagonal only); no one PyTorch call computes them
+        entry("flash_ranges", "cuda", "spatialthinker_torch/csrc/flash_attention.cu",
+              "spatialthinker_tpu/ops/flash_attention.py:45", r["range_cases"], paged_l["flash_ranges"],
+              launches_dense_path=dense_l["flash_ranges"], launches_bf16_pool_path=bf16_l["flash_ranges"],
+              launches_training_path=train_l["flash_ranges"], launches_trainer_path=trainer_l["flash_ranges"]),
         # the backward's pre-pass (delta and the segment range tables) takes the place of
         # the XLA rowsum of _flash_bwd; no one PyTorch call computes it
         entry("flash_bwd_prep", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",

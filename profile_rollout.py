@@ -29,7 +29,9 @@ backward through ``make_packed_grad_fn`` (per-layer checkpointing, the flash
 forward and backward kernels, chunked log-probs) and around ONE AdamW step
 over every parameter; a third window holds the chunked log-prob forward +
 backward alone at the same rows. Prints device time by kind of kernel
-(attention forward, dQ, dK/dV, GEMMs, everything else), the busy share of
+(attention forward of the vision tower and of the text layers apart, the
+forward's range tables, the backward's pre-pass, dQ, dK/dV, GEMMs,
+everything else), the busy share of
 each window and the top device kernels. Imports nothing of JAX.
 """
 
@@ -120,7 +122,9 @@ def profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged: bool) -> Non
 
 
 KERNEL_KINDS = (
-    ("attention forward (flash_fwd_kernel)", ("flash_fwd_kernel",)),
+    ("attention forward, vision D = 80 (flash_fwd_kernel<80>)", ("flash_fwd_kernel<80",)),
+    ("attention forward, text D = 128 (flash_fwd_kernel<128>)", ("flash_fwd_kernel<128",)),
+    ("attention forward range tables (flash_ranges_kernel)", ("flash_ranges_kernel",)),
     ("attention backward pre-pass (flash_bwd_prep_kernel)", ("flash_bwd_prep_kernel",)),
     ("attention backward dQ (flash_bwd_dq_kernel)", ("flash_bwd_dq_kernel",)),
     ("attention backward dK/dV (flash_bwd_dkv_kernel, flash_bwd_dkv_reduce_kernel)", ("flash_bwd_dkv",)),

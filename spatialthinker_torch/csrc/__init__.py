@@ -26,6 +26,7 @@ SOURCES = (
     "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "paged_attention.cu",
     "int4_mlp.cu", "int8_matmul.cu",
 )
+HEADERS = ("flash_common.cuh",)  # included by the two flash sources; part of the library's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -35,8 +36,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, q_seg, kv_seg, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, causal_offset, scale, stream
-    "st_flash_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # q_seg, kv_seg, q_rng, kv_rng, B, Sq, Skv, stream
+    "st_flash_ranges": [_P] * 4 + [_I] * 3 + [_P],
+    # q, k, v, q_seg, kv_seg, ranges, o, lse, B, Sq, Skv, Hq, Hkv, D, causal, causal_offset, scale,
+    # stream
+    "st_flash_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
     # dO, o, q_seg, kv_seg, delta, q_rng, kv_rng, B, Sq, Skv, Hq, D, stream
     "st_flash_bwd_prep": [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, dO, lse, delta, q_seg, kv_seg, q_rng, kv_rng, dq, B, Sq, Skv, Hq, Hkv, D, causal,
@@ -74,7 +78,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libst_kernels_{digest.hexdigest()[:16]}.so"
 

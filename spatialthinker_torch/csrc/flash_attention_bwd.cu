@@ -59,42 +59,18 @@
 //    small kernel sums in split order.
 // 5. Deterministic: no atomics; every sum has a fixed order.
 //
-// Range table layout (read by both kernels; the forward can read it too):
-//   int32 (B, ceil(S / TILE), 2), TILE = 32 rows; entry t = {lo, hi}, the
-//   smallest and largest nonzero segment id of rows [t*TILE, (t+1)*TILE);
-//   a tile with no nonzero id holds {INT_MAX, INT_MIN}, which meets nothing.
+// The range table layout (read by both kernels and by the forward, which
+// builds its own tables with st_flash_ranges) and the staging helpers are in
+// flash_common.cuh.
 
-#include <climits>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int TILE = 32;      // rows per range-table tile and per streamed tile
+// TILE (flash_common.cuh): rows per range-table tile and per streamed tile
 constexpr int OWN = 64;       // rows a CTA owns: q rows (dQ), kv rows (dK/dV)
 constexpr int THREADS = 128;  // four warps of 16 owned rows
 constexpr int STAGES = 3;     // depth of the cp.async ring
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 / 4 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -112,21 +88,6 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The accumulator layout of two n8 tiles is the A layout of one k16 chunk.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* lo, const float* hi) {
-  a[0] = pack_bf16x2(lo[0], lo[1]);
-  a[1] = pack_bf16x2(lo[2], lo[3]);
-  a[2] = pack_bf16x2(hi[0], hi[1]);
-  a[3] = pack_bf16x2(hi[2], hi[3]);
-}
-
-// Byte offset of the core matrix holding (row, col) (both multiples of 8) in
-// a tile of D-wide rows: 8-row blocks of D/8 core matrices of 128 bytes.
-template <int D>
-__device__ __forceinline__ int block_offset(int row, int col) {
-  return (row >> 3) * (D * 16) + (col >> 3) * 128;
-}
-
 // ldmatrix.x4 lane addresses (m = lane / 8 names the 8x8 matrix, r = lane % 8
 // its row) within a tile:
 //   B fragments (transposed) of two n8 tiles at columns [n0, n0 + 16), k16
@@ -135,14 +96,6 @@ template <int D>
 __device__ __forceinline__ uint32_t bt_frag_addr(uint32_t base, int k0, int n0, int lane) {
   const int m = lane >> 3;
   return base + block_offset<D>(k0 + (m & 1) * 8, n0 + (m >> 1) * 8) + (lane & 7) * 16;
-}
-
-// wgmma shared-memory descriptor, no swizzle, K-major: core matrices LBO
-// = 128 bytes apart along K, SBO = D * 16 bytes apart along M / N.
-template <int D>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>((D * 16) >> 4) << 32);
 }
 
 // D(64 x 32, fp32) (+)= A(64 x 16) B(32 x 16)^T, both bf16 K-major in shared
@@ -158,12 +111,6 @@ __device__ __forceinline__ void wgmma_64x32x16(float (&d)[16], uint64_t da, uint
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// Keeps the compiler from touching d across the asynchronous wgmma.
-__device__ __forceinline__ void fence_regs(float (&d)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // S = A B^T and P = C E^T (64 x 32 each) over the D columns of four
@@ -184,43 +131,6 @@ __device__ __forceinline__ void wgmma_pair(float (&s)[16], float (&p)[16], uint3
   fence_regs(s);
   fence_regs(p);
 }
-
-// cp.async writes (generic proxy) become visible to wgmma (async proxy).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Stage ROWS rows from row0 (zero-filled past S) of head h of a (B, S, H, D)
-// bf16 tensor into a shared tile in the core-matrix layout: 16-byte chunks
-// spread over the CTA, chunk (r, c) to row r % 8 of its core matrix.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_rows(uint32_t dst, const __nv_bfloat16* __restrict__ src,
-                                           int b, int row0, int S, int H, int h) {
-  constexpr int CH = D / 8;
-#pragma unroll 2
-  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
-    const int r = i / CH;
-    const int c = (i % CH) * 8;
-    const int gr = row0 + r;
-    const bool live = gr < S;
-    const __nv_bfloat16* p = live ? src + (((size_t)b * S + gr) * H + h) * D + c : src;
-    cp_async16(dst + block_offset<D>(r & ~7, c) + (r & 7) * 16, p, live ? 16 : 0);
-  }
-}
-
-// Stage TILE 32-bit words (zero-filled past `limit`) starting at src[row0],
-// one word per thread of [t0, t0 + TILE).
-__device__ __forceinline__ void stage_words(uint32_t dst, const void* __restrict__ src, int row0,
-                                            int limit, int t0) {
-  const int i = threadIdx.x - t0;
-  if (i >= 0 && i < TILE) {
-    const bool live = row0 + i < limit;
-    const int* p = static_cast<const int*>(src) + (live ? row0 + i : 0);
-    cp_async4(dst + i * 4, p, live ? 4 : 0);
-  }
-}
-
-__device__ __forceinline__ bool ranges_meet(int2 a, int2 b) { return max(a.x, b.x) <= min(a.y, b.y); }
 
 // Compacts into list[] the streamed-side tiles t that meet one of the CTA's
 // two own tiles (own0, own0 + 1): entry t * 4 + bits, bit s set when own tile
@@ -274,7 +184,6 @@ flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ dout, const __nv_bfloat1
                       const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
                       float* __restrict__ delta, int2* __restrict__ q_rng, int2* __restrict__ kv_rng,
                       int B, int Sq, int Skv, int Hq, int D, int delta_blocks) {
-  const int lane = threadIdx.x & 31;
   if (blockIdx.x < delta_blocks) {
     const size_t rows = (size_t)B * Sq * Hq;
     const size_t row = (size_t)blockIdx.x * 32 + (threadIdx.x >> 3);
@@ -309,25 +218,7 @@ flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ dout, const __nv_bfloat1
     }
     return;
   }
-  const int n_qt = (Sq + TILE - 1) / TILE;
-  const int n_kt = (Skv + TILE - 1) / TILE;
-  const int tile = (blockIdx.x - delta_blocks) * 8 + (threadIdx.x >> 5);  // warp-uniform
-  if (tile >= B * (n_qt + n_kt)) return;
-  const bool is_q = tile < B * n_qt;
-  const int idx = is_q ? tile : tile - B * n_qt;
-  const int n_t = is_q ? n_qt : n_kt;
-  const int S = is_q ? Sq : Skv;
-  const int b = idx / n_t;
-  const int pos = (idx % n_t) * TILE + lane;
-  const int id = pos < S ? (is_q ? q_seg : kv_seg)[(size_t)b * S + pos] : 0;
-  int lo = id != 0 ? id : INT_MAX;
-  int hi = id != 0 ? id : INT_MIN;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-  }
-  if (lane == 0) (is_q ? q_rng : kv_rng)[idx] = make_int2(lo, hi);
+  write_ranges(q_seg, kv_seg, q_rng, kv_rng, B, Sq, Skv, (blockIdx.x - delta_blocks) * 8 + (threadIdx.x >> 5));
 }
 
 // ---------------------------------------------------------------------------
@@ -374,8 +265,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int n_kt = (Skv + TILE - 1) / TILE;
 
   // own Q and dO rows (group 0), then the list of kv tiles to walk
-  stage_rows<D, OWN>(sbase + L::off_q, q, b, q0, Sq, Hq, head);
-  stage_rows<D, OWN>(sbase + L::off_do, dout, b, q0, Sq, Hq, head);
+  stage_rows<D, OWN>(sbase + L::off_q, q, b, q0, Sq, Hq, head, threadIdx.x, THREADS);
+  stage_rows<D, OWN>(sbase + L::off_do, dout, b, q0, Sq, Hq, head, threadIdx.x, THREADS);
   cp_async_commit();
   const int n_live = build_live_list<true>(list, warp_n, q_rng + (size_t)b * n_qt, q0 / TILE, n_qt,
                                            kv_rng + (size_t)b * n_kt, n_kt, causal);
@@ -396,9 +287,9 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     auto load_tile = [&](int item, int stage) {
       const int kv0 = (list[item] >> 2) * TILE;
       const uint32_t st = sbase + L::off_stage + stage * L::kStage;
-      stage_rows<D, TILE>(st, k, b, kv0, Skv, Hkv, kvh);
-      stage_rows<D, TILE>(st + L::kTileBytes, v, b, kv0, Skv, Hkv, kvh);
-      stage_words(st + 2 * L::kTileBytes, kv_seg + (size_t)b * Skv, kv0, Skv, 0);
+      stage_rows<D, TILE>(st, k, b, kv0, Skv, Hkv, kvh, threadIdx.x, THREADS);
+      stage_rows<D, TILE>(st + L::kTileBytes, v, b, kv0, Skv, Hkv, kvh, threadIdx.x, THREADS);
+      stage_words<TILE>(st + 2 * L::kTileBytes, kv_seg + (size_t)b * Skv, kv0, Skv, 0);
     };
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
@@ -531,8 +422,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int n_kt = (Skv + TILE - 1) / TILE;
 
   // resident K and V rows (group 0), then the list of q tiles to walk
-  stage_rows<D, OWN>(sbase + L::off_k, k, b, kv0, Skv, Hkv, kvh);
-  stage_rows<D, OWN>(sbase + L::off_v, v, b, kv0, Skv, Hkv, kvh);
+  stage_rows<D, OWN>(sbase + L::off_k, k, b, kv0, Skv, Hkv, kvh, threadIdx.x, THREADS);
+  stage_rows<D, OWN>(sbase + L::off_v, v, b, kv0, Skv, Hkv, kvh, threadIdx.x, THREADS);
   cp_async_commit();
   const int n_live = build_live_list<false>(list, warp_n, kv_rng + (size_t)b * n_kt, kv0 / TILE, n_kt,
                                             q_rng + (size_t)b * n_qt, n_qt, causal);
@@ -558,11 +449,11 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       const int q0 = (list[item % n_live] >> 2) * TILE;
       const uint32_t st = sbase + L::off_stage + stage * L::kStage;
       const size_t stat_row = ((size_t)b * Hq + head) * Sq;
-      stage_rows<D, TILE>(st, q, b, q0, Sq, Hq, head);
-      stage_rows<D, TILE>(st + L::kTileBytes, dout, b, q0, Sq, Hq, head);
-      stage_words(st + 2 * L::kTileBytes, lse + stat_row, q0, Sq, 0);
-      stage_words(st + 2 * L::kTileBytes + TILE * 4, delta + stat_row, q0, Sq, TILE);
-      stage_words(st + 2 * L::kTileBytes + 2 * TILE * 4, q_seg + (size_t)b * Sq, q0, Sq, 2 * TILE);
+      stage_rows<D, TILE>(st, q, b, q0, Sq, Hq, head, threadIdx.x, THREADS);
+      stage_rows<D, TILE>(st + L::kTileBytes, dout, b, q0, Sq, Hq, head, threadIdx.x, THREADS);
+      stage_words<TILE>(st + 2 * L::kTileBytes, lse + stat_row, q0, Sq, 0);
+      stage_words<TILE>(st + 2 * L::kTileBytes + TILE * 4, delta + stat_row, q0, Sq, TILE);
+      stage_words<TILE>(st + 2 * L::kTileBytes + 2 * TILE * 4, q_seg + (size_t)b * Sq, q0, Sq, 2 * TILE);
     };
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {

@@ -16,13 +16,20 @@ segment ids are equal and nonzero and, when causal,
 lse = -1e30 and exact zeros in every gradient. The backward takes
 ``causal_offset = 0`` only (cross-length chunked prefill is inference-only).
 
-The backward's pre-pass writes delta = rowsum(dO * o) and the segment-id
-range table of q_seg and kv_seg: int32 (B, ceil(S / RANGE_TILE), 2), per
-tile of RANGE_TILE rows the smallest and largest NONZERO id, (INT32_MAX,
-INT32_MIN) for a tile of padding only. The dQ and dK/dV kernels run a
-(q tile, kv tile) pair only when the two ranges intersect and, when causal,
-the kv tile is not wholly above the diagonal (``live_tile_pairs``): exact
-for any layout, since disjoint ranges share no nonzero id.
+Both directions skip tile pairs by the segment-id range tables of q_seg
+and kv_seg: int32 (B, ceil(S / RANGE_TILE), 2), per tile of RANGE_TILE rows
+the smallest and largest NONZERO id, (INT32_MAX, INT32_MIN) for a tile of
+padding only (``tile_ranges``). Disjoint ranges share no nonzero id, so the
+skip is exact for any layout. The forward's C call first launches the
+range kernel (counted on ``_launch_ranges``), then runs a (q tile, kv tile)
+pair of ``FWD_Q_ROWS`` x ``FWD_KV_ROWS`` rows only when the ranges intersect
+and, when causal, the kv tile starts at or before the diagonal of the q
+tile's last row (``fwd_live_tiles``, right for Sq != Skv and any
+causal_offset).
+The backward's pre-pass writes delta = rowsum(dO * o) and the same tables;
+its dQ and dK/dV kernels run a pair of RANGE_TILE-row tiles when the ranges
+intersect and, when causal, the kv tile is not wholly above the diagonal
+(``live_tile_pairs``; causal_offset 0 and Sq = Skv there).
 
 The wrappers run the plain versions for CPU tensors only. A CUDA tensor
 launches the kernels or raises -- nothing falls back.
@@ -38,7 +45,9 @@ from .. import csrc
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (80, 128)  # vision and text heads of the 3B/7B presets
-RANGE_TILE = 32               # rows per tile of the backward's range table
+RANGE_TILE = 32               # rows per tile of the range tables
+FWD_Q_ROWS = 64               # q rows of one warpgroup of the forward kernel (one wgmma M tile)
+FWD_KV_ROWS = 64              # kv rows per tile the forward kernel streams
 DKV_ROWS = 64                 # kv rows per CTA of the dK/dV kernel
 INT32_MAX, INT32_MIN = 2**31 - 1, -(2**31)
 
@@ -117,13 +126,103 @@ def _check_cuda_inputs(q, k, v, q_seg, kv_seg, *, do=None, o=None, lse=None) -> 
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+# ---------------------------------------------------------------------------
+# range tables and tile skip
+# ---------------------------------------------------------------------------
+
+
+def tile_ranges(seg: torch.Tensor) -> torch.Tensor:
+    """(B, S) segment ids -> int32 (B, ceil(S / RANGE_TILE), 2): the smallest
+    and largest nonzero id of each tile, (INT32_MAX, INT32_MIN) where the tile
+    holds padding only."""
+    b, s = seg.shape
+    n = -(-s // RANGE_TILE)
+    tiles = torch.zeros((b, n * RANGE_TILE), dtype=torch.int64, device=seg.device)
+    tiles[:, :s] = seg
+    tiles = tiles.reshape(b, n, RANGE_TILE)
+    live = tiles != 0
+    lo = torch.where(live, tiles, INT32_MAX).amin(-1)
+    hi = torch.where(live, tiles, INT32_MIN).amax(-1)
+    return torch.stack([lo, hi], dim=-1).to(torch.int32).contiguous()
+
+
+def live_tile_pairs(q_rng: torch.Tensor, kv_rng: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Bool (B, nQt, nKt): the (q tile, kv tile) pairs the backward kernels
+    run -- ranges that intersect and, when causal, kv tile <= q tile."""
+    lo = torch.maximum(q_rng[:, :, None, 0], kv_rng[:, None, :, 0])
+    hi = torch.minimum(q_rng[:, :, None, 1], kv_rng[:, None, :, 1])
+    live = lo <= hi
+    if causal:
+        nq, nk = q_rng.shape[1], kv_rng.shape[1]
+        live &= torch.ones((nq, nk), dtype=torch.bool, device=live.device).tril()
+    return live
+
+
+def _coarse_ranges(rng: torch.Tensor, rows: int) -> torch.Tensor:
+    """A range table of RANGE_TILE-row tiles -> the table of ``rows``-row tiles
+    (a multiple of RANGE_TILE): each the union of its RANGE_TILE-row ranges."""
+    b, n, _ = rng.shape
+    per = rows // RANGE_TILE
+    m = -(-n // per)
+    lo = torch.full((b, m * per), INT32_MAX, dtype=torch.int32, device=rng.device)
+    hi = torch.full((b, m * per), INT32_MIN, dtype=torch.int32, device=rng.device)
+    lo[:, :n], hi[:, :n] = rng[..., 0], rng[..., 1]
+    return torch.stack([lo.reshape(b, m, per).amin(-1), hi.reshape(b, m, per).amax(-1)], dim=-1)
+
+
+def fwd_live_tiles(
+    q_rng: torch.Tensor, kv_rng: torch.Tensor, causal: bool, causal_offset: int, sq: int, skv: int,
+    q_rows: int = FWD_Q_ROWS, kv_rows: int = FWD_KV_ROWS,
+) -> torch.Tensor:
+    """Bool (B, ceil(sq / q_rows), ceil(skv / kv_rows)): the (q tile, kv tile)
+    pairs the forward kernel runs -- ranges that intersect and, when causal, a
+    kv tile that starts at or before the diagonal of the q tile's last row
+    (``kv_start <= causal_offset + min(q_end, sq) - 1``)."""
+    if q_rows % RANGE_TILE or kv_rows % RANGE_TILE:
+        raise ValueError(f"tile rows must be multiples of {RANGE_TILE}")
+    if q_rng.shape[1] != -(-sq // RANGE_TILE) or kv_rng.shape[1] != -(-skv // RANGE_TILE):
+        raise ValueError("range tables do not fit sq / skv")
+    qr, kr = _coarse_ranges(q_rng, q_rows), _coarse_ranges(kv_rng, kv_rows)
+    live = (torch.maximum(qr[:, :, None, 0], kr[:, None, :, 0])
+            <= torch.minimum(qr[:, :, None, 1], kr[:, None, :, 1]))
+    if causal:
+        dev = live.device
+        last = torch.clamp((torch.arange(qr.shape[1], device=dev) + 1) * q_rows, max=sq) - 1
+        start = torch.arange(kr.shape[1], device=dev) * kv_rows
+        live &= start[None, :] <= causal_offset + last[:, None]
+    return live
+
+
+def _launch_ranges(q_seg: torch.Tensor, kv_seg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The range tables of q_seg and kv_seg on the card (``st_flash_ranges``);
+    ``tile_ranges`` is its plain version. ``flash_fwd`` launches the same
+    kernel ahead of every forward from its own C call and adds to this
+    function's count."""
+    b, sq = q_seg.shape
+    skv = kv_seg.shape[1]
+    q_rng = torch.empty((b, -(-sq // RANGE_TILE), 2), dtype=torch.int32, device=q_seg.device)
+    kv_rng = torch.empty((b, -(-skv // RANGE_TILE), 2), dtype=torch.int32, device=q_seg.device)
+    with torch.cuda.device(q_seg.device):
+        rc = csrc.library().st_flash_ranges(
+            q_seg.data_ptr(), kv_seg.data_ptr(), q_rng.data_ptr(), kv_rng.data_ptr(), b, sq, skv,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    csrc.check_launch(rc, "flash range tables")
+    _launch_ranges.launches += 1
+    return q_rng, kv_rng
+
+
+_launch_ranges.launches = 0
+
+
 def flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_seg: torch.Tensor, kv_seg: torch.Tensor,
     *, causal: bool, scale: float, causal_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse) through the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    """(o, lse) through the CUDA kernels for CUDA tensors (the range tables,
+    then the forward, from one C call; each counts its launch), the plain
+    version for CPU tensors."""
     if not q.is_cuda:
         return flash_fwd_plain(
             q, k, v, q_seg, kv_seg, causal=causal, scale=scale, causal_offset=causal_offset
@@ -131,15 +230,19 @@ def flash_fwd(
     _check_cuda_inputs(q, k, v, q_seg, kv_seg)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    # the range tables of q_seg, then of kv_seg: one buffer, written by the first of the C call's two launches
+    ranges = torch.empty((b * (-(-sq // RANGE_TILE) - (-skv // RANGE_TILE)), 2), dtype=torch.int32,
+                         device=q.device)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = csrc.library().st_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b, sq, skv, hq, hkv, d, int(causal),
-            int(causal_offset), float(scale), torch.cuda.current_stream().cuda_stream,
+            ranges.data_ptr(), o.data_ptr(), lse.data_ptr(), b, sq, skv, hq, hkv, d,
+            int(causal), int(causal_offset), float(scale), torch.cuda.current_stream().cuda_stream,
         )
     csrc.check_launch(rc, "flash forward")
+    _launch_ranges.launches += 1
     flash_fwd.launches += 1
     return o, lse
 
@@ -184,37 +287,10 @@ def flash_bwd_plain(
     return dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def tile_ranges(seg: torch.Tensor) -> torch.Tensor:
-    """(B, S) segment ids -> int32 (B, ceil(S / RANGE_TILE), 2): the smallest
-    and largest nonzero id of each tile, (INT32_MAX, INT32_MIN) where the tile
-    holds padding only."""
-    b, s = seg.shape
-    n = -(-s // RANGE_TILE)
-    tiles = torch.zeros((b, n * RANGE_TILE), dtype=torch.int64, device=seg.device)
-    tiles[:, :s] = seg
-    tiles = tiles.reshape(b, n, RANGE_TILE)
-    live = tiles != 0
-    lo = torch.where(live, tiles, INT32_MAX).amin(-1)
-    hi = torch.where(live, tiles, INT32_MIN).amax(-1)
-    return torch.stack([lo, hi], dim=-1).to(torch.int32).contiguous()
-
-
 def flash_bwd_prep_plain(do: torch.Tensor, o: torch.Tensor, q_seg: torch.Tensor, kv_seg: torch.Tensor):
     """The pre-pass in tensor ops: (delta (B, Hq, Sq) fp32, q ranges, kv ranges)."""
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     return delta, tile_ranges(q_seg), tile_ranges(kv_seg)
-
-
-def live_tile_pairs(q_rng: torch.Tensor, kv_rng: torch.Tensor, causal: bool) -> torch.Tensor:
-    """Bool (B, nQt, nKt): the (q tile, kv tile) pairs the backward kernels
-    run -- ranges that intersect and, when causal, kv tile <= q tile."""
-    lo = torch.maximum(q_rng[:, :, None, 0], kv_rng[:, None, :, 0])
-    hi = torch.minimum(q_rng[:, :, None, 1], kv_rng[:, None, :, 1])
-    live = lo <= hi
-    if causal:
-        nq, nk = q_rng.shape[1], kv_rng.shape[1]
-        live &= torch.ones((nq, nk), dtype=torch.bool, device=live.device).tril()
-    return live
 
 
 def dkv_splits(b: int, skv: int, hkv: int, g: int, n_sms: int) -> Tuple[int, int]:

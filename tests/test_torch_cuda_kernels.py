@@ -9,6 +9,9 @@ differ in summation order, in where the softmax weights are rounded to bf16
 (the kernels round running-max-relative weights, the plain versions final
 ones) and in the bf16 rounding of the output — a few bf16 ulps of an O(1)
 output, so atol/rtol 2e-2. The logsumexp is fp32 end to end: atol 2e-3.
+The flash forward also: padding rows o = 0 and lse = -1e30 exactly, two
+calls bit-identical, its range launch's tables equal to ``tile_ranges``
+(integers), one range and one forward launch counted per call.
 The paged kernels repeat their plain versions' arithmetic page by page: the
 stats m, l within 2e-3 (fast-math-free fp32, other summation order), the
 bf16 output within 2e-2 (bf16 pools) or 1e-2 of an O(0.3) output (int8 and
@@ -83,6 +86,9 @@ def _segs(rng, b, s, kind):
         seg[:, : s // 4], seg[:, s // 4 : s // 2], seg[:, s // 2 : 3 * s // 4] = 1, 2, 1
         seg[:, 3 * s // 4 : s - 37] = 3
         seg[:, s - 37 :] = 0
+    elif kind == "dead_row":  # two segments, and a batch row of padding only
+        seg[:, s // 2 :] = 2
+        seg[1 % b] = 0
     elif kind == "text_rows":  # the update's packed text rows: 2-3 samples per row
         seg[:] = 0
         for row in range(b):
@@ -102,7 +108,17 @@ FLASH_CASES = [
     (2, 64, 192, 16, 2, 128, True, 128, "ones"),      # causal_offset
     (2, 130, 130, 14, 2, 128, True, 0, "left_pad"),   # G = 7
     (1, 96, 96, 4, 2, 128, True, 0, "packed"),        # packed causal text
+    # the backward's layouts, through the forward's tile skip
+    (1, 2000, 2000, 4, 4, 80, False, 0, "nine_images"),  # vision full: nine unequal images
+    (2, 400, 400, 4, 4, 80, False, 0, "non_monotone"),   # ids 1, 2, 1
+    (4, 1024, 1024, 16, 2, 128, True, 0, "text_rows"),   # G = 8 at 4 x 1,024
+    (3, 1000, 1000, 4, 4, 80, False, 0, "left_pad"),     # left padding over whole tiles
+    # the forward's own edges
+    (2, 100, 333, 16, 2, 128, True, 233, "left_pad"),    # ragged causal-offset chunk, Sq != Skv
+    (2, 20, 20, 14, 2, 128, True, 0, "left_pad"),        # Skv shorter than one tile, G = 7
+    (3, 150, 150, 4, 4, 80, False, 0, "dead_row"),       # a batch row of padding only
 ]
+_BWD_BASE = 6  # the backward's cases below start from the first six forward cases
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -126,9 +142,54 @@ def test_flash_kernel_matches_plain(dev, case):
     torch.testing.assert_close(lse, lse_ref, atol=2e-3, rtol=0)
     dead = (q_seg == 0)
     assert torch.all(o[dead] == 0)
+    assert torch.all(lse.transpose(1, 2)[dead] == fa.NEG_INF)
 
 
-FLASH_BWD_CASES = [c for c in FLASH_CASES if c[7] == 0] + [
+def _fwd_inputs(case, seed, dev):
+    b, sq, skv, hq, hkv, d, causal, off, kind = case
+    rng = np.random.default_rng(seed)
+    q = _bf16(rng, (b, sq, hq, d), dev)
+    k, v = _bf16(rng, (b, skv, hkv, d), dev), _bf16(rng, (b, skv, hkv, d), dev)
+    kv_seg = _segs(rng, b, skv, kind)
+    q_seg = torch.from_numpy(np.ascontiguousarray(kv_seg[:, skv - sq :])).to(dev)
+    return q, k, v, q_seg, torch.from_numpy(kv_seg).to(dev), dict(causal=causal, scale=d**-0.5, causal_offset=off)
+
+
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES if c[8] in ("nine_images", "text_rows", "left_pad")])
+def test_flash_kernel_is_deterministic(dev, case):
+    """Two forward calls on the same inputs give bit-identical o and lse (no
+    atomics; every row's tiles are walked in one order)."""
+    q, k, v, q_seg, kv_seg, kw = _fwd_inputs(case, 3, dev)
+    first = flash_fwd(q, k, v, q_seg, kv_seg, **kw)
+    second = flash_fwd(q, k, v, q_seg, kv_seg, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("kind", ["nine_images", "non_monotone", "left_pad", "text_rows", "dead_row"])
+def test_flash_range_kernel_matches_tile_ranges(dev, kind):
+    """The forward's range launch equals the plain ``tile_ranges``, Sq != Skv."""
+    rng = np.random.default_rng(9)
+    q_seg = torch.from_numpy(_segs(rng, 3, 1000, kind)).to(dev)
+    kv_seg = torch.from_numpy(_segs(rng, 3, 1333, "packed")).to(dev)
+    before = fa._launch_ranges.launches
+    q_rng, kv_rng = fa._launch_ranges(q_seg, kv_seg)
+    torch.cuda.synchronize()
+    assert fa._launch_ranges.launches == before + 1
+    assert torch.equal(q_rng, fa.tile_ranges(q_seg)) and torch.equal(kv_rng, fa.tile_ranges(kv_seg))
+
+
+def test_flash_forward_counts_one_launch_per_call(dev):
+    """Each forward call launches the range kernel and the forward once."""
+    q, k, v, q_seg, kv_seg, kw = _fwd_inputs(FLASH_CASES[3], 4, dev)
+    before = (flash_fwd.launches, fa._launch_ranges.launches)
+    for _ in range(3):
+        flash_fwd(q, k, v, q_seg, kv_seg, **kw)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, fa._launch_ranges.launches) == (before[0] + 3, before[1] + 3)
+
+
+FLASH_BWD_CASES = [c for c in FLASH_CASES[:_BWD_BASE] if c[7] == 0] + [
     (2, 512, 512, 16, 2, 128, True, 0, "packed"),     # multi-tile packed text rows
     (1, 1000, 1000, 16, 16, 80, False, 0, "packed"),  # vision full, ragged length
     (3, 70, 70, 2, 2, 80, True, 0, "left_pad"),       # G = 1 causal, ragged
