@@ -31,9 +31,11 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    int4 function), and one 3B MLP at m = 256, where the eligibility rule
    refuses the down kernel, taking the int8 path with neither kernel launched;
    the fused W8A8 kernel at the five 3B linears (qkv, o, gate_up, down, the
-   tied head with fp32 logits) and m = 65, 129, 136 and 4,096 rows, which must
-   equal the plain chain bit for bit, timed beside ``torch._int_mm`` alone on
-   the pre-quantized x (the library call for the dot);
+   tied head with fp32 logits) and m = 65, 129, 136, 1,024 and 4,096 rows,
+   which must equal the plain chain bit for bit, timed beside
+   ``torch._int_mm`` alone on the pre-quantized x (the library call for the
+   dot), each case's plan (``w8a8_plan``: regime, tile, splits of K, ring
+   depth, CTAs) printed beside it;
 4. drives eight paths at full Qwen2.5-VL-3B width with seeded random weights
    made on the device, each with the kernels' launch counts set to 0 just
    before and read just after, and with the plain versions forbidden:
@@ -205,9 +207,11 @@ INT4_REL_TOL = 1e-2
 INT4_MS = (136, 128, 8)  # path g's lanes (128 slots + trash, to a multiple of 8), path f's 128 rows, small
 INT4_FALLBACK_M = 256    # the JAX package's rule admits gate_up here and refuses down: the MLP is int8
 # The fused W8A8 kernel repeats the plain chain (quantize, int32 dot, two
-# rounded scale products) exactly: equal bit for bit. Rows: path b's lanes
-# (64 slots + trash), 128 slots + trash, path g's lanes, a refill prefill.
-W8A8_MS = (65, 129, 136, 4096)
+# rounded scale products) exactly, whatever its plan's split of K: equal bit
+# for bit. Rows: path b's lanes (64 slots + trash), 128 slots + trash, path
+# g's lanes (decode plans: all rows in one row tile, K split), path b's
+# refill chunk (4 rows x 256) and path g's refill prefill (prefill plans).
+W8A8_MS = (65, 129, 136, 1024, 4096)
 # Full 3B prefill, last-position logits: both bf16 paths (kernels, plain
 # attention) drift from an fp32 plain-path reference by bf16 rounding through
 # 36 text layers and 32 vision blocks. The kernel path must stay within twice
@@ -997,13 +1001,14 @@ def w8a8_case(x, w, ws, out_dtype, label: str) -> dict:
     lib_ms = cuda_ms(lambda: i8m.int8_matmul(xq, w_kn))
     (m, k), n = x.shape, w.shape[0]
     b_ms, b_by = bound_ms(nbytes(x, w, ws, out), 2.0 * m * n * k, "int8")
+    plan = i8m.w8a8_plan(m, n, k).describe()
     print(f"w8a8 [{label}]: x{tuple(x.shape)} {str(x.dtype)[6:]} w({n}, {k}) -> {str(out_dtype)[6:]} "
           f"max_abs_err={err:.3e} bit_equal={equal} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"int_mm_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})", flush=True)
+          f"int_mm_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) plan={json.dumps(plan)}", flush=True)
     if not equal:
         raise AssertionError(f"W8A8 kernel differs from the plain chain [{label}]")
     return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, plan=plan)
 
 
 def check_w8a8(dev, cfg) -> list:

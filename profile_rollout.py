@@ -17,10 +17,18 @@ busy share without the profiler's own host cost.
 int4 pools, int8 dots, 16 requests x 8 samples through 64 slots) and puts
 ``torch.profiler`` around ONE decode chunk of 16 steps (the third; the
 second and fourth are timed unprofiled): top device kernels, kernels per
-step, device time per step, busy share as profiled and device time over the
-unprofiled wall per step. It does so twice in one run: with the staging ring
-merged after the pool kernel (the default), then with the ring fused into it
-(``generate_paged(fuse_staged=True)``).
+step, device time per step by kind of kernel (kernel A's GEMM with its
+split-K combine, kernel A's quantize prologue, the paged attention, the rest),
+busy share as profiled and device time over the unprofiled wall per step;
+and around ONE refill prefill (the second; 8 image prompts, W8A8 at m =
+1,024 rows a chunk): its wall, device time and the same kinds. It does so
+with the staging ring merged after the pool kernel (the default), then with
+the ring fused into it (``generate_paged(fuse_staged=True)``); ``--ring
+merged`` or ``--ring fused`` runs one of the two.
+
+``--tree DIR`` imports the package (and ``chip_smoke.py``'s configuration)
+from another checkout, e.g. the parent's ``git archive`` unpacked, so two
+trees are profiled on one card: run the parent and the change in turns.
 
 ``--engine train`` profiles the actor update of ``chip_smoke.py``'s training
 path: 16 image prompts with 64 response tokens each are packed into rows, and
@@ -42,7 +50,22 @@ import statistics
 import sys
 import time
 
-import numpy as np
+
+def _tree_from_argv():
+    """``--tree DIR`` is read before the package is imported, so that the
+    package and ``chip_smoke`` come from that checkout."""
+    for i, arg in enumerate(sys.argv):
+        if arg == "--tree" and i + 1 < len(sys.argv):
+            return sys.argv[i + 1]
+        if arg.startswith("--tree="):
+            return arg.split("=", 1)[1]
+    return None
+
+
+if _tree_from_argv():
+    sys.path.insert(0, _tree_from_argv())
+
+import numpy as np  # noqa: E402
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -68,6 +91,32 @@ from spatialthinker_torch.utils.synthetic_tokenizer import QwenSyntheticTokenize
 N_SAMPLES = 5
 DECODE_STEPS = 16
 PROFILED_CHUNK = 2  # of the paged run's decode chunks (0 warms up; 1 and 3 are timed unprofiled)
+PROFILED_REFILL = 1  # of its refill prefills (the first warms up)
+
+
+PAGED_KINDS = (
+    # kernel A: the GEMM with its split-K combine (one kernel) and the quantize prologue;
+    # ``int8_gemm_kernel`` is the name of the GEMM before the Hopper redesign
+    ("kernel A GEMM (w8a8_gemm_kernel / int8_gemm_kernel)", ("w8a8_gemm_kernel", "int8_gemm_kernel")),
+    ("kernel A prologue (quantize_rows_kernel)", ("quantize_rows_kernel",)),
+    ("paged attention (paged_kernel)", ("paged_kernel",)),
+    ("flash forward (flash_fwd_kernel, flash_ranges_kernel)", ("flash_fwd_kernel", "flash_ranges_kernel")),
+    ("silu junction (silu_quant_kernel)", ("silu_quant",)),
+    ("GEMMs (library matmuls)", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "gemv")),
+)
+OTHER = "everything else (elementwise, reductions, copies)"
+
+
+def by_kind(kernels, kinds) -> dict:
+    """{kind: [device ms, launches]} of profiler kernel events."""
+    out = {name: [0.0, 0] for name, _ in kinds}
+    out[OTHER] = [0.0, 0]
+    for e in kernels:
+        low = e.name.lower()
+        kind = next((name for name, keys in kinds if any(k in low for k in keys)), OTHER)
+        out[kind][0] += e.device_time / 1e3
+        out[kind][1] += 1
+    return out
 
 
 def profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged: bool) -> None:
@@ -75,8 +124,8 @@ def profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged: bool) -> Non
                              max_prompt_length=1024, prompt_bucket=512)
     host = provider.prepare_host(*requests(PAGED_REQUESTS, seed=3))
     steps = PAGED["decode_chunk_size"]
-    real = paged_engine.decode_chunk_paged
-    walls, profiled = [], {}
+    real, real_prefill = paged_engine.decode_chunk_paged, paged_engine.prefill_paged
+    walls, profiled, refills = [], {}, []
 
     def timed_chunk(*args, **kwargs):
         torch.cuda.synchronize()
@@ -92,7 +141,21 @@ def profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged: bool) -> Non
         walls.append(time.perf_counter() - t0)
         return out
 
-    paged_engine.decode_chunk_paged = timed_chunk
+    def timed_refill(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if len(refills) == PROFILED_REFILL:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = real_prefill(*args, **kwargs)
+                torch.cuda.synchronize()
+            profiled["refill"] = prof
+        else:
+            out = real_prefill(*args, **kwargs)
+            torch.cuda.synchronize()
+        refills.append(time.perf_counter() - t0)
+        return out
+
+    paged_engine.decode_chunk_paged, paged_engine.prefill_paged = timed_chunk, timed_refill
     try:
         result = paged_engine.generate_paged(
             qmodel, host["input_ids"], host["segment_ids"], host["position_ids"], host["gen_pos_start"],
@@ -102,7 +165,7 @@ def profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged: bool) -> Non
             fuse_staged=fuse_staged, **PAGED,
         )
     finally:
-        paged_engine.decode_chunk_paged = real
+        paged_engine.decode_chunk_paged, paged_engine.prefill_paged = real, real_prefill
     prof = profiled["prof"]
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     device_s = sum(e.device_time for e in kernels) / 1e6
@@ -110,7 +173,7 @@ def profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged: bool) -> Non
     unprof = statistics.median([walls[PROFILED_CHUNK - 1], walls[PROFILED_CHUNK + 1]])
     ring = "fused into the pool kernel" if fuse_staged else "merged after the pool kernel"
     print(f"paged run, staging ring {ring}: stats {result.stats}; chunk walls s "
-          f"{[round(w, 4) for w in walls]}", flush=True)
+          f"{[round(w, 4) for w in walls]}; refill walls s {[round(w, 4) for w in refills]}", flush=True)
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=18,
                                     max_name_column_width=60), flush=True)
     print(f"paged decode chunk of {steps} steps at {PAGED['slots']} slots, ring {ring}: profiled wall "
@@ -119,6 +182,26 @@ def profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged: bool) -> Non
           f"{len(kernels) / steps:.0f}; per step: device {device_s / steps * 1e3:.3f} ms, unprofiled wall "
           f"{unprof / steps * 1e3:.3f} ms, device / unprofiled wall {device_s / unprof:.3f}  [{card}]",
           flush=True)
+    kinds = by_kind(kernels, PAGED_KINDS)
+    for kind, (ms, n) in kinds.items():
+        print(f"    per decode step, {kind}: {ms / steps:.3f} ms in {n / steps:.1f} launches "
+              f"({ms / max(device_s * 1e3, 1e-9):.1%})", flush=True)
+    gemm, prologue = kinds[PAGED_KINDS[0][0]], kinds[PAGED_KINDS[1][0]]
+    print(f"kernel A per decode step, ring {ring}: {(gemm[0] + prologue[0]) / steps:.3f} ms of "
+          f"{device_s / steps * 1e3:.3f} ms device (GEMM {gemm[0] / steps:.3f} ms in {gemm[1] / steps:.0f} "
+          f"launches, {gemm[0] / max(gemm[1], 1) * 1e3:.2f} us each; prologue {prologue[0] / steps:.3f} ms in "
+          f"{prologue[1] / steps:.0f})  [{card}]", flush=True)
+    if "refill" in profiled:
+        rk = [e for e in profiled["refill"].events() if e.device_type.name == "CUDA"]
+        r_dev = sum(e.device_time for e in rk) / 1e3
+        r_wall = refills[PROFILED_REFILL] * 1e3
+        rkinds = by_kind(rk, PAGED_KINDS)
+        for kind, (ms, n) in rkinds.items():
+            print(f"    refill, {kind}: {ms:.2f} ms in {n} launches ({ms / max(r_dev, 1e-9):.1%})", flush=True)
+        ga, pa_ = rkinds[PAGED_KINDS[0][0]], rkinds[PAGED_KINDS[1][0]]
+        print(f"kernel A per refill, ring {ring}: {ga[0] + pa_[0]:.2f} ms of {r_dev:.2f} ms device "
+              f"(GEMM {ga[0]:.2f} ms in {ga[1]} launches, prologue {pa_[0]:.2f} ms in {pa_[1]}); refill "
+              f"profiled wall {r_wall:.1f} ms, busy share {r_dev / r_wall:.3f}  [{card}]", flush=True)
 
 
 KERNEL_KINDS = (
@@ -227,6 +310,9 @@ def profile_train_step(model, cfg, dev, card) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--engine", choices=("dense", "paged", "train"), default="dense")
+    parser.add_argument("--ring", choices=("both", "merged", "fused"), default="both",
+                        help="--engine paged: the staging ring forms to profile")
+    parser.add_argument("--tree", default=None, help="checkout whose spatialthinker_torch is profiled")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_rollout: no CUDA device", file=sys.stderr)
@@ -238,7 +324,8 @@ def main() -> int:
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
     if args.engine == "paged":
         qmodel = quantize_model(model, mode="int8")
-        for fuse_staged in (False, True):
+        forms = {"both": (False, True), "merged": (False,), "fused": (True,)}[args.ring]
+        for fuse_staged in forms:
             profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged)
         return 0
     if args.engine == "train":

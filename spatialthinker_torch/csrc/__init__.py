@@ -62,8 +62,8 @@ _SIGNATURES = {
     "st_paged_attention_smem": [_I] * 4,
     # x, xq, xs, xsum, q4, gscale, out, m, k, n_cols, group, gateup, out_f32, stream
     "st_int4_mlp": [_P] * 7 + [_I] * 6 + [_P],
-    # x, x_f32, xq, xs, w, ws, out, out_f32, m, n, k, quantize, stream
-    "st_int8_matmul": [_P, _I] + [_P] * 5 + [_I] * 5 + [_P],
+    # x, x_f32, xq, xs, w, ws, out, out_f32, m, n, k, quantize, mb, bn, splits, stages, stream
+    "st_int8_matmul": [_P, _I] + [_P] * 5 + [_I] * 9 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

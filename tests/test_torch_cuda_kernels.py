@@ -33,8 +33,9 @@ the int32 group dots are exact, so only the order of the fp32 group sums,
 the silu's last bit and the bf16 rounding of the output differ: the largest
 error within 1e-2 of the largest output magnitude (two bf16 ulps).
 The fused W8A8 kernel: the row quantize divides as the plain version does,
-the int32 dot is exact and the epilogue rounds the same two products in the
-same order: equal bit for bit.
+the int32 dot is exact whatever the plan's split of K and the epilogue rounds
+the same two products in the same order: equal bit for bit, and two calls
+bit-identical.
 The staged block of the paged kernels: the paged tolerances above.
 """
 
@@ -537,32 +538,129 @@ def test_staged_block_matches_plain(dev, kind, g, page, lengths, c):
     assert not torch.equal(unfused[2], l)  # the ring cells entered
 
 
-W8A8_LINEARS = {  # 3B: (K, N, out dtype)
+W8A8_LINEARS = {  # (K, N, the linear's out dtype): the 3B and 7B presets
     "qkv": (2048, 2560, torch.bfloat16), "o": (2048, 2048, torch.bfloat16),
     "gate_up": (2048, 22016, torch.bfloat16), "down": (11008, 2048, torch.bfloat16),
     "head": (2048, 151936, torch.float32),
+    "qkv_7b": (3584, 4608, torch.bfloat16), "o_7b": (3584, 3584, torch.bfloat16),
+    "gate_up_7b": (3584, 37888, torch.bfloat16), "down_7b": (18944, 3584, torch.bfloat16),
+    "head_7b": (3584, 152064, torch.float32),
 }
+# decode lanes of the engines (65, 128, 129, 136), the m16 / m64 edges, the
+# regimes' meeting point (256 / 257), a prefill chunk and a refill
+W8A8_MS = [1, 15, 16, 17, 64, 65, 128, 129, 136, 255, 256, 257, 1024, 4096]
 
 
-@pytest.mark.parametrize("m", [1, 8, 65, 129, 136, 4096])
-@pytest.mark.parametrize("name", list(W8A8_LINEARS))
-def test_w8a8_kernel_bit_equal_to_plain(dev, name, m):
-    k, n, out_dtype = W8A8_LINEARS[name]
+def _w8a8_inputs(dev, name, m, x_dtype=torch.bfloat16):
+    k, n, _ = W8A8_LINEARS[name]
     gen = torch.Generator(device=dev).manual_seed(k + n + m)
-    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((m, k), generator=gen, device=dev).to(x_dtype)
     x[m // 2] = 0  # the eps floor
     w = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
     ws = torch.rand((n,), generator=gen, device=dev) * 1e-3
+    return x, w, ws
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", W8A8_MS)
+@pytest.mark.parametrize("name", list(W8A8_LINEARS))
+def test_w8a8_kernel_bit_equal_to_plain(dev, name, m, out_dtype):
+    x, w, ws = _w8a8_inputs(dev, name, m)
+    n = w.shape[0]
     before = i8.fused_w8a8_matmul.launches
     out = i8.fused_w8a8_matmul(x, w, ws, out_dtype)
     torch.cuda.synchronize()
     assert i8.fused_w8a8_matmul.launches == before + 1
     assert out.dtype == out_dtype and tuple(out.shape) == (m, n)
     assert torch.equal(out, i8.fused_w8a8_matmul_plain(x, w, ws, out_dtype))
-    if m in (65, 4096):  # the prologue off: rows quantized elsewhere
-        xq, xs = i8.quantize_rows(x)
-        pre = i8.w8a8_matmul_prequantized(xq, xs, w, ws, out_dtype)
-        assert torch.equal(pre, out)
+    # the prologue off: rows quantized elsewhere
+    xq, xs = i8.quantize_rows(x)
+    before = i8.w8a8_matmul_prequantized.launches
+    pre = i8.w8a8_matmul_prequantized(xq, xs, w, ws, out_dtype)
+    torch.cuda.synchronize()
+    assert i8.w8a8_matmul_prequantized.launches == before + 1
+    assert torch.equal(pre, out)
+
+
+@pytest.mark.parametrize("m", [1, 65, 136, 256, 1024])
+@pytest.mark.parametrize("name", list(W8A8_LINEARS))
+def test_w8a8_kernel_fp32_x_bit_equal_to_plain(dev, name, m):
+    x, w, ws = _w8a8_inputs(dev, name, m, torch.float32)
+    out_dtype = W8A8_LINEARS[name][2]
+    out = i8.fused_w8a8_matmul(x, w, ws, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out, i8.fused_w8a8_matmul_plain(x, w, ws, out_dtype))
+
+
+@pytest.mark.parametrize("splits", [None, 8])
+@pytest.mark.parametrize("m", [65, 136, 256, 1024])
+@pytest.mark.parametrize("name", ["qkv", "down", "qkv_7b", "o_7b", "down_7b", "gate_up"])
+def test_w8a8_kernel_is_deterministic(dev, name, m, splits):
+    """Two calls agree bit for bit: the split-K partials meet in an exact
+    int32 sum, in no order that atomics could change (the plan's own split,
+    and K cut over a cluster of 8)."""
+    x, w, ws = _w8a8_inputs(dev, name, m)
+    k, n, out_dtype = W8A8_LINEARS[name]
+    real = i8.w8a8_plan
+    plan = real(m, n, k, splits=splits)
+    try:
+        i8.w8a8_plan = lambda *a, **kw: plan
+        first = i8.fused_w8a8_matmul(x, w, ws, out_dtype)
+        second = i8.fused_w8a8_matmul(x, w, ws, out_dtype)
+        torch.cuda.synchronize()
+    finally:
+        i8.w8a8_plan = real
+    assert torch.equal(first, second)
+    assert torch.equal(first, i8.fused_w8a8_matmul_plain(x, w, ws, out_dtype))
+
+
+def test_w8a8_kernel_runs_every_built_tile_and_split(dev):
+    """Every tile the kernel builds, with and without split-K and at the
+    ring's depths, on one shape: bit-equal to the plain chain."""
+    k, n, m = 1024, 768, 200
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    ws = torch.rand((n,), generator=gen, device=dev) * 1e-3
+    ref = i8.fused_w8a8_matmul_plain(x, w, ws, torch.bfloat16)
+    real = i8.w8a8_plan
+    plans = []
+    for mb, bn in sorted(i8.TILES):
+        for splits, stages in ((1, 2), (3, 3), (8, 8)):
+            plan = i8.W8A8Plan("prefill", mb, bn, splits, stages, -(-m // (64 * mb)), -(-n // bn),
+                               i8.split_k_ranges(k, splits), i8.xq_box_rows(m, mb, bn))
+            if plan.smem_bytes <= i8.SMEM_LIMIT:
+                plans.append(plan)
+    try:
+        for plan in plans:
+            i8.w8a8_plan = lambda *a, _p=plan, **kw: _p
+            out = i8.fused_w8a8_matmul(x, w, ws, torch.bfloat16)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), plan
+    finally:
+        i8.w8a8_plan = real
+    assert {(p.mb, p.bn) for p in plans} == i8.TILES
+
+
+def test_w8a8_kernel_refuses_a_plan_it_cannot_run(dev):
+    """The C side checks the plan it is given: nine splits (more than a
+    portable cluster), one stage, an unbuilt tile, more splits than k-steps
+    are refused before anything launches."""
+    x, w, ws = _w8a8_inputs(dev, "o", 65)
+    real = i8.w8a8_plan
+    good = real(65, 2048, 2048)
+    bad = [good._replace(splits=9), good._replace(stages=1), good._replace(bn=96),
+           good._replace(mb=5), good._replace(splits=8, stages=9)]
+    try:
+        for plan in bad:
+            i8.w8a8_plan = lambda *a, _p=plan, **kw: _p
+            with pytest.raises(RuntimeError, match="launch failed"):
+                i8.fused_w8a8_matmul(x, w, ws)
+    finally:
+        i8.w8a8_plan = real
+    with pytest.raises(ValueError):  # 16 splits of 2 k-steps
+        real(65, 2048, 256, splits=16)
+    assert torch.equal(i8.fused_w8a8_matmul(x, w, ws), i8.fused_w8a8_matmul_plain(x, w, ws))
 
 
 def test_w8a8_kernel_takes_fp32_x_and_raises_on_unsupported_shapes(dev):

@@ -169,7 +169,7 @@ def test_qwen_synthetic_tokenizer_uses_the_config_ids():
     "spatialthinker_torch.utils.tokenizer", "spatialthinker_torch.utils.profiling",
     "spatialthinker_torch.trainer.metrics", "spatialthinker_torch.trainer.tracker",
     "spatialthinker_torch.trainer.checkpoint", "spatialthinker_torch.trainer.grpo_trainer",
-    "spatialthinker_torch.trainer.main", "chip_smoke", "profile_rollout",
+    "spatialthinker_torch.trainer.main", "chip_smoke", "profile_rollout", "time_flash", "time_w8a8",
 ])
 def test_port_imports_no_jax(module):
     """Importing a module of the port pulls in neither jax, nor anything of
@@ -184,13 +184,14 @@ def test_port_imports_no_jax(module):
 
 def test_no_source_line_of_the_port_imports_jax_or_the_jax_package():
     """The same pinned in the sources: no ``import`` / ``from`` line of the
-    package, of ``chip_smoke.py`` or of ``profile_rollout.py`` names jax or
+    package, of ``chip_smoke.py``, ``profile_rollout.py`` or the timing scripts names jax or
     ``spatialthinker_tpu`` (a lazy import inside a function would slip past
     the module-import check above)."""
     import re
 
     pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|spatialthinker_tpu)\b")
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "profile_rollout.py")]
+    files = [os.path.join(REPO, name) for name in
+             ("chip_smoke.py", "profile_rollout.py", "time_flash.py", "time_w8a8.py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "spatialthinker_torch")):
         dirs[:] = [d for d in dirs if d != "build"]  # csrc/build holds build outputs, not sources
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
