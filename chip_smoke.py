@@ -145,6 +145,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import paged_cases
 import spatialthinker_torch.ops.decode_attention as da
 import spatialthinker_torch.ops.flash_attention as fa
 import spatialthinker_torch.ops.int4_mlp as i4
@@ -910,6 +911,21 @@ def recorded_decode_case(cfg, kind: str, rec, path: str):
     return decode_quant_case(cfg, kind, q, kc, vc, seg, layer, ks, vs, label)
 
 
+def paged_plan_and_twice(kind: str, args, staged=None):
+    """(mode 2's plan as a dict, or None for the other modes; whether two more
+    calls of the kernel agree bit for bit)."""
+    q, k, table = args[0], args[1], args[3]
+    plan = None
+    if kind == "int4_i8":
+        ring = 0 if staged is None else staged[0].shape[3]
+        plan = pa.paged_plan(q.shape[0], k.shape[2], q.shape[1] // k.shape[2], pa._page_cells(k), table.shape[1],
+                             ring, sms=pa.device_sms(q.device.index)).__dict__
+    kw = dict(return_stats=True, int4_i8dot=kind == "int4_i8", staged=staged)
+    first, second = pa.paged_attention(*args, **kw), pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    return plan, all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def check_paged(dev, cfg, kind: str, lanes: int, prompt_len: int, page: int, n_pages: int):
     """A paged kernel vs its plain version at the paged path's shapes: every
     lane of the engine (the trash lane has length 0) mid-generation, pages
@@ -954,6 +970,7 @@ def check_paged(dev, cfg, kind: str, lanes: int, prompt_len: int, page: int, n_p
     err = (o.float() - o_ref.float()).abs().max().item()
     stat_err = max((m - m_ref).abs().max().item(), ((l - l_ref).abs() / (1 + l_ref.abs())).max().item())
     dead_ok = bool(torch.all(o[-1] == 0) and torch.all(l[-1] == 0))
+    plan, twice = paged_plan_and_twice(kind, args)
     plain_ms = cuda_ms(lambda: plain(*args, scale), iters=10)
     ms = cuda_ms(lambda: pa.paged_attention(*args, return_stats=True, int4_i8dot=i8))
     cells = int(lengths.sum())
@@ -962,12 +979,44 @@ def check_paged(dev, cfg, kind: str, lanes: int, prompt_len: int, page: int, n_p
     b_ms, b_by = bound_ms(cells * cell_bytes + nbytes(q, o, m, l, args[3], args[4]),
                           4.0 * cells * hq * d, "int8" if i8 else "bf16")
     print(f"paged {kind}: q{tuple(q.shape)} pool{tuple(k.shape)} page={page} cells={cells} layer={layer} "
-          f"max_abs_err={err:.3e} stat_err={stat_err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
-    if not (err <= PAGED_OUT_ATOL[kind] and stat_err <= PAGED_STAT_ATOL and dead_ok):
-        raise AssertionError(f"paged kernel ({kind}) disagrees with plain")
+          f"max_abs_err={err:.3e} stat_err={stat_err:.3e} bit_identical_twice={twice} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) plan={json.dumps(plan)}", flush=True)
+    if not (err <= PAGED_OUT_ATOL[kind] and stat_err <= PAGED_STAT_ATOL and dead_ok and twice):
+        raise AssertionError(f"paged kernel ({kind}) disagrees with plain or with itself")
     return dict(shape=f"{kind}_pools_{lanes}_lanes", max_abs_err=err, stat_err=stat_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, bit_identical_twice=twice,
+                plan=plan)
+
+
+def check_paged_shipped(dev):
+    """#9 at the shipped scale (``scripts/spatialthinker_3b_grpo.sh``: decode
+    batch 128 + the trash lane, page 1024, prompt 6,144 + response 2,048), on
+    ``paged_cases.py``'s inputs: 16 groups of 8 lanes sharing their prompt
+    pages and owning their response pages, a one-layer pool. The bound counts
+    each distinct page's live cells once."""
+    case = paged_cases.make_shipped(torch, np, dev)
+    q = case["q"]
+    args = paged_cases.call_args(torch, case, dev)
+    scale = q.shape[-1] ** -0.5
+    o_ref, m_ref, l_ref = pa.paged_attention_int4_i8_plain(*args, scale)
+    o, m, l = pa.paged_attention(*args, return_stats=True, int4_i8dot=True)
+    torch.cuda.synchronize()
+    err = (o.float() - o_ref.float()).abs().max().item()
+    stat_err = max((m - m_ref).abs().max().item(), ((l - l_ref).abs() / (1 + l_ref.abs())).max().item())
+    dead_ok = bool(torch.all(o[-1] == 0) and torch.all(l[-1] == 0) and torch.all(m[-1] == pa.NEG_INF))
+    plan, twice = paged_plan_and_twice("int4_i8", args)
+    plain_ms = cuda_ms(lambda: pa.paged_attention_int4_i8_plain(*args, scale), iters=5)
+    ms = cuda_ms(lambda: pa.paged_attention(*args, return_stats=True, int4_i8dot=True))
+    cells = int(case["lengths"].sum())
+    b_ms, b_by = bound_ms(paged_cases.bound_bytes(case, distinct=True), 4.0 * cells * q.shape[1] * q.shape[2], "int8")
+    label = f"shipped_{q.shape[0]}_lanes_page_{case['page']}"
+    print(f"paged int4_i8 [{label}]: q{tuple(q.shape)} pool{tuple(case['k'].shape)} cells={cells} "
+          f"max_abs_err={err:.3e} stat_err={stat_err:.3e} bit_identical_twice={twice} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}, distinct pages) plan={json.dumps(plan)}", flush=True)
+    if not (err <= PAGED_OUT_ATOL["int4_i8"] and stat_err <= PAGED_STAT_ATOL and dead_ok and twice):
+        raise AssertionError(f"paged kernel (int4_i8) disagrees with plain or with itself [{label}]")
+    return dict(shape=label, max_abs_err=err, stat_err=stat_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, bit_identical_twice=twice, plan=plan)
 
 
 def w8a8_linears(cfg) -> dict:
@@ -1052,6 +1101,7 @@ def staged_case(rec, kind: str, label: str) -> dict:
     torch.cuda.synchronize()
     err = (o.float() - o_ref.float()).abs().max().item()
     stat_err = max((m - m_ref).abs().max().item(), ((l - l_ref).abs() / (1 + l_ref.abs())).max().item())
+    plan, twice = paged_plan_and_twice(kind, args, staged)
     ms = cuda_ms(lambda: pa.paged_attention(*args, return_stats=True, int4_i8dot=i8, staged=staged))
     ms_pool_only = cuda_ms(lambda: pa.paged_attention(*args, return_stats=True, int4_i8dot=i8))
     plain_ms = cuda_ms(lambda: plain(*args, scale, staged), iters=5)
@@ -1066,13 +1116,14 @@ def staged_case(rec, kind: str, label: str) -> dict:
                           4.0 * (cells + ring) * hq * d, "int8" if i8 else "bf16")
     print(f"staged {kind} [{label}]: q{tuple(q.shape)} pool cells {cells} ring cells {ring} of "
           f"{tuple(staged[4].shape)} layer {layer} max_abs_err={err:.3e} stat_err={stat_err:.3e} "
-          f"ms={ms:.4f} (without the ring {ms_pool_only:.4f}) plain_ms={plain_ms:.4f} "
-          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
-    if not (ring > 0 and err <= PAGED_OUT_ATOL[kind] and stat_err <= PAGED_STAT_ATOL):
-        raise AssertionError(f"paged kernel with its staged block ({kind}) disagrees with plain [{label}]")
+          f"bit_identical_twice={twice} ms={ms:.4f} (without the ring {ms_pool_only:.4f}) "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) plan={json.dumps(plan)}", flush=True)
+    if not (ring > 0 and err <= PAGED_OUT_ATOL[kind] and stat_err <= PAGED_STAT_ATOL and twice):
+        raise AssertionError(f"paged kernel with its staged block ({kind}) disagrees with plain or with itself "
+                             f"[{label}]")
     return dict(shape=f"{label}_{kind}_{q.shape[0]}_lanes_{ring}_ring_cells", max_abs_err=err,
                 stat_err=stat_err, ms=ms, ms_without_ring=ms_pool_only, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, bit_identical_twice=twice, plan=plan)
 
 
 def check_silu(dev, cfg, m: int):
@@ -1509,7 +1560,7 @@ def earlier_paths(dev, card, cfg) -> dict:
     decode_cases = check_decode(dev, cfg, len(prompts) * n_samp, width, p)
     lanes = PAGED["slots"] + 1
     page, n_pages = PAGED["page_size"], PAGED["total_pages"]
-    int4_cases = [check_paged(dev, cfg, "int4_i8", lanes, p, page, n_pages)]
+    int4_cases = [check_paged(dev, cfg, "int4_i8", lanes, p, page, n_pages), check_paged_shipped(dev)]
     pool_cases = [check_paged(dev, cfg, "bf16", PAGED_REQUESTS + 1, p, page, n_pages),
                   check_paged(dev, cfg, "int8", lanes, p, page, n_pages)]
     rows_chunk = tcont.effective_prefill_chunk(p, PAGED["prefill_rows"], 0, PAGED["max_num_batched_tokens"])

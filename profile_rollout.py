@@ -19,7 +19,9 @@ int4 pools, int8 dots, 16 requests x 8 samples through 64 slots) and puts
 second and fourth are timed unprofiled): top device kernels, kernels per
 step, device time per step by kind of kernel (kernel A's GEMM with its
 split-K combine, kernel A's quantize prologue, the paged attention, the rest),
-busy share as profiled and device time over the unprofiled wall per step;
+busy share as profiled and device time over the unprofiled wall per step,
+and the paged kernel's (#9's) device ms and launches per step on a line of
+its own;
 and around ONE refill prefill (the second; 8 image prompts, W8A8 at m =
 1,024 rows a chunk): its wall, device time and the same kinds. It does so
 with the staging ring merged after the pool kernel (the default), then with
@@ -191,6 +193,9 @@ def profile_paged_chunk(model, qmodel, cfg, dev, card, fuse_staged: bool) -> Non
           f"{device_s / steps * 1e3:.3f} ms device (GEMM {gemm[0] / steps:.3f} ms in {gemm[1] / steps:.0f} "
           f"launches, {gemm[0] / max(gemm[1], 1) * 1e3:.2f} us each; prologue {prologue[0] / steps:.3f} ms in "
           f"{prologue[1] / steps:.0f})  [{card}]", flush=True)
+    pk = kinds[PAGED_KINDS[2][0]]
+    print(f"paged kernel #9 per decode step, ring {ring}: {pk[0] / steps:.3f} ms of {device_s / steps * 1e3:.3f} ms "
+          f"device in {pk[1] / steps:.0f} launches, {pk[0] / max(pk[1], 1) * 1e3:.2f} us each  [{card}]", flush=True)
     if "refill" in profiled:
         rk = [e for e in profiled["refill"].events() if e.device_type.name == "CUDA"]
         r_dev = sum(e.device_time for e in rk) / 1e3

@@ -37,20 +37,44 @@
 //     are rounded to bf16 for the p . u dot, which is debiased by -8 * sum(p)
 //     with the UNROUNDED fp32 weights, as the TPU kernel does.
 //
-// What bounds it on the H100: bytes — a step reads every live cell once
+// What bounds it on the H100: bytes -- a step reads every live cell once
 // (0.5 to 2 bytes per value) and does 4 * G operations per value, far under
-// the card's operations-per-byte balance. Design: one CTA per (slot, kv head)
-// so all G query heads share every byte read (G = 8 for the 3B model, 7 for
-// the 7B, any G <= 16 unpadded; any even page size). Each page goes through
-// three phases that keep the whole page's scores in shared memory (the
-// per-page weight quantization of mode 2 needs the page's row max before the
-// p . v dot): A) stage K in 64-row tiles with 16-byte loads and form scores
-// (fp32 FMAs in modes 0/1, `__dp4a` on packed nibbles in mode 2), B) one warp
-// per head does the online-softmax update, C) stage V tiles and accumulate
-// one output column per thread (mode 2: four byte rows packed per `__dp4a`).
-// What it does not do yet: tensor-core dots (mma/wgmma s8), cp.async or TMA
-// double buffering, and a split of long slots across CTAs; with S * Hkv CTAs
-// of 4 warps a small batch fills only part of the 132 SMs.
+// the card's operations-per-byte balance; what keeps a kernel from the byte
+// bound is latency: loads waited on in series, and too few warps in flight.
+//
+// Modes 0, 1, 3 (#7, #8; off the shipped path): one CTA of 4 warps per
+// (slot, kv head), so all G query heads share every byte read (G = 8 for the
+// 3B model, 7 for the 7B, any G <= 16 unpadded; any even page size). Each page
+// goes through three phases that keep the whole page's scores in shared
+// memory: A) stage K in 64-row tiles with 16-byte loads and form scores (fp32
+// FMAs), B) one warp per head does the online-softmax update, C) stage V tiles
+// and accumulate one output column per thread. What they do not do yet:
+// tensor-core dots, asynchronous copies, a split of long slots across CTAs.
+//
+// Mode 2 (#9, the shipped path: every layer of every decode step) is
+// `paged_kernel_int4_i8`, described above it. In short: each slot's pages are
+// split over a thread-block cluster of up to 8 CTAs (the plan,
+// ops/paged_attention.py `paged_plan`, picks it so that a call fills the SMs:
+// path (b)'s 65 lanes of <= 3 pages of 256 cells, the shipped 129 lanes of
+// <= 8 pages of 1,024), combined in distributed shared memory in rank order;
+// every page arrives by two bulk asynchronous copies (K with both scale
+// vectors, and V) into a ring of slots while the page before is computed; up
+// to 8 warps take 16-row blocks of a page, both dots on `mma.sync` m16n8k32
+// s8 (the int8 operation count is not the limit, but tensor cores take the
+// dots off the FMA and dp4a pipes the latency-bound loop shares), and two CTA
+// barriers a page carry its row maxima. The grid runs rank fastest, then
+// slot, then kv head: the engine gives a group's lanes the first free slots,
+// so at a refill a group's 8 lanes are adjacent slots and the CTAs reading
+// the group's shared prompt pages run together and meet in the 50 MB L2
+// (later refills take the slots freed together, usually near each other).
+// A page of more than 1,024 cells (more 16-row blocks than 8 warps x 4) passes
+// in parts of 512 rows through one K and one V slot, three times: the row
+// max, the weights' sum and max, then the int8 weights and p . v, the scores
+// recomputed each pass (the engines ship pages of 256 and 1,024 cells; the
+// parts keep every even page size the scale vectors leave room for).
+// What it does not do yet: V blocks are transposed in registers from 32-bit
+// shared loads the 4 threads of a quad make in the same banks (4-way
+// conflicts).
 //
 // The staged block (every mode, when C > 0). Replaces the TPU helper
 // `_staged_block_update` (spatialthinker_tpu/ops/paged_attention.py), which
@@ -61,13 +85,16 @@
 // cells under bf16 pools, int8 cells with bf16 per-cell scales (L, S, Hkv, C)
 // under int8 AND int4 pools (ring cells are never packed); stage_seg (S, C)
 // int32 marks the live cells (seg != 0), which need not be a prefix. The
-// update is the TPU helper's: scores = bf16(q) . bf16(k) in fp32 — the float
-// q also in mode 2, never its int8 copy — times (k_scale * scale) with
+// update is the TPU helper's: scores = bf16(q) . bf16(k) in fp32 -- the float
+// q also in mode 2, never its int8 copy -- times (k_scale * scale) with
 // scales, else times scale; dead cells masked; m, l and acc corrected;
-// weights times v_scale rounded to bf16 for the p . v dot. It reuses the
-// pool loop's staging tile and score buffer, and its three phases are those
-// of modes 0/1 over one "page" of C cells. With the ring fused, the returned
-// (m, l) are final: the caller has nothing left to merge.
+// weights times v_scale rounded to bf16 for the p . v dot. In modes 0, 1, 3
+// it reuses the pool loop's staging tile and score buffer, its three phases
+// those of modes 0/1 over one "page" of C cells. In mode 2 the last rank of
+// the cluster runs it after its pages: the ring's K and V cells arrive by one
+// bulk copy each at the kernel's start, a warp takes a cell's scores (a lane
+// four columns) and the p . v of its cells in fp32. With the ring fused, the
+// returned (m, l) are final: the caller has nothing left to merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,7 +112,8 @@ constexpr int MODE_BF16 = 0, MODE_INT8 = 1, MODE_INT4_I8 = 2, MODE_INT4 = 3;
 constexpr int MAX_SMEM = 232448;  // bytes a block may opt in to on sm_90
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-// both int4 modes read packed pages: byte row r = cells r and r + page/2
+// int4 pools are packed: byte row r = cells r and r + page/2 (mode 2 runs
+// the split kernel further down, not this template)
 __host__ __device__ inline bool packed(int mode) { return mode == MODE_INT4_I8 || mode == MODE_INT4; }
 
 // Shared-memory plan, computed alike on host and device.
@@ -94,7 +122,7 @@ struct Layout {
   int half_pad;    // int4: padded byte rows per page
   int cp;          // padded score slots of the staged block (0: no ring)
   int tile_stride; // bytes per staged row (padded against bank conflicts)
-  int off_s, off_ksc, off_vsc, off_p8, off_q, off_qf, off_seg, off_small, total;
+  int off_s, off_ksc, off_vsc, off_q, off_seg, off_small, total;
 };
 
 __host__ __device__ inline Layout make_layout(int mode, int G, int page, int C) {
@@ -113,13 +141,9 @@ __host__ __device__ inline Layout make_layout(int mode, int G, int page, int C) 
   L.off_s = off;          off += G * slots * 4;
   L.off_ksc = off;        off += slots * 4;
   L.off_vsc = off;        off += slots * 4;
-  L.off_p8 = off;         off += mode == MODE_INT4_I8 ? round_up(G * L.pg, 16) : 0;
-  L.off_q = off;          off += mode == MODE_INT4_I8 ? GMAX * D : GMAX * D * 4;
-  // the staged block's float q: mode 2 keeps only the int8 q above
-  L.off_qf = mode == MODE_INT4_I8 && C > 0 ? off : L.off_q;
-  off += mode == MODE_INT4_I8 && C > 0 ? GMAX * D * 4 : 0;
+  L.off_q = off;          off += GMAX * D * 4;  // the float q (the staged block's too)
   L.off_seg = off;        off += L.cp * 4;
-  L.off_small = off;      off += 8 * GMAX * 4;
+  L.off_small = off;      off += 5 * GMAX * 4;
   L.total = off;
   return L;
 }
@@ -155,7 +179,7 @@ __global__ void __launch_bounds__(THREADS)
 paged_kernel(const __nv_bfloat16* __restrict__ q,
              const unsigned char* __restrict__ k_pool,  // layer base
              const unsigned char* __restrict__ v_pool,
-             const __nv_bfloat16* __restrict__ k_scale,  // layer base (modes 1, 2)
+             const __nv_bfloat16* __restrict__ k_scale,  // layer base (modes 1, 3)
              const __nv_bfloat16* __restrict__ v_scale,
              const int* __restrict__ page_table, const int* __restrict__ lengths,
              __nv_bfloat16* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
@@ -172,19 +196,14 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
   float* s_sh = reinterpret_cast<float*>(smem + L.off_s);
   float* ksc = reinterpret_cast<float*>(smem + L.off_ksc);
   float* vsc = reinterpret_cast<float*>(smem + L.off_vsc);
-  signed char* p8 = reinterpret_cast<signed char*>(smem + L.off_p8);
-  float* qs = reinterpret_cast<float*>(smem + L.off_q);               // modes 0, 1, 3
-  signed char* q8 = reinterpret_cast<signed char*>(smem + L.off_q);   // mode 2
-  float* qf = reinterpret_cast<float*>(smem + L.off_qf);              // staged block, every mode
+  float* qs = reinterpret_cast<float*>(smem + L.off_q);  // the pages' and the staged block's q
   int* seg_sh = reinterpret_cast<int*>(smem + L.off_seg);
   float* small = reinterpret_cast<float*>(smem + L.off_small);
   float* m_sh = small;
   float* l_sh = small + GMAX;
   float* corr_sh = small + 2 * GMAX;
-  float* qscale_sh = small + 3 * GMAX;
-  float* sumq_sh = small + 4 * GMAX;
-  float* pscale_sh = small + 5 * GMAX;
-  float* sump_sh = small + 6 * GMAX;
+  float* sumq_sh = small + 3 * GMAX;
+  float* sump_sh = small + 4 * GMAX;
 
   const int slot = blockIdx.x / Hkv;
   const int h = blockIdx.x % Hkv;
@@ -195,7 +214,8 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
   const int half = page / 2;
   const int half_pad = L.half_pad;
   // pool rows per page and bytes per row
-  constexpr bool PACKED = MODE == MODE_INT4_I8 || MODE == MODE_INT4;
+  static_assert(MODE != MODE_INT4_I8, "mode 2 runs paged_kernel_int4_i8");
+  constexpr bool PACKED = MODE == MODE_INT4;
   const int rows_per_page = PACKED ? half : page;
   const int row_bytes = MODE == MODE_BF16 ? D * 2 : D;
 
@@ -204,43 +224,14 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
     m_sh[tid] = NEG_INF;
     l_sh[tid] = 0.f;
   }
-  if (MODE == MODE_INT4_I8 && C > 0)
-    for (int i = tid; i < G * D; i += THREADS) qf[i] = __bfloat162float(qg[i]);
-  if (MODE == MODE_INT4_I8) {
-    // q -> int8 once, one scale per (head, row)
+  for (int i = tid; i < G * D; i += THREADS) qs[i] = __bfloat162float(qg[i]);
+  if (MODE == MODE_INT4) {  // sum(q) per head, for the -8 debias of the scores
     for (int g = warp; g < G; g += THREADS / 32) {
-      float qf[D / 32];
-      float qa = 0.f;
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j) {
-        qf[j] = __bfloat162float(qg[(size_t)g * D + lane + 32 * j]);
-        qa = fmaxf(qa, fabsf(qf[j]));
-      }
-      qa = warp_max(qa);
-      const float qscale = fmaxf(qa, 1e-8f) * (1.0f / 127.0f);
       float sq = 0.f;
 #pragma unroll
-      for (int j = 0; j < D / 32; ++j) {
-        const float r = rintf(qf[j] / qscale);
-        q8[g * D + lane + 32 * j] = static_cast<signed char>(static_cast<int>(r));
-        sq += r;
-      }
+      for (int j = 0; j < D / 32; ++j) sq += __bfloat162float(qg[(size_t)g * D + lane + 32 * j]);
       sq = warp_sum(sq);
-      if (lane == 0) {
-        qscale_sh[g] = qscale;
-        sumq_sh[g] = sq;
-      }
-    }
-  } else {
-    for (int i = tid; i < G * D; i += THREADS) qs[i] = __bfloat162float(qg[i]);
-    if (MODE == MODE_INT4) {  // sum(q) per head, for the -8 debias of the scores
-      for (int g = warp; g < G; g += THREADS / 32) {
-        float sq = 0.f;
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j) sq += __bfloat162float(qg[(size_t)g * D + lane + 32 * j]);
-        sq = warp_sum(sq);
-        if (lane == 0) sumq_sh[g] = sq;
-      }
+      if (lane == 0) sumq_sh[g] = sq;
     }
   }
 
@@ -251,7 +242,7 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
   const int len = lengths[slot];
   const int n_pg = min((len + page - 1) / page, p_max);
   const int tok = tid % TILE;   // phase A: one staged row per thread ...
-  const int part = tid / TILE;  // ... modes 0/1: heads part, part+2, ..; int4: nibble half
+  const int part = tid / TILE;  // ... modes 0/1: heads part, part+2, ..; mode 3: nibble half
 
   for (int pi = 0; pi < n_pg; ++pi) {
     const int page_id = page_table[(size_t)slot * p_max + pi];
@@ -280,34 +271,7 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
       __syncthreads();
       const unsigned char* krow = tile + tok * L.tile_stride;
       const int r = t0 + tok;
-      if (MODE == MODE_INT4_I8) {
-        int iacc[GMAX];
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g) iacc[g] = 0;
-        const int* q8w = reinterpret_cast<const int*>(q8);
-#pragma unroll
-        for (int c = 0; c < D; c += 16) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(krow + c);
-          const unsigned int w4[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int nib = static_cast<int>((part ? (w4[e] >> 4) : w4[e]) & 0x0F0F0F0Fu);
-#pragma unroll
-            for (int g = 0; g < GMAX; ++g)
-              if (g < G) iacc[g] = __dp4a(nib, q8w[g * (D / 4) + c / 4 + e], iacc[g]);
-          }
-        }
-        if (r < half) {
-          const int j = part * half_pad + r;
-#pragma unroll
-          for (int g = 0; g < GMAX; ++g) {
-            if (g < G) {
-              float s = (static_cast<float>(iacc[g]) - KV4_BIAS * sumq_sh[g]) * qscale_sh[g];
-              s_sh[g * PG + j] = s * ksc[j];
-            }
-          }
-        }
-      } else if (MODE == MODE_INT4) {
+      if (MODE == MODE_INT4) {
         float sc[GMAX];
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) sc[g] = 0.f;
@@ -387,7 +351,7 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
         if (valid) mx = fmaxf(mx, srow[j]);
       }
       const float m_new = fmaxf(m_prev, warp_max(mx));
-      float psum = 0.f, pmax = 0.f, pvsum = 0.f;
+      float psum = 0.f, pvsum = 0.f;
       for (int j = lane; j < PG; j += 32) {
         bool valid;
         if (PACKED) {
@@ -403,29 +367,13 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
           psum += p;
           if (MODE != MODE_BF16) p *= vsc[j];
           pvsum += p;  // mode 3 debiases with the unrounded weights
-          // modes 0/1/3: the p . v dot takes bf16 weights, as the TPU kernel does
-          if (MODE != MODE_INT4_I8) p = __bfloat162float(__float2bfloat16(p));
+          // the p . v dot takes bf16 weights, as the TPU kernel does
+          p = __bfloat162float(__float2bfloat16(p));
         }
         srow[j] = p;
-        pmax = fmaxf(pmax, p);
       }
       const float corr = expf(m_prev - m_new);
       psum = warp_sum(psum);
-      if (MODE == MODE_INT4_I8) {
-        // weights -> int8, one scale per row per page
-        const float pscale = fmaxf(warp_max(pmax), 1e-20f) * (1.0f / 127.0f);
-        float sp = 0.f;
-        for (int j = lane; j < PG; j += 32) {
-          const float r = rintf(srow[j] / pscale);
-          p8[g * PG + j] = static_cast<signed char>(static_cast<int>(r));
-          sp += r;
-        }
-        sp = warp_sum(sp);
-        if (lane == 0) {
-          pscale_sh[g] = pscale;
-          sump_sh[g] = sp;
-        }
-      }
       if (MODE == MODE_INT4) {
         pvsum = warp_sum(pvsum);
         if (lane == 0) sump_sh[g] = pvsum;
@@ -442,39 +390,7 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int g = 0; g < GMAX; ++g)
       if (g < G) acc[g] *= corr_sh[g];
-    if (MODE == MODE_INT4_I8) {
-      int iacc[GMAX];
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) iacc[g] = 0;
-      const int* p8w = reinterpret_cast<const int*>(p8);
-      for (int t0 = 0; t0 < rows; t0 += TILE) {
-        __syncthreads();
-        load_tile(vp + (size_t)t0 * row_bytes, row_bytes, min(TILE, rows - t0), tile, L.tile_stride);
-        __syncthreads();
-        const int n4 = min(TILE, round_up(rows - t0, 4));
-        for (int t = 0; t < n4; t += 4) {
-          const unsigned int w = static_cast<unsigned int>(tile[(t + 0) * L.tile_stride + tid]) |
-                                 static_cast<unsigned int>(tile[(t + 1) * L.tile_stride + tid]) << 8 |
-                                 static_cast<unsigned int>(tile[(t + 2) * L.tile_stride + tid]) << 16 |
-                                 static_cast<unsigned int>(tile[(t + 3) * L.tile_stride + tid]) << 24;
-          const int lo = static_cast<int>(w & 0x0F0F0F0Fu);
-          const int hi = static_cast<int>((w >> 4) & 0x0F0F0F0Fu);
-          const int wl = (t0 + t) / 4;               // low-half cells t0+t .. +3
-          const int wh = (half_pad + t0 + t) / 4;    // their high-half partners
-#pragma unroll
-          for (int g = 0; g < GMAX; ++g) {
-            if (g < G) {
-              iacc[g] = __dp4a(lo, p8w[g * (PG / 4) + wl], iacc[g]);
-              iacc[g] = __dp4a(hi, p8w[g * (PG / 4) + wh], iacc[g]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g)
-        if (g < G)
-          acc[g] += (static_cast<float>(iacc[g]) - KV4_BIAS * sump_sh[g]) * pscale_sh[g];
-    } else if (MODE == MODE_INT4) {
+    if (MODE == MODE_INT4) {
       for (int t0 = 0; t0 < rows; t0 += TILE) {
         __syncthreads();
         load_tile(vp + (size_t)t0 * row_bytes, row_bytes, min(TILE, rows - t0), tile, L.tile_stride);
@@ -559,7 +475,7 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
           const int g = part + 2 * j;
           if (g < G) {
 #pragma unroll
-            for (int e = 0; e < 8; ++e) sc[j] = fmaf(qf[g * D + c + e], kf[e], sc[j]);
+            for (int e = 0; e < 8; ++e) sc[j] = fmaf(qs[g * D + c + e], kf[e], sc[j]);
           }
         }
       }
@@ -634,6 +550,753 @@ paged_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---- mode 2: the split kernel of int4 pools with int8 dots ----
+//
+// CTA (rank, slot, kv head), grid (n, S, Hkv): the n CTAs of one (slot, kv
+// head) form a thread-block cluster; rank r takes the slot's pages
+// pi = r, r + n, ... with its own running (m, l, acc), and the last rank the
+// staging ring. Each page stays one unit, so its weight quantization (per row
+// per page, against the page's row max of p * v_scale) is the plain
+// version's; a rank's weights are relative to its own running max, which
+// the int8 weights p / pscale do not see (both scale alike). The ranks meet
+// in distributed shared memory in rank order: M = max m_r, w_r = exp(m_r - M),
+// l = sum l_r w_r, o = sum acc_r w_r / l. No second kernel, no atomics.
+//
+// Inside a CTA, `warps` warps split a page into blocks of 16 byte rows (32
+// cells: the lo nibbles of rows r0..r0+15 and their hi-nibble partners
+// r0+half..), block b to warp b % warps. Both dots are `mma.sync` m16n8k32
+// s8 (nibbles are valid s8): the scores S^T[cell][head] = K[cell][d] q8[head][d]
+// with the cells as M and up to 8 heads as N (two N tiles for G > 8), and
+// O^T[d][head] = V^T[d][cell] p8[head][cell] with 16 columns of d as M and
+// the 32 cells of a block as K. Per page: scores into registers, one CTA
+// barrier for the page's row max, one for the row max of p * v_scale (the
+// weight scale), then each warp quantizes its own cells' weights, writes
+// them to its records in the product's k order and runs p . v on them; its
+// partial (l, acc) is summed with the other warps' after the last page.
+// The per-value softmax work is branch-free (a dead cell's score is -1e30,
+// whose exp is 0), so the compiler overlaps the values: with 8 warps an SM,
+// each page's phases are chains of dependent latencies, not bandwidth. The
+// weights' exp is `__expf` (ex2) and their quantization a product with
+// 1 / pscale: both within a few ulps of the plain version's exp and
+// division, which moves an int8 weight only on an exact rounding tie.
+//
+// Pages arrive by bulk asynchronous copies (`cp.async.bulk`, completion on
+// an mbarrier), one per operand: K with both scale vectors (4-byte
+// `cp.async`s tracked by the same barrier where the page is not a multiple
+// of 8 cells), and V, each in a ring of `stages` slots. Thread 0 refills a
+// K slot after the page's second barrier and a V slot after the next page's
+// first, so the next pages land while this one is computed. A CTA costs a
+// few µs before its first page (the length, page-table and q reads, the
+// final sum of the warps' partials): the plan splits a slot's pages over
+// a cluster only where the (slot, kv head) pairs leave SMs idle.
+
+constexpr int SPLIT_ROWS = 16;         // byte rows a block: 32 cells, the K of one product
+constexpr int SPLIT_MAX_CLUSTER = 8;   // the portable cluster size
+constexpr int SPLIT_MAX_WARPS = 8;
+constexpr int SPLIT_MAX_STAGES = 4;
+constexpr unsigned int NIB = 0x0F0F0F0Fu;
+
+// Shared memory of the split kernel, computed alike on host and device. The
+// K and V slots and the ring's cells are reused for the warps' partial
+// outputs once the last page is done.
+struct SplitLayout {
+  int kbytes;   // K (or V) bytes of a slot: page/2 rows rounded up to whole blocks, at most the
+                // rows the CTA's blocks cover (a larger page passes in parts)
+  int sbytes;   // one scale vector of a page, padded to 16 bytes
+  int kslot;    // a K slot: K rows, k_scale, v_scale
+  int off_v, off_ring, off_q8, off_qf, off_p8, off_red, off_stat, off_rs, off_bar, total;
+};
+
+__host__ __device__ inline SplitLayout split_layout(int nt, int page, int C, int warps, int bpw, int stages) {
+  SplitLayout L;
+  const int g16 = 8 * nt;
+  const int rows = round_up(page / 2, SPLIT_ROWS), cover = warps * bpw * SPLIT_ROWS;
+  L.kbytes = (rows < cover ? rows : cover) * D;
+  L.sbytes = round_up(page * 2, 16);
+  L.kslot = L.kbytes + 2 * L.sbytes;
+  int off = stages * L.kslot;              // the K slots start at 0
+  L.off_v = off;     off += stages * L.kbytes;
+  L.off_ring = off;  off += 2 * C * D;     // the ring's K cells, then its V cells
+  const int part = (warps + 1) * g16 * D * 4 * 33 / 32;  // the warps' partial outputs and their sum (padded)
+  off = round_up(off > part ? off : part, 16);
+  L.off_q8 = off;    off += g16 * D;
+  L.off_qf = off;    off += C > 0 ? g16 * (D + 4) * 4 : 0;  // the staged block's float q (rows padded)
+  L.off_p8 = off;    off += warps * bpw * g16 * 32;   // int8 weights, 32 a (block, head)
+  L.off_red = off;   off += 2 * warps * g16 * 4;      // per-warp row maxima, twice
+  L.off_stat = off;  off += 4 * g16 * 4;              // qscale, 8 sum(q), the CTA's m and l
+  L.off_rs = off;    off += round_up(C * 4 * (3 + g16), 16);  // ring: k_scale * scale, v_scale, live, scores
+  L.off_bar = off;   off += (2 * stages + 1) * 8;     // K slots, V slots, the ring
+  L.total = off;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` (a multiple of 16) from global `src` to shared `dst` (both 16-byte
+// aligned) in one bulk copy that completes `bar`'s transaction bytes
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+// `bar`'s phase also waits for this thread's earlier cp.asyncs (one more
+// pending arrival, made when they land)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// r[j] = bytes (row j, columns 0..3) -> c[col] = bytes (rows 0..3, column col)
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&c)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// this CTA's shared address `p` in cluster rank `rank`'s shared memory, as a
+// generic pointer (plain loads the compiler can overlap)
+__device__ __forceinline__ const float* rank_ptr(const float* p, int rank, int n) {
+  return n == 1 ? p : static_cast<const float*>(__cluster_map_shared_rank(const_cast<float*>(p), rank));
+}
+// max / sum over the 8 lanes of a column of a fragment (lanes of one tig)
+__device__ __forceinline__ float gid_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 16));
+}
+__device__ __forceinline__ float gid_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 4);
+  x += __shfl_xor_sync(0xffffffffu, x, 8);
+  return x + __shfl_xor_sync(0xffffffffu, x, 16);
+}
+
+// NT: N tiles of 8 heads (1: G <= 8, 2: G <= 16); BPW: blocks a warp takes of
+// a page (1, 2 or 4) or of each part of it; PARTS: a page has more blocks
+// than warps x BPW and passes in parts. Fragment ownership (gid = lane / 4, tig = lane % 4):
+// scores of cells r0 + gid (+ 8), heads nt * 8 + 2 tig (+ 1); outputs of
+// columns 16 gid .. 16 gid + 15, the same heads.
+template <int NT, int BPW, bool PARTS>
+__global__ void __launch_bounds__(SPLIT_MAX_WARPS * 32)
+paged_kernel_int4_i8(const __nv_bfloat16* __restrict__ q, const unsigned char* __restrict__ k_pool,
+                     const unsigned char* __restrict__ v_pool, const __nv_bfloat16* __restrict__ k_scale,
+                     const __nv_bfloat16* __restrict__ v_scale, const int* __restrict__ page_table,
+                     const int* __restrict__ lengths, __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
+                     float* __restrict__ l_out, const unsigned char* __restrict__ stage_k,
+                     const unsigned char* __restrict__ stage_v, const __nv_bfloat16* __restrict__ stage_ks,
+                     const __nv_bfloat16* __restrict__ stage_vs, const int* __restrict__ stage_seg, int Hq, int Hkv,
+                     int page, int p_max, int C, float scale, int stages) {
+  constexpr int G16 = 8 * NT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n_split = gridDim.x, rank = blockIdx.x, slot = blockIdx.y, h = blockIdx.z;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int G = Hq / Hkv;
+  const int half = page >> 1;
+  const int nblk = (half + SPLIT_ROWS - 1) / SPLIT_ROWS;
+  const SplitLayout L = split_layout(NT, page, C, warps, BPW, stages);
+  signed char* q8 = reinterpret_cast<signed char*>(smem + L.off_q8);
+  float* qf = reinterpret_cast<float*>(smem + L.off_qf);
+  unsigned char* p8 = smem + L.off_p8 + warp * BPW * G16 * 32;  // this warp's weight records
+  float* red_a = reinterpret_cast<float*>(smem + L.off_red);
+  float* red_b = red_a + warps * G16;
+  float* qscale_sh = reinterpret_cast<float*>(smem + L.off_stat);
+  float* sumq8_sh = qscale_sh + G16;
+  float* fin_m = qscale_sh + 2 * G16;
+  float* fin_l = qscale_sh + 3 * G16;
+  float* rks = reinterpret_cast<float*>(smem + L.off_rs);
+  float* rvs = rks + C;
+  int* rseg = reinterpret_cast<int*>(rvs + C);
+  float* sring = reinterpret_cast<float*>(rseg + C);
+  // K slot s: bar0 + 8 s; V slot s: bar0 + 8 (stages + s); the ring: bar0 + 16 stages
+  const uint32_t bar0 = smem_u32(smem + L.off_bar);
+
+  // the first page id is read beside the length, not after it (one memory round trip, not two)
+  const __nv_bfloat16* q_rows = q + ((size_t)slot * Hq + (size_t)h * G) * D;
+  const int first_page = threadIdx.x == 0 && rank < p_max ? page_table[(size_t)slot * p_max + rank] : 0;
+  const int len = lengths[slot];
+  const int npg = min((len + page - 1) / page, p_max);
+  const int mine = npg > rank ? (npg - rank + n_split - 1) / n_split : 0;  // pages rank, rank + n, ...
+  const bool ring = C > 0 && rank == n_split - 1;
+  const int page_bytes = half * D;
+  const int part_rows = warps * BPW * SPLIT_ROWS;  // byte rows of a page the CTA's blocks cover
+  const bool bulk_scales = (page & 7) == 0;
+  const size_t ring_cell0 = ((size_t)slot * Hkv + h) * C;
+
+  auto page_row = [&](int i) {  // (page id, kv head) row of this rank's i-th page
+    return (size_t)(i == 0 ? first_page : page_table[(size_t)slot * p_max + rank + i * n_split]) * Hkv + h;
+  };
+  // K rows of part j of this rank's page i (the whole page where it is one part) into K slot
+  // i % stages, with the page's two scale vectors where `scales`
+  auto issue_k = [&](int i, int j, bool scales) {
+    const size_t row = page_row(i);
+    const int s = i % stages;
+    const uint32_t bar = bar0 + 8 * s;
+    const uint32_t dst = smem_u32(smem + s * L.kslot);
+    const int bytes = min(part_rows, half - j * part_rows) * D;
+    const unsigned char* ksrc = reinterpret_cast<const unsigned char*>(k_scale) + row * page * 2;
+    const unsigned char* vsrc = reinterpret_cast<const unsigned char*>(v_scale) + row * page * 2;
+    if (scales && !bulk_scales) {  // page % 8 != 0: the scale vectors are not 16-byte aligned
+      for (int c = 0; c < 2 * page; c += 4) {
+        cp_async4(dst + L.kbytes + c, ksrc + c);
+        cp_async4(dst + L.kbytes + L.sbytes + c, vsrc + c);
+      }
+      cp_async_arrive(bar);  // before the expect_tx: the phase cannot end without them
+    }
+    mbar_expect_tx(bar, bytes + (scales && bulk_scales ? 4 * page : 0));
+    bulk_g2s(dst, k_pool + row * page_bytes + (size_t)j * part_rows * D, bytes, bar);
+    if (scales && bulk_scales) {
+      bulk_g2s(dst + L.kbytes, ksrc, 2 * page, bar);
+      bulk_g2s(dst + L.kbytes + L.sbytes, vsrc, 2 * page, bar);
+    }
+  };
+  auto issue_v = [&](int i, int j) {
+    const int s = i % stages;
+    const uint32_t bar = bar0 + 8 * (stages + s);
+    const int bytes = min(part_rows, half - j * part_rows) * D;
+    mbar_expect_tx(bar, bytes);
+    bulk_g2s(smem_u32(smem + L.off_v + s * L.kbytes), v_pool + page_row(i) * page_bytes + (size_t)j * part_rows * D,
+             bytes, bar);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2 * stages + 1; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (!PARTS)
+      for (int i = 0; i < mine && i < stages; ++i) {
+        issue_k(i, 0, true);
+        issue_v(i, 0);
+      }
+    if (ring) {
+      const uint32_t bar = bar0 + 16 * stages;
+      mbar_expect_tx(bar, 2 * C * D);
+      bulk_g2s(smem_u32(smem + L.off_ring), stage_k + ring_cell0 * D, C * D, bar);
+      bulk_g2s(smem_u32(smem + L.off_ring + C * D), stage_v + ring_cell0 * D, C * D, bar);
+    }
+  }
+
+  // q -> int8 once per (head, row), one warp a head (padding heads zero)
+  for (int g = warp; g < G16; g += warps) {
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (g < G) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(q_rows + g * D + 4 * lane);
+      const float2 f0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+      const float2 f1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+      v[0] = f0.x, v[1] = f0.y, v[2] = f1.x, v[3] = f1.y;
+    }
+    const float qa = warp_max(fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
+    const float qs = fmaxf(qa, 1e-8f) * (1.0f / 127.0f);
+    uint32_t packed4 = 0;
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float r = rintf(v[j] / qs);
+      sq += r;
+      packed4 |= (static_cast<uint32_t>(static_cast<int>(r)) & 0xFFu) << (8 * j);
+    }
+    sq = warp_sum(sq);
+    *reinterpret_cast<uint32_t*>(q8 + g * D + 4 * lane) = packed4;
+    if (C > 0) *reinterpret_cast<float4*>(qf + g * (D + 4) + 4 * lane) = make_float4(v[0], v[1], v[2], v[3]);
+    if (lane == 0) {
+      qscale_sh[g] = qs;
+      sumq8_sh[g] = KV4_BIAS * sq;
+    }
+  }
+  if (ring)
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      rks[c] = __bfloat162float(stage_ks[ring_cell0 + c]) * scale;
+      rvs[c] = __bfloat162float(stage_vs[ring_cell0 + c]);
+      rseg[c] = stage_seg[(size_t)slot * C + c] != 0;
+    }
+  __syncthreads();  // barriers initialised, q8 and the ring's scales visible
+
+  // the scores' B fragments: k position 4 tig + j of step ks is d = 32 tig + 8 ks + j, 16 + 4 tig + j
+  // is d = 32 tig + 8 ks + 4 + j (the order in which a thread holds its row's 32 bytes)
+  uint32_t qb[NT][4][2];
+  float hqs[NT][2], hsq[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint2 w = *reinterpret_cast<const uint2*>(q8 + (nt * 8 + gid) * D + 32 * tig + 8 * ks);
+      qb[nt][ks][0] = w.x;
+      qb[nt][ks][1] = w.y;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      hqs[nt][e] = qscale_sh[nt * 8 + 2 * tig + e];
+      hsq[nt][e] = sumq8_sh[nt * 8 + 2 * tig + e];
+    }
+  }
+
+  float m_run[NT][2], l_w[NT][2], acc[NT][8][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) m_run[nt][e] = NEG_INF, l_w[nt][e] = 0.f;
+#pragma unroll
+    for (int x = 0; x < 8; ++x)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[nt][x][c] = 0.f;
+  }
+
+  // ---- a page's phases on this warp's blocks of the part of the page at byte row row0 (0 where the
+  // page is one part), K rows and both scale vectors at kbuf, V rows at vbuf ----
+  float sc[BPW][NT][8];
+  float mx[NT][2], m_new[NT][2], psum[NT][2], pmax[NT][2], pscale[NT][2], inv_pscale[NT][2], sp[NT][2];
+  int ai[NT][8][4];
+  // cell of fragment value c (0-3 lo, 4-7 hi) of block ib, or -1 where it holds none
+  auto cell_of = [&](int row0, int cells, int ib, int c) {
+    const int row = row0 + (warp + ib * warps) * SPLIT_ROWS + gid + 8 * ((c >> 1) & 1);
+    const int cell = c < 4 ? row : half + row;
+    return row < half && cell < cells ? cell : -1;
+  };
+  auto has_block = [&](int row0, int ib) { return row0 / SPLIT_ROWS + warp + ib * warps < nblk; };
+  // the per-value work below is branch-free (a dead cell reads cell 0's scale and its score is -1e30,
+  // whose exp is 0), so the compiler overlaps the values' loads and arithmetic
+  // scores ((q8 . nibbles - 8 sum q8) qscale) (k_scale scale) into sc, their row max into mx
+  auto scores = [&](const unsigned char* kbuf, int row0, int cells) {
+    const __nv_bfloat16* ksc = reinterpret_cast<const __nv_bfloat16*>(kbuf + L.kbytes);
+#pragma unroll
+    for (int ib = 0; ib < BPW; ++ib) {
+      if (!has_block(row0, ib)) break;
+      const int b = warp + ib * warps;
+      uint32_t w[2][8];  // rows r0 + gid and r0 + gid + 8: bytes 32 tig .. 32 tig + 31
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const unsigned char* rowp = kbuf + (b * SPLIT_ROWS + gid + 8 * rr) * D + 32 * tig;
+        const int first = 16 * (gid & 1);  // odd rows read their second half first: no bank conflict
+        const uint4 x0 = *reinterpret_cast<const uint4*>(rowp + first);
+        const uint4 x1 = *reinterpret_cast<const uint4*>(rowp + 16 - first);
+        const uint4 lo = (gid & 1) ? x1 : x0, hi = (gid & 1) ? x0 : x1;
+        w[rr][0] = lo.x, w[rr][1] = lo.y, w[rr][2] = lo.z, w[rr][3] = lo.w;
+        w[rr][4] = hi.x, w[rr][5] = hi.y, w[rr][6] = hi.z, w[rr][7] = hi.w;
+      }
+      int cl[NT][4], ch[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) cl[nt][c] = ch[nt][c] = 0;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint32_t a_lo[4] = {w[0][2 * ks] & NIB, w[1][2 * ks] & NIB, w[0][2 * ks + 1] & NIB,
+                                  w[1][2 * ks + 1] & NIB};
+        const uint32_t a_hi[4] = {(w[0][2 * ks] >> 4) & NIB, (w[1][2 * ks] >> 4) & NIB,
+                                  (w[0][2 * ks + 1] >> 4) & NIB, (w[1][2 * ks + 1] >> 4) & NIB};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_s8(cl[nt], a_lo, qb[nt][ks][0], qb[nt][ks][1]);
+          mma_s8(ch[nt], a_hi, qb[nt][ks][0], qb[nt][ks][1]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int e = c & 1;
+          const int cell = cell_of(row0, cells, ib, c);
+          const float dot = static_cast<float>(c < 4 ? cl[nt][c] : ch[nt][c - 4]);
+          const float ks = __bfloat162float(ksc[cell < 0 ? 0 : cell]) * scale;
+          const float sv = cell >= 0 ? ((dot - hsq[nt][e]) * hqs[nt][e]) * ks : NEG_INF;
+          sc[ib][nt][c] = sv;
+          mx[nt][e] = fmaxf(mx[nt][e], sv);
+        }
+      }
+    }
+  };
+  // the page's row max across warps (a CTA barrier) -> m_new
+  auto exchange_max = [&]() {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[nt][e] = gid_max(mx[nt][e]);
+        if (gid == 0) red_a[warp * G16 + nt * 8 + 2 * tig + e] = mx[nt][e];
+      }
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mp = NEG_INF;
+#pragma unroll
+        for (int w2 = 0; w2 < SPLIT_MAX_WARPS; ++w2)
+          if (w2 < warps) mp = fmaxf(mp, red_a[w2 * G16 + nt * 8 + 2 * tig + e]);
+        m_new[nt][e] = fmaxf(m_run[nt][e], mp);
+        psum[nt][e] = pmax[nt][e] = 0.f;
+      }
+  };
+  // weights p = exp(s - m_new) into psum, p * v_scale into sc and its row max into pmax
+  auto weights = [&](const unsigned char* kbuf, int row0, int cells) {
+    const __nv_bfloat16* vsc = reinterpret_cast<const __nv_bfloat16*>(kbuf + L.kbytes + L.sbytes);
+#pragma unroll
+    for (int ib = 0; ib < BPW; ++ib) {
+      if (!has_block(row0, ib)) break;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int e = c & 1;
+          const int cell = cell_of(row0, cells, ib, c);
+          float p = __expf(sc[ib][nt][c] - m_new[nt][e]);  // 0 for a dead cell
+          psum[nt][e] += p;
+          p *= __bfloat162float(vsc[cell < 0 ? 0 : cell]);
+          pmax[nt][e] = fmaxf(pmax[nt][e], p);
+          sc[ib][nt][c] = p;
+        }
+    }
+  };
+  // the row max of p * v_scale across warps (a CTA barrier) -> pscale; (m, l, acc) move to m_new
+  auto exchange_pmax = [&]() {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        psum[nt][e] = gid_sum(psum[nt][e]);
+        pmax[nt][e] = gid_max(pmax[nt][e]);
+        if (gid == 0) red_b[warp * G16 + nt * 8 + 2 * tig + e] = pmax[nt][e];
+      }
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float pm = 0.f;
+#pragma unroll
+        for (int w2 = 0; w2 < SPLIT_MAX_WARPS; ++w2)
+          if (w2 < warps) pm = fmaxf(pm, red_b[w2 * G16 + nt * 8 + 2 * tig + e]);
+        pscale[nt][e] = fmaxf(pm, 1e-20f) * (1.0f / 127.0f);
+        inv_pscale[nt][e] = 1.0f / pscale[nt][e];
+        const float corr = __expf(m_run[nt][e] - m_new[nt][e]);
+        l_w[nt][e] = l_w[nt][e] * corr + psum[nt][e];
+        m_run[nt][e] = m_new[nt][e];
+#pragma unroll
+        for (int x = 0; x < 8; ++x) acc[nt][x][e] *= corr, acc[nt][x][2 + e] *= corr;
+        sp[nt][e] = 0.f;
+      }
+  };
+  // int8 weights, one scale per row per page, into this warp's records (their sum into sp);
+  // record (block, head): byte k < 16 is the lo cell of row r0 + k, byte 16 + k its hi cell
+  auto quantize = [&](int row0) {
+#pragma unroll
+    for (int ib = 0; ib < BPW; ++ib) {
+      if (!has_block(row0, ib)) break;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        unsigned char* rec = p8 + (ib * NT + nt) * 8 * 32;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int e = c & 1;
+          const float r = rintf(sc[ib][nt][c] * inv_pscale[nt][e]);
+          sp[nt][e] += r;
+          rec[(2 * tig + e) * 32 + (c >> 2) * 16 + gid + 8 * ((c >> 1) & 1)] =
+              static_cast<unsigned char>(static_cast<int>(r));
+        }
+      }
+    }
+  };
+  auto zero_ai = [&]() {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) ai[nt][x][c] = 0;
+  };
+  // p . v into ai: this thread's rows r0 + 4 tig + j, columns 16 gid .. 16 gid + 15
+  auto pv = [&](const unsigned char* vbuf, int row0) {
+#pragma unroll
+    for (int ib = 0; ib < BPW; ++ib) {
+      if (!has_block(row0, ib)) break;
+      const int b = warp + ib * warps;
+      uint32_t b_lo[NT], b_hi[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const unsigned char* rec = p8 + ((ib * NT + nt) * 8 + gid) * 32;
+        b_lo[nt] = *reinterpret_cast<const uint32_t*>(rec + 4 * tig);
+        b_hi[nt] = *reinterpret_cast<const uint32_t*>(rec + 16 + 4 * tig);
+      }
+      const unsigned char* vrow = vbuf + (b * SPLIT_ROWS + 4 * tig) * D + 16 * gid;
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        uint32_t rw[4], cw[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) rw[j] = *reinterpret_cast<const uint32_t*>(vrow + j * D + 4 * qq);
+        transpose4x4(rw, cw);  // cw[c]: rows r0 + 4 tig .. + 3 of column 16 gid + 4 qq + c
+#pragma unroll
+        for (int xx = 0; xx < 2; ++xx) {
+          // M row gid: column 16 gid + 2x, row gid + 8: 16 gid + 2x + 1 (x = 2 qq + xx)
+          const uint32_t a[4] = {cw[2 * xx] & NIB, cw[2 * xx + 1] & NIB, (cw[2 * xx] >> 4) & NIB,
+                                 (cw[2 * xx + 1] >> 4) & NIB};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_s8(ai[nt][2 * qq + xx], a, b_lo[nt], b_hi[nt]);
+        }
+      }
+    }
+  };
+  // acc += (int dot - 8 sum p8) pscale, per warp (its cells)
+  auto finish_page = [&]() {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sp[nt][e] = gid_sum(sp[nt][e]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int e = c & 1;
+          acc[nt][x][c] += (static_cast<float>(ai[nt][x][c]) - KV4_BIAS * sp[nt][e]) * pscale[nt][e];
+        }
+  };
+  auto reset_max = [&]() {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mx[nt][0] = mx[nt][1] = NEG_INF;
+  };
+
+  if constexpr (!PARTS) {
+    for (int i = 0; i < mine; ++i) {
+      const int cells = min(page, len - (rank + i * n_split) * page);  // valid cells of the page, >= 1
+      const int s = i % stages, par = (i / stages) & 1;
+      const unsigned char* kbuf = smem + s * L.kslot;
+      mbar_wait(bar0 + 8 * s, par);
+      reset_max();
+      scores(kbuf, 0, cells);
+      exchange_max();  // the first barrier
+      if (threadIdx.x == 0 && i >= 1 && i - 1 + stages < mine) issue_v(i - 1 + stages, 0);  // page i-1's V slot is free
+      weights(kbuf, 0, cells);
+      exchange_pmax();  // the second barrier
+      if (threadIdx.x == 0 && i + stages < mine) issue_k(i + stages, 0, true);  // this page's K slot is free
+      quantize(0);
+      __syncwarp();
+      mbar_wait(bar0 + 8 * (stages + s), par);
+      zero_ai();
+      pv(smem + L.off_v + s * L.kbytes, 0);
+      finish_page();
+    }
+  } else {
+    // a page of more byte rows than the CTA's blocks cover: its parts of part_rows rows pass one K
+    // slot and one V slot three times -- the scores' row max; the weights' sum and row max; the int8
+    // weights and p . v -- the scores computed anew in each pass (the same arithmetic, so the same
+    // values), no copy in flight while a part is computed
+    const int nparts = (half + part_rows - 1) / part_rows;
+    int kn = 0, vn = 0;  // phases of the K and the V slot's barrier waited for
+    for (int i = 0; i < mine; ++i) {
+      const int cells = min(page, len - (rank + i * n_split) * page);
+      const int live = min(nparts, (cells + part_rows - 1) / part_rows);  // parts holding a valid cell
+      reset_max();
+      for (int pass = 0; pass < 3; ++pass) {
+        if (pass == 2) zero_ai();
+        for (int j = 0; j < live; ++j) {
+          if (threadIdx.x == 0) {
+            issue_k(i, j, pass == 0 && j == 0);
+            if (pass == 2) issue_v(i, j);
+          }
+          mbar_wait(bar0, kn++ & 1);
+          scores(smem, j * part_rows, cells);
+          if (pass > 0) weights(smem, j * part_rows, cells);
+          if (pass == 2) {
+            quantize(j * part_rows);
+            __syncwarp();
+            mbar_wait(bar0 + 8, vn++ & 1);
+            pv(smem + L.off_v, j * part_rows);
+          }
+          __syncthreads();  // every warp is done with both slots: the next part may land
+        }
+        if (pass == 0) exchange_max();
+        if (pass == 1) exchange_pmax();
+      }
+      finish_page();
+    }
+  }
+
+  if (ring) {
+    // ---- the staged block: the float q, bf16 weights (the TPU helper's arithmetic) ----
+    mbar_wait(bar0 + 16 * stages, 0);
+    const signed char* rk = reinterpret_cast<const signed char*>(smem + L.off_ring);
+    const signed char* rv = rk + C * D;
+    // scores: a thread a (cell, head) dot over the 128 columns, four partial sums (q rows padded to
+    // D + 4 floats: the heads of one cell read distinct banks)
+    for (int pr = threadIdx.x; pr < C * G16; pr += blockDim.x) {
+      const int c = pr / G16, g = pr % G16;
+      const float4* q4 = reinterpret_cast<const float4*>(qf + g * (D + 4));
+      const char4* k4 = reinterpret_cast<const char4*>(rk + c * D);
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+      for (int j = 0; j < D / 4; j += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 qv = q4[j + u];
+          const char4 kv = k4[j + u];
+          part[u] = fmaf(qv.x, static_cast<float>(kv.x), part[u]);
+          part[u] = fmaf(qv.y, static_cast<float>(kv.y), part[u]);
+          part[u] = fmaf(qv.z, static_cast<float>(kv.z), part[u]);
+          part[u] = fmaf(qv.w, static_cast<float>(kv.w), part[u]);
+        }
+      }
+      const float dot = (part[0] + part[1]) + (part[2] + part[3]);
+      sring[g * C + c] = rseg[c] ? dot * rks[c] : NEG_INF;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float* srow = sring + (nt * 8 + 2 * tig + e) * C;
+        float mr = NEG_INF;
+        for (int c = 0; c < C; ++c) mr = fmaxf(mr, srow[c]);
+        const float mn = fmaxf(m_run[nt][e], mr);
+        const float corr = expf(m_run[nt][e] - mn);
+        float ps = 0.f;
+        for (int c = warp; c < C; c += warps) ps += rseg[c] ? expf(srow[c] - mn) : 0.f;
+        l_w[nt][e] = l_w[nt][e] * corr + ps;
+#pragma unroll
+        for (int x = 0; x < 8; ++x) acc[nt][x][e] *= corr, acc[nt][x][2 + e] *= corr;
+        m_run[nt][e] = mn;
+      }
+    for (int c = warp; c < C; c += warps) {  // p . v of this warp's cells
+      if (!rseg[c]) continue;
+      float pb[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(sring[(nt * 8 + 2 * tig + e) * C + c] - m_run[nt][e]) * rvs[c];
+          pb[nt][e] = __bfloat162float(__float2bfloat16(p));  // the p . v dot takes bf16 weights
+        }
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        const char2 v2 = *reinterpret_cast<const char2*>(rv + c * D + 16 * gid + 2 * x);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            acc[nt][x][e] = fmaf(pb[nt][e], static_cast<float>(v2.x), acc[nt][x][e]);
+            acc[nt][x][2 + e] = fmaf(pb[nt][e], static_cast<float>(v2.y), acc[nt][x][2 + e]);
+          }
+      }
+    }
+  }
+
+  // ---- the CTA's (m, l, acc): the warps' partials summed in warp order ----
+  // in fragment order: value k = 32 nt + 4 x + c of lane L at k * 33 + L (rows padded: no bank conflict)
+  constexpr int KN = 32 * NT;
+  __syncthreads();  // every warp is done with the slots and the ring: they take the partials
+  float* part = reinterpret_cast<float*>(smem);  // [warps][KN][33]
+  float* fin = part + warps * KN * 33;           // [KN][33]
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int x = 0; x < 8; ++x)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[(warp * KN + 32 * nt + 4 * x + c) * 33 + lane] = acc[nt][x][c];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (gid == 0) red_a[warp * G16 + nt * 8 + 2 * tig + e] = l_w[nt][e];
+      if (gid == 0 && warp == 0) fin_m[nt * 8 + 2 * tig + e] = m_run[nt][e];
+    }
+  __syncthreads();
+  for (int e = threadIdx.x; e < KN * 33; e += blockDim.x) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w2 = 0; w2 < SPLIT_MAX_WARPS; ++w2)
+      if (w2 < warps) sum += part[w2 * KN * 33 + e];
+    fin[e] = sum;
+  }
+  if (threadIdx.x < G16) {
+    float sum = 0.f;
+    for (int w2 = 0; w2 < warps; ++w2) sum += red_a[w2 * G16 + threadIdx.x];
+    fin_l[threadIdx.x] = sum;
+  }
+
+  // ---- the cluster: this rank writes heads rank, rank + n, ... from every rank's (m, l, acc) ----
+  if (n_split > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+  const int my_heads = G > rank ? (G - rank + n_split - 1) / n_split : 0;
+  // [my head][rank]: exp(m_r - M), then the head's l (1 where it is 0); the partials are spent
+  float* wts = part;
+  constexpr int WS = SPLIT_MAX_CLUSTER + 1;
+  if (threadIdx.x < my_heads) {
+    const int g = rank + threadIdx.x * n_split;
+    float mr[SPLIT_MAX_CLUSTER], lr[SPLIT_MAX_CLUSTER];
+    float M = NEG_INF;
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) {
+        mr[r] = *rank_ptr(fin_m + g, r, n_split);
+        lr[r] = *rank_ptr(fin_l + g, r, n_split);
+      }
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) M = fmaxf(M, mr[r]);
+    float l_sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) {
+        mr[r] = expf(mr[r] - M);
+        l_sum += lr[r] * mr[r];
+      }
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) wts[threadIdx.x * WS + r] = mr[r];
+    wts[threadIdx.x * WS + SPLIT_MAX_CLUSTER] = l_sum == 0.f ? 1.f : l_sum;
+    const size_t row = (size_t)slot * Hq + (size_t)h * G + g;
+    m_out[row] = M;
+    l_out[row] = l_sum;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < my_heads * D; e += blockDim.x) {
+    const int j = e / D, d = e % D, g = rank + j * n_split;
+    // (head g, column d) is value k of lane L in the fragment order
+    const int hh = g % 8, k = 32 * (g / 8) + 4 * ((d % 16) / 2) + 2 * (d % 2) + (hh % 2);
+    const int at = k * 33 + 4 * (d / 16) + hh / 2;
+    float v[SPLIT_MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) v[r] = *rank_ptr(fin + at, r, n_split);
+    float o_sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) o_sum += v[r] * wts[j * WS + r];
+    o[((size_t)slot * Hq + (size_t)h * G + g) * D + d] = __float2bfloat16(o_sum / wts[j * WS + SPLIT_MAX_CLUSTER]);
+  }
+  if (n_split > 1) cluster_sync();  // no CTA leaves while another still reads its shared memory
+}
+
 // The ring's layer bases, by the caller (all null when C = 0).
 struct Staged {
   const unsigned char* k;
@@ -660,31 +1323,102 @@ int launch(const void* q, const unsigned char* kp, const unsigned char* vp, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+// The split kernel's plan (ops/paged_attention.py `paged_plan`).
+struct SplitPlan {
+  int n_split, warps, stages, bpw;
+};
+
+template <int NT, int BPW, bool PARTS>
+int launch_split(const void* q, const unsigned char* kp, const unsigned char* vp, const void* ks,
+                 const void* vs, const void* table, const void* lengths, void* o, void* m, void* l,
+                 const Staged& st, int S, int Hq, int Hkv, int page, int p_max, float scale,
+                 const SplitPlan& p, int smem, cudaStream_t stream) {
+  auto kernel = paged_kernel_int4_i8<NT, BPW, PARTS>;
+  int device = 0;
+  cudaGetDevice(&device);
+  static bool configured[64] = {};  // per device: the opt-in to large dynamic shared memory
+  if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured[device] = true;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(p.n_split, S, Hkv);
+  config.blockDim = dim3(32 * p.warps, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  if (p.n_split > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.n_split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+  }
+  return static_cast<int>(cudaLaunchKernelEx(
+      &config, kernel, static_cast<const __nv_bfloat16*>(q), kp, vp, static_cast<const __nv_bfloat16*>(ks),
+      static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(table), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(m), static_cast<float*>(l), st.k, st.v, st.ks, st.vs,
+      st.seg, Hq, Hkv, page, p_max, st.C, scale, p.stages));
+}
+
+// Whether a page passes in parts: more blocks than the CTA's warps x blocks a warp.
+bool split_parts(int page, const SplitPlan& p) {
+  return p.warps * p.bpw < (page / 2 + SPLIT_ROWS - 1) / SPLIT_ROWS;
+}
+
+// Bytes of dynamic shared memory of a split plan; -1 for a plan the kernel cannot run (a page in
+// parts needs 4 blocks a warp and one K and one V slot).
+int split_smem(int G, int page, int C, const SplitPlan& p) {
+  if (G < 1 || G > GMAX || page < 2 || page % 2 != 0 || C < 0 || p.n_split < 1 ||
+      p.n_split > SPLIT_MAX_CLUSTER || p.warps < 1 || p.warps > SPLIT_MAX_WARPS ||
+      !(p.bpw == 1 || p.bpw == 2 || p.bpw == 4) || p.stages < 1 || p.stages > SPLIT_MAX_STAGES ||
+      (split_parts(page, p) && (p.bpw != 4 || p.stages != 1)))
+    return -1;
+  return split_layout(G <= 8 ? 1 : 2, page, C, p.warps, p.bpw, p.stages).total;
+}
+
 }  // namespace
 
-// Dynamic shared memory (bytes) one CTA needs; the wrapper refuses shapes
-// beyond the card's opt-in limit before launching. C = staged ring cells (0: none).
+// Dynamic shared memory (bytes) one CTA of modes 0, 1 and 3 needs; the
+// wrapper refuses shapes beyond the card's opt-in limit before launching.
+// C = staged ring cells (0: none).
 extern "C" int st_paged_attention_smem(int mode, int G, int page, int C) {
   return make_layout(mode, G, page, C).total;
+}
+
+// Dynamic shared memory (bytes) of mode 2's split kernel under a plan
+// (cluster size, warps a CTA, ring slots, blocks a warp of a page); -1 for
+// a plan it cannot run.
+extern "C" int st_paged_split_smem(int G, int page, int C, int n_split, int warps, int stages, int bpw) {
+  return split_smem(G, page, C, SplitPlan{n_split, warps, stages, bpw});
 }
 
 // `page` is in token cells for every mode. The staging ring (C > 0): stage_k,
 // stage_v (L, S, Hkv, C, 128) bf16 (mode 0) | int8 (modes 1-3), stage_ks,
 // stage_vs (L, S, Hkv, C) bf16 (modes 1-3), stage_seg (S, C) int32; with
-// C = 0 they are not read. Returns cudaGetLastError() after the launch
-// (0 = launched).
+// C = 0 they are not read. Mode 2 runs the split kernel under the plan
+// (n_split, warps, stages, bpw) from ops/paged_attention.py `paged_plan` and
+// refuses (cudaErrorInvalidValue, before anything launches) a plan it cannot
+// run; the other modes ignore those four. Returns cudaGetLastError() after
+// the launch (0 = launched).
 extern "C" int st_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                   const void* k_scale, const void* v_scale,
                                   const void* page_table, const void* lengths, void* o, void* m,
                                   void* l, const void* stage_k, const void* stage_v,
                                   const void* stage_ks, const void* stage_vs, const void* stage_seg,
                                   int S, int Hq, int Hkv, int page, int D_, int p_max,
-                                  int n_pages, int layer, int mode, int C, float scale, void* stream) {
+                                  int n_pages, int layer, int mode, int C, int n_split, int warps,
+                                  int stages, int bpw, float scale, void* stream) {
   if (D_ != D || Hq % Hkv != 0 || Hq / Hkv > GMAX || page < 2 || page % 2 != 0 || S < 1 ||
-      mode < MODE_BF16 || mode > MODE_INT4 || C < 0)
+      S > 65535 || Hkv > 65535 || mode < MODE_BF16 || mode > MODE_INT4 || C < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = make_layout(mode, Hq / Hkv, page, C).total;
-  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  const SplitPlan plan{n_split, warps, stages, bpw};
+  const int smem =
+      mode == MODE_INT4_I8 ? split_smem(Hq / Hkv, page, C, plan) : make_layout(mode, Hq / Hkv, page, C).total;
+  if (smem < 0 || smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const size_t rows = packed(mode) ? page / 2 : page;
   const size_t row_bytes = mode == MODE_BF16 ? D * 2 : D;
   const size_t layer_bytes = (size_t)n_pages * Hkv * rows * row_bytes;
@@ -717,9 +1451,17 @@ extern "C" int st_paged_attention(const void* q, const void* k_pool, const void*
     case MODE_INT8:
       return launch<MODE_INT8>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv,
                                page, p_max, scale, smem, s);
-    case MODE_INT4_I8:
-      return launch<MODE_INT4_I8>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv,
-                                  page, p_max, scale, smem, s);
+    case MODE_INT4_I8: {
+      const bool parts = split_parts(page, plan);
+#define SPLIT_LAUNCH(NT, BPW, PARTS)                                                                 \
+  if ((Hq / Hkv <= 8 ? 1 : 2) == NT && bpw == BPW && parts == PARTS)                               \
+    return launch_split<NT, BPW, PARTS>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv, \
+                                        page, p_max, scale, plan, smem, s);
+      SPLIT_LAUNCH(1, 1, false) SPLIT_LAUNCH(1, 2, false) SPLIT_LAUNCH(1, 4, false) SPLIT_LAUNCH(1, 4, true)
+      SPLIT_LAUNCH(2, 1, false) SPLIT_LAUNCH(2, 2, false) SPLIT_LAUNCH(2, 4, false) SPLIT_LAUNCH(2, 4, true)
+#undef SPLIT_LAUNCH
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     default:
       return launch<MODE_INT4>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv,
                                page, p_max, scale, smem, s);

@@ -38,24 +38,40 @@ dots, q quantized per row and the weights per row per page against the
 running max). ``paged_attention_gathered`` is the exact dense-gather reference (the
 JAX package's XLA fallback): dequantize, one masked softmax in fp32.
 
+The int4 kernel with int8 dots runs one plan per call (``paged_plan``: a
+slot's pages over a cluster of CTAs, the ring depth, the warps); the plain
+version states its function, which the split leaves unchanged but for exp
+rounding.
+
 The wrapper runs the plain versions for CPU tensors only. A CUDA tensor
 launches the kernel or raises — nothing falls back.
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from .. import csrc
 from .flash_attention import NEG_INF
+from .int8_matmul import _stream
 
 KV4_BIAS = 8
 KERNEL_HEAD_DIM = 128
 KERNEL_MAX_GROUP = 16
 KERNEL_MAX_SMEM = 232448  # dynamic shared memory a block may opt in to on sm_90
 MODE_BF16, MODE_INT8, MODE_INT4_I8, MODE_INT4 = 0, 1, 2, 3
+
+# mode 2's split kernel (``csrc/paged_attention.cu`` ``paged_kernel_int4_i8``)
+SPLIT_ROWS = 16               # byte rows of a block: 32 cells, the K of one product
+SPLIT_MAX_CLUSTER = 8         # the portable cluster size
+SPLIT_MAX_WARPS = 8
+SPLIT_MAX_STAGES = 4
+SPLIT_BLOCKS = (1, 2, 4)      # blocks a warp takes of a page (of each part of it): the built kernels
+SMEM_BUDGET_TWO = 113 * 1024  # a ring this size leaves room for two CTAs an SM
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 Staged = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor], torch.Tensor]
@@ -73,6 +89,107 @@ def _pool_mode(k_pool: torch.Tensor, k_scale, int4_i8dot: bool) -> int:
     if k_scale is not None:
         raise ValueError(f"scales given for a {k_pool.dtype} pool")
     return MODE_BF16
+
+
+@dataclass(frozen=True)
+class PagedPlan:
+    """How mode 2's split kernel cuts a call: ``cluster`` CTAs (ranks) per
+    (slot, kv head), rank r taking the pages r, r + cluster, ... and the last
+    rank the staging ring; ``warps`` warps a CTA, warp w taking the blocks
+    w, w + warps, ... (``blocks_per_warp`` at most) of 16 byte rows of a page,
+    or of each of its ``parts`` (pages with more blocks than warps x 4 pass in
+    parts of that many blocks); rings of ``stages`` K slots (a page's or a
+    part's K rows and the page's scale vectors) and as many V slots; ``smem``
+    bytes of shared memory a CTA; ``ctas`` CTAs a call."""
+
+    cluster: int
+    warps: int
+    stages: int
+    blocks_per_warp: int
+    parts: int
+    smem: int
+    ctas: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def split_smem(g: int, page: int, ring: int, warps: int, blocks_per_warp: int, stages: int) -> int:
+    """Bytes of shared memory of a split-kernel CTA (``split_layout`` in the
+    ``.cu`` file): the K slots (K rows, both scale vectors) and V slots, the
+    ring's cells (these three later hold the warps' partial outputs in rows
+    padded to 33 words; a slot holds at most the rows the warps' blocks
+    cover), q in int8 and (with a ring) fp32, the warps' int8
+    weight records, the per-warp row maxima, the per-head statistics, the
+    ring's scales and scores, the mbarriers."""
+    g16 = 8 if g <= 8 else 16
+    d = KERNEL_HEAD_DIM
+    kbytes = min(_round_up(page // 2, SPLIT_ROWS), warps * blocks_per_warp * SPLIT_ROWS) * d
+    kslot = kbytes + 2 * _round_up(page * 2, 16)
+    off = stages * (kslot + kbytes) + 2 * ring * d
+    off = _round_up(max(off, (warps + 1) * g16 * d * 4 * 33 // 32), 16)
+    off += g16 * d + (g16 * (d + 4) * 4 if ring else 0)
+    off += warps * blocks_per_warp * g16 * 32 + 2 * warps * g16 * 4 + 4 * g16 * 4
+    off += _round_up(ring * 4 * (3 + g16), 16) + (2 * stages + 1) * 8
+    return off
+
+
+@functools.lru_cache(maxsize=None)
+def device_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def paged_plan(slots: int, hkv: int, g: int, page: int, p_max: int, ring: int = 0, *, sms: int,
+               cluster: Optional[int] = None, warps: Optional[int] = None,
+               stages: Optional[int] = None) -> PagedPlan:
+    """The plan the card runs for mode 2 (int4 pools, int8 dots): ``slots``
+    slots, ``hkv`` kv heads of ``g`` query heads, pages of ``page`` cells, a
+    page table ``p_max`` pages wide, ``ring`` staging-ring cells (0: none), on
+    a device of ``sms`` streaming multiprocessors (``device_sms``).
+    ``cluster``, ``warps`` and ``stages`` override the choice (for
+    measurements and tests). The rule is the measured one (``time_paged.py
+    --sweep``, PERF.md §6): a CTA costs a few µs before its first page, so the
+    cluster splits a slot's pages only where the (slot, kv head) pairs leave
+    SMs idle -- up to ``sms`` CTAs a call, at most 8 ranks and no more than
+    the table has pages; as many warps as a page has blocks of 16 byte rows,
+    up to 8 (a page of more blocks than 8 warps x 4 passes in parts, through
+    one K and one V slot); the deepest ring (up to a rank's pages) that keeps
+    a CTA within SMEM_BUDGET_TWO, one slot pair where even that does not fit
+    (the ring's depth measured no different). Raises ValueError for a plan
+    the kernel cannot run; the C side refuses the same."""
+    if not (1 <= g <= KERNEL_MAX_GROUP and page >= 2 and page % 2 == 0 and slots >= 1 and hkv >= 1
+            and p_max >= 1 and ring >= 0):
+        raise ValueError(f"no split plan for G={g}, page={page}, {slots} slots, P_max={p_max}, ring {ring}")
+    blocks = -(-(page // 2) // SPLIT_ROWS)
+    warps = min(SPLIT_MAX_WARPS, blocks) if warps is None else warps
+    if not 1 <= warps <= SPLIT_MAX_WARPS:
+        raise ValueError(f"{warps} warps: 1 to {SPLIT_MAX_WARPS} run")
+    need = -(-blocks // warps)
+    bpw = next((b for b in SPLIT_BLOCKS if b >= need), SPLIT_BLOCKS[-1])
+    parts = -(-blocks // (warps * bpw))
+    if parts > 1 and stages not in (None, 1):
+        raise ValueError(f"a page of {page} cells passes in {parts} parts through one slot pair, not {stages}")
+    if cluster is None:
+        cluster = max(1, min(SPLIT_MAX_CLUSTER, p_max, sms // (slots * hkv)))
+    if not 1 <= cluster <= SPLIT_MAX_CLUSTER:
+        raise ValueError(f"a cluster of {cluster}: 1 to {SPLIT_MAX_CLUSTER} run")
+    if parts > 1:
+        stages = 1
+    elif stages is None:
+        deepest = min(SPLIT_MAX_STAGES, -(-p_max // cluster))
+        stages = next((s for s in range(deepest, 0, -1)
+                       if split_smem(g, page, ring, warps, bpw, s) <= SMEM_BUDGET_TWO), 1)
+    if not 1 <= stages <= SPLIT_MAX_STAGES:
+        raise ValueError(f"a ring of {stages} stages: 1 to {SPLIT_MAX_STAGES} run")
+    smem = split_smem(g, page, ring, warps, bpw, stages)
+    if smem > KERNEL_MAX_SMEM:
+        raise ValueError(f"page {page} with {g} query heads, {ring} ring cells, {warps} warps and {stages} "
+                         f"stages needs {smem} bytes of shared memory per block; the card allows "
+                         f"{KERNEL_MAX_SMEM}")
+    return PagedPlan(cluster, warps, stages, bpw, parts, smem, cluster * slots * hkv)
 
 
 def _page_cells(k_pool: torch.Tensor) -> int:
@@ -361,7 +478,9 @@ def _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scal
 
 
 def _launch(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, scale,
-            staged: Optional[Staged], mode: int) -> Stats:
+            staged: Optional[Staged], mode: int, plan: Optional[PagedPlan] = None) -> Stats:
+    """One launch of the kernel of ``mode``; mode 2 under ``plan`` (default
+    ``paged_plan`` of the call's shapes)."""
     _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, mode,
                        staged)
     s_slots, hq, d = q.shape
@@ -369,28 +488,35 @@ def _launch(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale,
     page = _page_cells(k_pool)
     c = 0 if staged is None else staged[0].shape[3]
     lib = csrc.library()
-    smem = lib.st_paged_attention_smem(mode, hq // hkv, page, c)
-    if smem > KERNEL_MAX_SMEM:
-        raise ValueError(
-            f"page size {page} with {hq // hkv} query heads per kv head and {c} ring cells needs "
-            f"{smem} bytes of shared memory per block; the card allows {KERNEL_MAX_SMEM}"
-        )
+    if mode == MODE_INT4_I8:
+        plan = plan or paged_plan(s_slots, hkv, hq // hkv, page, page_table.shape[1], c,
+                                  sms=device_sms(q.device.index))
+        plan_args = (plan.cluster, plan.warps, plan.stages, plan.blocks_per_warp)
+    else:
+        smem = lib.st_paged_attention_smem(mode, hq // hkv, page, c)
+        if smem > KERNEL_MAX_SMEM:
+            raise ValueError(
+                f"page size {page} with {hq // hkv} query heads per kv head and {c} ring cells needs "
+                f"{smem} bytes of shared memory per block; the card allows {KERNEL_MAX_SMEM}"
+            )
+        plan_args = (0, 0, 0, 0)
     out = torch.empty_like(q)
-    m = torch.empty((s_slots, hq), dtype=torch.float32, device=q.device)
-    l = torch.empty((s_slots, hq), dtype=torch.float32, device=q.device)
+    m, l = torch.empty((2, s_slots, hq), dtype=torch.float32, device=q.device)  # one allocation
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     ring = (None,) * 5 if staged is None else staged
-    with torch.cuda.device(q.device):
-        rc = lib.st_paged_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
+    args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
             *(ptr(t) for t in ring),
-            s_slots, hq, hkv, page, d, page_table.shape[1], n_pages, int(layer_idx), mode, c,
-            float(scale), torch.cuda.current_stream().cuda_stream,
-        )
+            s_slots, hq, hkv, page, d, page_table.shape[1], n_pages, int(layer_idx), mode, c, *plan_args,
+            float(scale))
+    if q.device.index == torch.cuda.current_device():
+        rc = lib.st_paged_attention(*args, _stream(q.device))
+    else:
+        with torch.cuda.device(q.device):
+            rc = lib.st_paged_attention(*args, _stream(q.device))
     csrc.check_launch(rc, "paged attention")
     if staged is not None:
         _launch.staged_launches += 1
@@ -404,9 +530,9 @@ def _launch_pool_kernel(*args, mode: int) -> Stats:
     return res
 
 
-def _launch_int4_i8_kernel(*args) -> Stats:
-    """int4 pools with int8 dots (mode 2 of the kernel)."""
-    res = _launch(*args, mode=MODE_INT4_I8)
+def _launch_int4_i8_kernel(*args, plan: Optional[PagedPlan] = None) -> Stats:
+    """int4 pools with int8 dots (mode 2: the split kernel, under ``plan``)."""
+    res = _launch(*args, mode=MODE_INT4_I8, plan=plan)
     _launch_int4_i8_kernel.launches += 1
     return res
 

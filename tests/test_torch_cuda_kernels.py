@@ -37,11 +37,21 @@ the int32 dot is exact whatever the plan's split of K and the epilogue rounds
 the same two products in the same order: equal bit for bit, and two calls
 bit-identical.
 The staged block of the paged kernels: the paged tolerances above.
+The paged int4 kernel with int8 dots (#9) splits a slot's pages over the
+ranks of a cluster, each with its own running max, and takes the weights'
+exp through ex2 and their quantization as a product with 1 / pscale: the
+int8 weights of a page do not depend on which max they are relative to, so
+the same paged tolerances hold (m, l 2e-3, o 1e-2); two calls bit-identical
+(ranks meet in rank order, warps in warp order, no atomics).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
+
+import paged_cases
 
 from spatialthinker_torch.ops import decode_attention as da
 from spatialthinker_torch.ops.decode_attention import decode_attention, decode_attention_plain
@@ -453,6 +463,9 @@ PAGED_CASES = [
     ("int4", 8, 1024, (1500, 1024, 3, 2048)),
     ("int4", 7, 6, (11, 6, 1, 17, 0)),
     ("int4", 16, 130, (300, 131, 65, 66)),
+    ("int4", 8, 2048, (5000, 2048, 3, 0, 1100)),  # pages beyond 1,024 cells pass in parts
+    ("int4", 16, 2050, (4100, 2051, 1025, 1)),
+    ("int4", 8, 4096, (9000, 4096, 600, 0)),
     ("int4_bf16dot", 8, 256, (600, 256, 37, 0, 511)),
     ("int4_bf16dot", 8, 1024, (1500, 1024, 3, 2048)),
     ("int4_bf16dot", 7, 6, (11, 6, 1, 17, 0)),
@@ -511,6 +524,7 @@ STAGED_CASES = [  # kind, G, page, lengths, ring cells
     ("int4_bf16dot", 8, 256, (600, 256, 37, 0, 511), 16),
     ("int4", 7, 6, (11, 6, 1, 17, 0), 80),  # a ring over two staging tiles
     ("int8", 7, 130, (300, 131, 0, 390), 3),
+    ("int4", 8, 2048, (5000, 2048, 3, 0), 16),  # the ring after pages in parts
 ]
 
 
@@ -536,6 +550,100 @@ def test_staged_block_matches_plain(dev, kind, g, page, lengths, c):
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
     unfused = pa.paged_attention(*args, return_stats=True, int4_i8dot=i8)
     assert not torch.equal(unfused[2], l)  # the ring cells entered
+
+
+def _shipped_case(dev):
+    """The shipped scale of #9 (``paged_cases.make_shipped``): 128 lanes in
+    16 groups of 8 sharing their prompt pages + the trash lane, page 1024,
+    lengths in [6144, 8192], a one-layer pool."""
+    return paged_cases.call_args(torch, paged_cases.make_shipped(torch, np, dev), dev)
+
+
+def _assert_paged_close(o, m, l, ref):
+    o_ref, m_ref, l_ref = ref
+    torch.testing.assert_close(m, m_ref, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(l, l_ref, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_paged_int4_i8_shipped_scale(dev):
+    """#9 at the shipped scale (page 1024, 129 lanes, 16 groups of 8 sharing
+    their prompt pages, up to 8 pages a slot) against the plain version."""
+    args = _shipped_case(dev)
+    ref = pa.paged_attention_int4_i8_plain(*args, 128**-0.5)
+    o, m, l = pa.paged_attention(*args, return_stats=True, int4_i8dot=True)
+    torch.cuda.synchronize()
+    _assert_paged_close(o, m, l, ref)
+    assert torch.all(o[-1] == 0) and torch.all(l[-1] == 0) and torch.all(m[-1] == -1e30)
+
+
+@pytest.mark.parametrize("ring", [0, 16])
+@pytest.mark.parametrize("g,page,lengths", [(8, 256, (600, 256, 37, 0, 511)), (8, 1024, (1500, 1024, 3, 2048)),
+                                            (7, 6, (11, 6, 1, 17, 0))])
+def test_paged_int4_i8_bit_identical_twice(dev, g, page, lengths, ring):
+    """Two calls of the split kernel agree bit for bit: the ranks meet in
+    rank order and the warps' partials in warp order, no atomics."""
+    rng = np.random.default_rng(page + g + ring)
+    args = _paged_case(rng, dev, "int4", g, page, lengths)
+    staged = _ring(rng, dev, "int4", lengths, ring) if ring else None
+    first = pa.paged_attention(*args, return_stats=True, int4_i8dot=True, staged=staged)
+    second = pa.paged_attention(*args, return_stats=True, int4_i8dot=True, staged=staged)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("cluster,warps,stages", [(1, None, 1), (3, None, 2), (4, 2, 3), (8, None, 4), (2, 4, 1),
+                                                  (1, 1, None), (3, 1, 1)])
+@pytest.mark.parametrize("ring", [0, 16])
+def test_paged_int4_i8_other_plans_match_plain(dev, cluster, warps, stages, ring):
+    """Plans the rule would not pick (other cluster sizes, fewer warps taking
+    more blocks each, deeper or shallower rings; a cluster wider than a slot's
+    pages; one warp, so a page of 256 cells passes in two parts) still equal
+    the plain version, with and without the ring."""
+    lengths = (600, 256, 37, 0, 511, 1)
+    rng = np.random.default_rng(cluster + ring)
+    args = _paged_case(rng, dev, "int4", 8, 256, lengths)
+    staged = _ring(rng, dev, "int4", lengths, ring) if ring else None
+    sms = pa.device_sms(0)
+    plan = pa.paged_plan(len(lengths), 2, 8, 256, args[3].shape[1], ring, sms=sms, cluster=cluster, warps=warps,
+                         stages=stages)
+    assert plan != pa.paged_plan(len(lengths), 2, 8, 256, args[3].shape[1], ring, sms=sms)
+    ref = pa.paged_attention_int4_i8_plain(*args, 128**-0.5, staged)
+    before = pa._launch_int4_i8_kernel.launches
+    o, m, l = pa._launch_int4_i8_kernel(*args, 128**-0.5, staged, plan=plan)
+    torch.cuda.synchronize()
+    assert pa._launch_int4_i8_kernel.launches == before + 1
+    _assert_paged_close(o, m, l, ref)
+
+
+def test_paged_int4_i8_refused_plans(dev):
+    """The plan refuses what the kernel cannot run, and the C side refuses a
+    plan that bypasses it, before anything launches."""
+    rng = np.random.default_rng(3)
+    lengths = (600, 256, 37, 0, 511)
+    args = _paged_case(rng, dev, "int4", 8, 256, lengths)
+    p_max, sms = args[3].shape[1], pa.device_sms(0)
+    for bad in (dict(cluster=9), dict(warps=9), dict(stages=5), dict(stages=0), dict(warps=1, stages=2)):
+        with pytest.raises(ValueError):
+            pa.paged_plan(len(lengths), 2, 8, 256, p_max, sms=sms, **bad)
+    with pytest.raises(ValueError, match="parts"):
+        pa.paged_plan(4, 2, 8, 2048, 3, sms=sms, stages=2)  # 64 blocks a page: two parts through one slot pair
+    good = pa.paged_plan(len(lengths), 2, 8, 256, p_max, sms=sms)
+    for bad in (dict(cluster=9), dict(warps=1), dict(blocks_per_warp=3), dict(stages=0), dict(stages=5)):
+        plan = dataclasses.replace(good, **bad)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            pa._launch_int4_i8_kernel(*args, 128**-0.5, None, plan=plan)
+
+
+def test_paged_split_smem_matches_plan(dev):
+    """``split_smem`` (Python) and ``split_layout`` (the .cu file) agree."""
+    lib = pa.csrc.library()
+    for g in (7, 8, 16):
+        for page in (6, 130, 256, 1024, 2048, 2050, 4096):
+            for ring in (0, 3, 16):
+                plan = pa.paged_plan(65, 2, g, page, 9, ring, sms=pa.device_sms(0))
+                assert lib.st_paged_split_smem(g, page, ring, plan.cluster, plan.warps, plan.stages,
+                                               plan.blocks_per_warp) == plan.smem
 
 
 W8A8_LINEARS = {  # (K, N, the linear's out dtype): the 3B and 7B presets
