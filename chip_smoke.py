@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
+Needs a CUDA device and nvcc (every kernel is CUDA C++ from
+``spatialthinker_torch/csrc``; no Triton is imported on any path); exits
+non-zero without a device. In order:
 
 1. prints the card's ``nvidia-smi`` name and power limit;
 2. builds the CUDA kernels from ``spatialthinker_torch/csrc`` (prints seconds);
@@ -14,7 +16,10 @@ Needs a CUDA device, nvcc and triton; exits non-zero without a device. In order:
    the peak rate, whichever is larger) and, for the flash and dense-decode
    kernels, times ``F.scaled_dot_product_attention`` with the equivalent
    mask as a yardstick (used nowhere in the port; for the quantized dense
-   caches on the dequantized cache); the flash forward (its range launch
+   caches on the dequantized cache); the dense decode kernel's bf16 and int8
+   lines and the silu junction's print the call's plan and fail unless two
+   more calls agree bit for bit (the silu lines also print whether the kernel
+   equals its plain version bit for bit); the flash forward (its range launch
    and the kernel, one call: both counted, the range tables held against
    ``tile_ranges``) and the
    flash backward (pre-pass, dQ, dK/dV) are held against ``flash_fwd_plain``,
@@ -766,6 +771,7 @@ def check_decode(dev, cfg, rows: int, width: int, prompt_len: int):
     out = da.decode_attention(q, kc, vc, seg, layer)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    plan, twice = decode_plan_and_twice(q, kc, vc, seg, layer)
     plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, kc, vc, seg, layer, scale))
     ms = cuda_ms(lambda: da.decode_attention(q, kc, vc, seg, layer))
     g = tc.num_attention_heads // tc.num_key_value_heads
@@ -779,12 +785,24 @@ def check_decode(dev, cfg, rows: int, width: int, prompt_len: int):
     b_ms, b_by = bound_ms(cells * cell_bytes + nbytes(q, out, seg),
                           4.0 * cells * tc.num_attention_heads * tc.head_dim, "bf16")
     print(f"decode: q{tuple(q.shape)} cache{tuple(kc.shape)} layer={layer} max_abs_err={err:.3e} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
-          flush=True)
-    if not err <= OUT_ATOL:
-        raise AssertionError("decode kernel disagrees with plain")
+          f"bit_identical_twice={twice} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by}) plan={json.dumps(plan)}", flush=True)
+    if not (err <= OUT_ATOL and twice):
+        raise AssertionError("decode kernel disagrees with plain or with itself")
     return [dict(shape="sampled_call_cache", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)]
+                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bit_identical_twice=twice, plan=plan)]
+
+
+def decode_plan_and_twice(q, kc, vc, seg, layer, ks=None, vs=None):
+    """(the split kernel's plan of a bf16 / int8 call as a dict; whether two
+    more calls agree bit for bit)."""
+    mode = da.MODE_BF16 if ks is None else da.MODE_INT8
+    plan = da.decode_plan(q.shape[0], kc.shape[2], q.shape[1] // kc.shape[2], kc.shape[3], mode,
+                          sms=pa.device_sms(q.device.index)).__dict__
+    first = da.decode_attention(q, kc, vc, seg, layer, ks, vs)
+    second = da.decode_attention(q, kc, vc, seg, layer, ks, vs)
+    torch.cuda.synchronize()
+    return plan, bool(torch.equal(first, second))
 
 
 def check_decode_quant(dev, cfg, kind: str, rows: int, width: int, prompt_len: int):
@@ -832,6 +850,7 @@ def decode_quant_case(cfg, kind: str, q, kc, vc, seg, layer: int, ks, vs, label:
     err = (out.float() - ref.float()).abs().max().item()
     dead = (seg == 0).all(dim=1)
     dead_ok = bool(torch.all(out[dead] == 0))
+    plan, twice = decode_plan_and_twice(q, kc, vc, seg, layer, ks, vs) if kind == "int8" else (None, True)
     plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, kc, vc, seg, layer, scale, ks, vs, i8), iters=10)
     ms = cuda_ms(lambda: da.decode_attention(q, kc, vc, seg, layer, ks, vs, int4_i8dot=i8))
     g = hq // hkv
@@ -853,12 +872,13 @@ def decode_quant_case(cfg, kind: str, q, kc, vc, seg, layer: int, ks, vs, label:
     print(f"decode {kind} [{label}]: q{tuple(q.shape)} cache{tuple(kc.shape)} cells={cells} "
           f"rows_without_cells={int(dead.sum())} cache_bytes_per_launch="
           f"{nbytes(kc[layer], vc[layer], ks[layer], vs[layer])} layer={layer} max_abs_err={err:.3e} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_dequantized_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
-          flush=True)
-    if not (err <= DECODE_QUANT_ATOL and dead_ok):
-        raise AssertionError(f"decode kernel ({kind}, {label}) disagrees with plain")
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_dequantized_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})"
+          + (f" bit_identical_twice={twice} plan={json.dumps(plan)}" if kind == "int8" else ""), flush=True)
+    if not (err <= DECODE_QUANT_ATOL and dead_ok and twice):
+        raise AssertionError(f"decode kernel ({kind}, {label}) disagrees with plain or with itself")
+    extra = dict(bit_identical_twice=twice, plan=plan) if kind == "int8" else {}
     return [dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                 library_ms=lib_ms)]
+                 library_ms=lib_ms, **extra)]
 
 
 @contextmanager
@@ -1136,21 +1156,26 @@ def silu_case(gu, label: str):
     m, inter = gu.shape[0], gu.shape[1] // 2
     q_ref, s_ref = sq.fused_silu_quantize_plain(gu)
     q, s = sq.fused_silu_quantize(gu)
+    q2, s2 = sq.fused_silu_quantize(gu)
     torch.cuda.synchronize()
     diff = (q.int() - q_ref.int()).abs()
     err = float(diff.max())
     flips = float((diff != 0).float().mean())
     scale_err = ((s - s_ref).abs() / s_ref).max().item()
+    bit_equal = bool(torch.equal(q, q_ref) and torch.equal(s, s_ref))
+    twice = bool(torch.equal(q, q2) and torch.equal(s, s2))
+    plan = sq.silu_plan(inter).__dict__
     plain_ms = cuda_ms(lambda: sq.fused_silu_quantize_plain(gu), iters=10)
     ms = cuda_ms(lambda: sq.fused_silu_quantize(gu))
     b_ms, b_by = bound_ms(nbytes(gu, q, s), 12.0 * m * inter, "fp32")
     print(f"silu_quant [{label}]: gu{tuple(gu.shape)} max_abs_err={err:.0f} (int8 steps) differing={flips:.2e} "
-          f"scale_rel_err={scale_err:.2e} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
-          flush=True)
-    if not (err <= 1 and flips < 1e-2 and scale_err <= SILU_SCALE_RTOL):
-        raise AssertionError(f"silu_quant kernel disagrees with plain ({label})")
-    return [dict(shape=label, max_abs_err=err, differing=flips, scale_rel_err=scale_err,
-                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)]
+          f"scale_rel_err={scale_err:.2e} bit_equal_to_plain={bit_equal} bit_identical_twice={twice} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) plan={json.dumps(plan)}", flush=True)
+    if not (err <= 1 and flips < 1e-2 and scale_err <= SILU_SCALE_RTOL and twice):
+        raise AssertionError(f"silu_quant kernel disagrees with plain or with itself ({label})")
+    return [dict(shape=label, max_abs_err=err, differing=flips, scale_rel_err=scale_err, bit_equal_to_plain=bit_equal,
+                 bit_identical_twice=twice, plan=plan, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None)]
 
 
 def _int4_case(name, m, fn, plain_fn, lib_fn, n_bytes, n_ops):
@@ -2421,7 +2446,7 @@ def main() -> int:
               r["int4_cases"], paged_l["paged_attention_int4_i8"],
               launches_training_path=train_l["paged_attention_int4_i8"],
               launches_trainer_path=trainer_l["paged_attention_int4_i8"]),
-        entry("silu_quant", "triton", "spatialthinker_torch/ops/silu_quant.py",
+        entry("silu_quant", "cuda", "spatialthinker_torch/csrc/silu_quant.cu",
               "spatialthinker_tpu/ops/int8_matmul.py:128", r["silu_cases"] + g_res["silu_cases"],
               paged_l["silu_quant"],
               launches_training_path=train_l["silu_quant"], launches_trainer_path=trainer_l["silu_quant"],

@@ -24,9 +24,10 @@ CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR / "build"
 SOURCES = (
     "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "paged_attention.cu",
-    "int4_mlp.cu", "int8_matmul.cu",
+    "int4_mlp.cu", "int8_matmul.cu", "silu_quant.cu",
 )
-HEADERS = ("flash_common.cuh",)  # included by the two flash sources; part of the library's hash
+# included by the two flash sources, and by the decode, paged and W8A8 sources; part of the library's hash
+HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -35,6 +36,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # q_seg, kv_seg, q_rng, kv_rng, B, Sq, Skv, stream
     "st_flash_ranges": [_P] * 4 + [_I] * 3 + [_P],
@@ -49,11 +51,21 @@ _SIGNATURES = {
     # q, k, v, dO, lse, delta, q_seg, kv_seg, q_rng, kv_rng, dk, dv, part_dk, part_dv,
     # B, Sq, Skv, Hq, Hkv, D, n_split, heads_per_split, causal, scale, stream
     "st_flash_bwd_dkv": [_P] * 14 + [_I] * 9 + [_F, _P],
-    # q, k_cache, v_cache, k_scale, v_scale, kv_seg, o, B, Hq, Hkv, S, D, layer, mode,
+    # (int4 modes) q, k_cache, v_cache, k_scale, v_scale, kv_seg, o, B, Hq, Hkv, S, D, layer, mode,
     # block_rows, scale, stream
     "st_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
     # mode, G, block_rows -> bytes of dynamic shared memory per block
     "st_decode_attention_smem": [_I] * 3,
+    # (bf16 / int8) q, k_cache, v_cache, k_scale, v_scale, kv_seg, o, L, B, Hq, Hkv, S, layer, mode,
+    # (the plan:) n_split, stages, scale, stream
+    "st_decode_split": [_P] * 7 + [_I] * 9 + [_F, _P],
+    # mode, G, n_split, stages -> bytes of the split kernel's plan (-1: refused)
+    "st_decode_split_smem": [_I] * 4,
+    # gu, q, s, M, I, row stride, dtype, stream
+    "st_silu_quant": [_P] * 3 + [_I] * 2 + [_L, _I, _P],
+    # I -> threads / bytes of dynamic shared memory of a row's CTA
+    "st_silu_quant_threads": [_I],
+    "st_silu_quant_smem": [_I],
     # q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, o, m, l,
     # stage_k, stage_v, stage_ks, stage_vs, stage_seg,
     # S, Hq, Hkv, page, D, P_max, n_pages, layer, mode, C, (mode 2's plan:) n_split, warps, stages,

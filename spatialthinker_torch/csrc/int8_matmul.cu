@@ -66,10 +66,11 @@
 // epilogue with the next tile's loads; TMA multicast of a weight tile to the
 // row tiles of a cluster at prefill.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder comes through the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -175,30 +176,6 @@ quantize_rows_kernel(const InT* __restrict__ x, int8_t* __restrict__ xq, float* 
   for (int v = threadIdx.x + HOLD * QTHREADS; v < nv; v += QTHREADS) vec_store(xr[v], s, qr + v * VEC, InT());
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers and TMA ----
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 // A box of `map` at (k byte c0, row c1) into shared memory; completes `bar`'s transaction bytes.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
   asm volatile(
@@ -208,9 +185,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
 }
 
 // ---- distributed shared memory of a cluster ----
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
 __device__ __forceinline__ int4 ld_cluster_int4(uint32_t local, int rank) {
   uint32_t remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
@@ -358,7 +332,7 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constan
                  int n, int k_steps, int splits, int stages, int a_bytes) {
   using T = Tile<MB, BN>;
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t full0 = base + T::body_bytes(stages, splits, a_bytes);
   const int stage_bytes = a_bytes + T::B_BYTES;
@@ -518,27 +492,6 @@ cudaError_t launch_quantize(const InT* x, void* xq, void* xs, int m, int k, cuda
                                   : quantize_rows_kernel<InT, 8>;
   kernel<<<m, QTHREADS, 0, s>>>(x, static_cast<int8_t*>(xq), static_cast<float*>(xs), k);
   return cudaGetLastError();
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to libcuda).
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A (rows, k) int8 row-major matrix, read in boxes of 128 k-bytes x box_rows

@@ -100,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 constexpr int D = 128;        // head dim (text heads of the 3B/7B presets)
@@ -111,7 +113,6 @@ constexpr float NEG_INF = -1e30f;
 constexpr int MODE_BF16 = 0, MODE_INT8 = 1, MODE_INT4_I8 = 2, MODE_INT4 = 3;
 constexpr int MAX_SMEM = 232448;  // bytes a block may opt in to on sm_90
 
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 // int4 pools are packed: byte row r = cells r and r + page/2 (mode 2 runs
 // the split kernel further down, not this template)
 __host__ __device__ inline bool packed(int mode) { return mode == MODE_INT4_I8 || mode == MODE_INT4; }
@@ -146,18 +147,6 @@ __host__ __device__ inline Layout make_layout(int mode, int G, int page, int C) 
   L.off_small = off;      off += 5 * GMAX * 4;
   L.total = off;
   return L;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 // Stage `n_rows` (<= TILE) rows of `row_bytes` bytes into the padded tile;
@@ -630,32 +619,6 @@ __host__ __device__ inline SplitLayout split_layout(int nt, int page, int C, int
   return L;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// `bytes` (a multiple of 16) from global `src` to shared `dst` (both 16-byte
-// aligned) in one bulk copy that completes `bar`'s transaction bytes
-__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
@@ -679,26 +642,6 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&
   c[2] = __byte_perm(t1, t3, 0x5410);
   c[3] = __byte_perm(t1, t3, 0x7632);
 }
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-// this CTA's shared address `p` in cluster rank `rank`'s shared memory, as a
-// generic pointer (plain loads the compiler can overlap)
-__device__ __forceinline__ const float* rank_ptr(const float* p, int rank, int n) {
-  return n == 1 ? p : static_cast<const float*>(__cluster_map_shared_rank(const_cast<float*>(p), rank));
-}
-// max / sum over the 8 lanes of a column of a fragment (lanes of one tig)
-__device__ __forceinline__ float gid_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 16));
-}
-__device__ __forceinline__ float gid_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  x += __shfl_xor_sync(0xffffffffu, x, 8);
-  return x + __shfl_xor_sync(0xffffffffu, x, 16);
-}
-
 // NT: N tiles of 8 heads (1: G <= 8, 2: G <= 16); BPW: blocks a warp takes of
 // a page (1, 2 or 4) or of each part of it; PARTS: a page has more blocks
 // than warps x BPW and passes in parts. Fragment ownership (gid = lane / 4, tig = lane % 4):

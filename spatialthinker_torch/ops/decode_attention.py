@@ -9,7 +9,11 @@ every valid cell". Rows with no valid cell give zeros. Four cache formats:
 
 - bf16 (the TPU kernel ``_decode_kernel``) -> ``decode_attention.launches``;
 - int8 values with per-cell bf16 scales (L, B, Hkv, S) (``_decode_kernel``,
-  ``quantized=True``) -> ``_launch_int8_kernel``;
+  ``quantized=True``) -> ``_launch_int8_kernel``. These two run the split
+  kernel under one plan per call, ``decode_plan``: the 64-token tiles of a
+  (row, kv head) stripe over a cluster of CTAs where the pairs leave CTA
+  slots idle, tiles without a valid cell skipped, each CTA's four consumer warps
+  with their own running max, met in warp order and then in rank order;
 - int4 (uint8, (L, B, Hkv, S/2, D): byte row r holds token r in its low
   nibble and token r + S/2 in its high nibble, +8 biased, split-half over the
   whole cache width) with the dots on the unsigned nibbles widened to
@@ -27,19 +31,108 @@ launches a kernel or raises — nothing falls back.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from .. import csrc
 from .flash_attention import NEG_INF
+from .int8_matmul import _stream
+from .paged_attention import SMEM_BUDGET_TWO, device_sms
 
 KV4_BIAS = 8
 KERNEL_HEAD_DIMS = (128,)  # text heads of the 3B/7B presets
 KERNEL_MAX_GROUP = 16
 KERNEL_MAX_SMEM = 232448  # dynamic shared memory a block may opt in to on sm_90
 MODE_BF16, MODE_INT8, MODE_INT4, MODE_INT4_I8 = 0, 1, 2, 3
-INT8_BLOCK_ROWS = 256  # tokens per block of the int8 kernel (any value gives the same function)
+
+# the split kernel of modes 0 and 1 (``csrc/decode_attention.cu`` ``decode_split_kernel``)
+SPLIT_TILE = 64           # tokens a ring slot holds
+SPLIT_CONSUMERS = 4       # consumer warps a CTA, 16 tokens of a tile each (one producer warp more)
+SPLIT_MAX_CLUSTER = 8     # the portable cluster size
+SPLIT_MAX_STAGES = 4
+SPLIT_BOX_BYTES = 8192    # a 64-row x 128-byte TMA box
+SPLIT_PART_STRIDE = 132   # floats per head row of the partial outputs
+SMEM_PER_SM = 233472      # shared memory of an H100 SM; each resident CTA also takes 1 KB of it
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How the split kernel cuts a bf16 / int8 call: ``cluster`` CTAs (ranks)
+    per (row, kv head), rank r taking the 64-token tiles r, r + cluster, ...;
+    a ring of ``stages`` slots; ``smem`` bytes of shared memory a CTA;
+    ``ctas`` CTAs a call."""
+
+    cluster: int
+    stages: int
+    smem: int
+    ctas: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def split_smem(mode: int, g: int, stages: int) -> int:
+    """Bytes of shared memory of a split-kernel CTA (``split_layout`` in the
+    ``.cu`` file): the ring's slots (K and V boxes, the tile's two scale
+    vectors; 1024-byte aligned), which later hold the consumer warps' partial
+    outputs and the CTA's sum of them; the slots' headers; per warp and head
+    m, l and a combine weight, per head the CTA's m and l and the ranks'
+    weights; the mbarriers; 1 KB to align the ring."""
+    g16 = 8 if g <= 8 else 16
+    slot = _round_up((4 if mode == MODE_BF16 else 2) * SPLIT_BOX_BYTES + 2 * SPLIT_TILE * 2, 1024)
+    off = max(stages * slot, (SPLIT_CONSUMERS + 1) * g16 * SPLIT_PART_STRIDE * 4)
+    off += stages * 16
+    off += (3 * SPLIT_CONSUMERS + 2 + SPLIT_MAX_CLUSTER + 1) * g16 * 4
+    return _round_up(off, 8) + 2 * stages * 8 + 1024
+
+
+def ring_fit(mode: int, g: int) -> int:
+    """The deepest ring (2 to 4 slots) that keeps a CTA within
+    SMEM_BUDGET_TWO: 3 slots in bf16, 4 in int8."""
+    return next((n for n in range(SPLIT_MAX_STAGES, 2, -1) if split_smem(mode, g, n) <= SMEM_BUDGET_TWO), 2)
+
+
+def cta_slots(mode: int, g: int, sms: int) -> int:
+    """CTAs the device holds at once under ``ring_fit``'s ring: ``sms`` times
+    the CTAs an SM's shared memory holds (2 in bf16, 3 in int8)."""
+    return sms * max(1, SMEM_PER_SM // (split_smem(mode, g, ring_fit(mode, g)) + 1024))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(b: int, hkv: int, g: int, s: int, mode: int, *, sms: int,
+                cluster: Optional[int] = None, stages: Optional[int] = None) -> DecodePlan:
+    """The plan the card runs for a bf16 (``mode`` 0) or int8 (1) cache: ``b``
+    rows, ``hkv`` kv heads of ``g`` query heads, a cache ``s`` tokens wide, on
+    a device of ``sms`` streaming multiprocessors (``device_sms``).
+    ``cluster`` and ``stages`` override the choice (for measurements and
+    tests). The rule is the measured one (``time_decode.py --sweep``,
+    PERF.md §6): a CTA walks its tiles one after another behind a
+    fixed cost of several µs, and the CTAs an SM holds at once overlap, so the
+    cluster splits a stripe's tiles as far as the (row, kv head) pairs leave
+    CTA slots idle (``cta_slots``) -- at most 8 ranks and no more than the
+    stripe has tiles; the ring is ``ring_fit``'s, no deeper than a rank's
+    tiles (at least 2 slots). Raises ValueError for a plan the kernel cannot
+    run; the C side refuses the same."""
+    if mode not in (MODE_BF16, MODE_INT8) or not 1 <= g <= KERNEL_MAX_GROUP or min(b, hkv, s) < 1:
+        raise ValueError(f"no split plan for mode {mode}, G={g}, {b} rows x {hkv} kv heads, width {s}")
+    tiles = -(-s // SPLIT_TILE)
+    if cluster is None:
+        cluster = max(1, min(SPLIT_MAX_CLUSTER, tiles, cta_slots(mode, g, sms) // (b * hkv)))
+    if not 1 <= cluster <= SPLIT_MAX_CLUSTER:
+        raise ValueError(f"a cluster of {cluster}: 1 to {SPLIT_MAX_CLUSTER} run")
+    if stages is None:
+        stages = min(ring_fit(mode, g), max(2, -(-tiles // cluster)))
+    if not 1 <= stages <= SPLIT_MAX_STAGES:
+        raise ValueError(f"a ring of {stages} stages: 1 to {SPLIT_MAX_STAGES} run")
+    smem = split_smem(mode, g, stages)
+    if smem > KERNEL_MAX_SMEM:
+        raise ValueError(f"{stages} stages at G={g} need {smem} bytes of shared memory per block; the card "
+                         f"allows {KERNEL_MAX_SMEM}")
+    return DecodePlan(cluster, stages, smem, cluster * b * hkv)
 
 
 def int4_block_rows(packed_rows: int) -> int:
@@ -183,17 +276,33 @@ def _check_cuda_inputs(q, k_cache, v_cache, kv_seg, layer_idx, k_scale, v_scale,
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(q, k_cache, v_cache, kv_seg, layer_idx, scale, k_scale, v_scale, mode: int) -> torch.Tensor:
+def _launch(q, k_cache, v_cache, kv_seg, layer_idx, scale, k_scale, v_scale, mode: int,
+            plan: Optional[DecodePlan] = None) -> torch.Tensor:
+    """One launch of the kernel of ``mode``: modes 0 and 1 the split kernel
+    under ``plan`` (default ``decode_plan`` of the call's shapes), modes 2 and
+    3 the int4 kernel."""
     _check_cuda_inputs(q, k_cache, v_cache, kv_seg, layer_idx, k_scale, v_scale, mode)
     b, hq, d = q.shape
-    hkv, rows = k_cache.shape[2], k_cache.shape[3]
+    n_layers, _, hkv, rows = k_cache.shape[:4]
     lib = csrc.library()
-    if mode == MODE_BF16:
-        s, block_rows = rows, 0
-    elif mode == MODE_INT8:
-        s, block_rows = rows, min(INT8_BLOCK_ROWS, rows)
-    else:
-        s, block_rows = 2 * rows, int4_block_rows(rows)
+    out = torch.empty_like(q)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    if mode in (MODE_BF16, MODE_INT8):
+        plan = plan or decode_plan(b, hkv, hq // hkv, rows, mode, sms=device_sms(q.device.index))
+        args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale),
+                kv_seg.data_ptr(), out.data_ptr(), n_layers, b, hq, hkv, rows, int(layer_idx), mode,
+                plan.cluster, plan.stages, float(scale))
+        if q.device.index == torch.cuda.current_device():
+            rc = lib.st_decode_split(*args, _stream(q.device))
+        else:
+            with torch.cuda.device(q.device):
+                rc = lib.st_decode_split(*args, _stream(q.device))
+        csrc.check_launch(rc, "decode attention")
+        return out
+    s, block_rows = 2 * rows, int4_block_rows(rows)
     smem = lib.st_decode_attention_smem(mode, hq // hkv, block_rows)
     if smem > KERNEL_MAX_SMEM:
         raise ValueError(
@@ -201,12 +310,9 @@ def _launch(q, k_cache, v_cache, kv_seg, layer_idx, scale, k_scale, v_scale, mod
             f"multiple of 256) and needs {smem} bytes of shared memory per block; the card "
             f"allows {KERNEL_MAX_SMEM}"
         )
-    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = lib.st_decode_attention(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            k_scale.data_ptr() if k_scale is not None else None,
-            v_scale.data_ptr() if v_scale is not None else None,
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale),
             kv_seg.data_ptr(), out.data_ptr(), b, hq, hkv, s, d, int(layer_idx), mode, block_rows,
             float(scale), torch.cuda.current_stream().cuda_stream,
         )
@@ -214,9 +320,9 @@ def _launch(q, k_cache, v_cache, kv_seg, layer_idx, scale, k_scale, v_scale, mod
     return out
 
 
-def _launch_int8_kernel(*args) -> torch.Tensor:
-    """int8 cache (mode 1 of the kernel)."""
-    out = _launch(*args, mode=MODE_INT8)
+def _launch_int8_kernel(*args, plan: Optional[DecodePlan] = None) -> torch.Tensor:
+    """int8 cache (mode 1: the split kernel, under ``plan``)."""
+    out = _launch(*args, mode=MODE_INT8, plan=plan)
     _launch_int8_kernel.launches += 1
     return out
 
@@ -265,7 +371,13 @@ def decode_attention(
     args = (q, k_cache, v_cache, kv_seg, layer_idx, scale, k_scale, v_scale)
     if mode != MODE_BF16:
         return _QUANT_LAUNCHERS[mode](*args)
-    out = _launch(*args, mode=MODE_BF16)
+    return _launch_bf16_kernel(*args)
+
+
+def _launch_bf16_kernel(*args, plan: Optional[DecodePlan] = None) -> torch.Tensor:
+    """bf16 cache (mode 0: the split kernel, under ``plan``); counts on
+    ``decode_attention.launches``."""
+    out = _launch(*args, mode=MODE_BF16, plan=plan)
     decode_attention.launches += 1
     return out
 

@@ -1,38 +1,41 @@
 """SwiGLU junction: silu(gate) * up fused with the per-row int8 quantize that
-feeds the down projection — the Triton kernel and its plain PyTorch version.
+feeds the down projection -- the CUDA kernel (``csrc/silu_quant.cu``) and its
+plain PyTorch version.
 
 Counterpart of ``spatialthinker_tpu/ops/int8_matmul.py`` ``_silu_quant_kernel``
-(launched by ``fused_silu_quantize``). Contract: ``gu`` (M, 2I), gate columns
-first; returns ``q`` (M, I) int8 and ``scale`` (M, 1) fp32 with
-``h = g * sigmoid(g) * u`` in fp32, ``scale = max(amax_row(|h|), 1e-8) / 127``
-and ``q = clip(round_half_even(h / scale), +-127)``.
+(launched by ``fused_silu_quantize``). Contract: ``gu`` (M, 2I) bf16, fp16 or
+fp32, gate columns first; returns ``q`` (M, I) int8 and ``scale`` (M, 1) fp32
+with ``h = g * sigmoid(g) * u`` in fp32, ``scale = max(amax_row(|h|), 1e-8) /
+127`` and ``q = clip(round_half_even(h / scale), +-127)``.
 
 What bounds it on the H100: bytes. The unfused pipeline writes the (M, I)
 product, reads it for the row amax and reads it again to scale and cast;
 fused, the junction is the gate/up read (4 bytes per output element in
-bf16) and the int8 write. One program per row walks the row twice in
-column blocks (I = 11008 and 18944 are no powers of two, so the tail block
-is masked): pass one reduces the row amax, pass two recomputes ``h`` from
-the same gate/up values and writes the int8 row. The second read of the
-row's 4 * I bytes comes out of L2.
+bf16) and the int8 write. One CTA per row reads the row once with 16-byte
+loads, keeps h in shared memory, reduces the row amax over the block and
+quantizes from the on-chip copy (``silu_plan`` states the launch). It is
+built with the other kernels of ``csrc/`` and launched by one C call; no
+Triton is imported on any path of the port.
 
-The kernel is Triton: ``triton`` is imported where the kernel is first
-launched, never at module import, so the package imports on a CPU-only
-PyTorch. The wrapper runs the plain version for CPU tensors only; a CUDA
-tensor launches the kernel or raises.
+The wrapper runs the plain version for CPU tensors only; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
-_EPS = 1e-8
-BLOCK = 2048
-NUM_WARPS = 8
+from .. import csrc
+from .int8_matmul import _stream
 
-_kernel = None
+_EPS = 1e-8
+CHUNK = 16                # columns a thread takes at a time (one 16-byte int8 store)
+MAX_THREADS = 256         # threads of a row's CTA
+KERNEL_MAX_SMEM = 232448 - MAX_THREADS // 32 * 4  # dynamic shared memory beside the warps' amax
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def fused_silu_quantize_plain(gu: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -47,60 +50,43 @@ def fused_silu_quantize_plain(gu: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
     return q, s
 
 
-def _build_kernel():
-    """Define the Triton kernel (first launch only)."""
-    global _kernel, triton, tl
-    if _kernel is not None:
-        return _kernel
-    import triton
-    import triton.language as tl
+@dataclass(frozen=True)
+class SiluPlan:
+    """A row's CTA at width I: ``threads`` threads (whole warps, at most 256)
+    walk the row's ``chunks`` chunks of 16 columns, thread t taking chunks
+    t, t + threads, ...; h takes ``smem`` bytes of shared memory."""
 
-    @triton.jit
-    def silu_quant_kernel(gu_ptr, q_ptr, s_ptr, n_inter, stride_gu, stride_q,
-                          EPS: tl.constexpr, BLOCK_N: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        gate = gu_ptr + row * stride_gu
-        up = gate + n_inter
-        amax = tl.zeros([BLOCK_N], dtype=tl.float32)
-        for start in range(0, n_inter, BLOCK_N):
-            cols = start + tl.arange(0, BLOCK_N)
-            mask = cols < n_inter
-            g = tl.load(gate + cols, mask=mask, other=0.0).to(tl.float32)
-            u = tl.load(up + cols, mask=mask, other=0.0).to(tl.float32)
-            h = (g * tl.sigmoid(g)) * u
-            amax = tl.maximum(amax, tl.abs(h))
-        s = tl.maximum(tl.max(amax, axis=0), EPS) / 127.0
-        tl.store(s_ptr + row, s)
-        out = q_ptr + row * stride_q
-        for start in range(0, n_inter, BLOCK_N):
-            cols = start + tl.arange(0, BLOCK_N)
-            mask = cols < n_inter
-            g = tl.load(gate + cols, mask=mask, other=0.0).to(tl.float32)
-            u = tl.load(up + cols, mask=mask, other=0.0).to(tl.float32)
-            h = (g * tl.sigmoid(g)) * u
-            # round half to even, as the reference's round does
-            r = tl.inline_asm_elementwise(
-                "cvt.rni.f32.f32 $0, $1;", "=f,f", [h / s], dtype=tl.float32,
-                is_pure=True, pack=1,
-            )
-            r = tl.minimum(tl.maximum(r, -127.0), 127.0)
-            tl.store(out + cols, r.to(tl.int8), mask=mask)
+    threads: int
+    chunks: int
+    smem: int
 
-    _kernel = silu_quant_kernel
-    return _kernel
+
+def silu_plan(i: int) -> SiluPlan:
+    """The launch at width ``i`` (``row_threads`` / ``row_smem`` in the
+    ``.cu`` file). Raises ValueError for a width whose h outgrows a block's
+    shared memory (I > 58,096)."""
+    if i < 1:
+        raise ValueError(f"no silu plan for width {i}")
+    chunks = -(-i // CHUNK)
+    threads = MAX_THREADS if chunks >= MAX_THREADS else -(-chunks // 32) * 32
+    smem = chunks * CHUNK * 4
+    if smem > KERNEL_MAX_SMEM:
+        raise ValueError(f"width {i} keeps {smem} bytes of h in shared memory; a block holds {KERNEL_MAX_SMEM}")
+    return SiluPlan(threads, chunks, smem)
 
 
 def _check_cuda_input(gu: torch.Tensor) -> None:
     if gu.dim() != 2 or gu.shape[1] % 2 or gu.shape[0] < 1 or gu.shape[1] < 2:
         raise ValueError(f"gu must be a non-empty (M, 2I), got {tuple(gu.shape)}")
-    if gu.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise ValueError(f"gu must be a floating tensor, got {gu.dtype}")
-    if gu.stride(1) != 1:
-        raise ValueError("gu rows must be contiguous")
+    if gu.dtype not in _DTYPES:
+        raise ValueError(f"gu must be bf16, fp16 or fp32, got {gu.dtype}")
+    if gu.stride(1) != 1 or gu.stride(0) < gu.shape[1]:
+        raise ValueError("gu rows must be contiguous and must not overlap")
+    silu_plan(gu.shape[1] // 2)
 
 
 def fused_silu_quantize(gu: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(q (M, I) int8, scale (M, 1) fp32) through the Triton kernel for CUDA
+    """(q (M, I) int8, scale (M, 1) fp32) through the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
     if not gu.is_cuda:
         return fused_silu_quantize_plain(gu)
@@ -109,10 +95,14 @@ def fused_silu_quantize(gu: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     i = two_i // 2
     q = torch.empty((m, i), dtype=torch.int8, device=gu.device)
     s = torch.empty((m, 1), dtype=torch.float32, device=gu.device)
-    kernel = _build_kernel()
-    with torch.cuda.device(gu.device):
-        kernel[(m,)](gu, q, s, i, gu.stride(0), q.stride(0),
-                     EPS=_EPS, BLOCK_N=BLOCK, num_warps=NUM_WARPS)
+    args = (gu.data_ptr(), q.data_ptr(), s.data_ptr(), m, i, gu.stride(0), _DTYPES[gu.dtype])
+    lib = csrc.library()
+    if gu.device.index == torch.cuda.current_device():
+        rc = lib.st_silu_quant(*args, _stream(gu.device))
+    else:
+        with torch.cuda.device(gu.device):
+            rc = lib.st_silu_quant(*args, _stream(gu.device))
+    csrc.check_launch(rc, "silu quantize")
     fused_silu_quantize.launches += 1
     return q, s
 

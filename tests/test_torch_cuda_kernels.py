@@ -26,8 +26,13 @@ largest magnitude (4e-3 to 7e-3 measured on an H100); padding rows exactly zero;
 two calls bit-identical. Their pre-pass: delta within fp32 summation order
 (atol 1e-4 on sums of 80-128 products of O(1) values), range tables equal.
 The silu->int8 kernel: scales within 1e-5 relative, int8 values at most one
-step apart and fewer than 1 in 100 differing (ties; the division and the
-sigmoid differ in the last bit).
+step apart and fewer than 1 in 100 differing (ties; the kernel repeats the
+plain version's operations, so it is expected to agree bit for bit, and
+``chip_smoke.py`` prints whether it does).
+The dense decode kernel's bf16 and int8 modes (the split kernel) repeat the
+plain version's arithmetic with each warp's own running max (bf16 weights
+rounded against it) and the warps and ranks combined in order: the bf16 and
+int8 tolerances above (2e-2 and 1e-2), and two calls bit-identical.
 The int4 MLP kernels: the row quantize is the plain version's to the bit and
 the int32 group dots are exact, so only the order of the fp32 group sums,
 the silu's last bit and the bf16 rounding of the output differ: the largest
@@ -388,6 +393,89 @@ def test_quantized_decode_kernels_match_plain(dev, kind, hq, hkv, s):
         assert (counter.launches, decode_attention.launches) == (before[0] + 1, before[1])
         torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
         assert torch.all(out[b - 1] == 0) and out[0].abs().max() > 0
+
+
+SPLIT_CASES = [  # kind, Hq, Hkv, S, cluster (None: the rule's plan)
+    (kind, hq, hkv, s, cluster)
+    for kind in ("bf16", "int8")
+    for hq, hkv in ((14, 2), (16, 2), (32, 2))
+    for s in (128, 200, 640, 8192)
+    for cluster in (None, 1, 2, 8)
+]
+
+
+def _split_case(dev, kind, hq, hkv, s, b=4, n_layers=3, seed=0):
+    """q and a 3-layer cache of one format with a ragged ``kv_seg``: left
+    padding, a hole, the unwritten tail, a row with no valid cell."""
+    rng = np.random.default_rng(seed + s + hq)
+    q = _bf16(rng, (b, hq, 128), dev)
+    if kind == "bf16":
+        k = _bf16(rng, (n_layers, b, hkv, s, 128), dev)
+        v = _bf16(rng, (n_layers, b, hkv, s, 128), dev)
+        ks = vs = None
+        seg = np.ones((b, s), np.int32)
+        seg[:, s - s // 5:] = 0
+        seg[0, : s // 3] = 0
+        seg[1, s // 2: s // 2 + 9] = 0
+        seg[b - 1] = 0
+        seg = torch.from_numpy(seg).to(dev)
+    else:
+        k, v, ks, vs, seg = _quant_cache(dev, "int8", b, hkv, s, n_layers=n_layers, seed=s + hq)
+    return q, k, v, seg, ks, vs
+
+
+@pytest.mark.parametrize("kind,hq,hkv,s,cluster", SPLIT_CASES)
+def test_decode_split_kernel_matches_plain(dev, kind, hq, hkv, s, cluster):
+    """#4 in both modes (the split kernel) against the plain version, under
+    the rule's plan and plans of 1, 2 and 8 ranks, at the first and the last
+    layer of the stack; two calls bit-identical."""
+    q, k, v, seg, ks, vs = _split_case(dev, kind, hq, hkv, s)
+    b = q.shape[0]
+    mode = da.MODE_BF16 if kind == "bf16" else da.MODE_INT8
+    plan = da.decode_plan(b, hkv, hq // hkv, s, mode, sms=pa.device_sms(dev.index), cluster=cluster)
+    launch = da._launch_bf16_kernel if kind == "bf16" else da._launch_int8_kernel
+    tol = 2e-2 if kind == "bf16" else 1e-2
+    for layer in (0, k.shape[0] - 1):
+        ref = decode_attention_plain(q, k, v, seg, layer, 128**-0.5, ks, vs)
+        args = (q, k, v, seg, layer, 128**-0.5, ks, vs)
+        out, again = launch(*args, plan=plan), launch(*args, plan=plan)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        assert torch.equal(out, again)
+        assert torch.all(out[b - 1] == 0) and out[0].abs().max() > 0
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_decode_split_counts_one_launch_per_call(dev, kind):
+    q, k, v, seg, ks, vs = _split_case(dev, kind, 16, 2, 640)
+    counter = decode_attention if kind == "bf16" else da._launch_int8_kernel
+    before = (counter.launches, da._launch_int4_kernel.launches, da._launch_int4_i8_kernel.launches)
+    decode_attention(q, k, v, seg, 1, ks, vs)
+    torch.cuda.synchronize()
+    assert (counter.launches, da._launch_int4_kernel.launches,
+            da._launch_int4_i8_kernel.launches) == (before[0] + 1, *before[1:])
+
+
+def test_decode_split_smem_matches_plan(dev):
+    """The Python plan's shared-memory arithmetic is the C side's, and both
+    refuse the same plans."""
+    from spatialthinker_torch import csrc
+    lib = csrc.library()
+    for mode in (da.MODE_BF16, da.MODE_INT8):
+        for g in (1, 7, 8, 9, 16):
+            for stages in range(1, da.SPLIT_MAX_STAGES + 1):
+                for cluster in (1, 8):
+                    assert lib.st_decode_split_smem(mode, g, cluster, stages) == da.split_smem(mode, g, stages)
+    for bad in ((2, 8, 1, 2), (0, 17, 1, 2), (0, 8, 9, 2), (0, 8, 1, 5), (1, 8, 0, 2), (1, 8, 1, 0)):
+        assert lib.st_decode_split_smem(*bad) == -1
+    q, k, v, seg, _, _ = _split_case(dev, "bf16", 16, 2, 200)
+    with pytest.raises(ValueError):  # a cluster the kernel cannot run
+        da.decode_plan(4, 2, 8, 200, da.MODE_BF16, sms=132, cluster=9)
+    with pytest.raises(ValueError):  # a cache of another layer count than the scales
+        _, k8, v8, seg8, ks8, vs8 = _split_case(dev, "int8", 16, 2, 200)
+        decode_attention(q, k8, v8, seg8, 0, ks8[:2].contiguous(), vs8[:2].contiguous())
+    with pytest.raises(ValueError):  # a cache that is not contiguous
+        decode_attention(q, k.transpose(3, 4).contiguous().transpose(3, 4), v, seg, 0)
 
 
 def test_quantized_decode_wrapper_raises_on_unsupported_cuda_input(dev):
@@ -802,6 +890,39 @@ def test_silu_quant_kernel_matches_plain(dev, m, i, dtype):
     torch.testing.assert_close(s, s_ref, atol=0, rtol=1e-5)
     diff = (q.int() - q_ref.int()).abs()
     assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) < 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32], ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("m,i", [(1024, 11008), (8, 18944), (33, 86), (4096, 11008), (1024, 18944)])
+def test_silu_quant_kernel_dtypes_and_widths(dev, m, i, dtype):
+    """The CUDA junction at the prefill's widths (3B, 7B), a width that is no
+    multiple of 16, in every input dtype, within the existing limits; rows
+    `stride` values apart (a column slice of a wider tensor) take the same
+    values as contiguous ones."""
+    rng = np.random.default_rng(m + i)
+    gu = torch.from_numpy(rng.normal(size=(m, 2 * i)).astype(np.float32)).to(dev, dtype)
+    gu[m // 2] = 0  # an all-zero row takes the eps floor
+    q_ref, s_ref = fused_silu_quantize_plain(gu)
+    q, s = fused_silu_quantize(gu)
+    wide = torch.zeros((m, 2 * i + 24), dtype=dtype, device=dev)
+    wide[:, 8: 8 + 2 * i] = gu
+    q_w, s_w = fused_silu_quantize(wide[:, 8: 8 + 2 * i])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, s_ref, atol=0, rtol=1e-5)
+    diff = (q.int() - q_ref.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) < 1e-2
+    assert torch.equal(q_w, q) and torch.equal(s_w, s)
+
+
+def test_silu_plan_matches_the_c_side(dev):
+    from spatialthinker_torch import csrc
+    from spatialthinker_torch.ops import silu_quant as sqm
+    lib = csrc.library()
+    for i in (1, 15, 16, 17, 86, 4095, 4096, 4097, 11008, 18944, 58096):
+        plan = sqm.silu_plan(i)
+        assert (lib.st_silu_quant_threads(i), lib.st_silu_quant_smem(i)) == (plan.threads, plan.smem)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_silu_quantize(torch.zeros((2, 2 * 58112), dtype=torch.bfloat16, device=dev))
 
 
 def test_paged_and_silu_wrappers_raise_on_unsupported_cuda_input(dev):
