@@ -208,8 +208,11 @@ SILU_SCALE_RTOL = 1e-5
 # int4 MLP kernels vs plain: the row quantize is the plain version's to the
 # bit and the int32 group dots are exact; the fp32 order of the group sums,
 # the silu's last bit and the bf16 rounding of the output remain: the largest
-# error within 1e-2 of the largest output magnitude (two bf16 ulps).
+# error within 1e-2 of the largest output magnitude (two bf16 ulps); down in
+# fp32 within 1e-4 of it (only the order of the fp32 sums differs). Two calls
+# are bit-identical (the plan's cluster ranks are summed in rank order).
 INT4_REL_TOL = 1e-2
+INT4_F32_REL_TOL = 1e-4
 INT4_MS = (136, 128, 8)  # path g's lanes (128 slots + trash, to a multiple of 8), path f's 128 rows, small
 INT4_FALLBACK_M = 256    # the JAX package's rule admits gate_up here and refuses down: the MLP is int8
 # The fused W8A8 kernel repeats the plain chain (quantize, int32 dot, two
@@ -1178,9 +1181,21 @@ def silu_case(gu, label: str):
                  library_ms=None)]
 
 
-def _int4_case(name, m, fn, plain_fn, lib_fn, n_bytes, n_ops):
+def device_us(fn, calls: int = 20) -> float:
+    """The profiler's device µs of a call (every kernel the call launches)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time for e in prof.events() if e.device_type.name == "CUDA") / calls
+
+
+def _int4_case(name, m, fn, plain_fn, lib_fn, n_bytes, n_ops, plan):
     ref = plain_fn()
     out = fn()
+    again = fn()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     rel = err / ref.float().abs().max().item()
@@ -1188,8 +1203,9 @@ def _int4_case(name, m, fn, plain_fn, lib_fn, n_bytes, n_ops):
     ms = cuda_ms(fn)
     lib_ms = cuda_ms(lib_fn)
     b_ms, b_by = bound_ms(n_bytes(out), n_ops, "int8")
-    return out, dict(shape=f"{name}_m{m}", max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return out, dict(shape=f"{name}_m{m}", max_abs_err=err, rel_err=rel,
+                     bit_identical_twice=bool(torch.equal(out, again)), ms=ms, device_us=device_us(fn),
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, plan=plan.describe())
 
 
 def check_int4(dev, cfg, m: int):
@@ -1215,22 +1231,32 @@ def check_int4(dev, cfg, m: int):
         acc = int8_matmul(xq, gu8.t())
         return F.silu(acc[:, :inter].float()) * acc[:, inter:].float()
 
+    sms = pa.device_sms(dev.index)
     h, gu_case = _int4_case(
         "gate_up", m, lambda: i4.w4_gateup_silu(x, gu4), lambda: i4.w4_gateup_silu_plain(x, gu4.q4, gu4.gscale),
-        gateup_lib, lambda out: nbytes(x, gu4.q4, gu4.gscale, out), 2.0 * m * e * 2 * inter)
+        gateup_lib, lambda out: nbytes(x, gu4.q4, gu4.gscale, out), 2.0 * m * e * 2 * inter,
+        i4.w4_plan(m, e, inter, True, sms))
     hq, _ = quantize_activation(h)
+    dn_plan = i4.w4_plan(m, inter, e, False, sms)
     _, dn_case = _int4_case(
         "down", m, lambda: i4.w4_matmul(h, dn4), lambda: i4.w4_matmul_plain(h, dn4.q4, dn4.gscale),
         lambda: int8_matmul(hq, dn8.t()), lambda out: nbytes(h, dn4.q4, dn4.gscale, out),
-        2.0 * m * inter * e)
-    for name, c in (("gate_up+silu", gu_case), ("down", dn_case)):
+        2.0 * m * inter * e, dn_plan)
+    _, f32_case = _int4_case(
+        "down_f32", m, lambda: i4.w4_matmul(h, dn4, torch.float32),
+        lambda: i4.w4_matmul_plain(h, dn4.q4, dn4.gscale, torch.float32),
+        lambda: int8_matmul(hq, dn8.t()), lambda out: nbytes(h, dn4.q4, dn4.gscale, out),
+        2.0 * m * inter * e, dn_plan)
+    for name, c, tol in (("gate_up+silu", gu_case, INT4_REL_TOL), ("down", dn_case, INT4_REL_TOL),
+                         ("down fp32", f32_case, INT4_F32_REL_TOL)):
         print(f"int4 {name}: m={m} E={e} I={inter} group 128 max_abs_err={c['max_abs_err']:.3e} "
-              f"(of max |out|: {c['rel_err']:.2e}, tol {INT4_REL_TOL}) ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
-              f"int_mm_int8_weights_ms={c['library_ms']:.4f} bound_ms={c['bound_ms']:.5f} ({c['bound_by']})",
-              flush=True)
-        if not c["rel_err"] <= INT4_REL_TOL:
-            raise AssertionError(f"int4 {name} kernel disagrees with plain at m={m}")
-    return gu_case, dn_case
+              f"(of max |out|: {c['rel_err']:.2e}, tol {tol}) bit_identical_twice={c['bit_identical_twice']} "
+              f"ms={c['ms']:.4f} device_us={c['device_us']:.2f} plain_ms={c['plain_ms']:.4f} "
+              f"int_mm_int8_weights_ms={c['library_ms']:.4f} bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) "
+              f"plan={json.dumps(c['plan'])}", flush=True)
+        if not (c["rel_err"] <= tol and c["bit_identical_twice"]):
+            raise AssertionError(f"int4 {name} kernel disagrees with plain or with itself at m={m}")
+    return gu_case, [dn_case, f32_case]
 
 
 def check_int4_fallback(dev, cfg):
@@ -2361,9 +2387,9 @@ def main() -> int:
     # the int4 MLP kernels at path g's lanes, path f's rows and a small batch; the fallback rule
     int4_gu_cases, int4_dn_cases = [], []
     for m in INT4_MS:
-        gu_case, dn_case = check_int4(dev, cfg, m)
+        gu_case, dn_cases = check_int4(dev, cfg, m)
         int4_gu_cases.append(gu_case)
-        int4_dn_cases.append(dn_case)
+        int4_dn_cases.extend(dn_cases)
     int4_fallback = check_int4_fallback(dev, cfg)
     w8a8_cases = check_w8a8(dev, cfg)
     torch.cuda.empty_cache()

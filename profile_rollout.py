@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's rollout goes, on one NVIDIA GPU.
 
-    python3 profile_rollout.py [--engine dense|paged|train]
+    python3 profile_rollout.py [--engine dense|w4a8|paged|train]
 
 ``--engine dense`` (the default) builds the same 3B model, requests and
 sampled call (n=5, T=1.0) as ``chip_smoke.py``, then times a 1-token call (prefill + fanout + first
@@ -12,6 +12,12 @@ top device kernels of both profiled calls and, for the 16 decode steps
 kernels per step and the busy share (device time / profiled wall), plus the
 device time per step over the unprofiled wall per step as an estimate of the
 busy share without the profiler's own host cost.
+
+``--engine w4a8`` does the same on the w4a8 copy of the model
+(``quantize_model(mode="w4a8")``: W8A8 linears, int4 MLP copies) at path
+(g)'s decode rows, 17 prompts x n 8 = 136, over an int4 cache with int8
+dots, and prints the int4 MLP kernels' device time (#13 and #14 with their
+prologues) per decode step.
 
 ``--engine paged`` runs ``chip_smoke.py``'s shipped paged path (W8A8 weights,
 int4 pools, int8 dots, 16 requests x 8 samples through 64 slots) and puts
@@ -91,6 +97,7 @@ from spatialthinker_torch.trainer.train_step import (
 from spatialthinker_torch.utils.synthetic_tokenizer import QwenSyntheticTokenizer
 
 N_SAMPLES = 5
+W4A8_PROMPTS, W4A8_SAMPLES = 17, 8  # 136 rows: path (g)'s decode lanes
 DECODE_STEPS = 16
 PROFILED_CHUNK = 2  # of the paged run's decode chunks (0 warms up; 1 and 3 are timed unprofiled)
 PROFILED_REFILL = 1  # of its refill prefills (the first warms up)
@@ -314,7 +321,7 @@ def profile_train_step(model, cfg, dev, card) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--engine", choices=("dense", "paged", "train"), default="dense")
+    parser.add_argument("--engine", choices=("dense", "w4a8", "paged", "train"), default="dense")
     parser.add_argument("--ring", choices=("both", "merged", "fused"), default="both",
                         help="--engine paged: the staging ring forms to profile")
     parser.add_argument("--tree", default=None, help="checkout whose spatialthinker_torch is profiled")
@@ -338,13 +345,20 @@ def main() -> int:
         return 0
     provider = TorchProvider(model, cfg, QwenSyntheticTokenizer(cfg), max_new_tokens=MAX_NEW_TOKENS,
                              max_prompt_length=1024, prompt_bucket=512)
-    prep = provider.prepare(*requests(len(QUESTIONS)))
-    sampling = SamplingParams(temperature=1.0, top_p=1.0, top_k=-1, n=N_SAMPLES)
+    w4a8 = args.engine == "w4a8"
+    n_samples = W4A8_SAMPLES if w4a8 else N_SAMPLES
+    prep = provider.prepare(*requests(W4A8_PROMPTS if w4a8 else len(QUESTIONS)))
+    sampling = SamplingParams(temperature=1.0, top_p=1.0, top_k=-1, n=n_samples)
     gen = torch.Generator(device=dev).manual_seed(1)
+    engine_model, engine_kw = model, {}
+    if w4a8:
+        engine_model = quantize_model(model, mode="w4a8")
+        engine_kw = dict(kv_cache_dtype=torch.uint8, int4_i8dot=True)
 
     def call(tokens: int) -> float:
         t0 = time.perf_counter()
-        generate(model, **prep, max_new_tokens=tokens, sampling=sampling, generator=gen, n=N_SAMPLES)
+        generate(engine_model, **prep, max_new_tokens=tokens, sampling=sampling, generator=gen, n=n_samples,
+                 **engine_kw)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -355,13 +369,15 @@ def main() -> int:
         walls[tokens].append(call(tokens))
     print(f"unprofiled wall s: {walls}  [{card}]", flush=True)
 
-    prof_res = {}
+    prof_res, int4_res = {}, {}
     for tokens in (short, long):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall = call(tokens)
         kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
         device_s = sum(e.device_time for e in kernels) / 1e6
         prof_res[tokens] = (wall, device_s, len(kernels))
+        int4 = [e for e in kernels if "int4_mlp_kernel" in e.name or "int4_quantize_rows" in e.name]
+        int4_res[tokens] = (sum(e.device_time for e in int4) / 1e3, len(int4))
         print(f"{tokens}-token call: profiled wall {wall:.4f} s, device kernel time {device_s:.4f} s, "
               f"{len(kernels)} kernels", flush=True)
         print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=14,
@@ -374,6 +390,11 @@ def main() -> int:
           f"busy share {(d2 - d1) / (w2 - w1):.3f}, kernels per step {(n2 - n1) / DECODE_STEPS:.0f}; "
           f"per step: device {step_device * 1e3:.3f} ms, unprofiled wall {step_wall_unprof * 1e3:.3f} ms, "
           f"device / unprofiled wall {step_device / step_wall_unprof:.3f}  [{card}]", flush=True)
+    if w4a8:
+        (ms1, n1), (ms2, n2) = int4_res[short], int4_res[long]
+        print(f"int4 MLP kernels (#13 + #14 with their prologues) per decode step at "
+              f"{W4A8_PROMPTS * W4A8_SAMPLES} rows: {(ms2 - ms1) / DECODE_STEPS:.4f} ms in "
+              f"{(n2 - n1) / DECODE_STEPS:.0f} launches  [{card}]", flush=True)
     return 0
 
 

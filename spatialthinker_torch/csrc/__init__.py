@@ -26,7 +26,7 @@ SOURCES = (
     "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "paged_attention.cu",
     "int4_mlp.cu", "int8_matmul.cu", "silu_quant.cu",
 )
-# included by the two flash sources, and by the decode, paged and W8A8 sources; part of the library's hash
+# included by the two flash sources, and by the decode, paged, W8A8 and int4 sources; part of the library's hash
 HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -75,8 +75,9 @@ _SIGNATURES = {
     "st_paged_attention_smem": [_I] * 4,
     # G, page, C, n_split, warps, stages, blocks per warp -> bytes of mode 2's plan (-1: refused)
     "st_paged_split_smem": [_I] * 7,
-    # x, xq, xs, xsum, q4, gscale, out, m, k, n_cols, group, gateup, out_f32, stream
-    "st_int4_mlp": [_P] * 7 + [_I] * 6 + [_P],
+    # x, scratch, q4, gscale, out, m, k, n_cols, group, gateup, out_f32, (the plan:) warps, ranks,
+    # stages, tile_rows, stream
+    "st_int4_mlp": [_P] * 5 + [_I] * 10 + [_P],
     # x, x_f32, xq, xs, w, ws, out, out_f32, m, n, k, quantize, mb, bn, splits, stages, stream
     "st_int8_matmul": [_P, _I] + [_P] * 5 + [_I] * 9 + [_P],
 }

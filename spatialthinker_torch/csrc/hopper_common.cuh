@@ -1,7 +1,8 @@
 // Helpers shared by the kernels that feed shared memory through mbarriers,
 // bulk copies and TMA, and meet in thread-block clusters: the dense decode
 // split kernel (decode_attention.cu), the paged split kernel
-// (paged_attention.cu) and kernel A (int8_matmul.cu).
+// (paged_attention.cu), kernel A (int8_matmul.cu) and the int4 MLP kernels
+// (int4_mlp.cu).
 
 #pragma once
 
@@ -69,6 +70,23 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, int byte
                : "memory");
 }
 
+// A box of a 2-D `map` at (inner coordinate c0, outer c1) into shared memory;
+// completes `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// ---- programmatic dependent launch ----
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+// Waits for the grid this one depends on programmatically (a prologue);
+// returns at once when there is none.
+__device__ __forceinline__ void griddep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
 // ---- distributed shared memory of a cluster ----
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
@@ -77,6 +95,30 @@ __device__ __forceinline__ void cluster_sync() {
 // generic pointer (plain loads the compiler can overlap)
 __device__ __forceinline__ const float* rank_ptr(const float* p, int rank, int n) {
   return n == 1 ? p : static_cast<const float*>(__cluster_map_shared_rank(const_cast<float*>(p), rank));
+}
+
+// ---- wgmma ----
+// Descriptor of a K-major operand tile of 128-byte rows with the 128-byte
+// swizzle (as TMA writes it): 8-row atoms SBO = 1024 bytes apart (LBO unused
+// for a swizzled K-major operand), layout type 1 (128B swizzle) in bits 62-63.
+// Advancing the start address by 32 bytes selects the next k32 step of the
+// row; the tile's atoms are 1024-byte aligned, so the hardware's swizzle
+// phase stays right.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from reading the accumulator before the wait.
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // ---- TMA tensor maps (host) ----

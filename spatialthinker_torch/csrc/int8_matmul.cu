@@ -82,13 +82,6 @@ constexpr int MAX_STAGES = 8;
 constexpr int PART_PAD = 4;     // int32 words of padding per row of a split's partial tile
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use on the H100
 
-__device__ __forceinline__ void griddep_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-// Waits for the grid this one depends on programmatically (the prologue);
-// returns at once when there is none.
-__device__ __forceinline__ void griddep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
-
 // One CTA per row: xs = max(amax, eps) / 127, xq = clip(rint(x / xs)).
 // 16-byte loads (8 bf16 or 4 fp32; K % 32 == 0 keeps rows whole vectors);
 // a thread keeps its first HOLD vectors in registers (HOLD of 1, 2, 4 or 8,
@@ -176,14 +169,6 @@ quantize_rows_kernel(const InT* __restrict__ x, int8_t* __restrict__ xq, float* 
   for (int v = threadIdx.x + HOLD * QTHREADS; v < nv; v += QTHREADS) vec_store(xr[v], s, qr + v * VEC, InT());
 }
 
-// A box of `map` at (k byte c0, row c1) into shared memory; completes `bar`'s transaction bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
 // ---- distributed shared memory of a cluster ----
 __device__ __forceinline__ int4 ld_cluster_int4(uint32_t local, int rank) {
   uint32_t remote;
@@ -197,29 +182,6 @@ __device__ __forceinline__ int4 ld_cluster_int4(uint32_t local, int rank) {
 }
 
 // ---- wgmma ----
-// Descriptor of a K-major operand tile written by TMA with the 128-byte
-// swizzle: rows of 128 bytes, 8-row atoms SBO = 1024 bytes apart (LBO unused
-// for a swizzled K-major operand), layout type 1 (128B swizzle) in bits 62-63.
-// Advancing the start address by 32 bytes selects the next k32 step of the
-// row; the tile's atoms are 1024-byte aligned, so the hardware's swizzle
-// phase stays right.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from reading the accumulator before the wait.
-template <int N>
-__device__ __forceinline__ void fence_acc(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
 // D(64 x N, s32) += A(64 x 32, s8) B(N x 32, s8)^T, both K-major in shared memory.
 __device__ __forceinline__ void wgmma_m64n64k32(int (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(

@@ -36,7 +36,9 @@ int8 tolerances above (2e-2 and 1e-2), and two calls bit-identical.
 The int4 MLP kernels: the row quantize is the plain version's to the bit and
 the int32 group dots are exact, so only the order of the fp32 group sums,
 the silu's last bit and the bf16 rounding of the output differ: the largest
-error within 1e-2 of the largest output magnitude (two bf16 ulps).
+error within 1e-2 of the largest output magnitude (two bf16 ulps) for bf16
+outputs, within 1e-4 of it for fp32 down (only the sum order differs); two
+calls bit-identical (the plan's ranks are summed in rank order).
 The fused W8A8 kernel: the row quantize divides as the plain version does,
 the int32 dot is exact whatever the plan's split of K and the epilogue rounds
 the same two products in the same order: equal bit for bit, and two calls
@@ -945,9 +947,12 @@ def test_paged_and_silu_wrappers_raise_on_unsupported_cuda_input(dev):
         fused_silu_quantize(torch.zeros((4, 8), dtype=torch.int32, device=dev))
 
 
-INT4_CASES = [  # m, K, N (gate_up: I), group
+INT4_CASES = [  # m, E, I, group: gate_up x (m, E) -> (m, I); down x (m, I) -> (m, E)
     (136, 2048, 11008, 128), (8, 512, 256, 64), (2, 256, 128, 32), (26, 1024, 512, 128),
 ]
+# two row tiles each; the rule refuses down at m = 256 (and the 7B down at 136)
+INT4_GATEUP_CASES = INT4_CASES + [(256, 2048, 11008, 128)]
+INT4_DOWN_CASES = INT4_CASES + [(200, 2048, 11008, 128)]
 
 
 def _int4_case(dev, m, k, n_cols, group, seed):
@@ -957,31 +962,103 @@ def _int4_case(dev, m, k, n_cols, group, seed):
     return x, i4.Int4Weight.from_weight(w, group)
 
 
-@pytest.mark.parametrize("m,k,i,group", INT4_CASES)
+@pytest.mark.parametrize("m,k,i,group", INT4_GATEUP_CASES)
 def test_int4_gateup_kernel_matches_plain(dev, m, k, i, group):
     x, w = _int4_case(dev, m, k, 2 * i, group, seed=m)
     before = i4.w4_gateup_silu.launches
     out = i4.w4_gateup_silu(x, w)
+    again = i4.w4_gateup_silu(x, w)
     torch.cuda.synchronize()
-    assert i4.w4_gateup_silu.launches == before + 1
+    assert i4.w4_gateup_silu.launches == before + 2
     ref = i4.w4_gateup_silu_plain(x, w.q4, w.gscale)
     assert out.dtype == torch.bfloat16 and out.shape == (m, i)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= 1e-2 * ref.float().abs().max().item(), err
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m,n,k,group", INT4_CASES)
+@pytest.mark.parametrize("m,n,k,group", INT4_DOWN_CASES)
 def test_int4_down_kernel_matches_plain(dev, m, n, k, group, out_dtype):
     x, w = _int4_case(dev, m, k, n, group, seed=m + 1)
     before = i4.w4_matmul.launches
     out = i4.w4_matmul(x, w, out_dtype=out_dtype)
+    again = i4.w4_matmul(x, w, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert i4.w4_matmul.launches == before + 1
+    assert i4.w4_matmul.launches == before + 2
     ref = i4.w4_matmul_plain(x, w.q4, w.gscale, out_dtype=torch.float32)
     assert out.dtype == out_dtype and out.shape == (m, n)
     err = (out.float() - ref).abs().max().item()
-    assert err <= 1e-2 * ref.abs().max().item(), err
+    assert err <= (1e-4 if out_dtype == torch.float32 else 1e-2) * ref.abs().max().item(), err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("gateup", [True, False])
+@pytest.mark.parametrize("m,e,i,group", INT4_CASES + [(200, 2048, 11008, 128)])
+def test_int4_prologue_bit_equal_to_quantize_rows(dev, m, e, i, group, gateup):
+    """The prologue's xq (read back through ``staged_offsets``) and xs equal
+    ``quantize_rows`` bit for bit."""
+    k, n_cols = (e, 2 * i) if gateup else (i, e)
+    x, w = _int4_case(dev, m, k, n_cols, group, seed=m + 2)
+    out = torch.empty((m, n_cols // 2 if gateup else n_cols), dtype=torch.bfloat16, device=dev)
+    scratch = i4._launch(x, w, out, gateup)
+    torch.cuda.synchronize()
+    plan = i4.w4_plan(m, k, out.shape[1], gateup, pa.device_sms(dev.index), group)
+    xq_ref, xs_ref = i4.quantize_rows(x)
+    xq = scratch[i4.staged_offsets(m, k, plan).to(dev)].view(torch.int8)
+    xs = scratch[scratch.numel() - 4 * m:].view(torch.float32)
+    assert torch.equal(xq, xq_ref)
+    assert torch.equal(xs, xs_ref.reshape(-1))
+
+
+@pytest.mark.parametrize("gateup,m,k,n,plan_kw", [
+    (True, 136, 2048, 11008, dict(warps=4, ranks=2)),   # split K over a cluster at gate_up
+    (True, 136, 2048, 11008, dict(warps=8)),            # two warpgroups
+    (False, 136, 11008, 2048, dict(warps=12, ranks=4)),  # three warpgroups, split K
+    (True, 8, 2048, 11008, dict(warps=4, stages=2)),
+    (False, 136, 11008, 2048, dict(warps=4, ranks=1)),  # down without the split
+    (False, 136, 11008, 2048, dict(warps=4, ranks=3)),  # a last rank with fewer stages
+    (False, 26, 1024, 512, dict(tile_rows=16)),         # two row tiles below 144 rows
+])
+def test_int4_other_plans_match_plain(dev, monkeypatch, gateup, m, k, n, plan_kw):
+    """Plans the rule would not pick equal the plain version within the
+    card tolerances and bit-identical twice."""
+    real = i4.w4_plan
+    monkeypatch.setattr(i4, "w4_plan", lambda *a, **kw: real(*a, **kw, **plan_kw))
+    x, w = _int4_case(dev, m, k, 2 * n if gateup else n, 128, seed=m + 3)
+    if gateup:
+        out, again = i4.w4_gateup_silu(x, w), i4.w4_gateup_silu(x, w)
+        ref = i4.w4_gateup_silu_plain(x, w.q4, w.gscale).float()
+        tol = 1e-2
+    else:
+        out, again = i4.w4_matmul(x, w, torch.float32), i4.w4_matmul(x, w, torch.float32)
+        ref, tol = i4.w4_matmul_plain(x, w.q4, w.gscale, torch.float32), 1e-4
+    torch.cuda.synchronize()
+    assert (out.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert torch.equal(out, again)
+
+
+def test_int4_refused_plans_raise(dev):
+    """A plan the kernel cannot run is refused before any launch: by the plan
+    (ValueError) and, for one passed past it, by the C side."""
+    with pytest.raises(ValueError):
+        i4.w4_plan(136, 2048, 11008, True, warps=9)
+    with pytest.raises(ValueError):
+        i4.w4_plan(136, 11008, 2048, False, ranks=9)
+    with pytest.raises(ValueError):
+        i4.w4_plan(136, 2048, 11008, True, stages=6)  # six stages of 54 KB
+    from spatialthinker_torch import csrc
+
+    x, w = _int4_case(dev, 8, 256, 256, 128, seed=4)
+    out = torch.empty((8, 256), dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty((1 << 20,), dtype=torch.uint8, device=dev)
+    lib = csrc.library()
+    args = (x.data_ptr(), scratch.data_ptr(), w.q4.data_ptr(), w.gscale.data_ptr(), out.data_ptr(), 8, 256, 256,
+            128, 0, 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    for plan in ((9, 1, 2, 8), (6, 1, 2, 8), (16, 1, 2, 8), (4, 2, 2, 8), (4, 1, 7, 8), (4, 1, 2, 12),
+                 (4, 1, 2, 136), (4, 1, 2, 152)):
+        assert lib.st_int4_mlp(*args, *plan, stream) != 0, plan
 
 
 def test_int4_wrappers_raise_on_unsupported_cuda_input(dev):

@@ -170,7 +170,7 @@ def test_qwen_synthetic_tokenizer_uses_the_config_ids():
     "spatialthinker_torch.trainer.metrics", "spatialthinker_torch.trainer.tracker",
     "spatialthinker_torch.trainer.checkpoint", "spatialthinker_torch.trainer.grpo_trainer",
     "spatialthinker_torch.trainer.main", "chip_smoke", "profile_rollout", "time_flash", "time_w8a8",
-    "time_paged", "time_decode", "time_silu", "paged_cases",
+    "time_paged", "time_decode", "time_silu", "time_int4_mlp", "paged_cases",
 ])
 def test_port_imports_no_jax(module):
     """Importing a module of the port pulls in neither jax, nor anything of
@@ -193,7 +193,7 @@ def test_no_source_line_of_the_port_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|spatialthinker_tpu)\b")
     files = [os.path.join(REPO, name) for name in
              ("chip_smoke.py", "profile_rollout.py", "time_flash.py", "time_w8a8.py", "time_paged.py",
-              "time_decode.py", "time_silu.py", "paged_cases.py")]
+              "time_decode.py", "time_silu.py", "time_int4_mlp.py", "paged_cases.py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "spatialthinker_torch")):
         dirs[:] = [d for d in dirs if d != "build"]  # csrc/build holds build outputs, not sources
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

@@ -108,8 +108,8 @@ def phases(torch, np, dev, pa, case) -> dict:
     out_dir = csrc.BUILD_DIR / "phases"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "paged_stamped.cu").write_text(stamped_source((csrc.CSRC_DIR / "paged_attention.cu").read_text()))
-    subprocess.run([csrc._nvcc(), *csrc.NVCC_FLAGS, "-shared", "-o", str(out_dir / "libstamped.so"),
-                    str(out_dir / "paged_stamped.cu")], check=True, capture_output=True)
+    subprocess.run([csrc._nvcc(), *csrc.NVCC_FLAGS, "-I", str(csrc.CSRC_DIR), "-shared", "-o",
+                    str(out_dir / "libstamped.so"), str(out_dir / "paged_stamped.cu")], check=True, capture_output=True)
     lib = ctypes.CDLL(str(out_dir / "libstamped.so"))
     lib.st_paged_attention.argtypes = csrc._SIGNATURES["st_paged_attention"]
     lib.st_paged_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
