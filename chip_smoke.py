@@ -16,8 +16,9 @@ non-zero without a device. In order:
    the peak rate, whichever is larger) and, for the flash and dense-decode
    kernels, times ``F.scaled_dot_product_attention`` with the equivalent
    mask as a yardstick (used nowhere in the port; for the quantized dense
-   caches on the dequantized cache); the dense decode kernel's bf16 and int8
-   lines and the silu junction's print the call's plan and fail unless two
+   caches on the dequantized cache); the dense decode kernel's lines (bf16,
+   int8, int4, int4 with int8 dots; the quantized ones also the kernel's
+   µs a call queued back to back) and the silu junction's print the call's plan and fail unless two
    more calls agree bit for bit (the silu lines also print whether the kernel
    equals its plain version bit for bit); the flash forward (its range launch
    and the kernel, one call: both counted, the range tables held against
@@ -365,6 +366,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_us(fn, calls: int = 20) -> float:
+    """Microseconds of a call among ``calls`` queued back to back behind a
+    sleeping kernel: the device time of a call with the gaps between launches,
+    by CUDA events (the profiler can return no device events late in a long
+    process)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms: longer than issuing the calls
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
 
 
 def bound_ms(n_bytes: float, n_ops: float, kind: str):
@@ -796,14 +814,15 @@ def check_decode(dev, cfg, rows: int, width: int, prompt_len: int):
                  bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bit_identical_twice=twice, plan=plan)]
 
 
-def decode_plan_and_twice(q, kc, vc, seg, layer, ks=None, vs=None):
-    """(the split kernel's plan of a bf16 / int8 call as a dict; whether two
-    more calls agree bit for bit)."""
-    mode = da.MODE_BF16 if ks is None else da.MODE_INT8
-    plan = da.decode_plan(q.shape[0], kc.shape[2], q.shape[1] // kc.shape[2], kc.shape[3], mode,
+def decode_plan_and_twice(q, kc, vc, seg, layer, ks=None, vs=None, i8=False):
+    """(the split kernel's plan of a call as a dict; whether two more calls
+    agree bit for bit)."""
+    int4 = kc.dtype == torch.uint8
+    mode = (da.MODE_INT4_I8 if i8 else da.MODE_INT4) if int4 else da.MODE_BF16 if ks is None else da.MODE_INT8
+    plan = da.decode_plan(q.shape[0], kc.shape[2], q.shape[1] // kc.shape[2], seg.shape[1], mode,
                           sms=pa.device_sms(q.device.index)).__dict__
-    first = da.decode_attention(q, kc, vc, seg, layer, ks, vs)
-    second = da.decode_attention(q, kc, vc, seg, layer, ks, vs)
+    first = da.decode_attention(q, kc, vc, seg, layer, ks, vs, int4_i8dot=i8)
+    second = da.decode_attention(q, kc, vc, seg, layer, ks, vs, int4_i8dot=i8)
     torch.cuda.synchronize()
     return plan, bool(torch.equal(first, second))
 
@@ -840,9 +859,10 @@ def check_decode_quant(dev, cfg, kind: str, rows: int, width: int, prompt_len: i
 def decode_quant_case(cfg, kind: str, q, kc, vc, seg, layer: int, ks, vs, label: str):
     """One quantized dense-decode call, kernel vs plain version on the same
     inputs: the largest difference, the rows with no valid cell left at 0,
-    both times, the bound from the valid cells, and SDPA on the layer's
-    DEQUANTIZED bf16 cache as the library yardstick (the dequantization is
-    not timed)."""
+    two more calls bit-identical, the plan, both times (and the kernel's
+    µs a call queued back to back), the bound from the valid cells, and SDPA on
+    the layer's DEQUANTIZED bf16 cache as the library yardstick (the
+    dequantization is not timed)."""
     tc = cfg.text
     hq, hkv, d = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
     int4, i8 = kind != "int8", kind == "int4_i8"
@@ -853,9 +873,10 @@ def decode_quant_case(cfg, kind: str, q, kc, vc, seg, layer: int, ks, vs, label:
     err = (out.float() - ref.float()).abs().max().item()
     dead = (seg == 0).all(dim=1)
     dead_ok = bool(torch.all(out[dead] == 0))
-    plan, twice = decode_plan_and_twice(q, kc, vc, seg, layer, ks, vs) if kind == "int8" else (None, True)
+    plan, twice = decode_plan_and_twice(q, kc, vc, seg, layer, ks, vs, i8)
     plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, kc, vc, seg, layer, scale, ks, vs, i8), iters=10)
     ms = cuda_ms(lambda: da.decode_attention(q, kc, vc, seg, layer, ks, vs, int4_i8dot=i8))
+    dev_us = queued_us(lambda: da.decode_attention(q, kc, vc, seg, layer, ks, vs, int4_i8dot=i8))
     g = hq // hkv
 
     def dequantized(cache, scales):
@@ -875,13 +896,12 @@ def decode_quant_case(cfg, kind: str, q, kc, vc, seg, layer: int, ks, vs, label:
     print(f"decode {kind} [{label}]: q{tuple(q.shape)} cache{tuple(kc.shape)} cells={cells} "
           f"rows_without_cells={int(dead.sum())} cache_bytes_per_launch="
           f"{nbytes(kc[layer], vc[layer], ks[layer], vs[layer])} layer={layer} max_abs_err={err:.3e} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_dequantized_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})"
-          + (f" bit_identical_twice={twice} plan={json.dumps(plan)}" if kind == "int8" else ""), flush=True)
+          f"ms={ms:.4f} queued_us={dev_us:.2f} plain_ms={plain_ms:.4f} sdpa_dequantized_ms={lib_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by}) bit_identical_twice={twice} plan={json.dumps(plan)}", flush=True)
     if not (err <= DECODE_QUANT_ATOL and dead_ok and twice):
         raise AssertionError(f"decode kernel ({kind}, {label}) disagrees with plain or with itself")
-    extra = dict(bit_identical_twice=twice, plan=plan) if kind == "int8" else {}
-    return [dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                 library_ms=lib_ms, **extra)]
+    return [dict(shape=label, max_abs_err=err, ms=ms, queued_us=dev_us, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=lib_ms, bit_identical_twice=twice, plan=plan)]
 
 
 @contextmanager

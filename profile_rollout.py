@@ -17,7 +17,12 @@ busy share without the profiler's own host cost.
 (``quantize_model(mode="w4a8")``: W8A8 linears, int4 MLP copies) at path
 (g)'s decode rows, 17 prompts x n 8 = 136, over an int4 cache with int8
 dots, and prints the int4 MLP kernels' device time (#13 and #14 with their
-prologues) per decode step.
+prologues) and the int8-dot decode attention's (#6) per decode step; then
+#6 alone on the inputs of the last decode step's calls (recorded from one
+more 17-token call): µs of a call queued back to back over the 36 layers in
+turn, as recorded, with ``time_decode.py``'s ``path_g`` kv_seg pattern and
+with seeded random values, so the kernel's time in the step and out of it
+are read on the same inputs.
 
 ``--engine paged`` runs ``chip_smoke.py``'s shipped paged path (W8A8 weights,
 int4 pools, int8 dots, 16 requests x 8 samples through 64 slots) and puts
@@ -369,7 +374,7 @@ def main() -> int:
         walls[tokens].append(call(tokens))
     print(f"unprofiled wall s: {walls}  [{card}]", flush=True)
 
-    prof_res, int4_res = {}, {}
+    prof_res, int4_res, dec_res = {}, {}, {}
     for tokens in (short, long):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall = call(tokens)
@@ -378,6 +383,9 @@ def main() -> int:
         prof_res[tokens] = (wall, device_s, len(kernels))
         int4 = [e for e in kernels if "int4_mlp_kernel" in e.name or "int4_quantize_rows" in e.name]
         int4_res[tokens] = (sum(e.device_time for e in int4) / 1e3, len(int4))
+        # #6: the split kernel's int4 instance, or the first design's template in an older tree
+        dec = [e for e in kernels if "decode_int4_kernel" in e.name or "decode_quant_kernel" in e.name]
+        dec_res[tokens] = (sum(e.device_time for e in dec) / 1e3, len(dec))
         print(f"{tokens}-token call: profiled wall {wall:.4f} s, device kernel time {device_s:.4f} s, "
               f"{len(kernels)} kernels", flush=True)
         print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=14,
@@ -395,8 +403,73 @@ def main() -> int:
         print(f"int4 MLP kernels (#13 + #14 with their prologues) per decode step at "
               f"{W4A8_PROMPTS * W4A8_SAMPLES} rows: {(ms2 - ms1) / DECODE_STEPS:.4f} ms in "
               f"{(n2 - n1) / DECODE_STEPS:.0f} launches  [{card}]", flush=True)
+        (ms1, n1), (ms2, n2) = dec_res[short], dec_res[long]
+        print(f"int4 decode attention with int8 dots (#6) per decode step at {W4A8_PROMPTS * W4A8_SAMPLES} "
+              f"rows: {(ms2 - ms1) / DECODE_STEPS:.4f} ms in {(n2 - n1) / DECODE_STEPS:.0f} launches  [{card}]",
+              flush=True)
+        decode_alone(call, card)
     return 0
 
+
+def decode_alone(call, card) -> None:
+    """#6 out of the step on the last decode call's recorded inputs: µs of a
+    call among the 36 layers of the recorded cache called in turn (each call
+    cold in L2, as in the step), queued back to back behind a sleeping kernel
+    (device time with the gaps between launches); then the same with the
+    recorded kv_seg swapped for ``time_decode.py``'s ``path_g`` pattern of as
+    many rows, and with the recorded cache, scales and q swapped for seeded
+    random ones (the recorded kv_seg kept), so a difference between the step's
+    inputs and the timed draw shows which of the two it follows."""
+    import spatialthinker_torch.models.qwen2_5_vl.text as text_mod
+    from spatialthinker_torch.ops import decode_attention as da
+    real, kept = text_mod.decode_attention, {}
+
+    def keep(*args, **kwargs):
+        kept["args"], kept["kwargs"] = args, kwargs
+        return real(*args, **kwargs)
+
+    text_mod.decode_attention = keep
+    try:
+        call(1 + DECODE_STEPS)
+    finally:
+        text_mod.decode_attention = real
+    q, kc, vc, seg, _, ks, vs = kept["args"]
+    layers, rows = kc.shape[0], q.shape[0]
+
+    def timed(q, kc, vc, seg, ks, vs) -> float:
+        turn = [0]
+
+        def one():
+            turn[0] += 1
+            return da.decode_attention(q, kc, vc, seg, turn[0] % layers, ks, vs, **kept["kwargs"])
+
+        one()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms: longer than issuing the calls
+        start.record()
+        for _ in range(layers):
+            one()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3 / layers
+
+    rng = np.random.default_rng(41)  # time_decode.py's path_g pattern: a left-padded prompt + 32 cells, 8 empty
+    drawn = np.zeros(tuple(seg.shape), np.int32)
+    for i, prompt in enumerate(rng.integers(320, 513, size=rows - 8)):
+        drawn[i, 512 - prompt: 512 + 32] = 1
+    drawn = torch.from_numpy(drawn).to(seg.device)
+    gen = torch.Generator(device=q.device).manual_seed(17)
+    rk = torch.randint(0, 256, tuple(kc.shape), dtype=torch.uint8, device=q.device, generator=gen)
+    rv = torch.randint(0, 256, tuple(vc.shape), dtype=torch.uint8, device=q.device, generator=gen)
+    rks, rvs = ((torch.rand(tuple(ks.shape), device=q.device, generator=gen) * 0.09 + 0.01).to(torch.bfloat16)
+                for _ in range(2))
+    rq = torch.randn(tuple(q.shape), device=q.device, generator=gen).to(torch.bfloat16)
+    print(f"#6 alone on the last step's inputs: q{tuple(q.shape)} cache{tuple(kc.shape)} "
+          f"cells={int((seg != 0).sum())}, queued µs a call over the {layers} layers in turn: recorded "
+          f"{timed(q, kc, vc, seg, ks, vs):.2f}; path_g's kv_seg pattern ({int(drawn.sum())} cells) "
+          f"{timed(q, kc, vc, drawn, ks, vs):.2f}; random cache, scales and q with the recorded kv_seg "
+          f"{timed(rq, rk, rv, seg, rks, rvs):.2f}  [{card}]", flush=True)
 
 if __name__ == "__main__":
     sys.exit(main())

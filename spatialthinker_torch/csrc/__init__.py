@@ -51,14 +51,9 @@ _SIGNATURES = {
     # q, k, v, dO, lse, delta, q_seg, kv_seg, q_rng, kv_rng, dk, dv, part_dk, part_dv,
     # B, Sq, Skv, Hq, Hkv, D, n_split, heads_per_split, causal, scale, stream
     "st_flash_bwd_dkv": [_P] * 14 + [_I] * 9 + [_F, _P],
-    # (int4 modes) q, k_cache, v_cache, k_scale, v_scale, kv_seg, o, B, Hq, Hkv, S, D, layer, mode,
-    # block_rows, scale, stream
-    "st_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
-    # mode, G, block_rows -> bytes of dynamic shared memory per block
-    "st_decode_attention_smem": [_I] * 3,
-    # (bf16 / int8) q, k_cache, v_cache, k_scale, v_scale, kv_seg, o, L, B, Hq, Hkv, S, layer, mode,
-    # (the plan:) n_split, stages, scale, stream
-    "st_decode_split": [_P] * 7 + [_I] * 9 + [_F, _P],
+    # q, k_cache, v_cache, k_scale, v_scale, kv_seg, o, L, B, Hq, Hkv, S, layer, mode,
+    # (the plan:) block_rows, n_split, stages, scale, stream
+    "st_decode_split": [_P] * 7 + [_I] * 10 + [_F, _P],
     # mode, G, n_split, stages -> bytes of the split kernel's plan (-1: refused)
     "st_decode_split_smem": [_I] * 4,
     # gu, q, s, M, I, row stride, dtype, stream

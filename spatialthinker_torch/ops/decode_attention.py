@@ -9,11 +9,7 @@ every valid cell". Rows with no valid cell give zeros. Four cache formats:
 
 - bf16 (the TPU kernel ``_decode_kernel``) -> ``decode_attention.launches``;
 - int8 values with per-cell bf16 scales (L, B, Hkv, S) (``_decode_kernel``,
-  ``quantized=True``) -> ``_launch_int8_kernel``. These two run the split
-  kernel under one plan per call, ``decode_plan``: the 64-token tiles of a
-  (row, kv head) stripe over a cluster of CTAs where the pairs leave CTA
-  slots idle, tiles without a valid cell skipped, each CTA's four consumer warps
-  with their own running max, met in warp order and then in rank order;
+  ``quantized=True``) -> ``_launch_int8_kernel``;
 - int4 (uint8, (L, B, Hkv, S/2, D): byte row r holds token r in its low
   nibble and token r + S/2 in its high nibble, +8 biased, split-half over the
   whole cache width) with the dots on the unsigned nibbles widened to
@@ -24,6 +20,14 @@ every valid cell". Rows with no valid cell give zeros. Four cache formats:
   packed byte rows, so the block is part of the function: ``int4_block_rows``
   states the one rule (the TPU kernel's tiling) that kernel and plain version
   share.
+
+All four run one kernel design under one plan per call, ``decode_plan``: the
+tiles of a (row, kv head) stripe (64 tokens; int4: 64 byte rows, 128 tokens)
+over a cluster of CTAs where the pairs leave CTA slots idle (int4: whole
+blocks a rank), tiles without a valid cell skipped, each CTA's four consumer
+warps met in warp order and then in rank order. The int8-dot mode keeps a
+block's scores in registers and refuses a block of more than 256 byte rows
+(a width whose packed row count is no multiple of 128 and exceeds 256).
 
 The wrapper runs the plain versions for CPU tensors only. A CUDA tensor
 launches a kernel or raises — nothing falls back.
@@ -44,15 +48,18 @@ from .paged_attention import SMEM_BUDGET_TWO, device_sms
 
 KV4_BIAS = 8
 KERNEL_HEAD_DIMS = (128,)  # text heads of the 3B/7B presets
+D_KERNEL = KERNEL_HEAD_DIMS[0]
 KERNEL_MAX_GROUP = 16
 KERNEL_MAX_SMEM = 232448  # dynamic shared memory a block may opt in to on sm_90
 MODE_BF16, MODE_INT8, MODE_INT4, MODE_INT4_I8 = 0, 1, 2, 3
 
-# the split kernel of modes 0 and 1 (``csrc/decode_attention.cu`` ``decode_split_kernel``)
-SPLIT_TILE = 64           # tokens a ring slot holds
-SPLIT_CONSUMERS = 4       # consumer warps a CTA, 16 tokens of a tile each (one producer warp more)
+# the split kernel (``csrc/decode_attention.cu`` ``decode_split_kernel``, ``decode_int4_kernel``)
+SPLIT_TILE = 64           # tokens a ring slot holds (int4: packed byte rows)
+SPLIT_CONSUMERS = 4       # consumer warps a CTA, 16 rows of a tile each (one producer warp more)
 SPLIT_MAX_CLUSTER = 8     # the portable cluster size
-SPLIT_MAX_STAGES = 4
+SPLIT_MAX_STAGES = 4      # modes 0 and 1; the deepest ring the rule picks in modes 2 and 3 below 256-row blocks
+INT4_MAX_STAGES = 8       # mode 3 holds a block's tiles in the ring until its p . v
+BLOCK_TILES = 4           # mode 3's largest block (256 byte rows; its scores stay in registers)
 SPLIT_BOX_BYTES = 8192    # a 64-row x 128-byte TMA box
 SPLIT_PART_STRIDE = 132   # floats per head row of the partial outputs
 SMEM_PER_SM = 233472      # shared memory of an H100 SM; each resident CTA also takes 1 KB of it
@@ -60,15 +67,17 @@ SMEM_PER_SM = 233472      # shared memory of an H100 SM; each resident CTA also 
 
 @dataclass(frozen=True)
 class DecodePlan:
-    """How the split kernel cuts a bf16 / int8 call: ``cluster`` CTAs (ranks)
-    per (row, kv head), rank r taking the 64-token tiles r, r + cluster, ...;
-    a ring of ``stages`` slots; ``smem`` bytes of shared memory a CTA;
-    ``ctas`` CTAs a call."""
+    """How the split kernel cuts a call: ``cluster`` CTAs (ranks) per (row, kv
+    head), rank r taking the 64-token tiles r, r + cluster, ... (int4: the
+    blocks of ``block_rows`` packed rows, 0 in modes 0 and 1); a ring of
+    ``stages`` slots; ``smem`` bytes of shared memory a CTA; ``ctas`` CTAs a
+    call."""
 
     cluster: int
     stages: int
     smem: int
     ctas: int
+    block_rows: int = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -77,62 +86,96 @@ def _round_up(x: int, m: int) -> int:
 
 def split_smem(mode: int, g: int, stages: int) -> int:
     """Bytes of shared memory of a split-kernel CTA (``split_layout`` in the
-    ``.cu`` file): the ring's slots (K and V boxes, the tile's two scale
-    vectors; 1024-byte aligned), which later hold the consumer warps' partial
-    outputs and the CTA's sum of them; the slots' headers; per warp and head
-    m, l and a combine weight, per head the CTA's m and l and the ranks'
-    weights; the mbarriers; 1 KB to align the ring."""
+    ``.cu`` file): the ring's slots (K and V boxes, the tile's scale runs --
+    two, int4 four; 1024-byte aligned), which later hold the consumer warps'
+    partial outputs and the CTA's sum of them; the slots' headers; per warp
+    and head m, l and a combine weight, per head the CTA's m and l and the
+    ranks' weights; int4: per slot the 128-bit mask, q8, per head qscale and
+    8 sum(q), the block maxima and the warps' int8 weight records
+    (``int4_region``); the mbarriers; 1 KB to align the ring."""
     g16 = 8 if g <= 8 else 16
-    slot = _round_up((4 if mode == MODE_BF16 else 2) * SPLIT_BOX_BYTES + 2 * SPLIT_TILE * 2, 1024)
+    int4 = mode in (MODE_INT4, MODE_INT4_I8)
+    if int4:
+        slot = _round_up(2 * SPLIT_BOX_BYTES + 4 * SPLIT_TILE * 2, 1024)
+    else:
+        slot = _round_up((4 if mode == MODE_BF16 else 2) * SPLIT_BOX_BYTES + 2 * SPLIT_TILE * 2, 1024)
     off = max(stages * slot, (SPLIT_CONSUMERS + 1) * g16 * SPLIT_PART_STRIDE * 4)
     off += stages * 16
     off += (3 * SPLIT_CONSUMERS + 2 + SPLIT_MAX_CLUSTER + 1) * g16 * 4
+    if int4:
+        off += (stages * 16 + g16 * (D_KERNEL + 16) + 2 * g16 * 4 + 2 * SPLIT_CONSUMERS * g16 * 2 * 4
+                + SPLIT_CONSUMERS * g16 * 32)
     return _round_up(off, 8) + 2 * stages * 8 + 1024
 
 
-def ring_fit(mode: int, g: int) -> int:
-    """The deepest ring (2 to 4 slots) that keeps a CTA within
-    SMEM_BUDGET_TWO: 3 slots in bf16, 4 in int8."""
-    return next((n for n in range(SPLIT_MAX_STAGES, 2, -1) if split_smem(mode, g, n) <= SMEM_BUDGET_TWO), 2)
+def ring_fit(mode: int, g: int, block_tiles: int = 1) -> int:
+    """The deepest ring (2 to 4 slots; mode 3 up to two blocks of
+    ``block_tiles`` tiles, at most 8) that keeps a CTA within
+    SMEM_BUDGET_TWO: 3 slots in bf16, 4 in int8 and int4 (6 for mode 3's
+    256-row blocks); mode 3 never below one block."""
+    cap = min(INT4_MAX_STAGES, max(SPLIT_MAX_STAGES, 2 * block_tiles)) if mode == MODE_INT4_I8 else SPLIT_MAX_STAGES
+    fit = next((n for n in range(cap, 2, -1) if split_smem(mode, g, n) <= SMEM_BUDGET_TWO), 2)
+    return max(fit, block_tiles) if mode == MODE_INT4_I8 else fit
 
 
-def cta_slots(mode: int, g: int, sms: int) -> int:
+def cta_slots(mode: int, g: int, sms: int, block_tiles: int = 1) -> int:
     """CTAs the device holds at once under ``ring_fit``'s ring: ``sms`` times
-    the CTAs an SM's shared memory holds (2 in bf16, 3 in int8)."""
-    return sms * max(1, SMEM_PER_SM // (split_smem(mode, g, ring_fit(mode, g)) + 1024))
+    the CTAs an SM's shared memory holds (2 in bf16, 3 in int8 and int4 at
+    G <= 8, 2 at mode 3's 256-row blocks). At G <= 8 the int4 kernels' registers
+    hold as many (launch bounds of three CTAs an SM); at G > 8 they hold
+    fewer, which the rule does not count (no path runs G > 8)."""
+    return sms * max(1, SMEM_PER_SM // (split_smem(mode, g, ring_fit(mode, g, block_tiles)) + 1024))
 
 
 @functools.lru_cache(maxsize=None)
 def decode_plan(b: int, hkv: int, g: int, s: int, mode: int, *, sms: int,
                 cluster: Optional[int] = None, stages: Optional[int] = None) -> DecodePlan:
-    """The plan the card runs for a bf16 (``mode`` 0) or int8 (1) cache: ``b``
-    rows, ``hkv`` kv heads of ``g`` query heads, a cache ``s`` tokens wide, on
-    a device of ``sms`` streaming multiprocessors (``device_sms``).
-    ``cluster`` and ``stages`` override the choice (for measurements and
-    tests). The rule is the measured one (``time_decode.py --sweep``,
-    PERF.md §6): a CTA walks its tiles one after another behind a
-    fixed cost of several µs, and the CTAs an SM holds at once overlap, so the
-    cluster splits a stripe's tiles as far as the (row, kv head) pairs leave
-    CTA slots idle (``cta_slots``) -- at most 8 ranks and no more than the
-    stripe has tiles; the ring is ``ring_fit``'s, no deeper than a rank's
-    tiles (at least 2 slots). Raises ValueError for a plan the kernel cannot
-    run; the C side refuses the same."""
-    if mode not in (MODE_BF16, MODE_INT8) or not 1 <= g <= KERNEL_MAX_GROUP or min(b, hkv, s) < 1:
+    """The plan the card runs for a bf16 (``mode`` 0), int8 (1) or int4 (2,
+    3) cache: ``b`` rows, ``hkv`` kv heads of ``g`` query heads, a cache ``s``
+    tokens wide (int4: twice its packed rows), on a device of ``sms``
+    streaming multiprocessors (``device_sms``). ``cluster`` and ``stages``
+    override the choice (for measurements and tests). The rule is the
+    measured one (``time_decode.py --sweep``, PERF.md §6): a CTA walks its
+    tiles one after another behind a fixed cost of several µs, and the CTAs
+    an SM holds at once overlap, so the cluster splits a stripe's units -- its
+    tiles; int4: its blocks of ``int4_block_rows`` packed rows, whole -- as
+    far as the (row, kv head) pairs leave CTA slots idle (``cta_slots``), at
+    most 8 ranks and no more than the stripe has units; the ring is
+    ``ring_fit``'s, no deeper than a rank's tiles (at least 2 slots; mode 3
+    at least a block). Raises ValueError for a plan the kernel cannot run
+    (mode 3: a block of more than 256 rows); the C side refuses the same."""
+    int4 = mode in (MODE_INT4, MODE_INT4_I8)
+    if (mode not in (MODE_BF16, MODE_INT8) and not int4) or not 1 <= g <= KERNEL_MAX_GROUP or min(b, hkv, s) < 1 \
+            or (int4 and s % 2):
         raise ValueError(f"no split plan for mode {mode}, G={g}, {b} rows x {hkv} kv heads, width {s}")
+    block_rows, block_tiles = 0, 1
     tiles = -(-s // SPLIT_TILE)
+    if int4:
+        block_rows = int4_block_rows(s // 2)
+        tiles, block_tiles = -(-(s // 2) // SPLIT_TILE), -(-block_rows // SPLIT_TILE)
+        if mode == MODE_INT4_I8 and block_tiles > BLOCK_TILES:
+            raise ValueError(
+                f"an int4 cache of width {s} is one block of {block_rows} byte rows (its row count is no "
+                f"multiple of 128); the int8-dot kernel keeps a block's scores in registers, at most "
+                f"{BLOCK_TILES * SPLIT_TILE} rows")
+    units = -(-tiles // block_tiles)
     if cluster is None:
-        cluster = max(1, min(SPLIT_MAX_CLUSTER, tiles, cta_slots(mode, g, sms) // (b * hkv)))
+        cluster = max(1, min(SPLIT_MAX_CLUSTER, units, cta_slots(mode, g, sms, block_tiles) // (b * hkv)))
     if not 1 <= cluster <= SPLIT_MAX_CLUSTER:
         raise ValueError(f"a cluster of {cluster}: 1 to {SPLIT_MAX_CLUSTER} run")
     if stages is None:
-        stages = min(ring_fit(mode, g), max(2, -(-tiles // cluster)))
-    if not 1 <= stages <= SPLIT_MAX_STAGES:
-        raise ValueError(f"a ring of {stages} stages: 1 to {SPLIT_MAX_STAGES} run")
+        stages = min(ring_fit(mode, g, block_tiles), max(2, -(-units // cluster) * block_tiles))
+        if mode == MODE_INT4_I8:
+            stages = max(stages, block_tiles)
+    max_stages = INT4_MAX_STAGES if int4 else SPLIT_MAX_STAGES
+    if not 1 <= stages <= max_stages or (mode == MODE_INT4_I8 and stages < block_tiles):
+        raise ValueError(f"a ring of {stages} stages: 1 to {max_stages} run"
+                         + (f", at least a block's {block_tiles} tiles" if mode == MODE_INT4_I8 else ""))
     smem = split_smem(mode, g, stages)
     if smem > KERNEL_MAX_SMEM:
         raise ValueError(f"{stages} stages at G={g} need {smem} bytes of shared memory per block; the card "
                          f"allows {KERNEL_MAX_SMEM}")
-    return DecodePlan(cluster, stages, smem, cluster * b * hkv)
+    return DecodePlan(cluster, stages, smem, cluster * b * hkv, block_rows)
 
 
 def int4_block_rows(packed_rows: int) -> int:
@@ -278,65 +321,48 @@ def _check_cuda_inputs(q, k_cache, v_cache, kv_seg, layer_idx, k_scale, v_scale,
 
 def _launch(q, k_cache, v_cache, kv_seg, layer_idx, scale, k_scale, v_scale, mode: int,
             plan: Optional[DecodePlan] = None) -> torch.Tensor:
-    """One launch of the kernel of ``mode``: modes 0 and 1 the split kernel
-    under ``plan`` (default ``decode_plan`` of the call's shapes), modes 2 and
-    3 the int4 kernel."""
+    """One launch of the split kernel in ``mode`` under ``plan`` (default
+    ``decode_plan`` of the call's shapes)."""
     _check_cuda_inputs(q, k_cache, v_cache, kv_seg, layer_idx, k_scale, v_scale, mode)
-    b, hq, d = q.shape
+    b, hq, _ = q.shape
     n_layers, _, hkv, rows = k_cache.shape[:4]
-    lib = csrc.library()
+    s = 2 * rows if mode in (MODE_INT4, MODE_INT4_I8) else rows  # token width
+    plan = plan or decode_plan(b, hkv, hq // hkv, s, mode, sms=device_sms(q.device.index))
     out = torch.empty_like(q)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    if mode in (MODE_BF16, MODE_INT8):
-        plan = plan or decode_plan(b, hkv, hq // hkv, rows, mode, sms=device_sms(q.device.index))
-        args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale),
-                kv_seg.data_ptr(), out.data_ptr(), n_layers, b, hq, hkv, rows, int(layer_idx), mode,
-                plan.cluster, plan.stages, float(scale))
-        if q.device.index == torch.cuda.current_device():
+    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale),
+            kv_seg.data_ptr(), out.data_ptr(), n_layers, b, hq, hkv, s, int(layer_idx), mode,
+            plan.block_rows, plan.cluster, plan.stages, float(scale))
+    lib = csrc.library()
+    if q.device.index == torch.cuda.current_device():
+        rc = lib.st_decode_split(*args, _stream(q.device))
+    else:
+        with torch.cuda.device(q.device):
             rc = lib.st_decode_split(*args, _stream(q.device))
-        else:
-            with torch.cuda.device(q.device):
-                rc = lib.st_decode_split(*args, _stream(q.device))
-        csrc.check_launch(rc, "decode attention")
-        return out
-    s, block_rows = 2 * rows, int4_block_rows(rows)
-    smem = lib.st_decode_attention_smem(mode, hq // hkv, block_rows)
-    if smem > KERNEL_MAX_SMEM:
-        raise ValueError(
-            f"an int4 cache of width {s} is one block of {block_rows} byte rows (its width is no "
-            f"multiple of 256) and needs {smem} bytes of shared memory per block; the card "
-            f"allows {KERNEL_MAX_SMEM}"
-        )
-    with torch.cuda.device(q.device):
-        rc = lib.st_decode_attention(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(k_scale), ptr(v_scale),
-            kv_seg.data_ptr(), out.data_ptr(), b, hq, hkv, s, d, int(layer_idx), mode, block_rows,
-            float(scale), torch.cuda.current_stream().cuda_stream,
-        )
     csrc.check_launch(rc, "decode attention")
     return out
 
 
 def _launch_int8_kernel(*args, plan: Optional[DecodePlan] = None) -> torch.Tensor:
-    """int8 cache (mode 1: the split kernel, under ``plan``)."""
+    """int8 cache (mode 1), under ``plan``."""
     out = _launch(*args, mode=MODE_INT8, plan=plan)
     _launch_int8_kernel.launches += 1
     return out
 
 
-def _launch_int4_kernel(*args) -> torch.Tensor:
-    """int4 cache, dots on the widened nibbles (mode 2 of the kernel)."""
-    out = _launch(*args, mode=MODE_INT4)
+def _launch_int4_kernel(*args, plan: Optional[DecodePlan] = None) -> torch.Tensor:
+    """int4 cache, dots on the widened nibbles (mode 2), under ``plan``."""
+    out = _launch(*args, mode=MODE_INT4, plan=plan)
     _launch_int4_kernel.launches += 1
     return out
 
 
-def _launch_int4_i8_kernel(*args) -> torch.Tensor:
-    """int4 cache, int8 dots (mode 3 of the kernel)."""
-    out = _launch(*args, mode=MODE_INT4_I8)
+def _launch_int4_i8_kernel(*args, plan: Optional[DecodePlan] = None) -> torch.Tensor:
+    """int4 cache, int8 dots (mode 3), under ``plan``."""
+    out = _launch(*args, mode=MODE_INT4_I8, plan=plan)
     _launch_int4_i8_kernel.launches += 1
     return out
 

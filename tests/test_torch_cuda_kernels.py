@@ -19,7 +19,10 @@ int4 pools; an int8 softmax weight on a rounding tie may flip by one step).
 The quantized dense-decode kernels (int8, int4, int4 with int8 dots) repeat
 their plain version's arithmetic with a running max instead of the global
 one: bf16 outputs of O(0.3) within 1e-2 (an int8 softmax weight on a rounding
-tie may flip by one step of 1/127 of its block's largest weight).
+tie may flip by one step of 1/127 of its block's largest weight). The int4
+modes run the split kernel too (whole blocks a rank): under the rule's plan
+and forced clusters, two calls bit-identical; the int8-dot mode refuses a
+block of more than 256 rows, the widened-nibble mode takes any width.
 The flash backward kernels round p and ds to bf16 before the second products
 where the plain version keeps fp32: each gradient within 1e-2 of its own
 largest magnitude (4e-3 to 7e-3 measured on an H100); padding rows exactly zero;
@@ -447,15 +450,54 @@ def test_decode_split_kernel_matches_plain(dev, kind, hq, hkv, s, cluster):
         assert torch.all(out[b - 1] == 0) and out[0].abs().max() > 0
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8"])
+INT4_SPLIT_CASES = [  # kind, Hq, Hkv, S, cluster (None: the rule's plan)
+    (kind, hq, hkv, s, cluster)
+    for kind in ("int4", "int4_i8")
+    for hq, hkv in ((14, 2), (16, 2), (32, 2))
+    for s in (200, 512, 768, 2048, 8192)
+    for cluster in (None, 1, 2, 8)
+]
+
+
+@pytest.mark.parametrize("kind,hq,hkv,s,cluster", INT4_SPLIT_CASES)
+def test_decode_int4_split_kernel_matches_plain(dev, kind, hq, hkv, s, cluster):
+    """#5 and #6 (the int4 modes of the split kernel) against the plain
+    version under the rule's plan and plans of 1, 2 and 8 ranks (more ranks
+    than blocks leave ranks idle), at the first and the last layer; two calls
+    bit-identical; one launch a call on the mode's counter."""
+    b = 4
+    rng = np.random.default_rng(s + hq)
+    q = _bf16(rng, (b, hq, 128), dev)
+    k, v, ks, vs, seg = _quant_cache(dev, kind, b, hkv, s, n_layers=3, seed=s + hq)
+    i8 = kind == "int4_i8"
+    mode = da.MODE_INT4_I8 if i8 else da.MODE_INT4
+    plan = da.decode_plan(b, hkv, hq // hkv, s, mode, sms=pa.device_sms(dev.index), cluster=cluster)
+    launch = da._launch_int4_i8_kernel if i8 else da._launch_int4_kernel
+    for layer in (0, k.shape[0] - 1):
+        ref = decode_attention_plain(q, k, v, seg, layer, 128**-0.5, ks, vs, i8)
+        args = (q, k, v, seg, layer, 128**-0.5, ks, vs)
+        before = launch.launches
+        out, again = launch(*args, plan=plan), launch(*args, plan=plan)
+        torch.cuda.synchronize()
+        assert launch.launches == before + 2
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+        assert torch.equal(out, again)
+        assert torch.all(out[b - 1] == 0) and out[0].abs().max() > 0
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "int4_i8"])
 def test_decode_split_counts_one_launch_per_call(dev, kind):
-    q, k, v, seg, ks, vs = _split_case(dev, kind, 16, 2, 640)
-    counter = decode_attention if kind == "bf16" else da._launch_int8_kernel
-    before = (counter.launches, da._launch_int4_kernel.launches, da._launch_int4_i8_kernel.launches)
-    decode_attention(q, k, v, seg, 1, ks, vs)
+    counters = [decode_attention, da._launch_int8_kernel, da._launch_int4_kernel, da._launch_int4_i8_kernel]
+    mine = ["bf16", "int8", "int4", "int4_i8"].index(kind)
+    if kind.startswith("int4"):
+        q = _bf16(np.random.default_rng(7), (4, 16, 128), dev)
+        k, v, ks, vs, seg = _quant_cache(dev, kind, 4, 2, 768)
+    else:
+        q, k, v, seg, ks, vs = _split_case(dev, kind, 16, 2, 640)
+    before = [c.launches for c in counters]
+    decode_attention(q, k, v, seg, 1, ks, vs, int4_i8dot=kind == "int4_i8")
     torch.cuda.synchronize()
-    assert (counter.launches, da._launch_int4_kernel.launches,
-            da._launch_int4_i8_kernel.launches) == (before[0] + 1, *before[1:])
+    assert [c.launches for c in counters] == [n + (i == mine) for i, n in enumerate(before)]
 
 
 def test_decode_split_smem_matches_plan(dev):
@@ -463,13 +505,25 @@ def test_decode_split_smem_matches_plan(dev):
     refuse the same plans."""
     from spatialthinker_torch import csrc
     lib = csrc.library()
-    for mode in (da.MODE_BF16, da.MODE_INT8):
+    for mode in (da.MODE_BF16, da.MODE_INT8, da.MODE_INT4, da.MODE_INT4_I8):
+        int4 = mode in (da.MODE_INT4, da.MODE_INT4_I8)
         for g in (1, 7, 8, 9, 16):
-            for stages in range(1, da.SPLIT_MAX_STAGES + 1):
+            for stages in range(1, (da.INT4_MAX_STAGES if int4 else da.SPLIT_MAX_STAGES) + 1):
                 for cluster in (1, 8):
                     assert lib.st_decode_split_smem(mode, g, cluster, stages) == da.split_smem(mode, g, stages)
-    for bad in ((2, 8, 1, 2), (0, 17, 1, 2), (0, 8, 9, 2), (0, 8, 1, 5), (1, 8, 0, 2), (1, 8, 1, 0)):
+    for bad in ((4, 8, 1, 2), (0, 17, 1, 2), (0, 8, 9, 2), (0, 8, 1, 5), (1, 8, 0, 2), (1, 8, 1, 0),
+                (2, 8, 1, 9), (3, 8, 1, 9), (3, 17, 1, 2)):
         assert lib.st_decode_split_smem(*bad) == -1
+    # the C side refuses what decode_plan refuses: mode 3 with a ring shorter than a block, a block of
+    # more than 256 rows, a block that does not divide the rows
+    qi = _bf16(np.random.default_rng(1), (4, 16, 128), dev)
+    ki, vi, ksi, vsi, segi = _quant_cache(dev, "int4_i8", 4, 2, 1024)
+    out = torch.empty_like(qi)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (qi, ki, vi, ksi, vsi, segi, out)]
+    for block_rows, stages in ((256, 3), (512, 8), (192, 4), (0, 4)):
+        assert lib.st_decode_split(*ptrs, 2, 4, 16, 2, 1024, 0, da.MODE_INT4_I8, block_rows, 1, stages, 0.1,
+                                   stream) != 0, (block_rows, stages)
     q, k, v, seg, _, _ = _split_case(dev, "bf16", 16, 2, 200)
     with pytest.raises(ValueError):  # a cluster the kernel cannot run
         da.decode_plan(4, 2, 8, 200, da.MODE_BF16, sms=132, cluster=9)
@@ -491,9 +545,15 @@ def test_quantized_decode_wrapper_raises_on_unsupported_cuda_input(dev):
         decode_attention(q, k, v, seg[:, :256].contiguous(), 0, ks, vs)
     with pytest.raises(ValueError, match="needs k_scale"):
         decode_attention(q, k, v, seg, 0)
-    with pytest.raises(ValueError, match="shared memory"):  # one block of 3,000 byte rows
-        kb, vb, ksb, vsb, segb = _quant_cache(dev, "int4", 1, 1, 6000, n_layers=1)
-        decode_attention(q[:1], kb, vb, segb, 0, ksb, vsb, int4_i8dot=True)
+    kb, vb, ksb, vsb, segb = _quant_cache(dev, "int4", 2, 1, 6000, n_layers=1)
+    qb = q[:2, :8].contiguous()
+    with pytest.raises(ValueError, match="one block"):  # one block of 3,000 byte rows
+        decode_attention(qb, kb, vb, segb, 0, ksb, vsb, int4_i8dot=True)
+    # the widened-nibble mode walks any block in tiles: the same width runs
+    ref = decode_attention_plain(qb, kb, vb, segb, 0, 128**-0.5, ksb, vsb)
+    out = decode_attention(qb, kb, vb, segb, 0, ksb, vsb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
 
 
 def test_kernels_raise_on_unsupported_cuda_input(dev):

@@ -141,9 +141,11 @@ def test_plan_splits_where_pairs_leave_cta_slots_idle(b, s, cluster):
 
 
 def test_plan_refuses_what_the_kernel_cannot_run():
-    for mode in (da.MODE_INT4, da.MODE_INT4_I8, 7):
+    # mode 7 does not exist; an int4 width of 640 is one block of 320 byte rows, more than the int8-dot
+    # mode takes; an odd width has no packed rows (the int4 plans: tests/test_torch_decode_split_int4.py)
+    for mode, s in ((7, 640), (da.MODE_INT4_I8, 640), (da.MODE_INT4, 641)):
         with pytest.raises(ValueError):
-            da.decode_plan(4, 2, 8, 640, mode, sms=H100_SMS)
+            da.decode_plan(4, 2, 8, s, mode, sms=H100_SMS)
     for args in ((4, 2, 17, 640), (4, 2, 0, 640), (0, 2, 8, 640), (4, 0, 8, 640), (4, 2, 8, 0)):
         with pytest.raises(ValueError):
             da.decode_plan(*args, da.MODE_BF16, sms=H100_SMS)
