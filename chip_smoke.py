@@ -18,7 +18,9 @@ non-zero without a device. In order:
    mask as a yardstick (used nowhere in the port; for the quantized dense
    caches on the dequantized cache); the dense decode kernel's lines (bf16,
    int8, int4, int4 with int8 dots; the quantized ones also the kernel's
-   µs a call queued back to back) and the silu junction's print the call's plan and fail unless two
+   µs a call queued back to back), every paged kernel's (bf16, int8, int4,
+   int4 with int8 dots, each also at the shipped scale of ``paged_cases.py``,
+   and the staged block) and the silu junction's print the call's plan and fail unless two
    more calls agree bit for bit (the silu lines also print whether the kernel
    equals its plain version bit for bit); the flash forward (its range launch
    and the kernel, one call: both counted, the range tables held against
@@ -954,15 +956,16 @@ def recorded_decode_case(cfg, kind: str, rec, path: str):
     return decode_quant_case(cfg, kind, q, kc, vc, seg, layer, ks, vs, label)
 
 
+PAGED_MODES = {"bf16": pa.MODE_BF16, "int8": pa.MODE_INT8, "int4_i8": pa.MODE_INT4_I8, "int4": pa.MODE_INT4}
+
+
 def paged_plan_and_twice(kind: str, args, staged=None):
-    """(mode 2's plan as a dict, or None for the other modes; whether two more
-    calls of the kernel agree bit for bit)."""
+    """(the mode's plan as a dict; whether two more calls of the kernel agree
+    bit for bit)."""
     q, k, table = args[0], args[1], args[3]
-    plan = None
-    if kind == "int4_i8":
-        ring = 0 if staged is None else staged[0].shape[3]
-        plan = pa.paged_plan(q.shape[0], k.shape[2], q.shape[1] // k.shape[2], pa._page_cells(k), table.shape[1],
-                             ring, sms=pa.device_sms(q.device.index)).__dict__
+    ring = 0 if staged is None else staged[0].shape[3]
+    plan = pa.paged_plan(q.shape[0], k.shape[2], q.shape[1] // k.shape[2], pa._page_cells(k), table.shape[1],
+                         ring, sms=pa.device_sms(q.device.index), mode=PAGED_MODES[kind]).__dict__
     kw = dict(return_stats=True, int4_i8dot=kind == "int4_i8", staged=staged)
     first, second = pa.paged_attention(*args, **kw), pa.paged_attention(*args, **kw)
     torch.cuda.synchronize()
@@ -1031,33 +1034,38 @@ def check_paged(dev, cfg, kind: str, lanes: int, prompt_len: int, page: int, n_p
                 plan=plan)
 
 
-def check_paged_shipped(dev):
-    """#9 at the shipped scale (``scripts/spatialthinker_3b_grpo.sh``: decode
-    batch 128 + the trash lane, page 1024, prompt 6,144 + response 2,048), on
-    ``paged_cases.py``'s inputs: 16 groups of 8 lanes sharing their prompt
-    pages and owning their response pages, a one-layer pool. The bound counts
-    each distinct page's live cells once."""
-    case = paged_cases.make_shipped(torch, np, dev)
+def check_paged_shipped(dev, kind: str = "int4_i8"):
+    """A paged kernel at the shipped scale (``scripts/spatialthinker_3b_grpo.sh``:
+    decode batch 128 + the trash lane, page 1024, prompt 6,144 + response
+    2,048), on ``paged_cases.py``'s inputs: 16 groups of 8 lanes sharing
+    their prompt pages and owning their response pages, a one-layer pool of
+    ``kind``'s format (int4 for #9 and #8, int8 and bf16 for #7). The bound
+    counts each distinct page's live cells once."""
+    case = paged_cases.make_shipped(torch, np, dev, kind={"int4_i8": "int4"}.get(kind, kind))
     q = case["q"]
     args = paged_cases.call_args(torch, case, dev)
     scale = q.shape[-1] ** -0.5
-    o_ref, m_ref, l_ref = pa.paged_attention_int4_i8_plain(*args, scale)
-    o, m, l = pa.paged_attention(*args, return_stats=True, int4_i8dot=True)
+    i8 = kind == "int4_i8"
+    plain = {"int4_i8": pa.paged_attention_int4_i8_plain,
+             "int4": pa.paged_attention_int4_plain}.get(kind, pa.paged_attention_plain)
+    o_ref, m_ref, l_ref = plain(*args, scale)
+    o, m, l = pa.paged_attention(*args, return_stats=True, int4_i8dot=i8)
     torch.cuda.synchronize()
     err = (o.float() - o_ref.float()).abs().max().item()
     stat_err = max((m - m_ref).abs().max().item(), ((l - l_ref).abs() / (1 + l_ref.abs())).max().item())
     dead_ok = bool(torch.all(o[-1] == 0) and torch.all(l[-1] == 0) and torch.all(m[-1] == pa.NEG_INF))
-    plan, twice = paged_plan_and_twice("int4_i8", args)
-    plain_ms = cuda_ms(lambda: pa.paged_attention_int4_i8_plain(*args, scale), iters=5)
-    ms = cuda_ms(lambda: pa.paged_attention(*args, return_stats=True, int4_i8dot=True))
+    plan, twice = paged_plan_and_twice(kind, args)
+    plain_ms = cuda_ms(lambda: plain(*args, scale), iters=5)
+    ms = cuda_ms(lambda: pa.paged_attention(*args, return_stats=True, int4_i8dot=i8))
     cells = int(case["lengths"].sum())
-    b_ms, b_by = bound_ms(paged_cases.bound_bytes(case, distinct=True), 4.0 * cells * q.shape[1] * q.shape[2], "int8")
-    label = f"shipped_{q.shape[0]}_lanes_page_{case['page']}"
-    print(f"paged int4_i8 [{label}]: q{tuple(q.shape)} pool{tuple(case['k'].shape)} cells={cells} "
+    b_ms, b_by = bound_ms(paged_cases.bound_bytes(case, distinct=True), 4.0 * cells * q.shape[1] * q.shape[2],
+                          "int8" if i8 else "bf16")
+    label = f"{kind}_pools_shipped_{q.shape[0]}_lanes_page_{case['page']}"
+    print(f"paged {kind} [{label}]: q{tuple(q.shape)} pool{tuple(case['k'].shape)} cells={cells} "
           f"max_abs_err={err:.3e} stat_err={stat_err:.3e} bit_identical_twice={twice} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}, distinct pages) plan={json.dumps(plan)}", flush=True)
-    if not (err <= PAGED_OUT_ATOL["int4_i8"] and stat_err <= PAGED_STAT_ATOL and dead_ok and twice):
-        raise AssertionError(f"paged kernel (int4_i8) disagrees with plain or with itself [{label}]")
+    if not (err <= PAGED_OUT_ATOL[kind] and stat_err <= PAGED_STAT_ATOL and dead_ok and twice):
+        raise AssertionError(f"paged kernel ({kind}) disagrees with plain or with itself [{label}]")
     return dict(shape=label, max_abs_err=err, stat_err=stat_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, bit_identical_twice=twice, plan=plan)
 
@@ -1633,7 +1641,8 @@ def earlier_paths(dev, card, cfg) -> dict:
     page, n_pages = PAGED["page_size"], PAGED["total_pages"]
     int4_cases = [check_paged(dev, cfg, "int4_i8", lanes, p, page, n_pages), check_paged_shipped(dev)]
     pool_cases = [check_paged(dev, cfg, "bf16", PAGED_REQUESTS + 1, p, page, n_pages),
-                  check_paged(dev, cfg, "int8", lanes, p, page, n_pages)]
+                  check_paged(dev, cfg, "int8", lanes, p, page, n_pages),
+                  check_paged_shipped(dev, "bf16"), check_paged_shipped(dev, "int8")]
     rows_chunk = tcont.effective_prefill_chunk(p, PAGED["prefill_rows"], 0, PAGED["max_num_batched_tokens"])
     silu_cases = check_silu(dev, cfg, PAGED["prefill_rows"] * (rows_chunk or p))
     torch.cuda.empty_cache()
@@ -2403,7 +2412,7 @@ def main() -> int:
     int4_dense_cases = check_decode_quant(dev, cfg, "int4", quant_rows, 768, 512)
     int4_i8_dense_cases = check_decode_quant(dev, cfg, "int4_i8", quant_rows, 768, 512)
     paged_int4_cases = [check_paged(dev, cfg, "int4", PAGED["slots"] + 1, 512, PAGED["page_size"],
-                                    PAGED["total_pages"])]
+                                    PAGED["total_pages"]), check_paged_shipped(dev, "int4")]
     # the int4 MLP kernels at path g's lanes, path f's rows and a small batch; the fallback rule
     int4_gu_cases, int4_dn_cases = [], []
     for m in INT4_MS:

@@ -63,13 +63,11 @@ _SIGNATURES = {
     "st_silu_quant_smem": [_I],
     # q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, o, m, l,
     # stage_k, stage_v, stage_ks, stage_vs, stage_seg,
-    # S, Hq, Hkv, page, D, P_max, n_pages, layer, mode, C, (mode 2's plan:) n_split, warps, stages,
+    # S, Hq, Hkv, page, D, P_max, n_pages, layer, mode, C, (the plan:) n_split, warps, stages,
     # blocks per warp, scale, stream
     "st_paged_attention": [_P] * 15 + [_I] * 14 + [_F, _P],
-    # mode, G, page, C -> bytes of dynamic shared memory per block (modes 0, 1, 3)
-    "st_paged_attention_smem": [_I] * 4,
-    # G, page, C, n_split, warps, stages, blocks per warp -> bytes of mode 2's plan (-1: refused)
-    "st_paged_split_smem": [_I] * 7,
+    # mode, G, page, C, n_split, warps, stages, blocks per warp -> bytes of the mode's plan (-1: refused)
+    "st_paged_split_smem": [_I] * 8,
     # x, scratch, q4, gscale, out, m, k, n_cols, group, gateup, out_f32, (the plan:) warps, ranks,
     # stages, tile_rows, stream
     "st_int4_mlp": [_P] * 5 + [_I] * 10 + [_P],

@@ -1,11 +1,12 @@
 // Helpers shared by the kernels that feed shared memory through mbarriers,
 // bulk copies and TMA, and meet in thread-block clusters: the dense decode
-// split kernel (decode_attention.cu), the paged split kernel
+// split kernels (decode_attention.cu), the paged split kernels
 // (paged_attention.cu), kernel A (int8_matmul.cu) and the int4 MLP kernels
-// (int4_mlp.cu).
+// (int4_mlp.cu); and the `mma.sync` fragment helpers both attention files use.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda.h>  // CUtensorMap and its enums (types only: the encoder comes through the runtime)
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +41,57 @@ __device__ __forceinline__ float gid_sum(float x) {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mma.sync fragments (gid = lane / 4, tig = lane % 4) ----
+// the 8 x 8 b16 matrix of the warp's fragments (thread (g, t): row g, columns 2t, 2t + 1), transposed
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// bytes `i` of words x and y (int8) as a bf16 pair (x's in the low half): exact
+__device__ __forceinline__ uint32_t i8_pair(uint32_t x, uint32_t y, int i) {
+  return pack_bf16(static_cast<float>(static_cast<int8_t>(x >> (8 * i))),
+                   static_cast<float>(static_cast<int8_t>(y >> (8 * i))));
+}
+// word j (0-3) of a 16-byte value
+__device__ __forceinline__ uint32_t word(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// r[j] = bytes (row j, columns 0..3) -> c[col] = bytes (rows 0..3, column col)
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&c)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+// The low (hi = false) or high nibbles of bytes bx and by (0-3 of x, 4-7 of y) as a bf16 pair, bx's in
+// the low half: exact (the bf16 bits 0x4300 | u are 128 + u)
+__device__ __forceinline__ uint32_t nib_pair(uint32_t x, uint32_t y, int bx, int by, bool hi) {
+  const uint32_t t = __byte_perm(x, y, bx | (by << 8));
+  const uint32_t n = ((hi ? t >> 4 : t) & 0x000F000Fu) | 0x43004300u;
+  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&n), __float2bfloat162_rn(128.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // ---- mbarriers and bulk copies ----

@@ -2,11 +2,13 @@
 // attends the slot's pages of a global KV page pool through its page table.
 //
 // Replaces the Pallas TPU kernels of spatialthinker_tpu/ops/paged_attention.py:
-//   `_paged_kernel`          bf16 pools, and int8 pools with per-cell scales
-//                            (modes 0 and 1 here);
-//   `_paged_kernel_int4_i8`  int4 pools, both dots on int8 operands (mode 2);
-//   `_paged_kernel_int4`     int4 pools, dots on the unsigned nibbles widened
-//                            to floating point (mode 3).
+//   `_paged_kernel` (:113)          bf16 pools, and int8 pools with per-cell
+//                                   scales (modes 0 and 1 here);
+//   `_paged_kernel_int4_i8` (:338)  int4 pools, both dots on int8 operands
+//                                   (mode 2);
+//   `_paged_kernel_int4` (:225)     int4 pools, dots on the unsigned nibbles
+//                                   widened to floating point (mode 3);
+//   and their helper `_staged_block_update` (:59) under `staged=`.
 // Same contract as `_pallas_paged`:
 //   q (S, Hq, 128) bf16; pools (L, N, Hkv, page, 128) bf16 | int8, or uint8
 //   (L, N, Hkv, page/2, 128) for int4 (byte row r of a page holds cell r in
@@ -42,39 +44,37 @@
 // the card's operations-per-byte balance; what keeps a kernel from the byte
 // bound is latency: loads waited on in series, and too few warps in flight.
 //
-// Modes 0, 1, 3 (#7, #8; off the shipped path): one CTA of 4 warps per
-// (slot, kv head), so all G query heads share every byte read (G = 8 for the
-// 3B model, 7 for the 7B, any G <= 16 unpadded; any even page size). Each page
-// goes through three phases that keep the whole page's scores in shared
-// memory: A) stage K in 64-row tiles with 16-byte loads and form scores (fp32
-// FMAs), B) one warp per head does the online-softmax update, C) stage V tiles
-// and accumulate one output column per thread. What they do not do yet:
-// tensor-core dots, asynchronous copies, a split of long slots across CTAs.
+// One design for every mode: #9's split kernel. One plan per call
+// (ops/paged_attention.py `paged_plan`, its `mode` argument) splits each
+// slot's pages over a thread-block cluster of up to 8 CTAs where the (slot,
+// kv head) pairs leave SMs idle (path (c)'s 17 lanes x 2 kv heads on 132
+// SMs; not the shipped 129 lanes), the ranks meeting in distributed shared
+// memory in rank order (`split_end`: no second kernel, no atomics, two calls
+// bit-identical). Pages, or parts of them, arrive by bulk asynchronous copies
+// into rings of K and V slots completed on mbarriers while the ones before
+// are computed; both products run on tensor cores (`mma.sync`).
 //
 // Mode 2 (#9, the shipped path: every layer of every decode step) is
-// `paged_kernel_int4_i8`, described above it. In short: each slot's pages are
-// split over a thread-block cluster of up to 8 CTAs (the plan,
-// ops/paged_attention.py `paged_plan`, picks it so that a call fills the SMs:
-// path (b)'s 65 lanes of <= 3 pages of 256 cells, the shipped 129 lanes of
-// <= 8 pages of 1,024), combined in distributed shared memory in rank order;
-// every page arrives by two bulk asynchronous copies (K with both scale
-// vectors, and V) into a ring of slots while the page before is computed; up
-// to 8 warps take 16-row blocks of a page, both dots on `mma.sync` m16n8k32
-// s8 (the int8 operation count is not the limit, but tensor cores take the
-// dots off the FMA and dp4a pipes the latency-bound loop shares), and two CTA
-// barriers a page carry its row maxima. The grid runs rank fastest, then
-// slot, then kv head: the engine gives a group's lanes the first free slots,
-// so at a refill a group's 8 lanes are adjacent slots and the CTAs reading
-// the group's shared prompt pages run together and meet in the 50 MB L2
-// (later refills take the slots freed together, usually near each other).
-// A page of more than 1,024 cells (more 16-row blocks than 8 warps x 4) passes
-// in parts of 512 rows through one K and one V slot, three times: the row
-// max, the weights' sum and max, then the int8 weights and p . v, the scores
-// recomputed each pass (the engines ship pages of 256 and 1,024 cells; the
-// parts keep every even page size the scale vectors leave room for).
-// What it does not do yet: V blocks are transposed in registers from 32-bit
-// shared loads the 4 threads of a quad make in the same banks (4-way
-// conflicts).
+// `paged_kernel_int4_i8`, described above it. In short: up to 8 warps take
+// 16-row blocks of a page, both dots on `mma.sync` m16n8k32 s8, two CTA
+// barriers a page carry its row maxima (the weights are quantized per row
+// per page). The grid runs rank fastest, then slot, then kv head: the engine
+// gives a group's lanes the first free slots, so at a refill a group's 8
+// lanes are adjacent slots and the CTAs reading the group's shared prompt
+// pages run together and meet in the 50 MB L2. A page of more than 1,024
+// cells passes in parts of 512 rows through one K and one V slot, three
+// times: the row max, the weights' sum and max, then the int8 weights and
+// p . v, the scores recomputed each pass. What it does not do yet: V blocks
+// are transposed in registers from 32-bit shared loads the 4 threads of a
+// quad make in the same banks (4-way conflicts).
+//
+// Modes 0, 1, 3 (#7 bf16 and int8 pools, #8 int4 pools with widened nibbles;
+// every knob off the shipped `int4_i8dot`: path (c), path (f)'s `paged_int4`
+// case, path (h)'s greedy fused runs) are `paged_kernel_split`, described
+// above it: the same plan, cluster, copies and combine; the unit is a part of
+// a page (warps x 16 pool rows), one streaming pass with an online-softmax
+// step and one CTA barrier a part; both products on `mma.sync` m16n8k16 bf16
+// (int8 values converted, int4 nibbles widened in registers, both exact).
 //
 // The staged block (every mode, when C > 0). Replaces the TPU helper
 // `_staged_block_update` (spatialthinker_tpu/ops/paged_attention.py), which
@@ -88,13 +88,13 @@
 // update is the TPU helper's: scores = bf16(q) . bf16(k) in fp32 -- the float
 // q also in mode 2, never its int8 copy -- times (k_scale * scale) with
 // scales, else times scale; dead cells masked; m, l and acc corrected;
-// weights times v_scale rounded to bf16 for the p . v dot. In modes 0, 1, 3
-// it reuses the pool loop's staging tile and score buffer, its three phases
-// those of modes 0/1 over one "page" of C cells. In mode 2 the last rank of
-// the cluster runs it after its pages: the ring's K and V cells arrive by one
-// bulk copy each at the kernel's start, a warp takes a cell's scores (a lane
-// four columns) and the p . v of its cells in fp32. With the ring fused, the
-// returned (m, l) are final: the caller has nothing left to merge.
+// weights times v_scale rounded to bf16 for the p . v dot. In every mode the
+// last rank of the cluster runs it after its pages, the ring's K and V cells
+// arriving by one bulk copy each at the kernel's start: in mode 2 a warp
+// takes a cell's scores (a lane four columns) and the p . v of its cells in
+// fp32; in modes 0, 1, 3 the ring passes the unit's bf16 products as one
+// more part (bf16 rows in mode 0, int8 rows in modes 1 and 3). With the ring
+// fused, the returned (m, l) are final: the caller has nothing left to merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,439 +105,14 @@
 namespace {
 
 constexpr int D = 128;        // head dim (text heads of the 3B/7B presets)
-constexpr int THREADS = 128;  // 4 warps; phase C maps one thread per column
 constexpr int GMAX = 16;      // largest query group per kv head
-constexpr int TILE = 64;      // pool rows staged per tile
 constexpr int KV4_BIAS = 8;
 constexpr float NEG_INF = -1e30f;
 constexpr int MODE_BF16 = 0, MODE_INT8 = 1, MODE_INT4_I8 = 2, MODE_INT4 = 3;
 constexpr int MAX_SMEM = 232448;  // bytes a block may opt in to on sm_90
 
-// int4 pools are packed: byte row r = cells r and r + page/2 (mode 2 runs
-// the split kernel further down, not this template)
+// int4 pools are packed: byte row r = cells r and r + page/2
 __host__ __device__ inline bool packed(int mode) { return mode == MODE_INT4_I8 || mode == MODE_INT4; }
-
-// Shared-memory plan, computed alike on host and device.
-struct Layout {
-  int pg;          // padded score slots per page (int4: two padded halves)
-  int half_pad;    // int4: padded byte rows per page
-  int cp;          // padded score slots of the staged block (0: no ring)
-  int tile_stride; // bytes per staged row (padded against bank conflicts)
-  int off_s, off_ksc, off_vsc, off_q, off_seg, off_small, total;
-};
-
-__host__ __device__ inline Layout make_layout(int mode, int G, int page, int C) {
-  Layout L;
-  if (packed(mode)) {
-    L.half_pad = round_up(page / 2, 4);
-    L.pg = 2 * L.half_pad;
-  } else {
-    L.half_pad = 0;
-    L.pg = round_up(page, 4);
-  }
-  L.cp = round_up(C, 4);
-  const int slots = L.pg > L.cp ? L.pg : L.cp;  // the score buffer serves pages and the ring
-  L.tile_stride = mode == MODE_BF16 ? (D + 8) * 2 : D + 16;
-  int off = TILE * L.tile_stride;
-  L.off_s = off;          off += G * slots * 4;
-  L.off_ksc = off;        off += slots * 4;
-  L.off_vsc = off;        off += slots * 4;
-  L.off_q = off;          off += GMAX * D * 4;  // the float q (the staged block's too)
-  L.off_seg = off;        off += L.cp * 4;
-  L.off_small = off;      off += 5 * GMAX * 4;
-  L.total = off;
-  return L;
-}
-
-// Stage `n_rows` (<= TILE) rows of `row_bytes` bytes into the padded tile;
-// rows beyond n_rows are zero-filled.
-__device__ __forceinline__ void load_tile(const unsigned char* __restrict__ src, int row_bytes,
-                                          int n_rows, unsigned char* tile, int tile_stride) {
-  const int chunks = row_bytes / 16;
-  for (int i = threadIdx.x; i < TILE * chunks; i += THREADS) {
-    const int r = i / chunks;
-    const int c = (i % chunks) * 16;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows) val = *reinterpret_cast<const uint4*>(src + (size_t)r * row_bytes + c);
-    *reinterpret_cast<uint4*>(tile + r * tile_stride + c) = val;
-  }
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-paged_kernel(const __nv_bfloat16* __restrict__ q,
-             const unsigned char* __restrict__ k_pool,  // layer base
-             const unsigned char* __restrict__ v_pool,
-             const __nv_bfloat16* __restrict__ k_scale,  // layer base (modes 1, 3)
-             const __nv_bfloat16* __restrict__ v_scale,
-             const int* __restrict__ page_table, const int* __restrict__ lengths,
-             __nv_bfloat16* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
-             const unsigned char* __restrict__ stage_k,  // layer base of the ring (C > 0)
-             const unsigned char* __restrict__ stage_v,
-             const __nv_bfloat16* __restrict__ stage_ks,  // layer base (quantized pools)
-             const __nv_bfloat16* __restrict__ stage_vs,
-             const int* __restrict__ stage_seg,
-             int Hq, int Hkv, int page, int p_max, int C, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int G = Hq / Hkv;
-  const Layout L = make_layout(MODE, G, page, C);
-  unsigned char* tile = smem;
-  float* s_sh = reinterpret_cast<float*>(smem + L.off_s);
-  float* ksc = reinterpret_cast<float*>(smem + L.off_ksc);
-  float* vsc = reinterpret_cast<float*>(smem + L.off_vsc);
-  float* qs = reinterpret_cast<float*>(smem + L.off_q);  // the pages' and the staged block's q
-  int* seg_sh = reinterpret_cast<int*>(smem + L.off_seg);
-  float* small = reinterpret_cast<float*>(smem + L.off_small);
-  float* m_sh = small;
-  float* l_sh = small + GMAX;
-  float* corr_sh = small + 2 * GMAX;
-  float* sumq_sh = small + 3 * GMAX;
-  float* sump_sh = small + 4 * GMAX;
-
-  const int slot = blockIdx.x / Hkv;
-  const int h = blockIdx.x % Hkv;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int PG = L.pg;
-  const int half = page / 2;
-  const int half_pad = L.half_pad;
-  // pool rows per page and bytes per row
-  static_assert(MODE != MODE_INT4_I8, "mode 2 runs paged_kernel_int4_i8");
-  constexpr bool PACKED = MODE == MODE_INT4;
-  const int rows_per_page = PACKED ? half : page;
-  const int row_bytes = MODE == MODE_BF16 ? D * 2 : D;
-
-  const __nv_bfloat16* qg = q + ((size_t)slot * Hq + (size_t)h * G) * D;
-  if (tid < GMAX) {
-    m_sh[tid] = NEG_INF;
-    l_sh[tid] = 0.f;
-  }
-  for (int i = tid; i < G * D; i += THREADS) qs[i] = __bfloat162float(qg[i]);
-  if (MODE == MODE_INT4) {  // sum(q) per head, for the -8 debias of the scores
-    for (int g = warp; g < G; g += THREADS / 32) {
-      float sq = 0.f;
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j) sq += __bfloat162float(qg[(size_t)g * D + lane + 32 * j]);
-      sq = warp_sum(sq);
-      if (lane == 0) sumq_sh[g] = sq;
-    }
-  }
-
-  float acc[GMAX];  // column d = tid of every head's output
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) acc[g] = 0.f;
-
-  const int len = lengths[slot];
-  const int n_pg = min((len + page - 1) / page, p_max);
-  const int tok = tid % TILE;   // phase A: one staged row per thread ...
-  const int part = tid / TILE;  // ... modes 0/1: heads part, part+2, ..; mode 3: nibble half
-
-  for (int pi = 0; pi < n_pg; ++pi) {
-    const int page_id = page_table[(size_t)slot * p_max + pi];
-    const size_t page_row = (size_t)page_id * Hkv + h;
-    const unsigned char* kp = k_pool + page_row * (size_t)rows_per_page * row_bytes;
-    const unsigned char* vp = v_pool + page_row * (size_t)rows_per_page * row_bytes;
-    const int cells = min(page, len - pi * page);  // valid cells of this page, >= 1
-    // pool rows that hold a valid cell
-    const int rows = PACKED ? min(half, cells) : cells;
-
-    __syncthreads();  // previous page fully consumed (and q / state initialised)
-    if (MODE != MODE_BF16) {
-      const __nv_bfloat16* ksp = k_scale + page_row * (size_t)page;
-      const __nv_bfloat16* vsp = v_scale + page_row * (size_t)page;
-      for (int c = tid; c < cells; c += THREADS) {
-        const int j = PACKED ? (c >= half ? half_pad + c - half : c) : c;
-        ksc[j] = __bfloat162float(ksp[c]) * scale;
-        vsc[j] = __bfloat162float(vsp[c]);
-      }
-    }
-
-    // ---- phase A: scores of the whole page into s_sh ----
-    for (int t0 = 0; t0 < rows; t0 += TILE) {
-      __syncthreads();  // tile free, scales visible
-      load_tile(kp + (size_t)t0 * row_bytes, row_bytes, min(TILE, rows - t0), tile, L.tile_stride);
-      __syncthreads();
-      const unsigned char* krow = tile + tok * L.tile_stride;
-      const int r = t0 + tok;
-      if (MODE == MODE_INT4) {
-        float sc[GMAX];
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g) sc[g] = 0.f;
-#pragma unroll 2
-        for (int c = 0; c < D; c += 16) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(krow + c);
-          const unsigned char* b16 = reinterpret_cast<const unsigned char*>(&raw);
-          float kf[16];
-#pragma unroll
-          for (int e = 0; e < 16; ++e) kf[e] = static_cast<float>((b16[e] >> (4 * part)) & 15);
-#pragma unroll
-          for (int g = 0; g < GMAX; ++g) {
-            if (g < G) {
-#pragma unroll
-              for (int e = 0; e < 16; ++e) sc[g] = fmaf(qs[g * D + c + e], kf[e], sc[g]);
-            }
-          }
-        }
-        if (r < half) {
-          const int j = part * half_pad + r;
-#pragma unroll
-          for (int g = 0; g < GMAX; ++g)
-            if (g < G) s_sh[g * PG + j] = (sc[g] - KV4_BIAS * sumq_sh[g]) * ksc[j];
-        }
-      } else {
-        float sc[GMAX / 2];
-#pragma unroll
-        for (int j = 0; j < GMAX / 2; ++j) sc[j] = 0.f;
-#pragma unroll
-        for (int c = 0; c < D; c += 8) {
-          float kf[8];
-          if (MODE == MODE_BF16) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(krow + c * 2);
-            const __nv_bfloat16* k8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) kf[e] = __bfloat162float(k8[e]);
-          } else {
-            const uint2 raw = *reinterpret_cast<const uint2*>(krow + c);
-            const signed char* k8 = reinterpret_cast<const signed char*>(&raw);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) kf[e] = static_cast<float>(k8[e]);
-          }
-#pragma unroll
-          for (int j = 0; j < GMAX / 2; ++j) {
-            const int g = part + 2 * j;
-            if (g < G) {
-#pragma unroll
-              for (int e = 0; e < 8; ++e) sc[j] = fmaf(qs[g * D + c + e], kf[e], sc[j]);
-            }
-          }
-        }
-        if (r < page) {
-#pragma unroll
-          for (int j = 0; j < GMAX / 2; ++j) {
-            const int g = part + 2 * j;
-            if (g < G) s_sh[g * PG + r] = MODE == MODE_INT8 ? sc[j] * ksc[r] : sc[j] * scale;
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- phase B: online softmax of the page, one warp per head ----
-    for (int g = warp; g < G; g += THREADS / 32) {
-      float* srow = s_sh + g * PG;
-      const float m_prev = m_sh[g];
-      float mx = NEG_INF;
-      for (int j = lane; j < PG; j += 32) {
-        bool valid;
-        if (PACKED) {
-          const int hf = j >= half_pad;
-          const int r = j - hf * half_pad;
-          valid = r < half && hf * half + r < cells;
-        } else {
-          valid = j < cells;
-        }
-        if (valid) mx = fmaxf(mx, srow[j]);
-      }
-      const float m_new = fmaxf(m_prev, warp_max(mx));
-      float psum = 0.f, pvsum = 0.f;
-      for (int j = lane; j < PG; j += 32) {
-        bool valid;
-        if (PACKED) {
-          const int hf = j >= half_pad;
-          const int r = j - hf * half_pad;
-          valid = r < half && hf * half + r < cells;
-        } else {
-          valid = j < cells;
-        }
-        float p = 0.f;
-        if (valid) {
-          p = expf(srow[j] - m_new);
-          psum += p;
-          if (MODE != MODE_BF16) p *= vsc[j];
-          pvsum += p;  // mode 3 debiases with the unrounded weights
-          // the p . v dot takes bf16 weights, as the TPU kernel does
-          p = __bfloat162float(__float2bfloat16(p));
-        }
-        srow[j] = p;
-      }
-      const float corr = expf(m_prev - m_new);
-      psum = warp_sum(psum);
-      if (MODE == MODE_INT4) {
-        pvsum = warp_sum(pvsum);
-        if (lane == 0) sump_sh[g] = pvsum;
-      }
-      if (lane == 0) {
-        l_sh[g] = l_sh[g] * corr + psum;
-        m_sh[g] = m_new;
-        corr_sh[g] = corr;
-      }
-    }
-    __syncthreads();
-
-    // ---- phase C: p . v, one output column per thread ----
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g)
-      if (g < G) acc[g] *= corr_sh[g];
-    if (MODE == MODE_INT4) {
-      for (int t0 = 0; t0 < rows; t0 += TILE) {
-        __syncthreads();
-        load_tile(vp + (size_t)t0 * row_bytes, row_bytes, min(TILE, rows - t0), tile, L.tile_stride);
-        __syncthreads();
-        const int nt = min(TILE, rows - t0);
-        for (int t = 0; t < nt; ++t) {
-          const unsigned int byte = tile[t * L.tile_stride + tid];
-          const float lo = static_cast<float>(byte & 15u);
-          const float hi = static_cast<float>(byte >> 4);
-#pragma unroll
-          for (int g = 0; g < GMAX; ++g) {
-            if (g < G) {
-              acc[g] = fmaf(s_sh[g * PG + t0 + t], lo, acc[g]);
-              acc[g] = fmaf(s_sh[g * PG + half_pad + t0 + t], hi, acc[g]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g)
-        if (g < G) acc[g] -= KV4_BIAS * sump_sh[g];
-    } else {
-      for (int t0 = 0; t0 < rows; t0 += TILE) {
-        __syncthreads();
-        load_tile(vp + (size_t)t0 * row_bytes, row_bytes, min(TILE, rows - t0), tile, L.tile_stride);
-        __syncthreads();
-        const int nt = min(TILE, rows - t0);
-        for (int t = 0; t < nt; ++t) {
-          float vv;
-          if (MODE == MODE_BF16)
-            vv = __bfloat162float(
-                reinterpret_cast<const __nv_bfloat16*>(tile + t * L.tile_stride)[tid]);
-          else
-            vv = static_cast<float>(reinterpret_cast<const signed char*>(tile + t * L.tile_stride)[tid]);
-#pragma unroll
-          for (int g = 0; g < GMAX; ++g)
-            if (g < G) acc[g] = fmaf(s_sh[g * PG + t0 + t], vv, acc[g]);
-        }
-      }
-    }
-  }
-
-  if (C > 0) {
-    // ---- the staged block: one more online-softmax update over the ring ----
-    constexpr int st_row_bytes = MODE == MODE_BF16 ? D * 2 : D;  // bf16 | int8 cells
-    const int CP = L.cp;
-    const size_t cell0 = ((size_t)slot * Hkv + h) * C;  // the (slot, head)'s first cell
-    const unsigned char* skp = stage_k + cell0 * st_row_bytes;
-    const unsigned char* svp = stage_v + cell0 * st_row_bytes;
-    __syncthreads();  // the pages' last phase C is done with the tile and the scores
-    for (int c = tid; c < C; c += THREADS) {
-      seg_sh[c] = stage_seg[(size_t)slot * C + c] != 0;
-      if (MODE != MODE_BF16) {
-        ksc[c] = __bfloat162float(stage_ks[cell0 + c]) * scale;
-        vsc[c] = __bfloat162float(stage_vs[cell0 + c]);
-      }
-    }
-    for (int t0 = 0; t0 < C; t0 += TILE) {  // phase A: scores from the float q
-      __syncthreads();
-      load_tile(skp + (size_t)t0 * st_row_bytes, st_row_bytes, min(TILE, C - t0), tile, L.tile_stride);
-      __syncthreads();
-      const unsigned char* krow = tile + tok * L.tile_stride;
-      float sc[GMAX / 2];
-#pragma unroll
-      for (int j = 0; j < GMAX / 2; ++j) sc[j] = 0.f;
-#pragma unroll
-      for (int c = 0; c < D; c += 8) {
-        float kf[8];
-        if (MODE == MODE_BF16) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(krow + c * 2);
-          const __nv_bfloat16* k8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) kf[e] = __bfloat162float(k8[e]);
-        } else {
-          const uint2 raw = *reinterpret_cast<const uint2*>(krow + c);
-          const signed char* k8 = reinterpret_cast<const signed char*>(&raw);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) kf[e] = static_cast<float>(k8[e]);
-        }
-#pragma unroll
-        for (int j = 0; j < GMAX / 2; ++j) {
-          const int g = part + 2 * j;
-          if (g < G) {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) sc[j] = fmaf(qs[g * D + c + e], kf[e], sc[j]);
-          }
-        }
-      }
-      const int r = t0 + tok;
-      if (r < C) {
-#pragma unroll
-        for (int j = 0; j < GMAX / 2; ++j) {
-          const int g = part + 2 * j;
-          if (g < G) s_sh[g * CP + r] = MODE == MODE_BF16 ? sc[j] * scale : sc[j] * ksc[r];
-        }
-      }
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += THREADS / 32) {  // phase B, one warp per head
-      float* srow = s_sh + g * CP;
-      const float m_prev = m_sh[g];
-      float mx = NEG_INF;
-      for (int j = lane; j < C; j += 32)
-        if (seg_sh[j]) mx = fmaxf(mx, srow[j]);
-      const float m_new = fmaxf(m_prev, warp_max(mx));
-      float psum = 0.f;
-      for (int j = lane; j < C; j += 32) {
-        float p = 0.f;
-        if (seg_sh[j]) {
-          p = expf(srow[j] - m_new);
-          psum += p;
-          if (MODE != MODE_BF16) p *= vsc[j];
-          p = __bfloat162float(__float2bfloat16(p));  // the p . v dot takes bf16 weights
-        }
-        srow[j] = p;
-      }
-      const float corr = expf(m_prev - m_new);
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        l_sh[g] = l_sh[g] * corr + psum;
-        m_sh[g] = m_new;
-        corr_sh[g] = corr;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g)  // phase C: p . v, one output column per thread
-      if (g < G) acc[g] *= corr_sh[g];
-    for (int t0 = 0; t0 < C; t0 += TILE) {
-      __syncthreads();
-      load_tile(svp + (size_t)t0 * st_row_bytes, st_row_bytes, min(TILE, C - t0), tile, L.tile_stride);
-      __syncthreads();
-      const int nt = min(TILE, C - t0);
-      for (int t = 0; t < nt; ++t) {
-        const float vv = MODE == MODE_BF16
-            ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(tile + t * L.tile_stride)[tid])
-            : static_cast<float>(reinterpret_cast<const signed char*>(tile + t * L.tile_stride)[tid]);
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g)
-          if (g < G) acc[g] = fmaf(s_sh[g * CP + t0 + t], vv, acc[g]);
-      }
-    }
-  }
-
-  __syncthreads();
-  __nv_bfloat16* og = o + ((size_t)slot * Hq + (size_t)h * G) * D;
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g < G) {
-      const float l = l_sh[g];
-      og[(size_t)g * D + tid] = __float2bfloat16(acc[g] / (l == 0.f ? 1.f : l));
-    }
-  }
-  if (tid < G) {
-    m_out[(size_t)slot * Hq + h * G + tid] = m_sh[tid];
-    l_out[(size_t)slot * Hq + h * G + tid] = l_sh[tid];
-  }
-}
 
 // ---- mode 2: the split kernel of int4 pools with int8 dots ----
 //
@@ -584,21 +159,46 @@ constexpr int SPLIT_MAX_CLUSTER = 8;   // the portable cluster size
 constexpr int SPLIT_MAX_WARPS = 8;
 constexpr int SPLIT_MAX_STAGES = 4;
 constexpr unsigned int NIB = 0x0F0F0F0Fu;
+constexpr int SMEM_BUDGET_TWO = 113 * 1024;  // shared memory a CTA may take and leave room for a second
 
-// Shared memory of the split kernel, computed alike on host and device. The
+// Shared memory of the split kernels, computed alike on host and device. The
 // K and V slots and the ring's cells are reused for the warps' partial
 // outputs once the last page is done.
 struct SplitLayout {
-  int kbytes;   // K (or V) bytes of a slot: page/2 rows rounded up to whole blocks, at most the
+  int kbytes;   // K (or V) bytes of a slot: a page's rows rounded up to whole blocks, at most the
                 // rows the CTA's blocks cover (a larger page passes in parts)
-  int sbytes;   // one scale vector of a page, padded to 16 bytes
+  int sbytes;   // one scale region of a slot, padded to 16 bytes (modes 1-3)
   int kslot;    // a K slot: K rows, k_scale, v_scale
   int off_v, off_ring, off_q8, off_qf, off_p8, off_red, off_stat, off_rs, off_bar, total;
 };
 
-__host__ __device__ inline SplitLayout split_layout(int nt, int page, int C, int warps, int bpw, int stages) {
+__host__ __device__ inline SplitLayout split_layout(int mode, int nt, int page, int C, int warps, int bpw,
+                                                    int stages) {
   SplitLayout L;
   const int g16 = 8 * nt;
+  if (mode != MODE_INT4_I8) {
+    // modes 0, 1, 3 (`paged_kernel_split`): a slot holds a part of warps blocks of 16 pool rows (bf16
+    // rows of 256 bytes, int8 or packed byte rows of 128); its scales: mode 1 the part's cells', mode 3
+    // the part's two runs (lo and hi cells) where a page is a multiple of 16 cells, else the page's
+    const int rb = mode == MODE_BF16 ? 2 * D : D;
+    const int rows = round_up(packed(mode) ? page / 2 : page, SPLIT_ROWS), cover = warps * SPLIT_ROWS;
+    const int cap = rows < cover ? rows : cover;
+    L.kbytes = cap * rb;
+    L.sbytes = mode == MODE_BF16 ? 0 : mode == MODE_INT8 ? 2 * cap : page % 16 == 0 ? 4 * cap : round_up(2 * page, 16);
+    L.kslot = L.kbytes + 2 * L.sbytes;
+    int off = stages * L.kslot;
+    L.off_v = off;     off += stages * L.kbytes;
+    L.off_ring = off;  off += 2 * round_up(C, SPLIT_ROWS) * rb;  // the ring's K rows, then its V rows
+    const int part = (warps + 1) * g16 * D * 4 * 33 / 32;        // the warps' partial outputs and their sum
+    off = round_up(off > part ? off : part, 16);
+    L.off_q8 = L.off_qf = L.off_p8 = off;
+    L.off_red = off;   off += 2 * warps * g16 * 4;               // per-warp row maxima, two parities
+    L.off_stat = off;  off += 2 * g16 * 4;                       // the CTA's m and l
+    L.off_rs = off;    off += round_up(C * 4 * 3, 16);           // ring: k_scale * scale, v_scale, live
+    L.off_bar = off;   off += (2 * stages + 1) * 8;              // K slots, V slots, the ring
+    L.total = off;
+    return L;
+  }
   const int rows = round_up(page / 2, SPLIT_ROWS), cover = warps * bpw * SPLIT_ROWS;
   L.kbytes = (rows < cover ? rows : cover) * D;
   L.sbytes = round_up(page * 2, 16);
@@ -627,21 +227,108 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The end of both split kernels: the CTA's (m, l, acc) from its warps' partials, summed in warp order
+// (every warp holds the CTA's running max m_run; l_w[nt][e] is the warp's l, equal on its lanes), then
+// the ranks' in rank order in distributed shared memory; this rank writes heads rank, rank + n, ... .
+// acc holds columns 16 gid + 2 x + (c >> 1) of heads nt * 8 + 2 tig + (c & 1). red_a takes warps x
+// G16 floats, fin_m / fin_l (= fin_m + G16) the CTA's m and l; the slots at smem's start the partials.
+template <int NT>
+__device__ __forceinline__ void split_end(unsigned char* smem, float* red_a, float* fin_m, const float (&m_run)[NT][2],
+                                          const float (&l_w)[NT][2], const float (&acc)[NT][8][4],
+                                          __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
+                                          float* __restrict__ l_out, int slot, int h, int Hq, int G) {
+  constexpr int G16 = 8 * NT;
+  const int n_split = gridDim.x, rank = blockIdx.x, warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  float* fin_l = fin_m + G16;
+  // in fragment order: value k = 32 nt + 4 x + c of lane L at k * 33 + L (rows padded: no bank conflict)
+  constexpr int KN = 32 * NT;
+  __syncthreads();  // every warp is done with the slots and the ring: they take the partials
+  float* part = reinterpret_cast<float*>(smem);  // [warps][KN][33]
+  float* fin = part + warps * KN * 33;           // [KN][33]
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int x = 0; x < 8; ++x)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[(warp * KN + 32 * nt + 4 * x + c) * 33 + lane] = acc[nt][x][c];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (gid == 0) red_a[warp * G16 + nt * 8 + 2 * tig + e] = l_w[nt][e];
+      if (gid == 0 && warp == 0) fin_m[nt * 8 + 2 * tig + e] = m_run[nt][e];
+    }
+  __syncthreads();
+  for (int e = threadIdx.x; e < KN * 33; e += blockDim.x) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w2 = 0; w2 < SPLIT_MAX_WARPS; ++w2)
+      if (w2 < warps) sum += part[w2 * KN * 33 + e];
+    fin[e] = sum;
+  }
+  if (threadIdx.x < G16) {
+    float sum = 0.f;
+    for (int w2 = 0; w2 < warps; ++w2) sum += red_a[w2 * G16 + threadIdx.x];
+    fin_l[threadIdx.x] = sum;
+  }
+
+  // ---- the cluster: this rank writes heads rank, rank + n, ... from every rank's (m, l, acc) ----
+  if (n_split > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+  const int my_heads = G > rank ? (G - rank + n_split - 1) / n_split : 0;
+  // [my head][rank]: exp(m_r - M), then the head's l (1 where it is 0); the partials are spent
+  float* wts = part;
+  constexpr int WS = SPLIT_MAX_CLUSTER + 1;
+  if (threadIdx.x < my_heads) {
+    const int g = rank + threadIdx.x * n_split;
+    float mr[SPLIT_MAX_CLUSTER], lr[SPLIT_MAX_CLUSTER];
+    float M = NEG_INF;
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) {
+        mr[r] = *rank_ptr(fin_m + g, r, n_split);
+        lr[r] = *rank_ptr(fin_l + g, r, n_split);
+      }
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) M = fmaxf(M, mr[r]);
+    float l_sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) {
+        mr[r] = expf(mr[r] - M);
+        l_sum += lr[r] * mr[r];
+      }
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) wts[threadIdx.x * WS + r] = mr[r];
+    wts[threadIdx.x * WS + SPLIT_MAX_CLUSTER] = l_sum == 0.f ? 1.f : l_sum;
+    const size_t row = (size_t)slot * Hq + (size_t)h * G + g;
+    m_out[row] = M;
+    l_out[row] = l_sum;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < my_heads * D; e += blockDim.x) {
+    const int j = e / D, d = e % D, g = rank + j * n_split;
+    // (head g, column d) is value k of lane L in the fragment order
+    const int hh = g % 8, k = 32 * (g / 8) + 4 * ((d % 16) / 2) + 2 * (d % 2) + (hh % 2);
+    const int at = k * 33 + 4 * (d / 16) + hh / 2;
+    float v[SPLIT_MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) v[r] = *rank_ptr(fin + at, r, n_split);
+    float o_sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
+      if (r < n_split) o_sum += v[r] * wts[j * WS + r];
+    o[((size_t)slot * Hq + (size_t)h * G + g) * D + d] = __float2bfloat16(o_sum / wts[j * WS + SPLIT_MAX_CLUSTER]);
+  }
+  if (n_split > 1) cluster_sync();  // no CTA leaves while another still reads its shared memory
 }
-// r[j] = bytes (row j, columns 0..3) -> c[col] = bytes (rows 0..3, column col)
-__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&c)[4]) {
-  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(t0, t2, 0x5410);
-  c[1] = __byte_perm(t0, t2, 0x7632);
-  c[2] = __byte_perm(t1, t3, 0x5410);
-  c[3] = __byte_perm(t1, t3, 0x7632);
-}
+
 // NT: N tiles of 8 heads (1: G <= 8, 2: G <= 16); BPW: blocks a warp takes of
 // a page (1, 2 or 4) or of each part of it; PARTS: a page has more blocks
 // than warps x BPW and passes in parts. Fragment ownership (gid = lane / 4, tig = lane % 4):
@@ -665,7 +352,7 @@ paged_kernel_int4_i8(const __nv_bfloat16* __restrict__ q, const unsigned char* _
   const int G = Hq / Hkv;
   const int half = page >> 1;
   const int nblk = (half + SPLIT_ROWS - 1) / SPLIT_ROWS;
-  const SplitLayout L = split_layout(NT, page, C, warps, BPW, stages);
+  const SplitLayout L = split_layout(MODE_INT4_I8, NT, page, C, warps, BPW, stages);
   signed char* q8 = reinterpret_cast<signed char*>(smem + L.off_q8);
   float* qf = reinterpret_cast<float*>(smem + L.off_qf);
   unsigned char* p8 = smem + L.off_p8 + warp * BPW * G16 * 32;  // this warp's weight records
@@ -673,8 +360,7 @@ paged_kernel_int4_i8(const __nv_bfloat16* __restrict__ q, const unsigned char* _
   float* red_b = red_a + warps * G16;
   float* qscale_sh = reinterpret_cast<float*>(smem + L.off_stat);
   float* sumq8_sh = qscale_sh + G16;
-  float* fin_m = qscale_sh + 2 * G16;
-  float* fin_l = qscale_sh + 3 * G16;
+  float* fin_m = qscale_sh + 2 * G16;  // then the CTA's l (split_end)
   float* rks = reinterpret_cast<float*>(smem + L.off_rs);
   float* rvs = rks + C;
   int* rseg = reinterpret_cast<int*>(rvs + C);
@@ -1151,93 +837,514 @@ paged_kernel_int4_i8(const __nv_bfloat16* __restrict__ q, const unsigned char* _
     }
   }
 
-  // ---- the CTA's (m, l, acc): the warps' partials summed in warp order ----
-  // in fragment order: value k = 32 nt + 4 x + c of lane L at k * 33 + L (rows padded: no bank conflict)
-  constexpr int KN = 32 * NT;
-  __syncthreads();  // every warp is done with the slots and the ring: they take the partials
-  float* part = reinterpret_cast<float*>(smem);  // [warps][KN][33]
-  float* fin = part + warps * KN * 33;           // [KN][33]
+  split_end<NT>(smem, red_a, fin_m, m_run, l_w, acc, o, m_out, l_out, slot, h, Hq, G);
+}
+
+// ---- modes 0, 1, 3: the split kernel of bf16, int8 and int4 (widened-nibble) pools ----
+//
+// Replaces `_paged_kernel` (:113, bf16 and int8 pools) and `_paged_kernel_int4` (:225) of
+// spatialthinker_tpu/ops/paged_attention.py, with their `_staged_block_update` (:59). Bounded by
+// bytes: at most 4 G operations a value, far under the card's operations-per-byte balance; what the
+// design does about latency is below (parts in flight in a slot ring, the split over a cluster).
+//
+// #9's plan, cluster, copies and combine, with bf16 products. CTA (rank, slot, kv head), grid (n, S,
+// Hkv), the n CTAs of a (slot, kv head) a cluster, rank r taking the slot's pages r, r + n, ... and
+// the last rank the staging ring after them; the ranks meet in rank order (`split_end`).
+//
+// The unit a CTA computes at a time is a PART of a page: `warps` blocks of 16 pool rows (a bf16 or an
+// int8 cell, or a packed byte row of two int4 cells), warp w taking block w. A page of more rows
+// passes in several parts, one streaming pass with an online-softmax step per part (the running max
+// carried across parts). Why a part and not a page: a bf16 row is 4x an int4 row, so at the shipped
+// page of 1,024 cells a bf16 page's K and V are 512 KB and an int8 page's 256 KB, over the 227 KB a
+// CTA may hold; a part of 8 x 16 rows is 32 KB of bf16 K (16 KB int8, 16 KB packed = 256 int4
+// cells), so a ring of slots fits beside it. Each part arrives by bulk asynchronous copies
+// (`cp.async.bulk`, completion on mbarriers): its live K rows with its scales (mode 1 the part's
+// cells', mode 3 its two runs of lo and hi cells where a page is a multiple of 16 cells, else the
+// page's vectors; 4-byte `cp.async`s where a page is not a multiple of 8 cells) into a K slot, its V
+// rows into a V slot, `stages` slot pairs deep. Part u has one CTA barrier, which carries its row
+// maxima; after it thread 0 refills part u's K slot and part u - 1's V slot. Every warp keeps the
+// CTA's running max, so the weights of a part are rounded to bf16 against the running max after that
+// part (the plain versions: after the page; only the weights' rounding and the exp move).
+//
+// Both products on `mma.sync` m16n8k16 bf16 in fp32 (the bf16 arithmetic of the TPU kernels and the
+// plain versions; 4 G operations a value are far under the card's operations-per-byte balance, so
+// tensor cores only keep the dots off the FMA pipe of a latency-bound loop):
+//   scores S^T = K q^T with the block's 16 rows as M and up to 8 query heads as N (two N tiles for
+//     G > 8). A thread holds 32 d-values of its rows gid, gid + 8 (bf16 rows: 64 bytes in four
+//     16-byte loads whose order is rotated by tig and gid, so a quarter warp's loads meet in no bank;
+//     int8 and packed rows: 32 bytes, odd rows their second half first, as #9), and q's B fragments
+//     follow the same d order. Mode 1 converts the int8 values to bf16 in registers, mode 3 widens
+//     the unsigned nibbles u = value + 8 of a byte row (cells r and r + page/2: two products), both
+//     exact;
+//   the weights P^T reach the B layout of the next product by `movmatrix.trans`;
+//   O^T += V^T P^T with 16 columns of d as M and the block's cells as K: a thread loads rows 2 tig,
+//     2 tig + 1, 2 tig + 8, 2 tig + 9 at columns 16 gid .. 16 gid + 15 and pairs them in registers
+//     (bf16 rows past the live ones are zeroed there: a stale slot may hold any bits).
+// Arithmetic per cell, as the plain versions: mode 0 scores q . k times scale; mode 1 times
+// k_scale * scale, the weights times v_scale; mode 3 (q . u - 8 sum q) times k_scale * scale, the
+// weights times v_scale rounded to bf16 for p . u, debiased by -8 sum(p v_scale) of the UNROUNDED fp32
+// weights. The staged block is one more unit (or several, of warps x 16 ring cells) on the last rank:
+// the ring's K and V cells (bf16 in mode 0, int8 with scales in modes 1 and 3) arrive by one bulk
+// copy each at the kernel's start and pass the same products in the bf16 / int8 format.
+// What it does not do yet: a warp takes one block of a part, so each part's barrier and its chain (K
+// wait, scores, exp, p . v) serve 16 rows a warp (#9 takes up to 4 blocks a warp); the int4 nibbles
+// are widened by 4-5 ALU operations a pair; the V loads of a quarter warp meet in 2 (bf16) or 4
+// (int8, int4) banks.
+
+constexpr int FMT_BF16 = 0, FMT_INT8 = 1, FMT_INT4 = 2;  // a unit's rows: bf16 cells, int8 cells, packed nibbles
+
+template <int F>
+struct Fmt {
+  static constexpr int value = F;
+};
+
+// bytes i of words x and y (int8) as a bf16 pair, x's in the low half: exact, and off the conversion
+// pipe (a quarter of the ALU rate), which bounds the int8 modes' loop otherwise. 1.5 * 2^23 + b is
+// exact in fp32 and minus 1.5 * 2^23 it is b; an int8 value's fp32 bits end in 16 zero bits, so its
+// bf16 is their top half.
+__device__ __forceinline__ uint32_t i8_pair_alu(uint32_t x, uint32_t y, int i) {
+  const float fx = __int_as_float(0x4B400000 + static_cast<int8_t>(x >> (8 * i))) - 12582912.0f;
+  const float fy = __int_as_float(0x4B400000 + static_cast<int8_t>(y >> (8 * i))) - 12582912.0f;
+  return __byte_perm(__float_as_uint(fx), __float_as_uint(fy), 0x7632);
+}
+
+// NT: N tiles of 8 heads (1: G <= 8, 2: G <= 16). Fragments (gid = lane / 4, tig = lane % 4): scores of
+// the block's rows gid, gid + 8 (mode 3: their lo and hi cells) and heads nt * 8 + 2 tig (+ 1); outputs
+// of columns 16 gid + 2 x (+ 1), the same heads.
+// TWO: the plan leaves shared memory for two CTAs an SM (at most SMEM_BUDGET_TWO bytes), so registers
+// are bounded to hold two as well (G <= 8 only: 128 a thread, a few bytes of spills); a CTA alone on
+// its SM keeps its registers.
+template <int MODE, int NT, bool TWO>
+__global__ void __launch_bounds__(SPLIT_MAX_WARPS * 32, TWO ? 2 : 1)
+paged_kernel_split(const __nv_bfloat16* __restrict__ q, const unsigned char* __restrict__ k_pool,
+                   const unsigned char* __restrict__ v_pool, const __nv_bfloat16* __restrict__ k_scale,
+                   const __nv_bfloat16* __restrict__ v_scale, const int* __restrict__ page_table,
+                   const int* __restrict__ lengths, __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
+                   float* __restrict__ l_out, const unsigned char* __restrict__ stage_k,
+                   const unsigned char* __restrict__ stage_v, const __nv_bfloat16* __restrict__ stage_ks,
+                   const __nv_bfloat16* __restrict__ stage_vs, const int* __restrict__ stage_seg, int Hq, int Hkv,
+                   int page, int p_max, int C, float scale, int stages) {
+  static_assert(MODE == MODE_BF16 || MODE == MODE_INT8 || MODE == MODE_INT4, "mode 2 runs paged_kernel_int4_i8");
+  constexpr int G16 = 8 * NT;
+  constexpr bool PACKED = MODE == MODE_INT4;
+  constexpr int RB = MODE == MODE_BF16 ? 2 * D : D;  // bytes of a pool row and of a ring row
+  constexpr int POOL_FMT = MODE == MODE_BF16 ? FMT_BF16 : MODE == MODE_INT8 ? FMT_INT8 : FMT_INT4;
+  constexpr int RING_FMT = MODE == MODE_BF16 ? FMT_BF16 : FMT_INT8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n_split = gridDim.x, rank = blockIdx.x, slot = blockIdx.y, h = blockIdx.z;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int G = Hq / Hkv;
+  const int half = page >> 1;
+  const int rows = PACKED ? half : page;     // pool rows of a page
+  const int part_rows = warps * SPLIT_ROWS;  // pool rows of a unit
+  const SplitLayout L = split_layout(MODE, NT, page, C, warps, 1, stages);
+  const int cap = L.kbytes / RB;             // rows a slot holds
+  const bool runs = MODE == MODE_INT8 || page % 16 == 0;  // a slot's scales are the part's (else the page's)
+  float* red = reinterpret_cast<float*>(smem + L.off_red);  // [parity][warp][head]
+  float* fin_m = reinterpret_cast<float*>(smem + L.off_stat);
+  float* rks = reinterpret_cast<float*>(smem + L.off_rs);
+  float* rvs = rks + C;
+  int* rseg = reinterpret_cast<int*>(rvs + C);
+  unsigned char* ring_k = smem + L.off_ring;
+  unsigned char* ring_v = ring_k + round_up(C, SPLIT_ROWS) * RB;
+  // K slot s: bar0 + 8 s; V slot s: bar0 + 8 (stages + s); the ring: bar0 + 16 stages
+  const uint32_t bar0 = smem_u32(smem + L.off_bar);
+
+  const int first_page = threadIdx.x == 0 && rank < p_max ? page_table[(size_t)slot * p_max + rank] : 0;
+  const int len = lengths[slot];
+  const int npg = min((len + page - 1) / page, p_max);
+  const int mine = npg > rank ? (npg - rank + n_split - 1) / n_split : 0;  // pages rank, rank + n, ...
+  const bool ring = C > 0 && rank == n_split - 1;
+  const size_t ring_cell0 = ((size_t)slot * Hkv + h) * C;
+  auto cells_of = [&](int i) { return min(page, len - (rank + i * n_split) * page); };  // >= 1
+  auto live_rows = [&](int cells) { return PACKED ? min(half, cells) : cells; };      // rows with a valid cell
+  // page id of this rank's i-th page (i >= 1: a load whose value is used a page later)
+  auto page_id = [&](int i) { return i < mine ? page_table[(size_t)slot * p_max + rank + i * n_split] : 0; };
+
+  // thread 0: the K rows (with the scales) or the V rows of the next part into its slot; a cursor
+  // (part j of this rank's page i, units issued, the page's (page, kv head) row, the next page's id)
+  // each, K ahead of V
+  struct Cursor {
+    int i, j, n;
+    size_t row;
+    int next;
+  };
+  Cursor kc{0, 0, 0, (size_t)first_page * Hkv + h, 0}, vc = kc;
+  auto issue = [&](Cursor& cur, bool k_side) {
+    if (cur.i >= mine) return;
+    const int s = cur.n % stages;
+    const size_t row = cur.row;
+    const int lr = live_rows(cells_of(cur.i));
+    const int row0 = cur.j * part_rows, n = min(part_rows, lr - row0);
+    const size_t src = (row * rows + row0) * (size_t)RB;
+    if (k_side) {
+      const uint32_t kbar = bar0 + 8 * s, kdst = smem_u32(smem + s * L.kslot);
+      int scale_tx = 0;
+      if (MODE != MODE_BF16) {
+        // runs: the part's cells from row0 (mode 3 also from half + row0); else the page's vectors
+        const int n_runs = runs ? (PACKED ? 2 : 1) : 1;
+        const int run_bytes = runs ? 2 * min(part_rows, rows - row0) : 2 * page;
+        const bool bulk = page % 8 == 0;  // 16-byte aligned runs
+        auto from = [&](int vec, int r) {
+          return reinterpret_cast<const unsigned char*>((vec ? v_scale : k_scale) + row * page +
+                                                         (runs ? r * half + row0 : 0));
+        };
+        auto to = [&](int vec, int r) { return kdst + L.kbytes + vec * L.sbytes + r * cap * 2; };
+        if (!bulk) {
+          for (int vec = 0; vec < 2; ++vec)
+            for (int r = 0; r < n_runs; ++r)
+              for (int c = 0; c < run_bytes; c += 4) cp_async4(to(vec, r) + c, from(vec, r) + c);
+          cp_async_arrive(kbar);  // before the expect_tx: the phase cannot end without them
+        }
+        scale_tx = bulk ? 2 * n_runs * run_bytes : 0;
+        mbar_expect_tx(kbar, n * RB + scale_tx);
+        if (bulk)
+          for (int vec = 0; vec < 2; ++vec)
+            for (int r = 0; r < n_runs; ++r) bulk_g2s(to(vec, r), from(vec, r), run_bytes, kbar);
+      } else {
+        mbar_expect_tx(kbar, n * RB);
+      }
+      bulk_g2s(kdst, k_pool + src, n * RB, kbar);
+    } else {
+      const uint32_t vbar = bar0 + 8 * (stages + s);
+      mbar_expect_tx(vbar, n * RB);
+      bulk_g2s(smem_u32(smem + L.off_v + s * L.kbytes), v_pool + src, n * RB, vbar);
+    }
+    ++cur.n;
+    if (++cur.j * part_rows >= lr) {
+      cur.j = 0, ++cur.i;
+      cur.row = (size_t)cur.next * Hkv + h;
+      cur.next = page_id(cur.i + 1);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2 * stages + 1; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    kc.next = vc.next = page_id(1);
+    for (int k = 0; k < stages; ++k) issue(kc, true), issue(vc, false);
+    if (ring) {
+      const uint32_t bar = bar0 + 16 * stages;
+      mbar_expect_tx(bar, 2 * C * RB);
+      bulk_g2s(smem_u32(ring_k), stage_k + ring_cell0 * RB, C * RB, bar);
+      bulk_g2s(smem_u32(ring_v), stage_v + ring_cell0 * RB, C * RB, bar);
+    }
+  }
+  if (ring)
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      rks[c] = MODE == MODE_BF16 ? scale : __bfloat162float(stage_ks[ring_cell0 + c]) * scale;
+      rvs[c] = MODE == MODE_BF16 ? 1.f : __bfloat162float(stage_vs[ring_cell0 + c]);
+      rseg[c] = stage_seg[(size_t)slot * C + c] != 0;
+    }
+
+  // q as the scores' B fragments (padding heads zero): k positions 2 tig (+ 1) of step ks are d0 + 0, 1,
+  // k 2 tig + 8 (+ 1) are d0 + 2, 3 -- the d order in which a thread holds its K rows (below)
+  uint32_t qb[NT][8][2];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
+  for (int nt = 0; nt < NT; ++nt) {
+    const int head = nt * 8 + gid;
+    const __nv_bfloat16* qh = q + ((size_t)slot * Hq + (size_t)h * G + (head < G ? head : 0)) * D;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const int d0 = MODE == MODE_BF16 ? 32 * tig + 8 * (((ks >> 1) + 2 * (tig >> 1)) & 3) + 4 * (ks & 1)
+                                       : 32 * tig + 4 * ks;
+      uint2 w = make_uint2(0u, 0u);
+      if (head < G) w = *reinterpret_cast<const uint2*>(qh + d0);
+      qb[nt][ks][0] = w.x, qb[nt][ks][1] = w.y;
+    }
+  }
+  // mode 3: 8 sum(q) of heads nt * 8 + 2 tig + e (a head's 128 columns are its four lanes' fragments)
+  float hsq[NT][2] = {};
+  if (MODE == MODE_INT4) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float sq = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          sq += __uint_as_float(qb[nt][ks][j] << 16) + __uint_as_float(qb[nt][ks][j] & 0xFFFF0000u);
+      sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+      sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) hsq[nt][e] = KV4_BIAS * __shfl_sync(0xffffffffu, sq, 4 * (2 * tig + e));
+    }
+  }
+  __syncthreads();  // barriers initialised, the ring's scales visible
+
+  // the CTA's running max; this thread's l and (mode 3) sum of p * v_scale, summed over lanes at the end
+  float m_run[NT][2], l_run[NT][2], sv_run[NT][2], acc[NT][8][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) m_run[nt][e] = NEG_INF, l_run[nt][e] = 0.f, sv_run[nt][e] = 0.f;
 #pragma unroll
     for (int x = 0; x < 8; ++x)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) part[(warp * KN + 32 * nt + 4 * x + c) * 33 + lane] = acc[nt][x][c];
+      for (int c = 0; c < 4; ++c) acc[nt][x][c] = 0.f;
+  }
+
+  // One unit u: this warp's block of the n live rows at kbuf / vbuf (rows row0 + 16 warp .. of the
+  // page, or of the ring), `cells` valid cells of the page; a pool unit waits for its V at vbar.
+  auto unit = [&](auto fmt, const unsigned char* kbuf, const unsigned char* vbuf, int u, int row0, int n, int cells,
+                  uint32_t vbar, int par, bool is_ring) {
+    constexpr int F = decltype(fmt)::value;
+    constexpr int HF = F == FMT_INT4 ? 2 : 1;  // cells a row: lo (and hi)
+    const int rw = warp * SPLIT_ROWS;          // the block's first row in the unit
+    const bool has = rw < n;
+    // this thread's score cells: rows rw + gid + 8 rr, half hf; validity and scale factors
+    bool ok[HF][2];
+    float kf[HF][2], vf[HF][2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = rw + gid + 8 * rr;
+#pragma unroll
+      for (int hf = 0; hf < HF; ++hf) {
+        bool v;
+        float a = 0.f, b = 0.f;
+        if (is_ring) {
+          v = r < n && rseg[row0 + r];
+          if (v) a = rks[row0 + r], b = rvs[row0 + r];
+        } else {
+          v = r < n && (hf == 0 || half + row0 + r < cells);
+          if (MODE == MODE_BF16) {
+            a = scale, b = 1.f;
+          } else if (v) {
+            const __nv_bfloat16* kss = reinterpret_cast<const __nv_bfloat16*>(kbuf + L.kbytes);
+            const __nv_bfloat16* vss = reinterpret_cast<const __nv_bfloat16*>(kbuf + L.kbytes + L.sbytes);
+            const int j = runs ? hf * cap + r : hf * half + row0 + r;
+            a = __bfloat162float(kss[j]) * scale, b = __bfloat162float(vss[j]);
+          }
+        }
+        ok[hf][rr] = v, kf[hf][rr] = a, vf[hf][rr] = b;
+      }
+    }
+
+    // ---- scores into sc[nt][hf * 4 + 2 rr + e] (-1e30 where no valid cell), their row max into mx ----
+    float sc[NT][4 * HF], mx[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mx[nt][0] = mx[nt][1] = NEG_INF;
+#pragma unroll
+      for (int c = 0; c < 4 * HF; ++c) sc[nt][c] = NEG_INF;
+    }
+    if (has) {
+      float dot[HF][NT][4];
+#pragma unroll
+      for (int hf = 0; hf < HF; ++hf)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dot[hf][nt][c] = 0.f;
+      if constexpr (F == FMT_BF16) {
+        // 64 bytes (d 32 tig ..) of rows gid, gid + 8: load c takes chunk (c + 2 (tig >> 1) + (gid & 1)) & 3,
+        // so a quarter warp's 16-byte loads fall in 8 distinct bank groups; logical chunk k is physical
+        // chunk (k + 2 (tig >> 1)) & 3 (q's d order), held in kr[rr][k]
+        const int odd = gid & 1, rot = 2 * (tig >> 1);
+        uint4 kr[2][4];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const unsigned char* rowp = kbuf + (rw + gid + 8 * rr) * RB + 64 * tig;
+          uint4 x[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) x[c] = *reinterpret_cast<const uint4*>(rowp + 16 * ((c + rot + odd) & 3));
+#pragma unroll
+          for (int k = 0; k < 4; ++k) kr[rr][k] = odd ? x[(k + 3) & 3] : x[k];
+        }
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          const int c = ks >> 1, hh = 2 * (ks & 1);
+          const uint32_t a[4] = {word(kr[0][c], hh), word(kr[1][c], hh), word(kr[0][c], hh + 1),
+                                 word(kr[1][c], hh + 1)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(dot[0][nt], a, qb[nt][ks][0], qb[nt][ks][1]);
+        }
+      } else {
+        // bytes 32 tig .. 32 tig + 31 of rows gid, gid + 8 (odd rows read their second half first: no bank conflict)
+        uint32_t w[2][8];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const unsigned char* rowp = kbuf + (rw + gid + 8 * rr) * RB + 32 * tig;
+          const int first = 16 * (gid & 1);
+          const uint4 x0 = *reinterpret_cast<const uint4*>(rowp + first);
+          const uint4 x1 = *reinterpret_cast<const uint4*>(rowp + 16 - first);
+          const uint4 lo = (gid & 1) ? x1 : x0, hi = (gid & 1) ? x0 : x1;
+          w[rr][0] = lo.x, w[rr][1] = lo.y, w[rr][2] = lo.z, w[rr][3] = lo.w;
+          w[rr][4] = hi.x, w[rr][5] = hi.y, w[rr][6] = hi.z, w[rr][7] = hi.w;
+        }
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          const uint32_t w0 = w[0][ks], w1 = w[1][ks];
+#pragma unroll
+          for (int hf = 0; hf < HF; ++hf) {
+            uint32_t a[4];
+            if constexpr (F == FMT_INT8) {
+              a[0] = i8_pair_alu(w0, w0 >> 8, 0), a[1] = i8_pair_alu(w1, w1 >> 8, 0);
+              a[2] = i8_pair_alu(w0, w0 >> 8, 2), a[3] = i8_pair_alu(w1, w1 >> 8, 2);
+            } else {
+              a[0] = nib_pair(w0, w0, 0, 1, hf), a[1] = nib_pair(w1, w1, 0, 1, hf);
+              a[2] = nib_pair(w0, w0, 2, 3, hf), a[3] = nib_pair(w1, w1, 2, 3, hf);
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_bf16(dot[hf][nt], a, qb[nt][ks][0], qb[nt][ks][1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < HF; ++hf)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int e = c & 1, rr = c >> 1;
+            const float d = F == FMT_INT4 ? dot[hf][nt][c] - hsq[nt][e] : dot[hf][nt][c];
+            const float sv = ok[hf][rr] ? d * kf[hf][rr] : NEG_INF;
+            sc[nt][hf * 4 + c] = sv;
+            mx[nt][e] = fmaxf(mx[nt][e], sv);
+          }
+    }
+
+    // ---- the unit's row max across warps: the CTA barrier; then part u's K slot and part u - 1's V
+    // slot are free ----
+    float* red_u = red + (u & 1) * warps * G16;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float mg = gid_max(mx[nt][e]);
+        if (gid == 0) red_u[warp * G16 + nt * 8 + 2 * tig + e] = mg;
+      }
+    __syncthreads();
+    if (!is_ring && threadIdx.x == 0) {
+      issue(kc, true);              // part u + stages
+      if (u >= 1) issue(vc, false);  // part u - 1 + stages
+    }
+
+    // ---- weights: p = exp(s - m_new); l, acc (and mode 3's sum of p * v_scale) move to m_new ----
+    uint32_t pb[HF][NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float pw[HF][2][2];  // [hf][rr][e]: p * v_scale
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mp = NEG_INF;
+#pragma unroll
+        for (int w2 = 0; w2 < SPLIT_MAX_WARPS; ++w2)
+          if (w2 < warps) mp = fmaxf(mp, red_u[w2 * G16 + nt * 8 + 2 * tig + e]);
+        const float m_new = fmaxf(m_run[nt][e], mp);
+        const float corr = __expf(m_run[nt][e] - m_new);
+        float ps = 0.f, sv = 0.f;
+#pragma unroll
+        for (int hf = 0; hf < HF; ++hf)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const float p = ok[hf][rr] ? __expf(sc[nt][hf * 4 + 2 * rr + e] - m_new) : 0.f;
+            ps += p;
+            pw[hf][rr][e] = p * vf[hf][rr];
+            sv += pw[hf][rr][e];
+          }
+        l_run[nt][e] = l_run[nt][e] * corr + ps;
+        if (F == FMT_INT4) sv_run[nt][e] = sv_run[nt][e] * corr + sv;
+        else sv_run[nt][e] *= corr;
+        m_run[nt][e] = m_new;
+#pragma unroll
+        for (int x = 0; x < 8; ++x) acc[nt][x][e] *= corr, acc[nt][x][2 + e] *= corr;
+      }
+      // the p . v product takes bf16 weights, as the TPU kernels do; (cell, head) -> (head, cell)
+      if (has)
+#pragma unroll
+        for (int hf = 0; hf < HF; ++hf)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) pb[hf][nt][rr] = movmatrix_trans(pack_bf16(pw[hf][rr][0], pw[hf][rr][1]));
+    }
+
+    // ---- O^T += V^T P^T: 8 M tiles of 16 columns, K = the block's 16 rows (mode 3: twice) ----
+    if (!is_ring) mbar_wait(vbar, par);
+    if (has) {
+      // rows rw + 2 tig, + 1, + 8, + 9 (the k of this thread's B values)
+      auto vrow = [&](int j) { return vbuf + (rw + 2 * tig + (j & 1) + 8 * (j >> 1)) * RB; };
+      if constexpr (F == FMT_BF16) {
+        // columns 16 gid .. 16 gid + 15: two 16-byte chunks a row, odd tig the second first (2 banks a quarter)
+        uint4 vr[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = rw + 2 * tig + (j & 1) + 8 * (j >> 1);
+          const bool live = r < n && (!is_ring || rseg[row0 + r]);
+          const int t = tig & 1;
+          const uint4 x0 = *reinterpret_cast<const uint4*>(vrow(j) + 32 * gid + 16 * t);
+          const uint4 x1 = *reinterpret_cast<const uint4*>(vrow(j) + 32 * gid + 16 * (1 - t));
+          const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+          vr[j][0] = live ? (t ? x1 : x0) : zero;
+          vr[j][1] = live ? (t ? x0 : x1) : zero;
+        }
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          // word x: columns 16 gid + 2 x (low half, M row gid) and + 1 (high half, M row gid + 8)
+          const uint32_t w0 = word(vr[0][x >> 2], x & 3), w1 = word(vr[1][x >> 2], x & 3);
+          const uint32_t w2 = word(vr[2][x >> 2], x & 3), w3 = word(vr[3][x >> 2], x & 3);
+          const uint32_t a[4] = {__byte_perm(w0, w1, 0x5410), __byte_perm(w0, w1, 0x7632), __byte_perm(w2, w3, 0x5410),
+                                 __byte_perm(w2, w3, 0x7632)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[nt][x], a, pb[0][nt][0], pb[0][nt][1]);
+        }
+      } else {
+        uint4 vr[4];  // columns 16 gid .. 16 gid + 15 of the four rows
+#pragma unroll
+        for (int j = 0; j < 4; ++j) vr[j] = *reinterpret_cast<const uint4*>(vrow(j) + 16 * gid);
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          // M row gid: column 16 gid + 2 x, row gid + 8: 16 gid + 2 x + 1 (bytes 2 x, 2 x + 1 of the chunk)
+          const int wi = x >> 1, sh = 2 * (x & 1);
+          const uint32_t x0 = word(vr[0], wi), x1 = word(vr[1], wi), x2 = word(vr[2], wi), x3 = word(vr[3], wi);
+#pragma unroll
+          for (int hf = 0; hf < HF; ++hf) {
+            uint32_t a[4];
+            if constexpr (F == FMT_INT8) {
+              a[0] = i8_pair_alu(x0, x1, sh), a[1] = i8_pair_alu(x0, x1, sh + 1);
+              a[2] = i8_pair_alu(x2, x3, sh), a[3] = i8_pair_alu(x2, x3, sh + 1);
+            } else {
+              a[0] = nib_pair(x0, x1, sh, 4 + sh, hf), a[1] = nib_pair(x0, x1, sh + 1, 5 + sh, hf);
+              a[2] = nib_pair(x2, x3, sh, 4 + sh, hf), a[3] = nib_pair(x2, x3, sh + 1, 5 + sh, hf);
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[nt][x], a, pb[hf][nt][0], pb[hf][nt][1]);
+          }
+        }
+      }
+    }
+  };
+
+  int u = 0;  // units walked
+  for (int i = 0; i < mine; ++i) {
+    const int cells = cells_of(i), lr = live_rows(cells);
+    for (int row0 = 0; row0 < lr; row0 += part_rows, ++u) {
+      const int s = u % stages, par = (u / stages) & 1;
+      mbar_wait(bar0 + 8 * s, par);
+      unit(Fmt<POOL_FMT>{}, smem + s * L.kslot, smem + L.off_v + s * L.kbytes, u, row0, min(part_rows, lr - row0),
+           cells, bar0 + 8 * (stages + s), par, false);
+    }
+  }
+  if (ring) {
+    mbar_wait(bar0 + 16 * stages, 0);
+    for (int r0 = 0; r0 < C; r0 += part_rows, ++u)
+      unit(Fmt<RING_FMT>{}, ring_k + r0 * RB, ring_v + r0 * RB, u, r0, min(part_rows, C - r0), 0, 0u, 0, true);
+  }
+
+  float l_w[NT][2];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      if (gid == 0) red_a[warp * G16 + nt * 8 + 2 * tig + e] = l_w[nt][e];
-      if (gid == 0 && warp == 0) fin_m[nt * 8 + 2 * tig + e] = m_run[nt][e];
+      l_w[nt][e] = gid_sum(l_run[nt][e]);
+      if (MODE == MODE_INT4) {  // the -8 debias with the unrounded weights, per warp (its cells)
+        const float sv = KV4_BIAS * gid_sum(sv_run[nt][e]);
+#pragma unroll
+        for (int x = 0; x < 8; ++x) acc[nt][x][e] -= sv, acc[nt][x][2 + e] -= sv;
+      }
     }
-  __syncthreads();
-  for (int e = threadIdx.x; e < KN * 33; e += blockDim.x) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w2 = 0; w2 < SPLIT_MAX_WARPS; ++w2)
-      if (w2 < warps) sum += part[w2 * KN * 33 + e];
-    fin[e] = sum;
-  }
-  if (threadIdx.x < G16) {
-    float sum = 0.f;
-    for (int w2 = 0; w2 < warps; ++w2) sum += red_a[w2 * G16 + threadIdx.x];
-    fin_l[threadIdx.x] = sum;
-  }
-
-  // ---- the cluster: this rank writes heads rank, rank + n, ... from every rank's (m, l, acc) ----
-  if (n_split > 1)
-    cluster_sync();
-  else
-    __syncthreads();
-  const int my_heads = G > rank ? (G - rank + n_split - 1) / n_split : 0;
-  // [my head][rank]: exp(m_r - M), then the head's l (1 where it is 0); the partials are spent
-  float* wts = part;
-  constexpr int WS = SPLIT_MAX_CLUSTER + 1;
-  if (threadIdx.x < my_heads) {
-    const int g = rank + threadIdx.x * n_split;
-    float mr[SPLIT_MAX_CLUSTER], lr[SPLIT_MAX_CLUSTER];
-    float M = NEG_INF;
-#pragma unroll
-    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
-      if (r < n_split) {
-        mr[r] = *rank_ptr(fin_m + g, r, n_split);
-        lr[r] = *rank_ptr(fin_l + g, r, n_split);
-      }
-#pragma unroll
-    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
-      if (r < n_split) M = fmaxf(M, mr[r]);
-    float l_sum = 0.f;
-#pragma unroll
-    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
-      if (r < n_split) {
-        mr[r] = expf(mr[r] - M);
-        l_sum += lr[r] * mr[r];
-      }
-#pragma unroll
-    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
-      if (r < n_split) wts[threadIdx.x * WS + r] = mr[r];
-    wts[threadIdx.x * WS + SPLIT_MAX_CLUSTER] = l_sum == 0.f ? 1.f : l_sum;
-    const size_t row = (size_t)slot * Hq + (size_t)h * G + g;
-    m_out[row] = M;
-    l_out[row] = l_sum;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < my_heads * D; e += blockDim.x) {
-    const int j = e / D, d = e % D, g = rank + j * n_split;
-    // (head g, column d) is value k of lane L in the fragment order
-    const int hh = g % 8, k = 32 * (g / 8) + 4 * ((d % 16) / 2) + 2 * (d % 2) + (hh % 2);
-    const int at = k * 33 + 4 * (d / 16) + hh / 2;
-    float v[SPLIT_MAX_CLUSTER];
-#pragma unroll
-    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
-      if (r < n_split) v[r] = *rank_ptr(fin + at, r, n_split);
-    float o_sum = 0.f;
-#pragma unroll
-    for (int r = 0; r < SPLIT_MAX_CLUSTER; ++r)
-      if (r < n_split) o_sum += v[r] * wts[j * WS + r];
-    o[((size_t)slot * Hq + (size_t)h * G + g) * D + d] = __float2bfloat16(o_sum / wts[j * WS + SPLIT_MAX_CLUSTER]);
-  }
-  if (n_split > 1) cluster_sync();  // no CTA leaves while another still reads its shared memory
+  split_end<NT>(smem, red, fin_m, m_run, l_w, acc, o, m_out, l_out, slot, h, Hq, G);
 }
 
 // The ring's layer bases, by the caller (all null when C = 0).
@@ -1250,33 +1357,24 @@ struct Staged {
   int C;
 };
 
-template <int MODE>
-int launch(const void* q, const unsigned char* kp, const unsigned char* vp, const void* ks,
-           const void* vs, const void* table, const void* lengths, void* o, void* m, void* l,
-           const Staged& st, int S, int Hq, int Hkv, int page, int p_max, float scale, int smem,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(paged_kernel<MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  paged_kernel<MODE><<<S * Hkv, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), kp, vp, static_cast<const __nv_bfloat16*>(ks),
-      static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(o), static_cast<float*>(m),
-      static_cast<float*>(l), st.k, st.v, st.ks, st.vs, st.seg, Hq, Hkv, page, p_max, st.C, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The split kernel's plan (ops/paged_attention.py `paged_plan`).
 struct SplitPlan {
   int n_split, warps, stages, bpw;
 };
 
-template <int NT, int BPW, bool PARTS>
+// One launch of a split kernel: mode 2's `paged_kernel_int4_i8<NT, BPW, PARTS>`, or the other modes'
+// `paged_kernel_split<MODE, NT, TWO>` (BPW 1; PARTS stands for TWO).
+template <int MODE, int NT, int BPW, bool PARTS>
 int launch_split(const void* q, const unsigned char* kp, const unsigned char* vp, const void* ks,
                  const void* vs, const void* table, const void* lengths, void* o, void* m, void* l,
                  const Staged& st, int S, int Hq, int Hkv, int page, int p_max, float scale,
                  const SplitPlan& p, int smem, cudaStream_t stream) {
-  auto kernel = paged_kernel_int4_i8<NT, BPW, PARTS>;
+  auto kernel = [] {
+    if constexpr (MODE == MODE_INT4_I8)
+      return paged_kernel_int4_i8<NT, BPW, PARTS>;
+    else
+      return paged_kernel_split<MODE, NT, PARTS>;
+  }();
   int device = 0;
   cudaGetDevice(&device);
   static bool configured[64] = {};  // per device: the opt-in to large dynamic shared memory
@@ -1307,46 +1405,42 @@ int launch_split(const void* q, const unsigned char* kp, const unsigned char* vp
       st.seg, Hq, Hkv, page, p_max, st.C, scale, p.stages));
 }
 
-// Whether a page passes in parts: more blocks than the CTA's warps x blocks a warp.
+// Whether a mode-2 page passes in parts: more blocks than the CTA's warps x blocks a warp.
 bool split_parts(int page, const SplitPlan& p) {
   return p.warps * p.bpw < (page / 2 + SPLIT_ROWS - 1) / SPLIT_ROWS;
 }
 
-// Bytes of dynamic shared memory of a split plan; -1 for a plan the kernel cannot run (a page in
-// parts needs 4 blocks a warp and one K and one V slot).
-int split_smem(int G, int page, int C, const SplitPlan& p) {
-  if (G < 1 || G > GMAX || page < 2 || page % 2 != 0 || C < 0 || p.n_split < 1 ||
-      p.n_split > SPLIT_MAX_CLUSTER || p.warps < 1 || p.warps > SPLIT_MAX_WARPS ||
-      !(p.bpw == 1 || p.bpw == 2 || p.bpw == 4) || p.stages < 1 || p.stages > SPLIT_MAX_STAGES ||
-      (split_parts(page, p) && (p.bpw != 4 || p.stages != 1)))
+// Bytes of dynamic shared memory of a split plan of `mode`; -1 for a plan its kernel cannot run (mode
+// 2: a page in parts needs 4 blocks a warp and one K and one V slot; modes 0, 1, 3 take one block a
+// warp of each part, any ring depth).
+int split_smem(int mode, int G, int page, int C, const SplitPlan& p) {
+  if (mode < MODE_BF16 || mode > MODE_INT4 || G < 1 || G > GMAX || page < 2 || page % 2 != 0 || C < 0 ||
+      p.n_split < 1 || p.n_split > SPLIT_MAX_CLUSTER || p.warps < 1 || p.warps > SPLIT_MAX_WARPS ||
+      p.stages < 1 || p.stages > SPLIT_MAX_STAGES)
     return -1;
-  return split_layout(G <= 8 ? 1 : 2, page, C, p.warps, p.bpw, p.stages).total;
+  if (mode == MODE_INT4_I8 ? !(p.bpw == 1 || p.bpw == 2 || p.bpw == 4) ||
+                                 (split_parts(page, p) && (p.bpw != 4 || p.stages != 1))
+                           : p.bpw != 1)
+    return -1;
+  return split_layout(mode, G <= 8 ? 1 : 2, page, C, p.warps, p.bpw, p.stages).total;
 }
 
 }  // namespace
 
-// Dynamic shared memory (bytes) one CTA of modes 0, 1 and 3 needs; the
-// wrapper refuses shapes beyond the card's opt-in limit before launching.
-// C = staged ring cells (0: none).
-extern "C" int st_paged_attention_smem(int mode, int G, int page, int C) {
-  return make_layout(mode, G, page, C).total;
-}
-
-// Dynamic shared memory (bytes) of mode 2's split kernel under a plan
+// Dynamic shared memory (bytes) of a mode's split kernel under a plan
 // (cluster size, warps a CTA, ring slots, blocks a warp of a page); -1 for
 // a plan it cannot run.
-extern "C" int st_paged_split_smem(int G, int page, int C, int n_split, int warps, int stages, int bpw) {
-  return split_smem(G, page, C, SplitPlan{n_split, warps, stages, bpw});
+extern "C" int st_paged_split_smem(int mode, int G, int page, int C, int n_split, int warps, int stages, int bpw) {
+  return split_smem(mode, G, page, C, SplitPlan{n_split, warps, stages, bpw});
 }
 
 // `page` is in token cells for every mode. The staging ring (C > 0): stage_k,
 // stage_v (L, S, Hkv, C, 128) bf16 (mode 0) | int8 (modes 1-3), stage_ks,
 // stage_vs (L, S, Hkv, C) bf16 (modes 1-3), stage_seg (S, C) int32; with
-// C = 0 they are not read. Mode 2 runs the split kernel under the plan
+// C = 0 they are not read. Every mode runs its split kernel under the plan
 // (n_split, warps, stages, bpw) from ops/paged_attention.py `paged_plan` and
 // refuses (cudaErrorInvalidValue, before anything launches) a plan it cannot
-// run; the other modes ignore those four. Returns cudaGetLastError() after
-// the launch (0 = launched).
+// run. Returns the launch's error (0 = launched).
 extern "C" int st_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                   const void* k_scale, const void* v_scale,
                                   const void* page_table, const void* lengths, void* o, void* m,
@@ -1359,8 +1453,7 @@ extern "C" int st_paged_attention(const void* q, const void* k_pool, const void*
       S > 65535 || Hkv > 65535 || mode < MODE_BF16 || mode > MODE_INT4 || C < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const SplitPlan plan{n_split, warps, stages, bpw};
-  const int smem =
-      mode == MODE_INT4_I8 ? split_smem(Hq / Hkv, page, C, plan) : make_layout(mode, Hq / Hkv, page, C).total;
+  const int smem = split_smem(mode, Hq / Hkv, page, C, plan);
   if (smem < 0 || smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const size_t rows = packed(mode) ? page / 2 : page;
   const size_t row_bytes = mode == MODE_BF16 ? D * 2 : D;
@@ -1387,26 +1480,26 @@ extern "C" int st_paged_attention(const void* q, const void* k_pool, const void*
     st.seg = static_cast<const int*>(stage_seg);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case MODE_BF16:
-      return launch<MODE_BF16>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv,
-                               page, p_max, scale, smem, s);
-    case MODE_INT8:
-      return launch<MODE_INT8>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv,
-                               page, p_max, scale, smem, s);
-    case MODE_INT4_I8: {
-      const bool parts = split_parts(page, plan);
-#define SPLIT_LAUNCH(NT, BPW, PARTS)                                                                 \
-  if ((Hq / Hkv <= 8 ? 1 : 2) == NT && bpw == BPW && parts == PARTS)                               \
-    return launch_split<NT, BPW, PARTS>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv, \
-                                        page, p_max, scale, plan, smem, s);
-      SPLIT_LAUNCH(1, 1, false) SPLIT_LAUNCH(1, 2, false) SPLIT_LAUNCH(1, 4, false) SPLIT_LAUNCH(1, 4, true)
-      SPLIT_LAUNCH(2, 1, false) SPLIT_LAUNCH(2, 2, false) SPLIT_LAUNCH(2, 4, false) SPLIT_LAUNCH(2, 4, true)
+  const int nt = Hq / Hkv <= 8 ? 1 : 2;
+  if (mode == MODE_INT4_I8) {
+    const bool parts = split_parts(page, plan);
+#define SPLIT_LAUNCH(NT, BPW, PARTS)                                                                          \
+  if (nt == NT && bpw == BPW && parts == PARTS)                                                               \
+    return launch_split<MODE_INT4_I8, NT, BPW, PARTS>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, \
+                                                      Hkv, page, p_max, scale, plan, smem, s);
+    SPLIT_LAUNCH(1, 1, false) SPLIT_LAUNCH(1, 2, false) SPLIT_LAUNCH(1, 4, false) SPLIT_LAUNCH(1, 4, true)
+    SPLIT_LAUNCH(2, 1, false) SPLIT_LAUNCH(2, 2, false) SPLIT_LAUNCH(2, 4, false) SPLIT_LAUNCH(2, 4, true)
 #undef SPLIT_LAUNCH
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    default:
-      return launch<MODE_INT4>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv,
-                               page, p_max, scale, smem, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool two = nt == 1 && smem <= SMEM_BUDGET_TWO;
+#define POOL_LAUNCH(MODE, NT, TWO)                                                                            \
+  if (mode == MODE && nt == NT && two == TWO)                                                                 \
+    return launch_split<MODE, NT, 1, TWO>(q, kp, vp, ks, vs, page_table, lengths, o, m, l, st, S, Hq, Hkv, page,  \
+                                          p_max, scale, plan, smem, s);
+  POOL_LAUNCH(MODE_BF16, 1, false) POOL_LAUNCH(MODE_BF16, 1, true) POOL_LAUNCH(MODE_BF16, 2, false)
+  POOL_LAUNCH(MODE_INT8, 1, false) POOL_LAUNCH(MODE_INT8, 1, true) POOL_LAUNCH(MODE_INT8, 2, false)
+  POOL_LAUNCH(MODE_INT4, 1, false) POOL_LAUNCH(MODE_INT4, 1, true) POOL_LAUNCH(MODE_INT4, 2, false)
+#undef POOL_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -38,9 +38,11 @@ dots, q quantized per row and the weights per row per page against the
 running max). ``paged_attention_gathered`` is the exact dense-gather reference (the
 JAX package's XLA fallback): dequantize, one masked softmax in fp32.
 
-The int4 kernel with int8 dots runs one plan per call (``paged_plan``: a
-slot's pages over a cluster of CTAs, the ring depth, the warps); the plain
-version states its function, which the split leaves unchanged but for exp
+Every mode runs one split kernel under one plan per call (``paged_plan``
+with the mode: a slot's pages over a cluster of CTAs, the warps, the ring
+depth, the parts a page passes in); the plain versions state their function,
+which the split leaves unchanged but for where the bf16 weights are rounded
+(against the running max after each part, not after each page) and exp
 rounding.
 
 The wrapper runs the plain versions for CPU tensors only. A CUDA tensor
@@ -65,12 +67,13 @@ KERNEL_MAX_GROUP = 16
 KERNEL_MAX_SMEM = 232448  # dynamic shared memory a block may opt in to on sm_90
 MODE_BF16, MODE_INT8, MODE_INT4_I8, MODE_INT4 = 0, 1, 2, 3
 
-# mode 2's split kernel (``csrc/paged_attention.cu`` ``paged_kernel_int4_i8``)
-SPLIT_ROWS = 16               # byte rows of a block: 32 cells, the K of one product
+# the split kernels (``csrc/paged_attention.cu``: ``paged_kernel_int4_i8`` for mode 2,
+# ``paged_kernel_split`` for modes 0, 1, 3)
+SPLIT_ROWS = 16               # pool rows of a block (mode 2: byte rows, 32 cells, the K of one product)
 SPLIT_MAX_CLUSTER = 8         # the portable cluster size
 SPLIT_MAX_WARPS = 8
 SPLIT_MAX_STAGES = 4
-SPLIT_BLOCKS = (1, 2, 4)      # blocks a warp takes of a page (of each part of it): the built kernels
+SPLIT_BLOCKS = (1, 2, 4)      # mode 2: blocks a warp takes of a page (of each part of it): the built kernels
 SMEM_BUDGET_TWO = 113 * 1024  # a ring this size leaves room for two CTAs an SM
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -93,14 +96,16 @@ def _pool_mode(k_pool: torch.Tensor, k_scale, int4_i8dot: bool) -> int:
 
 @dataclass(frozen=True)
 class PagedPlan:
-    """How mode 2's split kernel cuts a call: ``cluster`` CTAs (ranks) per
-    (slot, kv head), rank r taking the pages r, r + cluster, ... and the last
-    rank the staging ring; ``warps`` warps a CTA, warp w taking the blocks
-    w, w + warps, ... (``blocks_per_warp`` at most) of 16 byte rows of a page,
-    or of each of its ``parts`` (pages with more blocks than warps x 4 pass in
-    parts of that many blocks); rings of ``stages`` K slots (a page's or a
-    part's K rows and the page's scale vectors) and as many V slots; ``smem``
-    bytes of shared memory a CTA; ``ctas`` CTAs a call."""
+    """How a split kernel cuts a call: ``cluster`` CTAs (ranks) per (slot, kv
+    head), rank r taking the pages r, r + cluster, ... and the last rank the
+    staging ring; ``warps`` warps a CTA, warp w taking the blocks w, w + warps,
+    ... (``blocks_per_warp`` at most) of 16 pool rows of a page, or of each of
+    its ``parts``; rings of ``stages`` K slots (a page's or a part's K rows and
+    its scales) and as many V slots; ``smem`` bytes of shared memory a CTA;
+    ``ctas`` CTAs a call. Mode 2: a page with more blocks than warps x 4
+    passes in parts through one slot pair, three times. Modes 0, 1, 3: one
+    block a warp, a part is ``warps`` blocks and every part is a unit of the
+    ring (one streaming pass)."""
 
     cluster: int
     warps: int
@@ -115,16 +120,32 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def split_smem(g: int, page: int, ring: int, warps: int, blocks_per_warp: int, stages: int) -> int:
-    """Bytes of shared memory of a split-kernel CTA (``split_layout`` in the
-    ``.cu`` file): the K slots (K rows, both scale vectors) and V slots, the
-    ring's cells (these three later hold the warps' partial outputs in rows
-    padded to 33 words; a slot holds at most the rows the warps' blocks
-    cover), q in int8 and (with a ring) fp32, the warps' int8
-    weight records, the per-warp row maxima, the per-head statistics, the
-    ring's scales and scores, the mbarriers."""
+def split_smem(g: int, page: int, ring: int, warps: int, blocks_per_warp: int, stages: int,
+               mode: int = MODE_INT4_I8) -> int:
+    """Bytes of shared memory of a split-kernel CTA of ``mode``
+    (``split_layout`` in the ``.cu`` file). Mode 2: the K slots (K rows, both
+    scale vectors) and V slots, the ring's cells (these three later hold the
+    warps' partial outputs in rows padded to 33 words; a slot holds at most
+    the rows the warps' blocks cover), q in int8 and (with a ring) fp32, the
+    warps' int8 weight records, the per-warp row maxima, the per-head
+    statistics, the ring's scales and scores, the mbarriers. Modes 0, 1, 3:
+    the K slots (a part's K rows; mode 1 its cells' scales, mode 3 its two
+    runs of lo and hi cells, or the page's scale vectors where a page is no
+    multiple of 16 cells) and V slots, the ring's K and V rows (in whole
+    blocks), the same partial outputs over them, the per-warp row maxima of
+    two parts, the CTA's m and l, the ring's scales and validity, the
+    mbarriers."""
     g16 = 8 if g <= 8 else 16
     d = KERNEL_HEAD_DIM
+    if mode != MODE_INT4_I8:
+        rb = 2 * d if mode == MODE_BF16 else d
+        cap = min(_round_up(page // 2 if mode == MODE_INT4 else page, SPLIT_ROWS), warps * SPLIT_ROWS)
+        sbytes = (0 if mode == MODE_BF16 else 2 * cap if mode == MODE_INT8
+                  else 4 * cap if page % 16 == 0 else _round_up(2 * page, 16))
+        off = stages * (2 * cap * rb + 2 * sbytes) + 2 * _round_up(ring, SPLIT_ROWS) * rb
+        off = _round_up(max(off, (warps + 1) * g16 * d * 4 * 33 // 32), 16)
+        off += 2 * warps * g16 * 4 + 2 * g16 * 4 + _round_up(ring * 4 * 3, 16)
+        return off + (2 * stages + 1) * 8
     kbytes = min(_round_up(page // 2, SPLIT_ROWS), warps * blocks_per_warp * SPLIT_ROWS) * d
     kslot = kbytes + 2 * _round_up(page * 2, 16)
     off = stages * (kslot + kbytes) + 2 * ring * d
@@ -144,52 +165,64 @@ def device_sms(index: int) -> int:
 @functools.lru_cache(maxsize=None)
 def paged_plan(slots: int, hkv: int, g: int, page: int, p_max: int, ring: int = 0, *, sms: int,
                cluster: Optional[int] = None, warps: Optional[int] = None,
-               stages: Optional[int] = None) -> PagedPlan:
-    """The plan the card runs for mode 2 (int4 pools, int8 dots): ``slots``
-    slots, ``hkv`` kv heads of ``g`` query heads, pages of ``page`` cells, a
-    page table ``p_max`` pages wide, ``ring`` staging-ring cells (0: none), on
-    a device of ``sms`` streaming multiprocessors (``device_sms``).
+               stages: Optional[int] = None, mode: int = MODE_INT4_I8) -> PagedPlan:
+    """The plan the card runs for ``mode`` (default 2: int4 pools, int8 dots):
+    ``slots`` slots, ``hkv`` kv heads of ``g`` query heads, pages of ``page``
+    cells, a page table ``p_max`` pages wide, ``ring`` staging-ring cells (0:
+    none), on a device of ``sms`` streaming multiprocessors (``device_sms``).
     ``cluster``, ``warps`` and ``stages`` override the choice (for
-    measurements and tests). The rule is the measured one (``time_paged.py
-    --sweep``, PERF.md §6): a CTA costs a few µs before its first page, so the
-    cluster splits a slot's pages only where the (slot, kv head) pairs leave
-    SMs idle -- up to ``sms`` CTAs a call, at most 8 ranks and no more than
-    the table has pages; as many warps as a page has blocks of 16 byte rows,
-    up to 8 (a page of more blocks than 8 warps x 4 passes in parts, through
-    one K and one V slot); the deepest ring (up to a rank's pages) that keeps
-    a CTA within SMEM_BUDGET_TWO, one slot pair where even that does not fit
-    (the ring's depth measured no different). Raises ValueError for a plan
-    the kernel cannot run; the C side refuses the same."""
+    measurements and tests). The rule is the measured one of mode 2
+    (``time_paged.py --sweep``, PERF.md §6): a CTA costs a few µs before its
+    first page, so the cluster splits a slot's pages only where the (slot, kv
+    head) pairs leave SMs idle -- up to ``sms`` CTAs a call, at most 8 ranks
+    and no more than the table has pages; as many warps as a page has blocks
+    of 16 pool rows, up to 8. Mode 2: a page of more blocks than 8 warps x 4
+    passes in parts, through one K and one V slot; the deepest ring (up to a
+    rank's pages) that keeps a CTA within SMEM_BUDGET_TWO, one slot pair where
+    even that does not fit (the ring's depth measured no different). Modes 0,
+    1, 3: one block a warp, a page of more blocks passes in parts of ``warps``
+    blocks, each part a unit of the ring; the deepest ring (up to a rank's
+    parts, at most 4) within the card's shared memory where the call's CTAs
+    fit the SMs in one wave, within SMEM_BUDGET_TWO where they do not (two
+    CTAs an SM). Raises ValueError for a plan the kernel cannot run; the C
+    side refuses the same."""
     if not (1 <= g <= KERNEL_MAX_GROUP and page >= 2 and page % 2 == 0 and slots >= 1 and hkv >= 1
-            and p_max >= 1 and ring >= 0):
-        raise ValueError(f"no split plan for G={g}, page={page}, {slots} slots, P_max={p_max}, ring {ring}")
-    blocks = -(-(page // 2) // SPLIT_ROWS)
+            and p_max >= 1 and ring >= 0 and mode in (MODE_BF16, MODE_INT8, MODE_INT4_I8, MODE_INT4)):
+        raise ValueError(f"no split plan for G={g}, page={page}, {slots} slots, P_max={p_max}, ring {ring}, "
+                         f"mode {mode}")
+    rows = page if mode in (MODE_BF16, MODE_INT8) else page // 2
+    blocks = -(-rows // SPLIT_ROWS)
     warps = min(SPLIT_MAX_WARPS, blocks) if warps is None else warps
     if not 1 <= warps <= SPLIT_MAX_WARPS:
         raise ValueError(f"{warps} warps: 1 to {SPLIT_MAX_WARPS} run")
-    need = -(-blocks // warps)
-    bpw = next((b for b in SPLIT_BLOCKS if b >= need), SPLIT_BLOCKS[-1])
+    if mode == MODE_INT4_I8:
+        need = -(-blocks // warps)
+        bpw = next((b for b in SPLIT_BLOCKS if b >= need), SPLIT_BLOCKS[-1])
+    else:
+        bpw = 1
     parts = -(-blocks // (warps * bpw))
-    if parts > 1 and stages not in (None, 1):
+    if mode == MODE_INT4_I8 and parts > 1 and stages not in (None, 1):
         raise ValueError(f"a page of {page} cells passes in {parts} parts through one slot pair, not {stages}")
     if cluster is None:
         cluster = max(1, min(SPLIT_MAX_CLUSTER, p_max, sms // (slots * hkv)))
     if not 1 <= cluster <= SPLIT_MAX_CLUSTER:
         raise ValueError(f"a cluster of {cluster}: 1 to {SPLIT_MAX_CLUSTER} run")
-    if parts > 1:
+    ctas = cluster * slots * hkv
+    if mode == MODE_INT4_I8 and parts > 1:
         stages = 1
     elif stages is None:
-        deepest = min(SPLIT_MAX_STAGES, -(-p_max // cluster))
-        stages = next((s for s in range(deepest, 0, -1)
-                       if split_smem(g, page, ring, warps, bpw, s) <= SMEM_BUDGET_TWO), 1)
+        units = -(-p_max // cluster) * (parts if mode != MODE_INT4_I8 else 1)
+        budget = SMEM_BUDGET_TWO if mode == MODE_INT4_I8 or ctas > sms else KERNEL_MAX_SMEM
+        stages = next((n for n in range(min(SPLIT_MAX_STAGES, units), 0, -1)
+                       if split_smem(g, page, ring, warps, bpw, n, mode) <= budget), 1)
     if not 1 <= stages <= SPLIT_MAX_STAGES:
         raise ValueError(f"a ring of {stages} stages: 1 to {SPLIT_MAX_STAGES} run")
-    smem = split_smem(g, page, ring, warps, bpw, stages)
+    smem = split_smem(g, page, ring, warps, bpw, stages, mode)
     if smem > KERNEL_MAX_SMEM:
         raise ValueError(f"page {page} with {g} query heads, {ring} ring cells, {warps} warps and {stages} "
-                         f"stages needs {smem} bytes of shared memory per block; the card allows "
+                         f"stages needs {smem} bytes of shared memory per block in mode {mode}; the card allows "
                          f"{KERNEL_MAX_SMEM}")
-    return PagedPlan(cluster, warps, stages, bpw, parts, smem, cluster * slots * hkv)
+    return PagedPlan(cluster, warps, stages, bpw, parts, smem, ctas)
 
 
 def _page_cells(k_pool: torch.Tensor) -> int:
@@ -479,7 +512,7 @@ def _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scal
 
 def _launch(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, scale,
             staged: Optional[Staged], mode: int, plan: Optional[PagedPlan] = None) -> Stats:
-    """One launch of the kernel of ``mode``; mode 2 under ``plan`` (default
+    """One launch of the split kernel of ``mode`` under ``plan`` (default
     ``paged_plan`` of the call's shapes)."""
     _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale, mode,
                        staged)
@@ -487,19 +520,8 @@ def _launch(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale,
     n_pages, hkv = k_pool.shape[1], k_pool.shape[2]
     page = _page_cells(k_pool)
     c = 0 if staged is None else staged[0].shape[3]
-    lib = csrc.library()
-    if mode == MODE_INT4_I8:
-        plan = plan or paged_plan(s_slots, hkv, hq // hkv, page, page_table.shape[1], c,
-                                  sms=device_sms(q.device.index))
-        plan_args = (plan.cluster, plan.warps, plan.stages, plan.blocks_per_warp)
-    else:
-        smem = lib.st_paged_attention_smem(mode, hq // hkv, page, c)
-        if smem > KERNEL_MAX_SMEM:
-            raise ValueError(
-                f"page size {page} with {hq // hkv} query heads per kv head and {c} ring cells needs "
-                f"{smem} bytes of shared memory per block; the card allows {KERNEL_MAX_SMEM}"
-            )
-        plan_args = (0, 0, 0, 0)
+    plan = plan or paged_plan(s_slots, hkv, hq // hkv, page, page_table.shape[1], c,
+                              sms=device_sms(q.device.index), mode=mode)
     out = torch.empty_like(q)
     m, l = torch.empty((2, s_slots, hq), dtype=torch.float32, device=q.device)  # one allocation
 
@@ -510,8 +532,9 @@ def _launch(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale,
     args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
             *(ptr(t) for t in ring),
-            s_slots, hq, hkv, page, d, page_table.shape[1], n_pages, int(layer_idx), mode, c, *plan_args,
-            float(scale))
+            s_slots, hq, hkv, page, d, page_table.shape[1], n_pages, int(layer_idx), mode, c,
+            plan.cluster, plan.warps, plan.stages, plan.blocks_per_warp, float(scale))
+    lib = csrc.library()
     if q.device.index == torch.cuda.current_device():
         rc = lib.st_paged_attention(*args, _stream(q.device))
     else:
@@ -523,9 +546,9 @@ def _launch(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale,
     return out, m, l
 
 
-def _launch_pool_kernel(*args, mode: int) -> Stats:
-    """bf16 / int8 pools (modes 0 and 1 of the kernel)."""
-    res = _launch(*args, mode=mode)
+def _launch_pool_kernel(*args, mode: int, plan: Optional[PagedPlan] = None) -> Stats:
+    """bf16 / int8 pools (modes 0 and 1 of the split kernel, under ``plan``)."""
+    res = _launch(*args, mode=mode, plan=plan)
     _launch_pool_kernel.launches += 1
     return res
 
@@ -537,9 +560,10 @@ def _launch_int4_i8_kernel(*args, plan: Optional[PagedPlan] = None) -> Stats:
     return res
 
 
-def _launch_int4_kernel(*args) -> Stats:
-    """int4 pools with the dots on the widened nibbles (mode 3 of the kernel)."""
-    res = _launch(*args, mode=MODE_INT4)
+def _launch_int4_kernel(*args, plan: Optional[PagedPlan] = None) -> Stats:
+    """int4 pools with the dots on the widened nibbles (mode 3 of the split
+    kernel, under ``plan``)."""
+    res = _launch(*args, mode=MODE_INT4, plan=plan)
     _launch_int4_kernel.launches += 1
     return res
 

@@ -53,6 +53,14 @@ exp through ex2 and their quantization as a product with 1 / pscale: the
 int8 weights of a page do not depend on which max they are relative to, so
 the same paged tolerances hold (m, l 2e-3, o 1e-2); two calls bit-identical
 (ranks meet in rank order, warps in warp order, no atomics).
+The paged kernels of bf16, int8 and int4 (widened-nibble) pools (#7, #8) run
+the same split: a page passes in parts of the CTA's blocks, each part's
+weights rounded to bf16 against the running max after it (the plain
+versions: after the page), so only the weights' rounding and the exp move:
+the paged tolerances above (bf16 2e-2, int8 and int4 1e-2), under the rule's
+plan and other plans (cluster 1, 2, 3, 8; fewer warps, so more parts; other
+ring depths), with and without the ring, at the shipped scale; two calls
+bit-identical.
 """
 
 import dataclasses
@@ -607,8 +615,12 @@ PAGED_CASES = [
     # kind, G, page, lengths
     ("bf16", 8, 256, (600, 256, 37, 0, 511)),
     ("bf16", 7, 6, (11, 6, 1, 17)),
+    ("bf16", 16, 1024, (1500, 1024, 3, 0, 2048)),  # a page of 8 parts
+    ("bf16", 8, 130, (300, 131, 0, 390)),
     ("int8", 8, 256, (600, 256, 37, 0, 511)),
     ("int8", 7, 130, (300, 131, 0, 390)),
+    ("int8", 16, 1024, (1500, 1024, 3, 0, 2048)),
+    ("int8", 8, 2050, (4100, 2051, 1025, 1)),
     ("int4", 8, 256, (600, 256, 37, 0, 511)),
     ("int4", 8, 1024, (1500, 1024, 3, 2048)),
     ("int4", 7, 6, (11, 6, 1, 17, 0)),
@@ -620,6 +632,8 @@ PAGED_CASES = [
     ("int4_bf16dot", 8, 1024, (1500, 1024, 3, 2048)),
     ("int4_bf16dot", 7, 6, (11, 6, 1, 17, 0)),
     ("int4_bf16dot", 16, 130, (300, 131, 65, 66)),
+    ("int4_bf16dot", 8, 2048, (5000, 2048, 3, 0, 1100)),
+    ("int4_bf16dot", 16, 2050, (4100, 2051, 1025, 1)),
 ]
 
 
@@ -669,6 +683,8 @@ def _ring(rng, dev, kind, lengths, c, hkv=2, n_layers=2, d=128):
 
 STAGED_CASES = [  # kind, G, page, lengths, ring cells
     ("bf16", 8, 256, (600, 256, 37, 0, 511), 16),
+    ("bf16", 16, 1024, (1500, 1024, 3, 0), 200),  # a ring of two parts
+    ("int4_bf16dot", 7, 130, (300, 131, 65, 66, 0), 3),
     ("int8", 8, 256, (600, 256, 37, 0, 511), 16),
     ("int4", 8, 256, (600, 256, 37, 0, 511), 16),
     ("int4_bf16dot", 8, 256, (600, 256, 37, 0, 511), 16),
@@ -786,14 +802,113 @@ def test_paged_int4_i8_refused_plans(dev):
 
 
 def test_paged_split_smem_matches_plan(dev):
-    """``split_smem`` (Python) and ``split_layout`` (the .cu file) agree."""
+    """``split_smem`` (Python) and ``split_layout`` (the .cu file) agree in every mode."""
     lib = pa.csrc.library()
-    for g in (7, 8, 16):
-        for page in (6, 130, 256, 1024, 2048, 2050, 4096):
-            for ring in (0, 3, 16):
-                plan = pa.paged_plan(65, 2, g, page, 9, ring, sms=pa.device_sms(0))
-                assert lib.st_paged_split_smem(g, page, ring, plan.cluster, plan.warps, plan.stages,
-                                               plan.blocks_per_warp) == plan.smem
+    for mode in (pa.MODE_BF16, pa.MODE_INT8, pa.MODE_INT4_I8, pa.MODE_INT4):
+        for g in (7, 8, 16):
+            for page in (6, 130, 256, 1024, 2048, 2050, 4096):
+                for ring in (0, 3, 16):
+                    plan = pa.paged_plan(65, 2, g, page, 9, ring, sms=pa.device_sms(0), mode=mode)
+                    assert lib.st_paged_split_smem(mode, g, page, ring, plan.cluster, plan.warps, plan.stages,
+                                                   plan.blocks_per_warp) == plan.smem
+
+
+POOL_KINDS = {  # kind: (pool format, mode, plain version, counted launcher)
+    "bf16": ("bf16", pa.MODE_BF16, pa.paged_attention_plain, pa._launch_pool_kernel),
+    "int8": ("int8", pa.MODE_INT8, pa.paged_attention_plain, pa._launch_pool_kernel),
+    "int4_bf16dot": ("int4", pa.MODE_INT4, pa.paged_attention_int4_plain, pa._launch_int4_kernel),
+}
+
+
+def _launch_mode(kind, args, staged, plan):
+    _, mode, _, launcher = POOL_KINDS[kind]
+    if mode == pa.MODE_INT4:
+        return launcher(*args, 128**-0.5, staged, plan=plan)
+    return launcher(*args, 128**-0.5, staged, mode=mode, plan=plan)
+
+
+def _assert_pool_close(kind, out, ref):
+    tol = 2e-2 if kind == "bf16" else 1e-2
+    torch.testing.assert_close(out[1], ref[1], atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(out[2], ref[2], atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(out[0].float(), ref[0].float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("kind", list(POOL_KINDS))
+@pytest.mark.parametrize("ring", [0, 16])
+@pytest.mark.parametrize("cluster,warps,stages", [(1, None, 1), (2, None, 2), (3, 4, 3), (8, 4, 4), (2, 2, 1),
+                                                  (1, 1, None)])
+def test_paged_pool_modes_other_plans_match_plain(dev, kind, ring, cluster, warps, stages):
+    """Modes 0, 1, 3 under plans the rule would not pick (clusters 1, 2, 3, 8,
+    a cluster wider than a slot's pages; fewer warps, so a page of 256 cells
+    passes in 2 to 16 parts; shallower and deeper rings) equal the plain
+    version, with and without the ring."""
+    pool, mode, plain, launcher = POOL_KINDS[kind]
+    lengths = (600, 256, 37, 0, 511, 1)
+    rng = np.random.default_rng(cluster + ring + mode)
+    args = _paged_case(rng, dev, pool, 8, 256, lengths)
+    staged = _ring(rng, dev, pool, lengths, ring) if ring else None
+    plan = pa.paged_plan(len(lengths), 2, 8, 256, args[3].shape[1], ring, sms=pa.device_sms(0), cluster=cluster,
+                         warps=warps, stages=stages, mode=mode)
+    assert plan != pa.paged_plan(len(lengths), 2, 8, 256, args[3].shape[1], ring, sms=pa.device_sms(0), mode=mode)
+    ref = plain(*args, 128**-0.5, staged)
+    before = launcher.launches
+    out = _launch_mode(kind, args, staged, plan)
+    torch.cuda.synchronize()
+    assert launcher.launches == before + 1
+    _assert_pool_close(kind, out, ref)
+    assert torch.all(out[0][3] == 0) == (ring == 0 or not bool(staged[4][3].any()))
+
+
+@pytest.mark.parametrize("kind", list(POOL_KINDS))
+@pytest.mark.parametrize("ring", [0, 16])
+@pytest.mark.parametrize("g,page,lengths", [(8, 256, (600, 256, 37, 0, 511)), (16, 1024, (1500, 1024, 3, 2048)),
+                                            (7, 6, (11, 6, 1, 17, 0))])
+def test_paged_pool_modes_bit_identical_twice(dev, kind, ring, g, page, lengths):
+    """Two calls of modes 0, 1, 3 agree bit for bit: the warps' partials meet
+    in warp order and the ranks in rank order, no atomics."""
+    pool, mode, _, _ = POOL_KINDS[kind]
+    rng = np.random.default_rng(page + g + ring)
+    args = _paged_case(rng, dev, pool, g, page, lengths)
+    staged = _ring(rng, dev, pool, lengths, ring) if ring else None
+    kw = dict(return_stats=True, staged=staged)
+    first, second = pa.paged_attention(*args, **kw), pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("kind", list(POOL_KINDS))
+def test_paged_pool_modes_shipped_scale(dev, kind):
+    """Modes 0, 1, 3 at the shipped scale (``paged_cases.make_shipped``: page
+    1024, 129 lanes, 16 groups of 8 sharing their prompt pages, bf16 / int8 /
+    int4 pools over the same tables) against the plain versions."""
+    pool, mode, plain, _ = POOL_KINDS[kind]
+    args = paged_cases.call_args(torch, paged_cases.make_shipped(torch, np, dev, kind=pool), dev)
+    ref = plain(*args, 128**-0.5)
+    out = pa.paged_attention(*args, return_stats=True)
+    torch.cuda.synchronize()
+    _assert_pool_close(kind, out, ref)
+    assert torch.all(out[0][-1] == 0) and torch.all(out[2][-1] == 0) and torch.all(out[1][-1] == -1e30)
+
+
+def test_paged_pool_modes_refused_plans(dev):
+    """Modes 0, 1, 3: the plan refuses what the kernel cannot run, and the C
+    side refuses a plan that bypasses it, before anything launches."""
+    rng = np.random.default_rng(4)
+    lengths = (600, 256, 37, 0, 511)
+    sms = pa.device_sms(0)
+    for kind, (pool, mode, _, _) in POOL_KINDS.items():
+        args = _paged_case(rng, dev, pool, 8, 256, lengths)
+        p_max = args[3].shape[1]
+        for bad in (dict(cluster=9), dict(warps=9), dict(stages=5), dict(stages=0), dict(warps=0)):
+            with pytest.raises(ValueError):
+                pa.paged_plan(len(lengths), 2, 8, 256, p_max, sms=sms, mode=mode, **bad)
+        good = pa.paged_plan(len(lengths), 2, 8, 256, p_max, sms=sms, mode=mode)
+        for bad in (dict(cluster=9), dict(warps=9), dict(blocks_per_warp=2), dict(stages=0), dict(stages=5)):
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                _launch_mode(kind, args, None, dataclasses.replace(good, **bad))
+    with pytest.raises(ValueError, match="shared memory"):  # a bf16 ring of 512 cells outgrows a block
+        pa.paged_plan(4, 2, 8, 256, 3, 512, sms=sms, mode=pa.MODE_BF16)
 
 
 W8A8_LINEARS = {  # (K, N, the linear's out dtype): the 3B and 7B presets
@@ -998,9 +1113,9 @@ def test_paged_and_silu_wrappers_raise_on_unsupported_cuda_input(dev):
         pa.paged_attention(args[0].float(), *args[1:], int4_i8dot=True)
     with pytest.raises(ValueError):  # int64 table
         pa.paged_attention(*args[:3], args[3].long(), *args[4:], int4_i8dot=True)
-    big = _paged_case(rng, dev, "bf16", 16, 4096, (10,), hkv=1, n_layers=1)
-    with pytest.raises(ValueError, match="shared memory"):
-        pa.paged_attention(*big)
+    big = _paged_case(rng, dev, "bf16", 16, 256, (10,), hkv=1, n_layers=1)
+    with pytest.raises(ValueError, match="shared memory"):  # a bf16 ring of 512 cells outgrows a block
+        pa.paged_attention(*big, staged=_ring(rng, dev, "bf16", (10,), 512, hkv=1, n_layers=1))
     with pytest.raises(ValueError):
         fused_silu_quantize(torch.zeros((4, 7), device=dev))
     with pytest.raises(ValueError):

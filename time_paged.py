@@ -1,10 +1,18 @@
 #!/usr/bin/env python3
-"""Time the paged int4 kernel with int8 dots (#9) of a ``spatialthinker_torch`` tree on one NVIDIA GPU.
+"""Time a paged kernel of a ``spatialthinker_torch`` tree on one NVIDIA GPU.
 
-    python3 time_paged.py [--tree DIR] [--label NAME] [--sweep]
+    python3 time_paged.py [--mode {int4_i8,int4,int8,bf16}] [--tree DIR] [--label NAME] [--sweep]
 
-Five shapes, the inputs of ``paged_cases.py`` (seeded, the 3B preset's 16
-query heads over 2 kv heads):
+``--mode`` picks the kernel: ``int4_i8`` (the default) the int4 kernel with
+int8 dots (#9), ``int4`` the int4 kernel with the dots on the widened nibbles
+(#8), ``int8`` and ``bf16`` the kernel of int8 and bf16 pools (#7), each on
+``paged_cases.py``'s pools of its format over the same tables and lengths.
+``int4_i8`` times five shapes, the other modes four: ``path_b``,
+``path_c_17`` (path (c)'s decode batch: ``path_b``'s draw with 16 lanes +
+the trash lane), ``path_b_ring`` and ``shipped``; a tree without the mode's
+plan (``paged_plan`` with no ``mode``) is timed with its own launch and no
+plan printed. The shapes, the inputs of ``paged_cases.py`` (seeded, the 3B
+preset's 16 query heads over 2 kv heads):
 
 - ``path_b``: the shipped paged path's decode call as ``chip_smoke.py``'s
   ``check_paged`` draws it: 65 lanes (the last the trash lane, length 0),
@@ -29,9 +37,9 @@ between launches, as in a decode step), the host µs of a call (200 calls
 enqueued back to back, the host clock around the enqueueing over 200, the
 least of five runs), the byte bound (every live cell's K, V and scales read
 once, at ``shipped`` a page shared by several lanes counted once, and the
-outputs written once, at 3.35 TB/s; the int8 operations at 1,979 TOPS take
-far less), the plan where the tree has ``paged_plan``, the device's SM
-count, and the card.
+outputs written once, at 3.35 TB/s; the operations, 4 a value and head, at
+1,979 int8 TOPS or 989 bf16 TFLOPS take far less), the plan where the tree
+has ``paged_plan`` for the mode, the device's SM count, and the card.
 
 ``--tree DIR`` imports the package from another checkout (an unpacked
 ``git archive`` of a parent commit), so two trees are compared in one run on
@@ -49,6 +57,7 @@ H100's SM clock under load). Exits 2 without a card.
 """
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -58,7 +67,9 @@ import time
 from paged_cases import D, HKV, HQ, bound_bytes, make_path_b, make_shipped
 
 HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
+OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
+MODES = {"int4_i8": 2, "int4": 3, "int8": 1, "bf16": 0}  # the kernel's mode numbers
+POOLS = {"int4_i8": "int4", "int4": "int4", "int8": "int8", "bf16": "bf16"}  # paged_cases kinds
 STAMPS = {0: "prologue", 31: "end", **{1 + 5 * i + j: f"page {i} {p}" for i in range(5) for j, p in enumerate(
     ("K landed", "scores' max", "weights' max", "V landed", "p.v done"))}}  # stamp slot: what it marks
 SM_MHZ = 1980  # the H100's SM clock under load (nvidia-smi reads the idle clock)
@@ -151,6 +162,7 @@ def main() -> int:
     parser.add_argument("--sweep", action="store_true", help="time other plans of this tree too")
     parser.add_argument("--fixed-cost", action="store_true", help="this tree: lengths 0 and one page a slot")
     parser.add_argument("--phases", action="store_true", help="this tree: a stamped copy of the kernel")
+    parser.add_argument("--mode", choices=list(MODES), default="int4_i8", help="which paged kernel")
     args = parser.parse_args()
     if args.tree:
         sys.path.insert(0, args.tree)
@@ -166,7 +178,11 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
-    has_plan = hasattr(pa, "paged_plan")
+    mode, i8 = MODES[args.mode], args.mode == "int4_i8"
+    has_plan = hasattr(pa, "paged_plan") and (i8 or "mode" in inspect.signature(pa.paged_plan).parameters)
+    plan_kw = {} if i8 else dict(mode=mode)
+    if (args.phases or args.fixed_cost) and not i8:
+        parser.error("--phases and --fixed-cost time the int4_i8 kernel")
 
     def caller(case, plan=None):
         """A call of the kernel on the next layer of the pool each time."""
@@ -180,8 +196,12 @@ def main() -> int:
             a = (case["q"], case["k"], case["v"], table, lengths, layer, case["ks"], case["vs"], D**-0.5,
                  case["staged"])
             if plan is not None:
-                return pa._launch_int4_i8_kernel(*a, plan=plan)
-            return pa.paged_attention(*a[:9], return_stats=True, int4_i8dot=True, staged=case["staged"])
+                if i8:
+                    return pa._launch_int4_i8_kernel(*a, plan=plan)
+                if args.mode == "int4":
+                    return pa._launch_int4_kernel(*a, plan=plan)
+                return pa._launch_pool_kernel(*a, mode=mode, plan=plan)
+            return pa.paged_attention(*a[:9], return_stats=True, int4_i8dot=i8, staged=case["staged"])
         return call
 
     def cuda_ms(fn, iters=50, warmup=5):
@@ -246,26 +266,34 @@ def main() -> int:
         return 0
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    cases = {"path_b": make_path_b(torch, np, dev), "shipped": make_shipped(torch, np, dev),
-             "path_b_ring": make_path_b(torch, np, dev, ring=16), "path_b_17": make_path_b(torch, np, dev, lanes=17),
-             "shipped_9": make_shipped(torch, np, dev, groups=1)}
+    kind = POOLS[args.mode]
+    if i8:
+        cases = {"path_b": make_path_b(torch, np, dev), "shipped": make_shipped(torch, np, dev),
+                 "path_b_ring": make_path_b(torch, np, dev, ring=16),
+                 "path_b_17": make_path_b(torch, np, dev, lanes=17), "shipped_9": make_shipped(torch, np, dev, groups=1)}
+    else:
+        cases = {"path_b": make_path_b(torch, np, dev, kind=kind),
+                 "path_c_17": make_path_b(torch, np, dev, lanes=17, kind=kind),
+                 "path_b_ring": make_path_b(torch, np, dev, ring=16, kind=kind),
+                 "shipped": make_shipped(torch, np, dev, kind=kind)}
     for name, case in cases.items():
         n_bytes = bound_bytes(case, distinct=name.startswith("shipped"))
         cells = int(case["lengths"].sum())
         ops = 4.0 * cells * HQ * D
-        bound_us = max(n_bytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e6
+        bound_us = max(n_bytes / HBM_BYTES_PER_S, ops / OPS_PER_S["int8" if i8 else "bf16"]) * 1e6
         plans = {"plan": None}
         if has_plan:
             ring = 0 if case["staged"] is None else case["staged"][0].shape[3]
             key = (len(case["lengths"]), HKV, HQ // HKV, case["page"], case["table"].shape[1], ring)
-            plans["plan"] = pa.paged_plan(*key, sms=sms)
+            plans["plan"] = pa.paged_plan(*key, sms=sms, **plan_kw)
             if plans["plan"].cluster > 1:
-                plans["cluster_1"] = pa.paged_plan(*key, sms=sms, cluster=1)
+                plans["cluster_1"] = pa.paged_plan(*key, sms=sms, cluster=1, **plan_kw)
         for which, plan in plans.items():
             fn = caller(case, None if which == "plan" else plan)
-            row = dict(label=args.label, shape=name, lanes=len(case["lengths"]), page=case["page"], cells=cells,
-                       ms=cuda_ms(fn), device_us=device_us(fn), queued_us=queued_us(fn), host_us=host_us(fn),
-                       bound_us=bound_us, bound_bytes=n_bytes, plan=None if plan is None else plan.__dict__,
+            row = dict(label=args.label, mode=args.mode, shape=name, lanes=len(case["lengths"]), page=case["page"],
+                       cells=cells, ms=cuda_ms(fn), device_us=device_us(fn), queued_us=queued_us(fn),
+                       host_us=host_us(fn), bound_us=bound_us, bound_bytes=n_bytes,
+                       plan=None if plan is None else plan.__dict__,
                        plan_is="the rule's" if which == "plan" else "one rank", sms=sms, card=card)
             print(json.dumps(row), flush=True)
         if args.sweep and has_plan:
@@ -275,12 +303,13 @@ def main() -> int:
                 for stages in range(1, pa.SPLIT_MAX_STAGES + 1):
                     try:
                         alt = pa.paged_plan(len(case["lengths"]), HKV, g, case["page"], p_max, ring, sms=sms,
-                                            cluster=cluster, stages=stages)
+                                            cluster=cluster, stages=stages, **plan_kw)
                     except ValueError:
                         continue
                     alt_fn = caller(case, alt)
                     best = min(queued_us(alt_fn) for _ in range(2))
-                    print(json.dumps(dict(label=args.label, shape=name, sweep=True, cluster=cluster, stages=stages,
+                    print(json.dumps(dict(label=args.label, mode=args.mode, shape=name, sweep=True, cluster=cluster,
+                                          stages=stages,
                                           smem=alt.smem, queued_us=best, device_us=device_us(alt_fn), card=card)),
                           flush=True)
     return 0
