@@ -44,7 +44,7 @@ non-zero without a device. In order:
    ``torch._int_mm`` alone on the pre-quantized x (the library call for the
    dot), each case's plan (``w8a8_plan``: regime, tile, splits of K, ring
    depth, CTAs) printed beside it;
-4. drives eight paths at full Qwen2.5-VL-3B width with seeded random weights
+4. drives ten paths at full Qwen2.5-VL-3B width with seeded random weights
    made on the device, each with the kernels' launch counts set to 0 just
    before and read just after, and with the plain versions forbidden:
    a. the dense engine (bf16): 4 image requests through
@@ -86,6 +86,18 @@ non-zero without a device. In order:
    and a checkpoint round trip at 3B widths and 4 layers: a trainer takes a
    step and saves, a fresh trainer (built from the same initial weights, as a
    resumed run is) loads, both take the next step;
+   i. the critic: path e's dotlist with ``algorithm.adv_estimator=gae`` and
+      both optimizers on bf16 moments without a Kahan buffer
+      (``GAE_OVERRIDES``), a fresh trainer at full 3B width and depth (the
+      critic shares the actor's preset: bf16 backbone, fp32 value head), ONE
+      ``train_step``: the paged rollout, old / ref log-probs, the critic's
+      values, GAE, the critic's update, the actor's update; the flash calls
+      of its first critic micro-batch recorded (``record_call``) and #1 / #2
+      / #3 held against their plain versions on those segment ids;
+   j. the eval harness: ``run_evaluation`` with a ``TorchProvider`` over path
+      i's policy on 8 in-memory rows in cv-bench's layout (640 x 480 images,
+      2-4 choices, batch 4, 64 new tokens), then the same call resumed from
+      its output file;
 5. checks what came out: finite log-probs <= 0 of the expected shapes; the
    kernel-path prefill logits as close to an fp32 reference as the plain
    path's; the int4 path's rollout log-probs against the bf16 model's
@@ -125,8 +137,14 @@ non-zero without a device. In order:
    held against the plain chain on one decode call of path b and on path g's
    refill prefill, and the staged block against the plain versions on one
    mid-chunk call of path h and of each fused greedy run, with the ring's
-   cells live;
-6. prints one JSON line of kernel results, the nvidia-smi line, and last
+   cells live; for path i finite phase times and critic metrics, the value
+   head, a backbone layer and the actor moved, values 0 past each response,
+   ``rollout/probs_diff_mean`` within ``PROBS_DIFF_LIMIT``, both optimizers
+   stepped with bf16 moments and no Kahan buffer; for path j 8 records, the
+   summary ``summarize``'s, and a resumed call that launches neither the
+   flash forward nor the dense decode kernel and returns the same summary;
+6. prints one JSON line of kernel results (each with its launches on paths i
+   and j: ``launches_gae_path``, ``launches_eval_path``), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and exits non-zero; no phase catches its own failure.
@@ -286,10 +304,10 @@ ACTOR = dict(
 # global_batch_size 128 of the shipped script cut to 64: two optimizer steps per GRPO step
 TRAIN = dict(global_batch_size=64, micro_rows=4, experience_micro=16, lr=1e-6, strategy="adamw")
 GRPO_STEPS = 1
-# Path d runs at 3B widths with 12 of the 36 text layers (the whole vision
-# tower): path e takes the same step at full depth through the trainer, and
-# the smoke has to stay within half its time limit on a slow host.
-TRAIN_LAYERS = 12
+# Path d runs at 3B widths with 6 of the 36 text layers (the whole vision
+# tower): paths e and i take the same step at full depth through the trainer,
+# and the smoke has to stay within half its time limit on a slow host.
+TRAIN_LAYERS = 6
 # A log-prob piece of 16 samples runs the vision tower over their 16 images as
 # one sequence (32,768 slots); its full-attention forward is recorded in path d
 # as the first vision call of at least this many slots.
@@ -649,13 +667,13 @@ def synthetic_training_cases(cfg):
     return training_cases(cfg, "synthetic", seg_text, seg_full, seg_win)
 
 
-def training_cases(cfg, prefix, seg_text, seg_full, seg_win):
+def training_cases(cfg, prefix, seg_text, seg_full, seg_win, text_form="text_packed_rows"):
     tc, vc = cfg.text, cfg.vision
     wlen = window_patch_len(vc)
     text = (tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim)
     vis = (vc.num_heads, vc.num_heads, vc.head_dim)
     return [
-        (f"{prefix}_text_packed_rows", text, np.asarray(seg_text, np.int32), True),
+        (f"{prefix}_{text_form}", text, np.asarray(seg_text, np.int32), True),
         (f"{prefix}_vision_full", vis, np.asarray(seg_full, np.int32).reshape(1, -1), False),
         (f"{prefix}_vision_window", vis, np.asarray(seg_win, np.int32).reshape(-1, wlen), False),
     ]
@@ -2388,6 +2406,196 @@ def checkpoint_round_trip(dev, card, cfg, work_dir) -> dict:
     return dict(params=n_params, size_gb=size_gb, save_s=save_s, load_s=load_s, param_diff=param_diff)
 
 
+# path i: path e's dotlist with the critic, both optimizers with bf16 moments
+# and no Kahan buffer (fp32 moments for two 3B models do not fit on 80 GB)
+GAE_OVERRIDES = [
+    "algorithm.adv_estimator=gae",
+    "worker.actor.optim.strategy=adamw_bf16", "worker.critic.optim.strategy=adamw_bf16",
+    "worker.actor.optim.use_kahan_summation=false", "worker.critic.optim.use_kahan_summation=false",
+]
+GAE_TIMINGS = ("gen", "old", "ref", "values", "adv", "update_critic", "update_actor", "step")
+GAE_METRICS = ("critic/vf_loss", "critic/vf_clipfrac", "critic/grad_norm", "critic/values/mean",
+               "critic/returns/mean")
+EVAL_ROWS, EVAL_BATCH = 8, 4
+
+
+def _is_text_call(cfg):
+    """A ``flash_attention`` call of the decoder (causal)."""
+    return lambda q, *a, causal, **kw: causal and q.shape[-1] == cfg.text.head_dim
+
+
+def _is_vision_call(cfg, windows: bool):
+    """A ``flash_attention`` call of the vision tower: the batched windows form
+    or full attention over the whole pack."""
+    wlen = window_patch_len(cfg.vision)
+    return lambda q, *a, causal, **kw: (not causal and q.shape[-1] == cfg.vision.head_dim
+                                        and (q.shape[1] == wlen and q.shape[0] > 1) == windows)
+
+
+def gae_path(dev, card, work_dir) -> tuple:
+    """Path i: ONE ``train_step`` of the trainer with ``algorithm.adv_estimator=gae``
+    at full 3B width and depth (the critic shares the actor's preset). The
+    first critic micro-batch's flash calls are recorded, and #1 / #2 / #3 held
+    against their plain versions on those segment ids afterwards. Returns
+    (trainer, results)."""
+    config = trainer_config(work_dir, GAE_OVERRIDES)
+    t0 = time.perf_counter()
+    model = build_model(config)
+    tok = load_tokenizer(config.worker.actor.model.tokenizer_path, model.cfg)
+    cfg = model.cfg
+    train_ds = RLHFDataset.from_rows(scene_rows(config.data.rollout_batch_size, seed=23), tok, config.data, cfg)
+    trainer = build_trainer(config, tok, model, train_ds)
+    critic = trainer.critic
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"path i (gae): {TRAINER_SCRIPT} dotlist + {TRAINER_OVERRIDES} + {GAE_OVERRIDES}; built in "
+          f"{time.perf_counter() - t0:.2f} s; critic {sum(p.numel() for p in critic.parameters()) / 1e9:.3f} B "
+          f"params {critic.text.norm.weight.dtype}, value head {critic.value_head.weight.dtype}; resident "
+          f"{resident_gb:.2f} GB (policy, reference copy, critic, both optimizers' bf16 moments)  [{card}]",
+          flush=True)
+    actor_sums = checksums(model.parameters())
+    head_sums = checksums(critic.value_head.parameters())
+    layer_sums = checksums(critic.text.layers[0].parameters())
+    kept = {}
+    real_values = trainer.compute_values_batched
+
+    def values_kept(batch):
+        values = real_values(batch)
+        kept.update(values=values, mask=batch.tensors["response_mask"].astype(bool))
+        return values
+
+    trainer.compute_values_batched = values_kept
+    real_update = trainer.update_critic
+    recorded = {}
+
+    def update_recorded(batch):
+        # the first flash call of each form in the critic update: micro-batch 0's forward
+        with record_call(fa, "flash_attention", 0, when=_is_text_call(cfg)) as text, \
+                record_call(fa, "flash_attention", 0, when=_is_vision_call(cfg, False)) as full, \
+                record_call(fa, "flash_attention", 0, when=_is_vision_call(cfg, True)) as win:
+            out = real_update(batch)
+        recorded.update(text=text, full=full, win=win)
+        return out
+
+    trainer.update_critic = update_recorded
+    batch = next(iter(DataLoader(train_ds, config.data.rollout_batch_size, shuffle=False)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with forbid_plain_versions():
+        trainer.global_step = 1
+        metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb, reserved_gb = torch.cuda.max_memory_allocated() / 1e9, torch.cuda.max_memory_reserved() / 1e9
+    trainer.compute_values_batched, trainer.update_critic = real_values, real_update
+
+    values, mask = kept["values"], kept["mask"]
+    printed = {f"timing_s/{k}": metrics.get(f"timing_s/{k}", float("nan")) for k in GAE_TIMINGS}
+    printed.update({k: metrics.get(k, float("nan")) for k in GAE_METRICS})
+    printed["rollout/probs_diff_mean"] = metrics.get("rollout/probs_diff_mean", float("inf"))
+    print("path i step: " + ", ".join(f"{k} {v:.6g}" for k, v in printed.items())
+          + f"; page pool the trainer chose {trainer._paged_pool_cache} pages of "
+          f"{config.worker.rollout.page_size}; peak allocated {peak_gb:.2f} GB, reserved {reserved_gb:.2f} GB of "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.2f} GB; wall {step_s:.2f} s  [{card}]",
+          flush=True)
+    print(f"path i launches: {launches}", flush=True)
+    checks = {
+        "every printed metric finite": bool(np.isfinite(list(printed.values())).all()),
+        "every metric of the step finite": bool(np.isfinite(list(metrics.values())).all()),
+        "critic value head moved": checksums(critic.value_head.parameters()) != head_sums,
+        "critic backbone layer 0 moved": checksums(critic.text.layers[0].parameters()) != layer_sums,
+        "actor moved": checksums(model.parameters()) != actor_sums,
+        "values finite, 0 past each response, not all 0": bool(
+            np.isfinite(values).all() and np.all(values[~mask] == 0) and np.any(values[mask] != 0)),
+        "rollout/probs_diff_mean within the limit": printed["rollout/probs_diff_mean"] <= PROBS_DIFF_LIMIT,
+        "both optimizers stepped once": (trainer.optimizer.state["count"] == 1
+                                         and trainer.critic_optimizer.state["count"] == 1),
+        "bf16 moments, no Kahan buffer": (not trainer.optimizer.state["compensation"]
+                                          and not trainer.critic_optimizer.state["compensation"]
+                                          and trainer.critic_optimizer.moment_dtype == torch.bfloat16),
+        "every kernel of a step launched": all(launches[k] > 0 for k in TRAIN_KERNELS),
+        "no dense decode kernel": launches["decode_attention"] == 0,
+        "no torch._int_mm": launches["int_mm"] == 0,
+        "pool sized from free memory": (trainer._paged_pool_cache or 0) > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"path i checks failed: {failed}")
+
+    segs = {k: recorded[k]["args"][3].cpu().numpy() for k in ("text", "full", "win")}
+    print(f"path i first critic micro-batch: text segment ids {segs['text'].shape}, vision full "
+          f"{segs['full'].shape} ({int(segs['full'].max())} images), windows {segs['win'].shape}", flush=True)
+    del recorded
+    torch.cuda.empty_cache()
+    fwd, prep, dq, dkv = check_flash_training(
+        dev, training_cases(cfg, "path_i_critic_update", segs["text"], segs["full"], segs["win"],
+                            text_form="text_rows"))
+    results = dict(step_s=step_s, launches=launches, peak_gb=peak_gb, reserved_gb=reserved_gb,
+                   resident_gb=resident_gb, pool_pages=trainer._paged_pool_cache, metrics=printed,
+                   flash=dict(fwd=fwd, prep=prep, dq=dq, dkv=dkv))
+    return trainer, results
+
+
+def eval_path(dev, card, trainer, work_dir) -> dict:
+    """Path j: ``run_evaluation`` with a ``TorchProvider`` over path i's policy
+    (bf16) on 8 in-memory rows in cv-bench's layout (the harness's loader
+    replaced), ``batch_size`` 4, 64 new tokens; then the same call resumed from
+    its output file."""
+    from spatialthinker_torch.eval import harness as ev
+
+    spec = ev.get_dataset_spec("cv-bench")
+    tasks = sorted(spec.tasks)
+    rng = np.random.default_rng(24)
+    rows = []
+    for i in range(EVAL_ROWS):
+        choices = ["one", "two", "three", "four"][: 2 + i % 3]
+        rows.append({"instruction": f"{QUESTIONS[i % len(QUESTIONS)]} ({i})",
+                     "images": [(rng.random((480, 640, 3)) * 255).astype(np.uint8)],
+                     "response": f"({'ABCD'[i % len(choices)]})", "choices": choices, "options": None,
+                     "task": tasks[i % len(tasks)]})
+    provider = TorchProvider(trainer.model, trainer.model.cfg, trainer.tokenizer, max_new_tokens=MAX_NEW_TOKENS)
+    out_file = str(Path(work_dir) / "eval_cv_bench.json")
+    config = ev.EvalConfig(dataset="cv-bench", batch_size=EVAL_BATCH, output_file=out_file)
+    real_loader = ev.load_benchmark
+    ev.load_benchmark = lambda spec, n=-1: rows
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with forbid_plain_versions():
+            summary = ev.run_evaluation(provider, config)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = read_counts()
+        records = json.loads(Path(out_file).read_text())["records"]
+        reset_counts()
+        with forbid_plain_versions():
+            resumed = ev.run_evaluation(provider, config)
+        torch.cuda.synchronize()
+        resumed_launches = read_counts()
+    finally:
+        ev.load_benchmark = real_loader
+    print(f"path j (eval): {len(records)} records of cv-bench-shaped rows (640 x 480, 2-4 choices) in "
+          f"{eval_s:.2f} s = {eval_s / EVAL_ROWS:.3f} s a request (batch {EVAL_BATCH}, {MAX_NEW_TOKENS} new "
+          f"tokens); summary {json.dumps(summary)}; launches {launches}; resumed call launches "
+          f"{ {k: v for k, v in resumed_launches.items() if v} }  [{card}]", flush=True)
+    checks = {
+        "8 records written": len(records) == EVAL_ROWS,
+        "summary keys are summarize's": set(summary) == set(ev.summarize(records, spec.tasks)),
+        "summary is summarize's": summary == ev.summarize(records, spec.tasks),
+        "flash forward and dense decode launched": launches["flash_fwd"] > 0 and launches["decode_attention"] > 0,
+        "resumed call launches neither": resumed_launches["flash_fwd"] == resumed_launches["decode_attention"] == 0,
+        "resumed call gives the same summary": resumed == summary,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"path j checks failed: {failed}")
+    return dict(seconds=eval_s, seconds_per_request=eval_s / EVAL_ROWS, launches=launches, summary=summary)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2442,6 +2650,16 @@ def main() -> int:
         ckpt_res = checkpoint_round_trip(dev, card, cfg, work_dir)
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"after paths e-g and the checkpoint round trip: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          "still allocated", flush=True)
+
+    # ---- paths i and j: the critic through the trainer, then the eval harness on its policy ----
+    with tempfile.TemporaryDirectory() as work_dir:
+        gae_trainer, i_res = gae_path(dev, card, work_dir)
+        j_res = eval_path(dev, card, gae_trainer, work_dir)
+        del gae_trainer
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def entry(name, route, source, replaces, cases, n_launch, **extra):
         main_case = cases[0]
@@ -2458,9 +2676,10 @@ def main() -> int:
     trainer_l = trainer_res["launches"]
     decode_cu = "spatialthinker_torch/csrc/decode_attention.cu"
     paged_cu = "spatialthinker_torch/csrc/paged_attention.cu"
-    print(json.dumps({"kernels": [
+    i_flash, i_l, j_l = i_res.pop("flash"), i_res["launches"], j_res["launches"]
+    kernels = [
         entry("flash_fwd", "cuda", "spatialthinker_torch/csrc/flash_attention.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:45", r["flash_cases"], paged_l["flash_fwd"],
+              "spatialthinker_tpu/ops/flash_attention.py:45", r["flash_cases"] + i_flash["fwd"], paged_l["flash_fwd"],
               launches_dense_path=dense_l["flash_fwd"], launches_bf16_pool_path=bf16_l["flash_fwd"],
               launches_training_path=train_l["flash_fwd"], launches_trainer_path=trainer_l["flash_fwd"]),
         # the forward's range tables (part of #1's design: the TPU kernel skips blocks by the causal
@@ -2472,13 +2691,16 @@ def main() -> int:
         # the backward's pre-pass (delta and the segment range tables) takes the place of
         # the XLA rowsum of _flash_bwd; no one PyTorch call computes it
         entry("flash_bwd_prep", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:343", r["prep_cases"], train_l["flash_bwd_prep"],
+              "spatialthinker_tpu/ops/flash_attention.py:343", r["prep_cases"] + i_flash["prep"],
+              train_l["flash_bwd_prep"],
               launches_trainer_path=trainer_l["flash_bwd_prep"]),
         entry("flash_bwd_dq", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:192", r["dq_cases"], train_l["flash_bwd_dq"],
+              "spatialthinker_tpu/ops/flash_attention.py:192", r["dq_cases"] + i_flash["dq"],
+              train_l["flash_bwd_dq"],
               launches_trainer_path=trainer_l["flash_bwd_dq"]),
         entry("flash_bwd_dkv", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:255", r["dkv_cases"], train_l["flash_bwd_dkv"],
+              "spatialthinker_tpu/ops/flash_attention.py:255", r["dkv_cases"] + i_flash["dkv"],
+              train_l["flash_bwd_dkv"],
               launches_trainer_path=trainer_l["flash_bwd_dkv"]),
         entry("decode_attention", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:138",
               r["decode_cases"], dense_l["decode_attention"]),
@@ -2528,7 +2750,12 @@ def main() -> int:
                                                              g_res["launches"]))),
         entry("paged_staged_block", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:59",
               r["staged_cases"], r["h_launches"]["paged_staged"]),
-    ], "paths": {
+    ]
+    count_keys = {"int4_gateup_silu": "int4_gateup", "w8a8_matmul": "w8a8", "paged_staged_block": "paged_staged"}
+    for k in kernels:
+        key = count_keys.get(k["name"], k["name"])
+        k["launches_gae_path"], k["launches_eval_path"] = i_l[key], j_l[key]
+    print(json.dumps({"kernels": kernels, "paths": {
         "dense": {"decode_tok_s": r["decode_tok_s"], "prefill_s": r["prefill_s"], "peak_gb": r["peak_gb"]},
         "paged_int4": {"decode_tok_s": r["decode_tok_s_paged"], "prefill_s": r["st"]["refill_s"],
                        "peak_gb": r["paged_peak_gb"], "probs_diff": r["probs_diff"],
@@ -2542,7 +2769,7 @@ def main() -> int:
                      "grad_cosine": r["train"]["grad_cosine"],
                      "packed_logp_diff": r["train"]["packed_logp_diff"], "knobs": TRAIN},
         "trainer": trainer_res, "knobs": knob_res, "w4_controls": control_res, "continuous_w4a8": g_res,
-        "checkpoint": ckpt_res,
+        "checkpoint": ckpt_res, "gae": i_res, "eval": j_res,
     }, "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

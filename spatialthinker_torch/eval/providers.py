@@ -1,9 +1,20 @@
-"""Eval-harness provider running the port's model and dense rollout engine
-(counterpart of ``JaxProvider`` in ``spatialthinker_tpu/eval/providers.py``)."""
+"""Model providers for the eval harness (counterpart of
+``spatialthinker_tpu/eval/providers.py``).
+
+- ``TorchProvider`` runs the port's model and dense rollout engine (the JAX
+  package's ``JaxProvider``): the path a trained checkpoint is evaluated on.
+- ``HFProvider`` runs a local ``transformers`` model (imported when one is
+  built; the card's machine does not have the package).
+- ``OpenAIProvider`` and ``AnthropicProvider`` call the hosted APIs through
+  ``post_with_retry`` (``requests`` imported at the first call).
+"""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import base64
+import io
+import os
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -14,6 +25,7 @@ from ..data.dataset import RLHFDataset, collate_fn
 from ..data.packing import pack_vision_batch
 from ..models.qwen2_5_vl.host import window_patch_len
 from ..models.qwen2_5_vl.model import vision_to_device
+from ..models.qwen2_5_vl.params import default_device
 from ..rollout.engine import generate as engine_generate
 from ..rollout.sampling import SamplingParams
 
@@ -107,3 +119,134 @@ class TorchProvider(Provider):
         return self.tokenizer.batch_decode(
             [responses[i, : lengths[i]] for i in range(n_real)], skip_special_tokens=True
         )
+
+
+class HFProvider(Provider):
+    """Local HF ``transformers`` generation (greedy), the model family picked
+    from the name (Qwen3-VL included), on ``device`` (default: the current
+    CUDA device)."""
+
+    def __init__(self, model_name: str, max_new_tokens: int = 2048, device=None,
+                 min_pixels: int = 262_144, max_pixels: int = 4_194_304):
+        from transformers import AutoProcessor, Qwen2_5_VLForConditionalGeneration
+
+        self.device = default_device() if device is None else torch.device(device)
+        self.processor = AutoProcessor.from_pretrained(
+            model_name, min_pixels=min_pixels, max_pixels=max_pixels
+        )
+        if "qwen3" in model_name.lower():
+            from transformers import Qwen3VLForConditionalGeneration as model_cls
+        else:
+            model_cls = Qwen2_5_VLForConditionalGeneration
+        self.model = model_cls.from_pretrained(model_name, torch_dtype=torch.bfloat16).to(self.device)
+        self.model.eval()
+        self.max_new_tokens = max_new_tokens
+
+    def generate(self, prompts: List[str], images: List[List[Any]]) -> List[str]:
+        messages = []
+        for prompt, imgs in zip(prompts, images):
+            content = [{"type": "image", "image": img} for img in imgs]
+            content.append({"type": "text", "text": prompt})
+            messages.append([{"role": "user", "content": content}])
+        texts = [
+            self.processor.apply_chat_template(m, tokenize=False, add_generation_prompt=True)
+            for m in messages
+        ]
+        flat_images = [img for imgs in images for img in imgs]
+        inputs = self.processor(
+            text=texts, images=flat_images or None, return_tensors="pt", padding=True
+        ).to(self.device)
+        with torch.no_grad():
+            out = self.model.generate(**inputs, max_new_tokens=self.max_new_tokens, do_sample=False)
+        trimmed = out[:, inputs["input_ids"].shape[1] :]
+        return self.processor.batch_decode(trimmed, skip_special_tokens=True)
+
+
+def _b64(image) -> str:
+    buf = io.BytesIO()
+    image.save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def post_with_retry(url: str, *, headers: Dict, json_body: Dict, timeout: int = 120,
+                    max_retries: int = 5, backoff_s: float = 2.0, _sleep=None):
+    """POST with exponential backoff: retries on 429, 5xx and connection
+    errors (one rate limit must not end a benchmark run); raises on any
+    other HTTP error at once."""
+    import time
+
+    import requests
+
+    sleep = _sleep if _sleep is not None else time.sleep
+    last_exc: Optional[Exception] = None
+    for attempt in range(max_retries + 1):
+        try:
+            resp = requests.post(url, headers=headers, json=json_body, timeout=timeout)
+        except requests.RequestException as exc:  # connection and timeout errors
+            last_exc = exc
+        else:
+            if resp.status_code == 429 or resp.status_code >= 500:
+                last_exc = requests.HTTPError(f"HTTP {resp.status_code}", response=resp)
+            else:
+                resp.raise_for_status()  # a 4xx is the caller's fault: surface it now
+                return resp
+        if attempt < max_retries:
+            sleep(backoff_s * (2**attempt))
+    raise last_exc
+
+
+class OpenAIProvider(Provider):
+    def __init__(self, model: str = "gpt-4o", max_tokens: int = 2048,
+                 api_key: Optional[str] = None):
+        self.model = model
+        self.max_tokens = max_tokens
+        self.api_key = api_key or os.environ.get("OPENAI_API_KEY", "")
+
+    def generate(self, prompts: List[str], images: List[List[Any]]) -> List[str]:
+        outs = []
+        for prompt, imgs in zip(prompts, images):
+            content: List[Dict] = [
+                {"type": "image_url", "image_url": {"url": f"data:image/png;base64,{_b64(img)}"}}
+                for img in imgs
+            ]
+            content.append({"type": "text", "text": prompt})
+            resp = post_with_retry(
+                "https://api.openai.com/v1/chat/completions",
+                headers={"Authorization": f"Bearer {self.api_key}"},
+                json_body={
+                    "model": self.model,
+                    "messages": [{"role": "user", "content": content}],
+                    "max_tokens": self.max_tokens,
+                },
+            )
+            outs.append(resp.json()["choices"][0]["message"]["content"])
+        return outs
+
+
+class AnthropicProvider(Provider):
+    def __init__(self, model: str = "claude-sonnet-4-20250514", max_tokens: int = 2048,
+                 api_key: Optional[str] = None):
+        self.model = model
+        self.max_tokens = max_tokens
+        self.api_key = api_key or os.environ.get("ANTHROPIC_API_KEY", "")
+
+    def generate(self, prompts: List[str], images: List[List[Any]]) -> List[str]:
+        outs = []
+        for prompt, imgs in zip(prompts, images):
+            content: List[Dict] = [
+                {"type": "image",
+                 "source": {"type": "base64", "media_type": "image/png", "data": _b64(img)}}
+                for img in imgs
+            ]
+            content.append({"type": "text", "text": prompt})
+            resp = post_with_retry(
+                "https://api.anthropic.com/v1/messages",
+                headers={"x-api-key": self.api_key, "anthropic-version": "2023-06-01"},
+                json_body={
+                    "model": self.model,
+                    "messages": [{"role": "user", "content": content}],
+                    "max_tokens": self.max_tokens,
+                },
+            )
+            outs.append(resp.json()["content"][0]["text"])
+        return outs

@@ -28,7 +28,9 @@
   ``*.safetensors``; the ``safetensors`` package is imported only here) -> a
   ``Qwen25VL`` on a device. ``trainer_state_from_jax``: a JAX trainer's
   parameters, Adam moments, count and step as numpy trees -> what a port
-  trainer loads, so both trainers start a step from the same state.
+  trainer loads, so both trainers start a step from the same state. A JAX
+  critic tree (the backbone + ``value_head``) carries both ways as well:
+  ``value_head.weight`` (E, 1) and ``value_head.bias`` (1,) as they are.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from __future__ import annotations
 import glob
 import json
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -179,6 +181,9 @@ def params_from_jax(tree: Mapping[str, Any], cfg: Qwen25VLConfig) -> StateDict:
     for name in ("fc1", "fc2"):
         out[f"vision.merger.{name}.weight"] = _t(np.asarray(merger[name]).T)
         out[f"vision.merger.{name}.bias"] = _t(merger[f"{name}_bias"])
+    if "value_head" in tree:  # a critic tree: the same (E, 1) weight and (1,) bias
+        out["value_head.weight"] = _t(tree["value_head"]["weight"])
+        out["value_head.bias"] = _t(tree["value_head"]["bias"])
     return out
 
 
@@ -240,7 +245,10 @@ def params_to_jax(state: Mapping[str, torch.Tensor], cfg: Qwen25VLConfig) -> Dic
             **{f"{k}_bias": a(f"vision.merger.{k}.bias") for k in ("fc1", "fc2")},
         },
     }
-    return {"text": text, "vision": vision}
+    tree = {"text": text, "vision": vision}
+    if "value_head.weight" in state:
+        tree["value_head"] = {"weight": a("value_head.weight"), "bias": a("value_head.bias")}
+    return tree
 
 
 def optimizer_state_from_jax(cfg: Qwen25VLConfig, *, count: int, mu, nu, compensation=None,
@@ -359,6 +367,12 @@ def config_from_hf_json(model_dir: str) -> Qwen25VLConfig:
     )
 
 
+def is_hf_checkpoint_dir(path: str) -> bool:
+    """A local directory holding ``*.safetensors`` weights (``load_params``'s
+    input), as opposed to a preset name."""
+    return os.path.isdir(path) and any(f.endswith(".safetensors") for f in os.listdir(path))
+
+
 def load_params(model_dir: str, *, device=None, dtype=torch.bfloat16) -> Qwen25VL:
     """A ``Qwen25VL`` from a local HF checkpoint directory, on ``device``
     (default: the current CUDA device)."""
@@ -376,14 +390,24 @@ def load_params(model_dir: str, *, device=None, dtype=torch.bfloat16) -> Qwen25V
 
 def trainer_state_from_jax(cfg: Qwen25VLConfig, *, params, mu, nu, count: int, step: int,
                            compensation=None, moment_dtype=torch.float32,
-                           param_dtype=torch.float32) -> Dict[str, Any]:
+                           param_dtype=torch.float32,
+                           critic: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
     """A JAX trainer's state (parameter tree, Adam moment trees, optimizer
     count, global step; numpy leaves) -> ``{"params", "opt_state", "step"}``
-    in the layout ``GRPOTrainer.load_checkpoint`` reads from a checkpoint."""
-    return {
-        "params": {k: v.to(param_dtype) for k, v in params_from_jax(params, cfg).items()},
-        "opt_state": optimizer_state_from_jax(
-            cfg, count=count, mu=mu, nu=nu, compensation=compensation,
-            moment_dtype=moment_dtype, param_dtype=param_dtype),
-        "step": int(step),
-    }
+    in the layout ``GRPOTrainer.load_checkpoint`` reads from a checkpoint.
+    ``critic`` (a GAE run) holds the critic's ``params`` (backbone +
+    ``value_head``), ``mu``, ``nu``, ``count`` and optionally
+    ``compensation`` and its own ``cfg``; parameters and optimizer state then
+    nest under ``"actor"`` and ``"critic"``, as a GAE checkpoint does."""
+    def carry(c, tree, m, n, k, comp):
+        return ({name: v.to(param_dtype) for name, v in params_from_jax(tree, c).items()},
+                optimizer_state_from_jax(c, count=k, mu=m, nu=n, compensation=comp,
+                                         moment_dtype=moment_dtype, param_dtype=param_dtype))
+
+    p, o = carry(cfg, params, mu, nu, count, compensation)
+    if critic is None:
+        return {"params": p, "opt_state": o, "step": int(step)}
+    cp, co = carry(critic.get("cfg", cfg), critic["params"], critic["mu"], critic["nu"],
+                   critic["count"], critic.get("compensation"))
+    return {"params": {"actor": p, "critic": cp}, "opt_state": {"actor": o, "critic": co},
+            "step": int(step)}

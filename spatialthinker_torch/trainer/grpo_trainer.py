@@ -17,6 +17,8 @@ moved" is plain functions that the class calls with what it holds:
     packed_micro_batches        a mini-batch as packed rows + vision packs, per micro-batch
     update_actor_packed         padding-free policy update
     update_actor                per-sample-layout policy update
+    compute_values_batched      the critic's values in experience-sized pieces (GAE)
+    update_critic               the critic's clipped-value update (GAE)
 
 Every function takes what the trainer class reads from ``self`` (model,
 update function, knobs, device) as explicit arguments. Single process only:
@@ -49,10 +51,12 @@ from ..data.packing import pack_vision_batch, stack_vision_packs
 from ..data.text_packing import (
     PackedRows, SlotMap, gather_response_values, pack_train_rows, pad_rows_to_count,
 )
-from ..models.qwen2_5_vl.config import VisionConfig
+from ..models.qwen2_5_vl.config import Qwen25VLConfig, VisionConfig, get_config
 from ..models.qwen2_5_vl.host import VisionInputs
 from ..models.qwen2_5_vl.model import Qwen25VL, vision_to_device
-from ..models.qwen2_5_vl.params import default_device
+from ..models.qwen2_5_vl.params import (
+    config_from_hf_json, default_device, init_params, is_hf_checkpoint_dir, load_params,
+)
 from ..ops.quant import quantize_model
 from ..rewards.manager import RewardManager
 from ..rollout.engine import generate
@@ -63,6 +67,7 @@ from ..utils.flops_counter import FlopsCounter, compute_mfu
 from ..utils.profiling import device_memory_metrics, maybe_trace
 from ..utils.seqlen_balancing import balance_order
 from .checkpoint import CheckpointManager
+from .critic import Critic, CriticBatch, compute_values, make_critic_update_fn
 from .metrics import (
     Timer, compute_data_metrics, compute_throughput_metrics, compute_timing_metrics,
     reduce_metrics,
@@ -329,6 +334,47 @@ def update_actor(
     return reduce_metrics(metrics_acc)
 
 
+@torch.no_grad()
+def compute_values_batched(critic: Critic, batch: RolloutBatch, *, micro_batch_size: int,
+                           device=None) -> np.ndarray:
+    """The critic's (B, R) values on the host, in experience-sized pieces of
+    ``micro_batch_size`` samples on the per-sample layout."""
+    device = default_device() if device is None else device
+    outs = []
+    for piece in batch.split(max(micro_batch_size, 1)):
+        tb = to_device(train_batch_views(piece), device)
+        vision = vision_to_device(_pack_vision(piece, critic.cfg.vision), device)
+        outs.append(compute_values(critic, tb, vision).cpu().numpy())
+    return np.concatenate(outs, axis=0)
+
+
+def update_critic(
+    batch: RolloutBatch, critic_update_fn: Callable, vision_cfg: VisionConfig, *,
+    global_batch_size: int, micro_batch_size: int, ppo_epochs: int = 1, global_step: int = 0,
+    device=None,
+) -> Dict[str, float]:
+    """The critic's update on the per-sample layout: mini-batches (their own
+    shuffle, ``seed_mult`` 173) cut into micro-batches of
+    ``micro_batch_size`` samples with the old values and the returns beside
+    them, one vision pack per micro-batch, handed to ``critic_update_fn``
+    (``make_critic_update_fn``'s result)."""
+    device = default_device() if device is None else device
+    metrics_acc: Dict[str, List[float]] = defaultdict(list)
+    mini_bs = min(max(global_batch_size, 1), len(batch))
+    n_micro = _fit_n_micro(mini_bs, max(micro_batch_size, 1))
+    for mini in iter_minibatches(batch, mini_bs, ppo_epochs, 173, global_step):
+        tb = train_batch_views(mini)
+        micro = {k: torch.as_tensor(_reshape_micro(mini.tensors[k], n_micro).astype(np.float32),
+                                    device=device) for k in ("values", "returns")}
+        cb = CriticBatch(train=to_device(TrainBatch(*(_reshape_micro(x, n_micro) for x in tb)), device),
+                         **micro)
+        packs = [_pack_vision(piece, vision_cfg) for piece in mini.split(len(mini) // n_micro)]
+        vision = vision_to_device(stack_vision_packs(packs, vision_cfg), device)
+        for k, v in critic_update_fn(cb, vision).items():
+            metrics_acc[k].append(float(v))
+    return reduce_metrics(metrics_acc)
+
+
 def _obj(values) -> np.ndarray:
     arr = np.empty(len(values), dtype=object)
     for i, v in enumerate(values):
@@ -365,11 +411,7 @@ class GRPOTrainer:
 
         algo = config.algorithm
         self.adv_estimator = algo.adv_estimator
-        if self.adv_estimator == "gae":
-            raise ValueError(
-                "algorithm.adv_estimator='gae' needs the critic, which is not ported "
-                "(ROADMAP A10); use grpo, rloo, reinforce_plus_plus or remax"
-            )
+        self.use_critic = self.adv_estimator == "gae"
         if config.trainer.n_chips > 1:
             raise ValueError(
                 f"trainer.n_chips={config.trainer.n_chips}: the port runs one process on one "
@@ -384,14 +426,21 @@ class GRPOTrainer:
                 "single sample yields identically zero advantages"
             )
         rollout_bs = config.data.rollout_batch_size * config.worker.rollout.n
-        gbs = config.worker.actor.global_batch_size
-        if rollout_bs % min(gbs, rollout_bs) != 0:
-            # iter_minibatches yields full mini-batches only; a non-dividing
-            # global_batch_size would silently drop the tail samples every step
-            raise ValueError(
-                f"rollout_batch_size * n = {rollout_bs} must be divisible by "
-                f"worker.actor.global_batch_size = {gbs}"
-            )
+        for role, gbs in (("actor", config.worker.actor.global_batch_size),
+                          ("critic", config.worker.critic.global_batch_size)):
+            if role == "critic" and not self.use_critic:
+                continue
+            if rollout_bs % min(gbs, rollout_bs) != 0:
+                # iter_minibatches yields full mini-batches only; a non-dividing
+                # global_batch_size would silently drop the tail samples every step
+                raise ValueError(
+                    f"rollout_batch_size * n = {rollout_bs} must be divisible by "
+                    f"worker.{role}.global_batch_size = {gbs}"
+                )
+        # the critic's architecture is settled (and refused) before any weight
+        # of it is allocated
+        if self.use_critic:
+            self.critic_model_cfg, self._critic_weights_dir = self._critic_source()
         roll = config.worker.rollout
         self.use_kl_in_reward = not algo.disable_kl and not algo.use_kl_loss
         self.use_kl_loss = not algo.disable_kl and algo.use_kl_loss
@@ -446,6 +495,10 @@ class GRPOTrainer:
                 **update_kwargs,
             )
 
+        self.critic: Optional[Critic] = None
+        if self.use_critic:
+            self._build_critic()
+
         self.sampling = SamplingParams(
             temperature=roll.temperature, top_p=roll.top_p, top_k=roll.top_k, n=roll.n,
         )
@@ -466,6 +519,71 @@ class GRPOTrainer:
         self.flops_counter = FlopsCounter(self.model_cfg, self.device)
         self._last_rollout_stats: Dict[str, float] = {}
         self._paged_pool_cache: Optional[int] = None
+
+    # ----------------------------------------------------------------- critic
+
+    def _critic_source(self) -> Tuple[Qwen25VLConfig, Optional[str]]:
+        """The critic's own architecture and the directory its weights load
+        from (None: random weights). The actor's architecture when
+        ``critic.model.model_path`` is the actor's; else the ``config.json`` of
+        that HF directory, or that preset. Its vision tower must be the
+        actor's: the vision packs are prepared once per batch."""
+        cm = self.config.worker.critic.model
+        if not cm.model_path or cm.model_path == self.config.worker.actor.model.model_path:
+            return self.model_cfg, None
+        weights_dir = cm.model_path if is_hf_checkpoint_dir(cm.model_path) else None
+        cfg = config_from_hf_json(weights_dir) if weights_dir else get_config(cm.model_path)
+        if cfg.vision != self.model_cfg.vision:
+            raise ValueError(
+                f"critic.model.model_path={cm.model_path!r} has a different vision tower than "
+                "the actor: vision packs are prepared once per batch with the actor's layout -- "
+                "pick a critic from the same vision family"
+            )
+        return cfg, weights_dir
+
+    def _build_critic(self) -> None:
+        """The critic's weights (``critic.model.param_dtype``; a random backbone
+        from ``trainer.seed + 1`` unless ``critic.model.model_path`` is an HF
+        directory other than the actor's), its own AdamW from ``critic.optim``
+        with the moments allocated now, and its update function."""
+        critic_cfg = self.config.worker.critic
+        dtype = getattr(torch, critic_cfg.model.param_dtype)
+        generator = torch.Generator(device=self.device).manual_seed(self.config.trainer.seed + 1)
+        if self._critic_weights_dir:
+            backbone = load_params(self._critic_weights_dir, device=self.device, dtype=dtype)
+        else:
+            backbone = init_params(self.critic_model_cfg, generator, device=self.device, dtype=dtype)
+        self.critic = Critic(backbone, generator)
+        del backbone
+        opt = critic_cfg.optim
+        self.critic_optimizer = make_optimizer(
+            opt.lr, weight_decay=opt.weight_decay, betas=tuple(opt.betas),
+            warmup_steps=int(opt.lr_warmup_ratio * max(opt.training_steps, 0)),
+            strategy=opt.strategy, use_kahan_summation=opt.use_kahan_summation,
+        )
+        self.critic_optimizer.init(trainable_parameters(self.critic))
+        sharding = critic_cfg.sharding
+        self.critic_update_fn = make_critic_update_fn(
+            self.critic, self.critic_optimizer, cliprange_value=critic_cfg.cliprange_value,
+            max_grad_norm=critic_cfg.max_grad_norm, remat=bool(sharding.remat),
+            grad_accum_dtype=getattr(torch, opt.grad_accum_dtype or "float32"),
+        )
+
+    def compute_values_batched(self, batch: RolloutBatch) -> np.ndarray:
+        return compute_values_batched(
+            self.critic, batch,
+            micro_batch_size=self.config.worker.critic.micro_batch_size_per_device_for_experience,
+            device=self.device,
+        )
+
+    def update_critic(self, batch: RolloutBatch) -> Dict[str, float]:
+        critic = self.config.worker.critic
+        return update_critic(
+            batch, self.critic_update_fn, self.critic.cfg.vision,
+            global_batch_size=critic.global_batch_size,
+            micro_batch_size=critic.micro_batch_size_per_device_for_update,
+            ppo_epochs=critic.ppo_epochs, global_step=self.global_step, device=self.device,
+        )
 
     # ------------------------------------------------------------------ utils
 
@@ -738,6 +856,10 @@ class GRPOTrainer:
                     rolled.tensors["ref_log_probs"] = self.compute_log_probs_batched(
                         rolled, self.ref_model)
 
+            if self.use_critic:
+                with timer("values"):
+                    rolled.tensors["values"] = self.compute_values_batched(rolled)
+
             with timer("adv"):
                 if self.use_kl_in_reward and self.use_ref:
                     kld = compute_kl(
@@ -758,10 +880,24 @@ class GRPOTrainer:
                 rolled.tensors["advantages"] = adv
                 rolled.tensors["returns"] = ret
 
-            with timer("update_actor"):
-                actor_metrics = self.update_actor(rolled)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+            critic_metrics: Dict[str, float] = {}
+            if self.use_critic:
+                with timer("update_critic"):
+                    # the critic's gradient accumulator lives inside this call
+                    # only: it is freed before the actor's is allocated
+                    critic_metrics = self.update_critic(rolled)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+
+            warmup = self.config.trainer.critic_warmup
+            if self.use_critic and warmup > 0 and self.global_step <= warmup:
+                actor_metrics = {}  # critic warmup: the policy does not move
+                timer.timing["update_actor"] = 1e-9
+            else:
+                with timer("update_actor"):
+                    actor_metrics = self.update_actor(rolled)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
 
         num_tokens = int(rolled.tensors["response_mask"].sum() + rolled.tensors["segment_ids"].sum())
         seqlens_all = rolled.tensors["full_segment_ids"].sum(-1).astype(np.int64).tolist()
@@ -787,10 +923,12 @@ class GRPOTrainer:
                 prompt_mask=rolled.tensors["segment_ids"],
                 max_response_length=self.config.data.max_response_length,
                 max_prompt_length=self.config.data.max_prompt_length,
+                values=rolled.tensors.get("values"),
                 old_log_probs=rolled.tensors["old_log_probs"] if drift else None,
                 rollout_log_probs=rolled.tensors["rollout_log_probs"] if drift else None,
             ),
             **actor_metrics,
+            **critic_metrics,
             **compute_timing_metrics(timer.timing, num_tokens),
             **compute_throughput_metrics(num_tokens, timer.timing["step"], 1),
         }
@@ -834,10 +972,16 @@ class GRPOTrainer:
     # ------------------------------------------------------------ checkpoints
 
     def save_checkpoint(self):
+        """A GAE run nests parameters and optimizer state under ``"actor"``
+        and ``"critic"``, as the JAX trainer's checkpoints do."""
+        params, opt_state = self.model.state_dict(), self.optimizer.state
+        if self.use_critic:
+            params = {"actor": params, "critic": self.critic.state_dict()}
+            opt_state = {"actor": opt_state, "critic": self.critic_optimizer.state}
         self.ckpt.save(
             self.global_step,
-            params=self.model.state_dict(),
-            opt_state=self.optimizer.state,
+            params=params,
+            opt_state=opt_state,
             dataloader_state=getattr(self.train_dataloader, "state_dict", lambda: {})(),
             rng_state=self.generator.get_state(),
         )
@@ -849,24 +993,40 @@ class GRPOTrainer:
         state = self.ckpt.load(path)
         if state is None:
             return
-        self.model.load_state_dict(state["params"], strict=True)
-        saved = state["opt_state"]
-        mine = self.optimizer.state
-        mine["count"] = int(saved["count"])
-        with torch.no_grad():
-            for kind in ("mu", "nu", "compensation"):
-                if set(saved[kind]) != set(mine[kind]):
-                    raise ValueError(
-                        f"checkpoint optimizer state {kind!r} does not match this run's "
-                        "(another strategy, or a frozen vision tower on one side)"
-                    )
-                for name, value in saved[kind].items():
-                    mine[kind][name].copy_(value)
+        params, opt_state = state["params"], state["opt_state"]
+        nested = set(params) == {"actor", "critic"}
+        if nested != self.use_critic:
+            raise ValueError(
+                "checkpoint layout does not match this run: a GAE run (algorithm.adv_estimator="
+                "gae) saves and loads {'actor', 'critic'}, every other estimator the policy alone"
+            )
+        if self.use_critic:
+            self.critic.load_state_dict(params["critic"], strict=True)
+            _load_optimizer_state(self.critic_optimizer, opt_state["critic"])
+            params, opt_state = params["actor"], opt_state["actor"]
+        self.model.load_state_dict(params, strict=True)
+        _load_optimizer_state(self.optimizer, opt_state)
         self.global_step = state["step"]
         if state.get("dataloader_state") and hasattr(self.train_dataloader, "load_state_dict"):
             self.train_dataloader.load_state_dict(state["dataloader_state"])
         if state.get("rng_state") is not None:
             self.generator.set_state(state["rng_state"])
+
+
+@torch.no_grad()
+def _load_optimizer_state(optimizer, saved) -> None:
+    """Copy a checkpoint's AdamW state into ``optimizer``'s own buffers, the
+    moments checked name by name."""
+    mine = optimizer.state
+    mine["count"] = int(saved["count"])
+    for kind in ("mu", "nu", "compensation"):
+        if set(saved[kind]) != set(mine[kind]):
+            raise ValueError(
+                f"checkpoint optimizer state {kind!r} does not match this run's "
+                "(another strategy, or a frozen vision tower on one side)"
+            )
+        for name, value in saved[kind].items():
+            mine[kind][name].copy_(value)
 
 
 def _to_numpy(x) -> np.ndarray:

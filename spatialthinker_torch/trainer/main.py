@@ -19,7 +19,7 @@ import torch
 from ..core.config import PPOConfig, build_config, config_summary
 from ..data.dataset import DataLoader, RLHFDataset
 from ..models.qwen2_5_vl import Qwen25VL, Qwen25VLConfig, get_config, init_params
-from ..models.qwen2_5_vl.params import default_device, load_params
+from ..models.qwen2_5_vl.params import default_device, is_hf_checkpoint_dir, load_params
 from ..rewards.manager import RewardManager
 from .grpo_trainer import GRPOTrainer
 
@@ -56,9 +56,7 @@ def build_model(config: PPOConfig, device=None) -> Qwen25VL:
     device = default_device() if device is None else torch.device(device)
     model_path = config.worker.actor.model.model_path
     dtype = getattr(torch, config.worker.actor.model.param_dtype)
-    if os.path.isdir(model_path) and any(
-        f.endswith(".safetensors") for f in os.listdir(model_path)
-    ):
+    if is_hf_checkpoint_dir(model_path):
         return load_params(model_path, device=device, dtype=dtype)
     generator = torch.Generator(device=device).manual_seed(config.trainer.seed)
     return init_params(get_config(model_path), generator, device=device, dtype=dtype)

@@ -182,15 +182,28 @@ def _global_norm_f32(grads) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+def _index(batch, i: int):
+    """Micro-batch ``i`` of a batch tuple (tuples nested in it included)."""
+    return type(batch)(*(_index(x, i) if isinstance(x, tuple) else x[i] for x in batch))
+
+
+def _n_micro(batch) -> int:
+    first = batch[0]
+    return _n_micro(first) if isinstance(first, tuple) else first.shape[0]
+
+
 def _micro(batch, vision, i: int):
-    mb = type(batch)(*(x[i] for x in batch))
-    vis = None if vision is None else VisionInputs(*(x[i] for x in vision))
-    return mb, vis
+    return _index(batch, i), None if vision is None else _index(vision, i)
 
 
 def _make_grad_fn(model: Qwen25VL, loss_fn: Callable, *, max_grad_norm: float = 1.0,
                   grad_accum_dtype=torch.float32, freeze_vision_tower: bool = False,
+                  loss_key: Optional[str] = "actor/loss", norm_key: str = "actor/grad_norm",
                   **loss_kwargs):
+    """The accumulation loop shared by the actor's and the critic's updates:
+    ``loss_fn(model, micro_batch, vision, **loss_kwargs) -> (loss, metrics)``;
+    ``loss_key`` names the loss among the metrics (None: not logged),
+    ``norm_key`` the gradient norm."""
     def grad_step(micro_batches, vision=None):
         """micro_batches: a batch tuple with a leading (n_micro,) dim on every
         tensor; ``vision``, when present, a ``VisionInputs`` stacked the same
@@ -209,14 +222,15 @@ def _make_grad_fn(model: Qwen25VL, loss_fn: Callable, *, max_grad_norm: float = 
         handles = [p.register_post_accumulate_grad_hook(accumulate_into(acc[n])) for n, p in named]
         for p in frozen:
             p.requires_grad_(False)
-        n_micro = micro_batches.input_ids.shape[0]
+        n_micro = _n_micro(micro_batches)
         sums: Dict[str, torch.Tensor] = {}
         try:
             for i in range(n_micro):
                 mb, vis = _micro(micro_batches, vision, i)
                 loss, metrics = loss_fn(model, mb, vis, **loss_kwargs)
                 loss.backward()
-                metrics["actor/loss"] = loss
+                if loss_key is not None:
+                    metrics[loss_key] = loss
                 for key, value in metrics.items():
                     sums[key] = sums.get(key, 0.0) + value.detach().float()
         finally:
@@ -227,7 +241,7 @@ def _make_grad_fn(model: Qwen25VL, loss_fn: Callable, *, max_grad_norm: float = 
         metrics = {k: v / n_micro for k, v in sums.items()}
 
         grad_norm = _global_norm_f32(acc) / n_micro
-        metrics["actor/grad_norm"] = grad_norm
+        metrics[norm_key] = grad_norm
         norm = float(grad_norm)
         finite = math.isfinite(norm)
         factor = min(1.0, max_grad_norm / (norm + 1e-6)) / n_micro if finite else 0.0

@@ -17,6 +17,11 @@ tiny model with the synthetic tokenizer, on the CPU.
 - checkpoint save -> load into a freshly built trainer (the initial policy
   again, as a resumed run builds it) -> the same next step (metrics within 1e-6, parameters within 1% of lr: the
   same arithmetic on the same state);
+- GAE (the critic): ``train_step`` against the JAX trainer with the JAX
+  critic's weights carried over (metrics within 1e-4, actor and critic held
+  in units of their learning rates), ``critic_warmup``, the ``{"actor",
+  "critic"}`` checkpoint round trip, a critic of another vision family
+  refused before any weight of it exists;
 - ``rloo`` with ``disable_kl``, ``use_rollout_log_probs``, ``remax``, KL in the
   reward with the adaptive controller, the dense engine over every cache
   format; ``main([...])`` on a jsonl file of text rows; the knobs the trainer
@@ -39,7 +44,7 @@ from spatialthinker_tpu.trainer.grpo_trainer import GRPOTrainer as JaxTrainer
 from spatialthinker_torch.core import config as tc
 from spatialthinker_torch.core.batch import RolloutBatch
 from spatialthinker_torch.data.dataset import DataLoader, RLHFDataset
-from spatialthinker_torch.models.qwen2_5_vl import init_params
+from spatialthinker_torch.models.qwen2_5_vl import init_params, params_from_jax
 from spatialthinker_torch.models.qwen2_5_vl.params import trainer_state_from_jax
 from spatialthinker_torch.trainer import main as tm
 from tests.test_e2e_smoke import _script_dotlist
@@ -288,17 +293,28 @@ def test_train_step_continuous_w4a8_matches_jax_trainer(tmp_path, monkeypatch):
     assert got["reward/parity"] > 0 and "rollout/probs_diff_mean" in got
 
 
-def test_trainer_state_from_jax_starts_both_trainers_alike(tmp_path):
-    """The JAX trainer's numpy trees (parameters, moments, count, step) load
-    into a port trainer that was built from other weights."""
+@pytest.mark.parametrize("estimator", ["grpo", "gae"])
+def test_trainer_state_from_jax_starts_both_trainers_alike(tmp_path, estimator):
+    """The JAX trainer's numpy trees (parameters, moments, count, step; for
+    GAE also the critic's: backbone + value head and its moments) load into a
+    port trainer that was built from other weights."""
     jax_params, model = both_models(seed=9)
     tree = jax.tree.map(np.asarray, jax_params)
-    moments = jax.tree.map(lambda x: (x * 0.5).astype(np.float32), tree)
-    state = trainer_state_from_jax(CFG, params=tree, mu=moments, nu=jax.tree.map(np.square, moments),
-                                   count=3, step=5)
-    trainer, _ = build(tmp_path, seed=1)
+
+    def adam(t, scale):
+        mu = jax.tree.map(lambda x: (x * scale).astype(np.float32), t)
+        return dict(mu=mu, nu=jax.tree.map(np.square, mu))
+
+    critic = None
+    if estimator == "gae":
+        from spatialthinker_tpu.trainer.critic import init_critic_params
+
+        ctree = jax.tree.map(np.asarray, init_critic_params(JAX_CFG, jax.random.key(3), base_params=dict(tree)))
+        critic = dict(params=ctree, count=2, **adam(ctree, 0.25))
+    state = trainer_state_from_jax(CFG, params=tree, count=3, step=5, critic=critic, **adam(tree, 0.5))
+    extra = GAE if estimator == "gae" else ()
+    trainer, _ = build(tmp_path, *extra, seed=1)
     assert _sums(trainer.model) != _sums(model)
-    torch.save(state["params"], tmp_path / "params.pt")
     trainer.ckpt.save(state["step"], params=state["params"], opt_state=state["opt_state"],
                       dataloader_state={}, rng_state=None)
     trainer.config.trainer.load_checkpoint_path = f"{tmp_path}/ckpt"
@@ -307,6 +323,127 @@ def test_trainer_state_from_jax_starts_both_trainers_alike(tmp_path):
     assert _sums(trainer.model) == _sums(model)
     name = "text.norm.weight"
     torch.testing.assert_close(trainer.optimizer.state["mu"][name], 0.5 * dict(model.named_parameters())[name])
+    if estimator == "gae":
+        assert trainer.critic_optimizer.state["count"] == 2
+        head = np.asarray(critic["params"]["value_head"]["weight"])
+        np.testing.assert_array_equal(trainer.critic.value_head.weight.detach().numpy(), head)
+        torch.testing.assert_close(trainer.critic_optimizer.state["mu"]["value_head.weight"],
+                                   torch.as_tensor(0.25 * head))
+        assert _sums(trainer.critic)[:-2] == _sums(model)  # the backbone, then the head
+
+
+# ---------------------------------------------------------------------------
+# the critic (adv_estimator=gae)
+# ---------------------------------------------------------------------------
+
+CRITIC_LR = 1e-3
+GAE = ["algorithm.adv_estimator=gae", "worker.critic.model.model_path=tiny",
+       "worker.critic.model.param_dtype=float32", f"worker.critic.optim.lr={CRITIC_LR}",
+       "worker.critic.micro_batch_size_per_device_for_experience=4"]
+
+
+def _critic_sums(trainer):
+    return _sums(trainer.critic)
+
+
+@pytest.mark.parametrize("multimodal", [True, False], ids=["multimodal", "text"])
+def test_train_step_gae_matches_jax_trainer(tmp_path, multimodal):
+    """GAE through both trainers on one precomputed rollout: the JAX critic's
+    weights (its random fp32 backbone and value head) carried into the port's
+    critic, every metric outside timing within 1e-4 (``critic/vf_*``,
+    ``critic/grad_norm``, ``critic/values/*`` and the returns included), the
+    updated actor and critic held in units of their learning rates."""
+    extra = [*GAE, "data.max_prompt_length=48", "data.min_pixels=3136", "data.max_pixels=12544",
+             "worker.actor.micro_batch_size_per_device_for_update=2", "worker.rollout.temperature=0.9",
+             "algorithm.gamma=0.99", "algorithm.lam=0.95"]
+    if not multimodal:
+        extra += ["algorithm.use_kl_loss=false", "algorithm.kl_penalty=kl"]
+    jax_params, model = both_models(seed=11)
+    trainer, cfg = build(tmp_path, *extra, model=model)
+    ref_cfg = jc.build_config(_dotlist(tmp_path, *extra))
+    assert tc.to_dict(cfg) == jc.to_dict(ref_cfg)
+    ref = JaxTrainer(ref_cfg, trainer.tokenizer, JAX_CFG, jax_params, train_dataloader=None,
+                     reward_fn=_reward_fn, mesh=create_mesh(1, 1, 1, devices=jax.devices()[:1]))
+    assert ref.use_critic and trainer.critic is not None
+    trainer.critic.load_state_dict(params_from_jax(jax.tree.map(np.asarray, ref.critic_params), CFG))
+    trainer.reward_fn = _reward_fn
+    rolled = _precomputed_rollout(trainer, multimodal)
+    trainer.generate_sequences = lambda batch, sampling, generator=None: _as(RolloutBatch, rolled)
+    ref.generate_sequences = lambda batch, sampling, key=None: _as(JaxRolloutBatch, rolled)
+    trainer.global_step = ref.global_step = 1
+    got = trainer.train_step(RolloutBatch(tensors={"input_ids": np.zeros((4, 1), np.int32)}))
+    want = ref.train_step(JaxRolloutBatch(tensors={"input_ids": np.zeros((4, 1), np.int32)}))
+
+    keys = sorted(k for k in want if not k.startswith(NOT_COMPARED))
+    assert keys == sorted(k for k in got if not k.startswith(NOT_COMPARED))
+    assert {k for k in got if k.startswith(NOT_COMPARED)} == {k for k in want if k.startswith(NOT_COMPARED)}
+    for key in ("critic/vf_loss", "critic/vf_clipfrac", "critic/grad_norm", "critic/values/mean",
+                "critic/returns/mean", "timing_s/values", "timing_s/update_critic"):
+        assert key in got, key
+    for key in keys:
+        np.testing.assert_allclose(got[key], want[key], atol=1e-4, rtol=1e-4, err_msg=key)
+    assert got["critic/grad_norm"] > 0 and abs(got["critic/advantages/max"]) > 0
+    _params_close(trainer.model, ref.params, LR)
+    _params_close(trainer.critic, ref.critic_params, CRITIC_LR)
+
+
+def test_gae_critic_warmup_keeps_the_policy(tmp_path):
+    """``trainer.critic_warmup=1``: the first step moves the critic only."""
+    trainer, _ = build(tmp_path, *GAE, "trainer.critic_warmup=1")
+    trainer.reward_fn = _reward_fn
+    actor, critic = _sums(trainer.model), _critic_sums(trainer)
+    trainer.global_step = 1
+    metrics = trainer.train_step(next(iter(trainer.train_dataloader)))
+    assert _sums(trainer.model) == actor and _critic_sums(trainer) != critic
+    assert trainer.optimizer.state["count"] == 0 and trainer.critic_optimizer.state["count"] == 1
+    assert metrics["timing_s/update_actor"] == pytest.approx(1e-9)
+    assert not any(k.startswith("actor/") for k in metrics)
+    assert np.isfinite(metrics["critic/vf_loss"]) and metrics["critic/grad_norm"] > 0
+    trainer.global_step = 2  # past the warmup: both move
+    trainer.train_step(next(iter(trainer.train_dataloader)))
+    assert _sums(trainer.model) != actor and trainer.optimizer.state["count"] == 1
+
+
+def test_gae_checkpoint_save_load_same_next_step(tmp_path):
+    a, _ = build(tmp_path, *GAE, "trainer.max_steps=1", "trainer.save_freq=1", seed=0)
+    a.reward_fn = _reward_fn
+    a.fit()
+    step_dir = tmp_path / "ckpt" / "global_step_1"
+    saved = torch.load(step_dir / "params.pt", weights_only=True)
+    opt = torch.load(step_dir / "opt_state.pt", weights_only=True)
+    assert set(saved) == set(opt) == {"actor", "critic"} and "value_head.weight" in saved["critic"]
+    b, _ = build(tmp_path, *GAE, f"trainer.load_checkpoint_path={tmp_path}/ckpt", seed=0)
+    b.reward_fn = _reward_fn
+    assert _critic_sums(a) != _critic_sums(b)
+    b.load_checkpoint()
+    assert b.global_step == 1 and b.critic_optimizer.state["count"] == a.critic_optimizer.state["count"] == 1
+    assert _sums(a.model) == _sums(b.model) and _critic_sums(a) == _critic_sums(b)
+    batch = next(iter(DataLoader(a.train_dataloader.dataset, 4, shuffle=False)))
+    results = []
+    for t in (a, b):
+        t.global_step += 1
+        results.append(t.train_step(copy.deepcopy(batch)))
+    for key in results[0]:
+        if not key.startswith(NOT_COMPARED):
+            np.testing.assert_allclose(results[0][key], results[1][key], atol=1e-6, rtol=1e-6, err_msg=key)
+    for (name, pa), pb in zip(a.critic.named_parameters(), b.critic.parameters()):
+        torch.testing.assert_close(pa, pb, atol=0.01 * CRITIC_LR, rtol=0, msg=name)
+    with pytest.raises(ValueError, match="checkpoint layout"):  # a GAE checkpoint into a GRPO run
+        c, _ = build(tmp_path, f"trainer.load_checkpoint_path={tmp_path}/ckpt")
+        c.load_checkpoint()
+
+
+def test_gae_critic_with_another_vision_tower_is_refused_before_allocation(tmp_path, monkeypatch):
+    from spatialthinker_torch.trainer import grpo_trainer as gt
+
+    def no_weights(*args, **kwargs):
+        raise AssertionError("critic weights allocated before the vision check")
+
+    for name in ("init_params", "load_params", "Critic"):
+        monkeypatch.setattr(gt, name, no_weights)
+    monkeypatch.setattr(gt.copy, "deepcopy", no_weights)  # not even the reference copy
+    with pytest.raises(ValueError, match="different vision tower"):
+        build(tmp_path, "algorithm.adv_estimator=gae", "worker.critic.model.model_path=3b")
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +568,6 @@ def test_main_on_a_jsonl_file(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,match", [
     (["trainer.n_chips=2"], "ROADMAP A13"),
-    (["algorithm.adv_estimator=gae"], "ROADMAP A10"),
     (["worker.rollout.n=1"], "needs worker.rollout.n > 1"),
     (["worker.actor.global_batch_size=3"], "must be divisible"),
 ])
