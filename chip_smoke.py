@@ -44,7 +44,7 @@ non-zero without a device. In order:
    ``torch._int_mm`` alone on the pre-quantized x (the library call for the
    dot), each case's plan (``w8a8_plan``: regime, tile, splits of K, ring
    depth, CTAs) printed beside it;
-4. drives ten paths at full Qwen2.5-VL-3B width with seeded random weights
+4. drives eleven paths at full Qwen2.5-VL-3B width (path k at 7B) with seeded random weights
    made on the device, each with the kernels' launch counts set to 0 just
    before and read just after, and with the plain versions forbidden:
    a. the dense engine (bf16): 4 image requests through
@@ -69,9 +69,11 @@ non-zero without a device. In order:
       ``scripts/spatialthinker_3b_grpo.sh`` with the deploy-scale knobs cut
       (16 prompts x n 8, prompt 512, response 64, 64 slots, page 256, one
       card, the synthetic tokenizer, 2 steps, validation before training on 8
-      held-out rows), ``build_model`` (the 3B preset, seeded random weights),
-      seeded rows with 640 x 480 images through ``RLHFDataset.from_rows``, the
-      ``spatial_sgg`` reward, ``build_trainer(...).fit()``;
+      held-out rows; and ``remat_policy=full``, since the shipped ``dots``
+      does not fit one card beside fp32 moments at 3B), ``build_model`` (the
+      3B preset, seeded random weights), seeded rows with 640 x 480 images
+      through ``RLHFDataset.from_rows``, the ``spatial_sgg`` reward,
+      ``build_trainer(...).fit()``;
    f. the rollout knobs that reach the other decode kernels, through the same
       trainer's ``generate_sequences``: the dense engine (``rollout.name=jax``)
       over an int8 cache, an int4 cache and an int4 cache with ``int4_i8dot``,
@@ -87,7 +89,8 @@ non-zero without a device. In order:
    step and saves, a fresh trainer (built from the same initial weights, as a
    resumed run is) loads, both take the next step;
    i. the critic: path e's dotlist with ``algorithm.adv_estimator=gae`` and
-      both optimizers on bf16 moments without a Kahan buffer
+      both optimizers on bf16 moments without a Kahan buffer, the critic's
+      checkpoints at ``remat_policy=full`` as the actor's
       (``GAE_OVERRIDES``), a fresh trainer at full 3B width and depth (the
       critic shares the actor's preset: bf16 backbone, fp32 value head), ONE
       ``train_step``: the paged rollout, old / ref log-probs, the critic's
@@ -98,6 +101,21 @@ non-zero without a device. In order:
       i's policy on 8 in-memory rows in cv-bench's layout (640 x 480 images,
       2-4 choices, batch 4, 64 new tokens), then the same call resumed from
       its output file;
+   k. the shipped 7B script: ``build_config`` on the dotlist of
+      ``scripts/spatialthinker_7b_grpo.sh`` with ``SEVENB_OVERRIDES`` (the two
+      host-state knobs ``optim.stream`` and ``ref.offload``, and path e's
+      deploy-scale cuts: 16 prompts x n 8, prompt 512, response 64, one card,
+      one step), ``build_model`` (the 7B preset at full width and depth:
+      28 x 3584 text, 28 query heads over 4 kv heads, G = 7), the seeded scene
+      rows and the ``spatial_sgg`` reward, ``build_trainer(...).fit()``: the
+      paged rollout at 128 slots and page 1,024, old log-probs, the ref
+      log-probs from the host copy, GRPO, the packed update under
+      ``remat_policy=dots`` with the moments (bf16, Kahan buffer) streamed
+      from the host; the host memory it pins and what ``/proc/meminfo`` had;
+      the update's first text flash call, a mid-decode paged call (cut to
+      its pages), the first silu junction call and a decode call of kernel A
+      recorded, and each kernel held against its plain version on them
+      after the step, beside kernel A at the five 7B linears;
 5. checks what came out: finite log-probs <= 0 of the expected shapes; the
    kernel-path prefill logits as close to an fp32 reference as the plain
    path's; the int4 path's rollout log-probs against the bf16 model's
@@ -143,8 +161,17 @@ non-zero without a device. In order:
    stepped with bf16 moments and no Kahan buffer; for path j 8 records, the
    summary ``summarize``'s, and a resumed call that launches neither the
    flash forward nor the dense decode kernel and returns the same summary;
-6. prints one JSON line of kernel results (each with its launches on paths i
-   and j: ``launches_gae_path``, ``launches_eval_path``), the nvidia-smi line, and last
+   for path k finite metrics, a positive gradient norm, parameters that
+   moved and a host reference copy that did not, the streamed optimizer
+   stepped once with its moments on the host and exactly their bytes
+   streamed each way, ``rollout/probs_diff_mean`` within
+   ``PROBS_DIFF_LIMIT``, every kernel of a step launched, no dense decode
+   kernel and no ``torch._int_mm``;
+6. prints one JSON line of kernel results (each with its launches on paths i,
+   j and k: ``launches_gae_path``, ``launches_eval_path``,
+   ``launches_7b_path``) and of the paths (among them, as a record and not a
+   check, the prefill-dequant mode's product beside kernel A at the 3B
+   gate_up and m = 1,024 and 4,096), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and exits non-zero; no phase catches its own failure.
@@ -194,6 +221,7 @@ from spatialthinker_torch.models.qwen2_5_vl.text import MLP, KVCache
 from spatialthinker_torch.ops.quant import (
     QuantLinear, int8_matmul, quantize_activation, quantize_model, quantize_weight,
 )
+from spatialthinker_torch.parallel.offload import host_bytes
 from spatialthinker_torch.rollout.engine import generate
 from spatialthinker_torch.rollout.paged import generate_paged
 from spatialthinker_torch.rollout.sampling import SamplingParams
@@ -341,6 +369,12 @@ TRAINER_OVERRIDES = [
     "trainer.n_chips=1", "trainer.max_steps=2",
     "trainer.val_before_train=true", "trainer.val_freq=-1", "trainer.save_freq=-1",
     "trainer.logger=['console','jsonl']",
+    # the shipped default remat_policy=dots does not fit one card at 3B with
+    # fp32 moments: the policy, the reference copy and the moments (45.2 GB),
+    # the fp32 accumulator (15 GB) and the kept weight products of a
+    # micro-batch ran out at 82.97 GB (NVIDIA H100 80GB HBM3, 700.00 W);
+    # path k runs dots, at 7B, with the moments on the host
+    "worker.actor.sharding.remat_policy=full",
 ]
 TRAINER_VAL_ROWS = 8
 CKPT_LAYERS = 4
@@ -925,11 +959,13 @@ def decode_quant_case(cfg, kind: str, q, kc, vc, seg, layer: int, ks, vs, label:
 
 
 @contextmanager
-def record_call(module, name: str, pick: int, when=None):
+def record_call(module, name: str, pick: int, when=None, keep=None):
     """Pass every call of ``module.name`` through and keep a copy of the
     tensors of call number ``pick`` (from 0; counting only the calls for which
     ``when(*args, **kwargs)`` holds, if given): the real inputs a main path
-    gave a kernel, to hold the kernel against its plain version afterwards."""
+    gave a kernel, to hold the kernel against its plain version afterwards.
+    ``keep(args, kwargs) -> (args, kwargs)`` makes the copy instead (a
+    paged call's pool cut to its pages)."""
     real = getattr(module, name)
     seen, kept = [0], {}
 
@@ -940,7 +976,9 @@ def record_call(module, name: str, pick: int, when=None):
 
     def recording(*args, **kwargs):
         if when is None or when(*args, **kwargs):
-            if seen[0] == pick:
+            if seen[0] == pick and keep is not None:
+                kept["args"], kept["kwargs"] = keep(args, kwargs)
+            elif seen[0] == pick:
                 kept["args"] = tuple(copy_of(a) for a in args)
                 kept["kwargs"] = {k: copy_of(v) for k, v in kwargs.items()}
             seen[0] += 1
@@ -2228,7 +2266,7 @@ def w4_controls(card, trainer, train_ds) -> dict:
     real = gt.quantize_model
     out = {}
     for how in W4_CONTROLS:
-        gt.quantize_model = lambda model, mode="int8", how=how: miswire(real(model, mode=mode), how)
+        gt.quantize_model = lambda model, mode="int8", how=how, **kw: miswire(real(model, mode=mode, **kw), how)
         rolled, counts, gen_s, diff = knob_rollout(trainer, batch, knobs)
         gt.quantize_model = real
         print(f"w4 control {how}: probs_diff_mean {diff:.4f} (must exceed {W4_PROBS_DIFF_LIMIT}); launches "
@@ -2412,6 +2450,9 @@ GAE_OVERRIDES = [
     "algorithm.adv_estimator=gae",
     "worker.actor.optim.strategy=adamw_bf16", "worker.critic.optim.strategy=adamw_bf16",
     "worker.actor.optim.use_kahan_summation=false", "worker.critic.optim.use_kahan_summation=false",
+    # as the actor's (TRAINER_OVERRIDES): two 3B models, their moments and the
+    # critic's fp32 accumulator leave no room for the kept weight products
+    "worker.critic.sharding.remat_policy=full",
 ]
 GAE_TIMINGS = ("gen", "old", "ref", "values", "adv", "update_critic", "update_actor", "step")
 GAE_METRICS = ("critic/vf_loss", "critic/vf_clipfrac", "critic/grad_norm", "critic/values/mean",
@@ -2596,6 +2637,286 @@ def eval_path(dev, card, trainer, work_dir) -> dict:
     return dict(seconds=eval_s, seconds_per_request=eval_s / EVAL_ROWS, launches=launches, summary=summary)
 
 
+# ---------------------------------------------------------------------------
+# path k: the shipped 7B script through the trainer, host-resident state
+# ---------------------------------------------------------------------------
+
+SEVENB_SCRIPT = "scripts/spatialthinker_7b_grpo.sh"
+SEVENB_OVERRIDES = [
+    # the two knobs that fit 7B GRPO on one card: bf16 moments (and the Kahan
+    # buffer) streamed from the host, the reference copy on the host
+    "worker.actor.optim.stream=true", "worker.ref.offload=true",
+    # path e's deploy-scale cuts: 16 prompts x n 8, prompt 512, response 64,
+    # one card, one step, no validation, no saves
+    "worker.actor.model.model_path=Qwen/Qwen2.5-VL-7B-Instruct",
+    "worker.actor.model.tokenizer_path=synthetic",
+    "data.rollout_batch_size=16", "data.max_prompt_length=512", "data.max_response_length=64",
+    "trainer.n_chips=1", "trainer.max_steps=1",
+    "trainer.val_before_train=false", "trainer.val_freq=-1", "trainer.save_freq=-1",
+    "trainer.logger=['console','jsonl']",
+]
+SEVENB_TIMINGS = ("gen", "reward", "old", "ref", "adv", "update_actor", "step")
+# the 7B linears' kernel A cases: path k's decode lanes (128 slots + trash)
+# and a refill prefill (prefill_rows 8 x prompt 512)
+SEVENB_W8A8_MS = (129, 4096)
+# the paged decode call to record: the last layer at the middle decode step
+# (every slot live, the first response page partly written)
+SEVENB_PAGED_PICK_STEP = MAX_NEW_TOKENS // 2
+
+
+def meminfo_gb() -> dict:
+    """``MemTotal`` and ``MemAvailable`` of ``/proc/meminfo``, in GB."""
+    out = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, value = line.split(":", 1)
+        if key in ("MemTotal", "MemAvailable"):
+            out[key] = int(value.split()[0]) * 1024 / 1e9
+    return out
+
+
+def compact_paged_call(args, kwargs):
+    """The inputs of one paged decode call with the pool cut to the pages its
+    page table names in its layer (a card-sized pool is not copied): the
+    call's arithmetic is unchanged, the table renumbered."""
+    q, k_pool, v_pool, table, lengths, layer, k_scale, v_scale = args[:8]
+    used, remap = torch.unique(table, return_inverse=True)
+    cut = lambda pool: None if pool is None else pool[layer][used].unsqueeze(0).clone()  # noqa: E731
+    kept = (q.clone(), cut(k_pool), cut(v_pool), remap.to(torch.int32).contiguous(), lengths.clone(), 0,
+            cut(k_scale), cut(v_scale))
+    return kept, {k: v for k, v in kwargs.items() if k in ("int4_i8dot", "staged")}
+
+
+def paged_call_case(kind: str, args, label: str) -> dict:
+    """A paged kernel vs its plain version on one call's inputs (no staged
+    block): output and partial-softmax stats, two more calls bit-identical,
+    the plan, both times, the byte bound over the live cells."""
+    q, k_pool = args[0], args[1]
+    lengths = args[4]
+    i8 = kind == "int4_i8"
+    plain = {"int4_i8": pa.paged_attention_int4_i8_plain,
+             "int4": pa.paged_attention_int4_plain}.get(kind, pa.paged_attention_plain)
+    scale = q.shape[-1] ** -0.5
+    o_ref, m_ref, l_ref = plain(*args, scale)
+    o, m, l = pa.paged_attention(*args, return_stats=True, int4_i8dot=i8)
+    torch.cuda.synchronize()
+    err = (o.float() - o_ref.float()).abs().max().item()
+    stat_err = max((m - m_ref).abs().max().item(), ((l - l_ref).abs() / (1 + l_ref.abs())).max().item())
+    plan, twice = paged_plan_and_twice(kind, args)
+    plain_ms = cuda_ms(lambda: plain(*args, scale), iters=5)
+    ms = cuda_ms(lambda: pa.paged_attention(*args, return_stats=True, int4_i8dot=i8))
+    hq, d, hkv = q.shape[1], q.shape[2], k_pool.shape[2]
+    cells = int(lengths.sum())
+    value_bytes = {"bf16": 2.0, "int8": 1.0, "int4_i8": 0.5, "int4": 0.5}[kind]
+    cell_bytes = 2 * hkv * (d * value_bytes + (0 if kind == "bf16" else 2))
+    b_ms, b_by = bound_ms(cells * cell_bytes + nbytes(q, o, m, l, args[3], lengths), 4.0 * cells * hq * d,
+                          "int8" if i8 else "bf16")
+    print(f"paged {kind} [{label}]: q{tuple(q.shape)} G={hq // hkv} pool pages of the call "
+          f"{tuple(k_pool.shape)} cells={cells} max_abs_err={err:.3e} stat_err={stat_err:.3e} "
+          f"bit_identical_twice={twice} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+          f"plan={json.dumps(plan)}", flush=True)
+    if not (err <= PAGED_OUT_ATOL[kind] and stat_err <= PAGED_STAT_ATOL and twice):
+        raise AssertionError(f"paged kernel ({kind}) disagrees with plain or with itself [{label}]")
+    return dict(shape=label, max_abs_err=err, stat_err=stat_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, bit_identical_twice=twice, plan=plan)
+
+
+def sevenb_path(dev, card, work_dir) -> dict:
+    """Path k: ONE step of ``GRPOTrainer.fit`` on the dotlist of
+    ``scripts/spatialthinker_7b_grpo.sh`` with ``SEVENB_OVERRIDES``: the 7B
+    preset at full width and depth (28 x 3584 text, G = 7), the moments
+    streamed from the host, the reference copy on the host. The update's
+    first text flash call, a mid-decode paged call (cut to its pages), the
+    first silu junction call and a decode call of kernel A are recorded and
+    each kernel held against its plain version afterwards, beside kernel A at
+    the five 7B linears."""
+    config = build_config(script_dotlist(SEVENB_SCRIPT) + SEVENB_OVERRIDES
+                          + [f"trainer.save_checkpoint_path={work_dir}"])
+    mem_before = meminfo_gb()
+    t0 = time.perf_counter()
+    model = build_model(config)
+    tok = load_tokenizer(config.worker.actor.model.tokenizer_path, model.cfg)
+    cfg = model.cfg
+    train_ds = RLHFDataset.from_rows(scene_rows(config.data.rollout_batch_size, seed=31), tok, config.data, cfg)
+    trainer = build_trainer(config, tok, model, train_ds)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    opt_state = trainer.optimizer.state
+    pinned = {
+        "reference copy": host_bytes(trainer.ref_host),
+        "moments (mu, nu)": sum(t.numel() * t.element_size() for part in ("mu", "nu")
+                                for t in opt_state[part].values()),
+        "Kahan buffer": sum(t.numel() * t.element_size() for t in opt_state["compensation"].values()),
+    }
+    mem_after = meminfo_gb()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    roll = config.worker.rollout
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"path k (7b): {SEVENB_SCRIPT} dotlist + {SEVENB_OVERRIDES}; {n_params / 1e9:.3f} B params, "
+          f"G = {cfg.text.num_attention_heads // cfg.text.num_key_value_heads}, built in {build_s:.2f} s; engine "
+          f"name={roll.name} page_size={roll.page_size} kv_cache_dtype={roll.kv_cache_dtype} "
+          f"quantization={roll.quantization} int4_i8dot={roll.int4_i8dot} slots={roll.decode_batch_size} "
+          f"n={roll.n}; remat_policy={config.worker.actor.sharding.remat_policy}, optimizer "
+          f"{type(trainer.optimizer).__name__} (Kahan {trainer.optimizer.use_kahan_summation}); host before "
+          f"the build: MemTotal {mem_before['MemTotal']:.2f} GB, MemAvailable {mem_before['MemAvailable']:.2f} "
+          f"GB; host pinned: " + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in pinned.items())
+          + f" (total {sum(pinned.values()) / 1e9:.2f} GB), MemAvailable after {mem_after['MemAvailable']:.2f} "
+          f"GB; card resident {resident_gb:.2f} GB (the policy)  [{card}]", flush=True)
+    ref_sums = [float(torch.sum(h.buffer.to(dev), dtype=torch.float64)) for h in trainer.ref_host.values()]
+    p_sums = checksums(model.parameters())
+
+    layers = cfg.text.num_hidden_layers
+    recorded = {}
+    # the card's peak (allocated, reserved) of each phase: the counters restart
+    # at a phase's start, and "step" keeps the largest seen
+    peaks = {"step": (0, 0)}
+
+    def peak_now():
+        return torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+
+    def fold(name, peak):
+        peaks[name] = tuple(map(max, peaks.get(name, (0, 0)), peak))
+        peaks["step"] = tuple(map(max, peaks["step"], peak))
+
+    def phase(name, fn):
+        def run(*args, **kwargs):
+            fold("step", peak_now())
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kwargs)
+            fold(name, peak_now())
+            return out
+        return run
+
+    def update_recorded(batch):
+        with record_call(fa, "flash_attention", 0, when=_is_text_call(cfg)) as text:
+            out = real_update(batch)
+        recorded["text"] = text
+        return out
+
+    real_update, real_gen, real_logp = (trainer.update_actor, trainer.generate_sequences,
+                                        trainer.compute_log_probs_batched)
+    trainer.update_actor = phase("update", update_recorded)
+    trainer.generate_sequences = phase("gen", real_gen)
+    trainer.compute_log_probs_batched = phase("old and ref log-probs", real_logp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with forbid_plain_versions(), \
+            record_call(tpaged, "paged_attention", layers * SEVENB_PAGED_PICK_STEP + layers - 1,
+                        keep=compact_paged_call) as paged_rec, \
+            record_call(sq, "fused_silu_quantize", 0) as silu_rec, \
+            record_call(tq, "fused_w8a8_matmul", 2,  # layer 0's gate_up at the first decode step
+                        when=lambda x, *a, **kw: x.shape[0] == roll.decode_batch_size + 1) as w8_rec:
+        trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_counts()  # inside: a recorder holds the silu junction's count while it is installed
+    fold("step", peak_now())
+    peak_gb, reserved_gb = (b / 1e9 for b in peaks["step"])
+    phase_peaks = ", ".join(f"{k} {a / 1e9:.2f} / {r / 1e9:.2f}" for k, (a, r) in peaks.items() if k != "step")
+    trainer.update_actor, trainer.generate_sequences, trainer.compute_log_probs_batched = (
+        real_update, real_gen, real_logp)
+    log = Path(work_dir) / f"{config.trainer.experiment_name}_metrics.jsonl"
+    rec = {r["step"]: r for r in map(json.loads, log.read_text().splitlines())}.get(1, {})
+    stats = dict(trainer.host_state_stats)
+    moved = sum(a != b for a, b in zip(p_sums, checksums(model.parameters())))
+    ref_now = [float(torch.sum(h.buffer.to(dev), dtype=torch.float64)) for h in trainer.ref_host.values()]
+    moments_nonzero = sum(bool(t.any()) for t in opt_state["mu"].values())
+    printed = {f"timing_s/{k}": rec.get(f"timing_s/{k}", float("nan")) for k in SEVENB_TIMINGS}
+    for k in ("perf/throughput", "perf/mfu_actor", "rollout/probs_diff_mean", "actor/grad_norm",
+              "actor/kl_loss", "actor/pg_loss", "response_length/mean", "rollout/kv_peak_pages",
+              "rollout/kv_total_pages", "rollout/kv_preemptions"):
+        printed[k] = rec.get(k, float("nan"))
+    print("path k step: " + ", ".join(f"{k} {v:.6g}" for k, v in printed.items())
+          + f"; ref restore {stats.get('ref_restore_s', float('nan')):.3f} s for "
+          f"{stats.get('ref_restore_bytes', 0) / 1e9:.2f} GB; streamed apply "
+          f"{stats.get('apply_s', float('nan')):.3f} s, {stats.get('apply_bytes_each_way', 0) / 1e9:.2f} GB "
+          f"each way; page pool the trainer chose {trainer._paged_pool_cache} pages of {roll.page_size}; "
+          f"resident {resident_gb:.2f} GB, peak allocated {peak_gb:.2f} GB, reserved {reserved_gb:.2f} GB of "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.2f} GB; fit {fit_s:.2f} s  [{card}]",
+          flush=True)
+    print(f"path k peak allocated / reserved GB by phase: {phase_peaks}", flush=True)
+    print(f"path k launches: {launches}", flush=True)
+    checks = {
+        "one step record": trainer.global_step == 1 and bool(rec),
+        "every printed metric finite": bool(np.isfinite(list(printed.values())).all()),
+        "every metric of the step finite": bool(np.isfinite([v for k, v in rec.items() if k != "step"]).all()),
+        "gradient norm > 0": printed["actor/grad_norm"] > 0,
+        "parameters moved": moved > 0,
+        "host reference copy untouched": ref_now == ref_sums,
+        "streamed optimizer stepped once, host moments moved": (
+            opt_state["count"] == 1 and moments_nonzero > 0
+            and not next(iter(opt_state["mu"].values())).is_cuda),
+        "streamed bytes each way = the host moments": stats.get("apply_bytes_each_way") == (
+            pinned["moments (mu, nu)"] + pinned["Kahan buffer"]),
+        "rollout/probs_diff_mean within the limit": printed["rollout/probs_diff_mean"] <= PROBS_DIFF_LIMIT,
+        "every kernel of a step launched": all(launches[k] > 0 for k in TRAIN_KERNELS),
+        "no dense decode kernel": launches["decode_attention"] == 0,
+        "no torch._int_mm": launches["int_mm"] == 0,
+        "pool sized from free memory": (trainer._paged_pool_cache or 0) > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"path k checks failed: {failed}")
+    seg_text = recorded.pop("text")["args"][3].cpu().numpy()
+    pool_pages = trainer._paged_pool_cache
+    del trainer, model, real_update, real_gen, real_logp, recorded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the path's kernels at G = 7 against their plain versions, on what the path gave them
+    tc = cfg.text
+    fwd, prep, dq, dkv = check_flash_training(dev, [(
+        "path_k_update_text_packed_rows", (tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim),
+        np.asarray(seg_text, np.int32), True)])
+    paged_args = paged_rec["args"]
+    if not paged_rec["kwargs"].get("int4_i8dot"):
+        raise AssertionError("path k's recorded paged call is not the int4_i8 mode")
+    paged = [paged_call_case("int4_i8", paged_args,
+                             f"path_k_{paged_args[0].shape[0]}_lanes_page_{2 * paged_args[1].shape[3]}"
+                             f"_step_{SEVENB_PAGED_PICK_STEP}")]
+    silu = silu_case(silu_rec["args"][0], f"path_k_refill_rows_{silu_rec['args'][0].shape[0]}")
+    w8a8 = [recorded_w8a8_case(w8_rec, "path_k_decode")]
+    del paged_rec, silu_rec, w8_rec
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for name, (k, n, out_dtype) in w8a8_linears(cfg).items():
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        ws = torch.rand((n,), generator=gen, device=dev) * 2e-3 + 1e-4
+        for m in SEVENB_W8A8_MS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            w8a8.append(w8a8_case(x, w, ws, out_dtype, f"7b_{name}_m{m}"))
+        del w, ws
+        torch.cuda.empty_cache()
+    return dict(fit_s=fit_s, build_s=build_s, launches=launches, peak_gb=peak_gb, reserved_gb=reserved_gb,
+                phase_peak_bytes={k: v for k, v in peaks.items() if k != "step"}, resident_gb=resident_gb, pool_pages=pool_pages, host_pinned_bytes=pinned,
+                meminfo_before=mem_before, meminfo_after_build=mem_after, metrics=printed, host_state=stats,
+                kernels=dict(fwd=fwd, prep=prep, dq=dq, dkv=dkv, paged=paged, silu=silu, w8a8=w8a8))
+
+
+def prefill_dequant_cases(dev, cfg) -> list:
+    """A record, not a check: the prefill-dequant mode's product
+    (``quantize_model(prefill_dequant_min_m=...)``: the weight dequantized,
+    then one bf16 ``torch.matmul``) beside kernel A at the 3B gate_up and
+    m = 1,024 and 4,096 rows, on the same int8 weight."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    k, n, _ = w8a8_linears(cfg)["gate_up"]
+    qw = {"qvalue": torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8),
+          "scale": torch.rand((n,), generator=gen, device=dev) * 2e-3 + 1e-4}
+    out = []
+    for m in (1024, 4096):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        dequant = {**qw, "dequant_min_m": m}
+        ms = cuda_ms(lambda: tq.quantized_dot(x, dequant, 1))
+        kernel_ms = cuda_ms(lambda: tq.quantized_dot(x, qw, 1))
+        diff = (tq.quantized_dot(x, dequant, 1).float() - tq.quantized_dot(x, qw, 1).float()).abs().max().item()
+        print(f"prefill dequant [3b_gate_up_m{m}]: x({m}, {k}) w({n}, {k}) dequantize + bf16 matmul "
+              f"ms={ms:.4f} beside kernel A ms={kernel_ms:.4f} (ratio {ms / kernel_ms:.2f}); max |difference| "
+              f"{diff:.3e} (bf16 weights against W8A8)", flush=True)
+        out.append(dict(shape=f"3b_gate_up_m{m}", dequant_ms=ms, kernel_a_ms=kernel_ms, max_abs_difference=diff))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2629,6 +2950,7 @@ def main() -> int:
         int4_dn_cases.extend(dn_cases)
     int4_fallback = check_int4_fallback(dev, cfg)
     w8a8_cases = check_w8a8(dev, cfg)
+    dequant_cases = prefill_dequant_cases(dev, cfg)
     torch.cuda.empty_cache()
 
     # ---- the serving and update kernels, paths a-d ----
@@ -2661,6 +2983,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # ---- path k: the shipped 7B script through the trainer, state on the host ----
+    with tempfile.TemporaryDirectory() as work_dir:
+        k_res = sevenb_path(dev, card, work_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     def entry(name, route, source, replaces, cases, n_launch, **extra):
         main_case = cases[0]
         return {
@@ -2677,9 +3005,11 @@ def main() -> int:
     decode_cu = "spatialthinker_torch/csrc/decode_attention.cu"
     paged_cu = "spatialthinker_torch/csrc/paged_attention.cu"
     i_flash, i_l, j_l = i_res.pop("flash"), i_res["launches"], j_res["launches"]
+    k_kern, k_l = k_res.pop("kernels"), k_res["launches"]
     kernels = [
         entry("flash_fwd", "cuda", "spatialthinker_torch/csrc/flash_attention.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:45", r["flash_cases"] + i_flash["fwd"], paged_l["flash_fwd"],
+              "spatialthinker_tpu/ops/flash_attention.py:45", r["flash_cases"] + i_flash["fwd"] + k_kern["fwd"],
+              paged_l["flash_fwd"],
               launches_dense_path=dense_l["flash_fwd"], launches_bf16_pool_path=bf16_l["flash_fwd"],
               launches_training_path=train_l["flash_fwd"], launches_trainer_path=trainer_l["flash_fwd"]),
         # the forward's range tables (part of #1's design: the TPU kernel skips blocks by the causal
@@ -2691,15 +3021,15 @@ def main() -> int:
         # the backward's pre-pass (delta and the segment range tables) takes the place of
         # the XLA rowsum of _flash_bwd; no one PyTorch call computes it
         entry("flash_bwd_prep", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:343", r["prep_cases"] + i_flash["prep"],
+              "spatialthinker_tpu/ops/flash_attention.py:343", r["prep_cases"] + i_flash["prep"] + k_kern["prep"],
               train_l["flash_bwd_prep"],
               launches_trainer_path=trainer_l["flash_bwd_prep"]),
         entry("flash_bwd_dq", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:192", r["dq_cases"] + i_flash["dq"],
+              "spatialthinker_tpu/ops/flash_attention.py:192", r["dq_cases"] + i_flash["dq"] + k_kern["dq"],
               train_l["flash_bwd_dq"],
               launches_trainer_path=trainer_l["flash_bwd_dq"]),
         entry("flash_bwd_dkv", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:255", r["dkv_cases"] + i_flash["dkv"],
+              "spatialthinker_tpu/ops/flash_attention.py:255", r["dkv_cases"] + i_flash["dkv"] + k_kern["dkv"],
               train_l["flash_bwd_dkv"],
               launches_trainer_path=trainer_l["flash_bwd_dkv"]),
         entry("decode_attention", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:138",
@@ -2720,11 +3050,11 @@ def main() -> int:
         entry("paged_attention_int4", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:225",
               paged_int4_cases, knob_res["paged_int4"]["launches"]["paged_attention_int4"]),
         entry("paged_attention_int4_i8", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:338",
-              r["int4_cases"], paged_l["paged_attention_int4_i8"],
+              r["int4_cases"] + k_kern["paged"], paged_l["paged_attention_int4_i8"],
               launches_training_path=train_l["paged_attention_int4_i8"],
               launches_trainer_path=trainer_l["paged_attention_int4_i8"]),
         entry("silu_quant", "cuda", "spatialthinker_torch/csrc/silu_quant.cu",
-              "spatialthinker_tpu/ops/int8_matmul.py:128", r["silu_cases"] + g_res["silu_cases"],
+              "spatialthinker_tpu/ops/int8_matmul.py:128", r["silu_cases"] + g_res["silu_cases"] + k_kern["silu"],
               paged_l["silu_quant"],
               launches_training_path=train_l["silu_quant"], launches_trainer_path=trainer_l["silu_quant"],
               launches_path_g=g_res["launches"]["silu_quant"]),
@@ -2739,7 +3069,8 @@ def main() -> int:
               library="torch._int_mm, int8 weights, yardstick only", fallback=int4_fallback),
         # library_ms: torch._int_mm alone on the pre-quantized x (the dot without quantize or epilogue)
         entry("w8a8_matmul", "cuda", "spatialthinker_torch/csrc/int8_matmul.cu",
-              "spatialthinker_tpu/ops/int8_matmul.py:46", r["w8a8_cases"] + g_res["w8a8_cases"] + w8a8_cases,
+              "spatialthinker_tpu/ops/int8_matmul.py:46",
+              r["w8a8_cases"] + g_res["w8a8_cases"] + w8a8_cases + k_kern["w8a8"],
               paged_l["w8a8"], replaces_also="spatialthinker_tpu/ops/int8_matmul.py:65",
               library="torch._int_mm on the pre-quantized x",
               launches_prequantized_path_b=paged_l["w8a8_prequantized"],
@@ -2755,6 +3086,7 @@ def main() -> int:
     for k in kernels:
         key = count_keys.get(k["name"], k["name"])
         k["launches_gae_path"], k["launches_eval_path"] = i_l[key], j_l[key]
+        k["launches_7b_path"] = k_l[key]
     print(json.dumps({"kernels": kernels, "paths": {
         "dense": {"decode_tok_s": r["decode_tok_s"], "prefill_s": r["prefill_s"], "peak_gb": r["peak_gb"]},
         "paged_int4": {"decode_tok_s": r["decode_tok_s_paged"], "prefill_s": r["st"]["refill_s"],
@@ -2769,7 +3101,8 @@ def main() -> int:
                      "grad_cosine": r["train"]["grad_cosine"],
                      "packed_logp_diff": r["train"]["packed_logp_diff"], "knobs": TRAIN},
         "trainer": trainer_res, "knobs": knob_res, "w4_controls": control_res, "continuous_w4a8": g_res,
-        "checkpoint": ckpt_res, "gae": i_res, "eval": j_res,
+        "checkpoint": ckpt_res, "gae": i_res, "eval": j_res, "sevenb": k_res,
+        "prefill_dequant": dequant_cases,
     }, "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ The port's own copy of ``spatialthinker_tpu/core/config.py``: the same
 dataclasses, field for field, the same ``config=path.yaml key.sub=value``
 grammar, so ``scripts/config.yaml`` and the shipped scripts' dotlists parse
 into equal trees. What differs is validation. The port runs one process on
-one GPU, so the knobs that exist for a TPU mesh or a 16 GB chip are rejected
-with the ROADMAP item that brings them, never ignored:
+one GPU, so the knobs that exist for a TPU mesh are rejected with the ROADMAP
+item that brings them, and the ones the JAX package refuses or never reads
+with their reason; none is ignored:
 
 - ``worker.*.sharding.data_size / fsdp_size / model_size`` other than 1 or -1
   (-1 = "every device left", which is the one GPU), ``ulysses_sequence_
@@ -13,11 +14,17 @@ with the ROADMAP item that brings them, never ignored:
   ``trainer.nnodes`` > 1: ROADMAP A13 (multi-GPU). ``trainer.n_chips`` parses
   as in the JAX tree (the shipped scripts set it); ``GRPOTrainer`` rejects a
   value above 1.
-- ``optim.stream``, ``ref.offload``, ``sharding.host_offload_params`` and
-  ``host_offload_optimizer``: ROADMAP A14 (state that lives on the host).
+- ``sharding.host_offload_params``, with the JAX tree's reason: one parameter
+  set serves rollout and training, so there is no idle stage to offload it
+  across.
+- ``worker.critic.optim.stream`` and the critic's and the reference's
+  ``host_offload_optimizer``: the JAX critic's optimizer reads only ``lr``,
+  ``weight_decay`` and ``strategy``, and the reference has no optimizer.
 
-``sharding.remat_policy=dots`` (save matmul outputs) has no counterpart: the
-trainer checkpoints layer inputs and says so once. The JAX tree's
+``worker.actor.optim.stream`` (moments on the host, streamed through the
+GPU), ``worker.ref.offload`` (the reference copy on the host) and
+``worker.actor.sharding.host_offload_optimizer`` (the fused optimizer's state
+on the host between updates) run as in the JAX package. The JAX tree's
 ``page_size % 256`` rule for int4 pools is a TPU tiling constraint; the
 port's paged kernels need an even page only.
 """
@@ -80,8 +87,8 @@ class OptimConfig:
     use_kahan_summation: bool = True  # adamw_bf16: False drops the compensation buffer
     lr_warmup_ratio: float = 0.0
     training_steps: int = -1
-    stream: bool = False  # host-streamed optimizer of the JAX package: rejected (ROADMAP A14)
-    grad_accum_dtype: str = ""  # micro-batch gradient accumulator: "" = float32
+    stream: bool = False  # actor only: bf16 moments on the host, streamed through the GPU
+    grad_accum_dtype: str = ""  # micro-batch gradient accumulator: "" = bf16 under stream, else fp32
 
     def post_init(self):
         if self.grad_accum_dtype not in ("", "float32", "bfloat16"):
@@ -100,7 +107,7 @@ class ShardingConfig:
     fsdp_size: int = -1         # parameter-shard axis
     model_size: int = 1         # tensor-parallel axis (megatron-style TP)
     remat: bool = True          # checkpoint every decoder layer and vision block
-    remat_policy: str = "dots"  # {dots, full}; the port keeps layer inputs only ("full")
+    remat_policy: str = "dots"  # {dots: keep weight products, full: keep layer inputs}
     host_offload_params: bool = False
     host_offload_optimizer: bool = False
 
@@ -135,7 +142,7 @@ class RefConfig:
 
     micro_batch_size_per_device_for_experience: int = 16
     sharding: ShardingConfig = field(default_factory=ShardingConfig)
-    offload: bool = False  # host-resident reference copy: rejected (ROADMAP A14)
+    offload: bool = False  # the reference copy on the host, on the GPU for its stage only
 
 
 @dataclass
@@ -297,29 +304,31 @@ class PPOConfig:
                         "one process on one GPU (1, or -1 = every device left); meshes "
                         "come with ROADMAP A13 (multi-GPU)"
                     )
-            for knob in ("host_offload_params", "host_offload_optimizer"):
-                if getattr(sh, knob):
-                    raise ValueError(
-                        f"worker.{role}.sharding.{knob} is not ported: parameters, "
-                        "moments and the reference copy stay on the GPU (ROADMAP A14)"
-                    )
+            if sh.host_offload_params:
+                raise ValueError(
+                    f"worker.{role}.sharding.host_offload_params is not supported: "
+                    "train and decode share one parameter set (no idle stage to "
+                    "offload across); use worker.ref.offload=true for the frozen "
+                    "reference copy and sharding.host_offload_optimizer for the "
+                    "optimizer state"
+                )
+            if role != "actor" and sh.host_offload_optimizer:
+                raise ValueError(
+                    f"worker.{role}.sharding.host_offload_optimizer is not supported: "
+                    + ("the reference copy has no optimizer" if role == "ref" else
+                       "the critic's optimizer state stays on the GPU (the JAX critic "
+                       "reads only optim.lr, weight_decay and strategy)")
+                )
         if self.worker.actor.ulysses_sequence_parallel_size > 1:
             raise ValueError(
                 "worker.actor.ulysses_sequence_parallel_size="
                 f"{self.worker.actor.ulysses_sequence_parallel_size}: sequence parallelism "
                 "comes with ROADMAP A13 (multi-GPU)"
             )
-        for role, optim in (("actor", self.worker.actor.optim),
-                            ("critic", self.worker.critic.optim)):
-            if optim.stream:
-                raise ValueError(
-                    f"worker.{role}.optim.stream is not ported: the host-streamed "
-                    "optimizer exists for a 16 GB chip (ROADMAP A14)"
-                )
-        if self.worker.ref.offload:
+        if self.worker.critic.optim.stream:
             raise ValueError(
-                "worker.ref.offload is not ported: the frozen reference copy stays on "
-                "the GPU (ROADMAP A14)"
+                "worker.critic.optim.stream is not supported: the critic's moments stay "
+                "on the GPU (the JAX critic reads only optim.lr, weight_decay and strategy)"
             )
         if self.trainer.nnodes > 1:
             raise ValueError(

@@ -6,7 +6,7 @@ cumulative-index gather, as the JAX package does."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,7 +49,7 @@ def merge_multimodal_embeds(
 
 def embed_inputs(
     model: Qwen25VL, input_ids: torch.Tensor, vision: Optional[VisionInputs] = None,
-    *, remat: bool = False,
+    *, remat: Union[bool, str] = False,
 ) -> torch.Tensor:
     """Token embeddings with vision embeddings merged into image-token slots
     (B, S, E). Chunked prefill embeds the whole prompt once: the vision tower
@@ -74,7 +74,7 @@ def forward(
     vision: Optional[VisionInputs] = None,
     cache: Optional[KVCache] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
-    remat: bool = False,
+    remat: Union[bool, str] = False,
     int4_i8dot: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (hidden_states (B, S, E), updated cache). Differentiable when

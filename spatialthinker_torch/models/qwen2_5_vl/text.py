@@ -25,13 +25,14 @@ biased). The int8/int4 encodings are bit-identical to the JAX package's.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ...ops.attention import attention
 from ...ops.decode_attention import decode_attention
@@ -48,6 +49,41 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.float()).to(dtype)
+
+
+# The weight products: every matmul of a decoder layer or vision block with
+# a weight is one of these two ops (``F.linear`` with a bias on a contiguous
+# input is ``addmm``, without one ``mm``); attention's products carry batch
+# dims (``bmm``, or a kernel) and are not among them.
+WEIGHT_PRODUCT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``: keep the weight products' outputs, recompute the
+    rest (JAX's ``dots_with_no_batch_dims_saveable``)."""
+    return CheckpointPolicy.MUST_SAVE if op in WEIGHT_PRODUCT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(remat: Union[bool, str]) -> Optional[str]:
+    """``remat`` as a policy: None (no checkpointing), "full" or "dots";
+    True is the configured default, "dots"."""
+    if remat is True:
+        return "dots"
+    if remat in (False, None):
+        return None
+    if remat not in ("full", "dots"):
+        raise ValueError(f"remat={remat!r}: expected False, True, 'full' or 'dots'")
+    return remat
+
+
+def checkpointed(fn, remat: Union[bool, str], *args):
+    """``fn(*args)`` under the checkpoint ``remat`` names: "full" keeps only
+    the inputs and recomputes the body in the backward, "dots" also keeps the
+    weight products (``dots_policy``)."""
+    if remat_policy(remat) == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts, dots_policy))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 class RMSNorm(nn.Module):
@@ -407,16 +443,16 @@ def forward_hidden(
     cache: Optional[KVCache] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,  # (B, Smax) validity of cache slots
     attend_to_cache: bool = False,
-    remat: bool = False,
+    remat: Union[bool, str] = False,
     int4_i8dot: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack; returns (hidden_states (B, S, E), cache with
     its length advanced by S — the same buffers, written in place).
 
     ``remat`` (training, no cache) wraps every decoder layer in
-    ``torch.utils.checkpoint``: only layer inputs are kept and each layer's
-    body is recomputed in the backward (the JAX package's ``remat="full"``;
-    its matmul-outputs-saved policy has no counterpart here)."""
+    ``torch.utils.checkpoint`` (``checkpointed``): "full" keeps the layer's
+    input only and recomputes its body in the backward, "dots" (and True)
+    also keeps its four weight products, as the JAX package's policies do."""
     cfg = text.cfg
     if inputs_embeds is None:
         inputs_embeds = embed_rows(text.embed_tokens.weight, input_ids, dtype=text.norm.weight.dtype)
@@ -425,11 +461,12 @@ def forward_hidden(
         make_inv_freq(cfg.head_dim, cfg.rope_theta), dtype=torch.float32, device=x.device
     )
     cos, sin = compute_cos_sin(position_ids, inv_freq, cfg.mrope_section, dtype=x.dtype)
+    remat = remat_policy(remat)
     if remat and cache is not None:
         raise ValueError("remat is for the training forward; a cache is written in place")
     for i, layer in enumerate(text.layers):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(layer, x, cos, sin, segment_ids, None, i, use_reentrant=False)
+            x = checkpointed(layer, remat, x, cos, sin, segment_ids, None, i)
         else:
             x = layer(x, cos, sin, segment_ids, cache, i, kv_segment_ids, attend_to_cache, int4_i8dot)
     if cache is not None:

@@ -14,16 +14,17 @@ branch on the block index.
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import attention
 from .config import VisionConfig
 from .host import window_patch_len
 from .rope import rotate_half
-from .text import RMSNorm
+from .text import RMSNorm, checkpointed, remat_policy
 
 VISION_EPS = 1e-6
 
@@ -111,11 +112,13 @@ def vision_forward(
     seg_full: torch.Tensor,       # (N,)
     seg_window: torch.Tensor,     # (N,)
     reverse_index: torch.Tensor,  # (N/unit,)
-    remat: bool = False,
+    remat: Union[bool, str] = False,
 ) -> torch.Tensor:
     """Returns merged vision embeddings (N/unit, out_hidden) in natural order.
-    ``remat`` checkpoints every block (training: block inputs are kept, the
-    body is recomputed in the backward)."""
+    ``remat`` checkpoints every block as the text decoder's layers are
+    (``text.checkpointed``: "full" keeps block inputs, "dots" and True also
+    the weight products). The JAX tower applies its "dots" policy whenever
+    remat is on; here the policy asked for holds in both towers."""
     cfg = tower.cfg
     n = patches.shape[0]
     e, d = cfg.hidden_size, cfg.head_dim
@@ -127,11 +130,12 @@ def vision_forward(
     wlen = window_patch_len(cfg)
     seg_full_b = seg_full[None, :]
     seg_window_w = seg_window.reshape(n // wlen, wlen)
+    remat = remat_policy(remat)
     for i, block in enumerate(tower.blocks):
         full = i in cfg.fullatt_block_indexes
         seg = seg_full_b if full else seg_window_w
         if remat and torch.is_grad_enabled():
-            x = checkpoint(block, x, cos, sin, seg, use_reentrant=False)
+            x = checkpointed(block, remat, x, cos, sin, seg)
         else:
             x = block(x, cos, sin, seg)
 

@@ -25,8 +25,16 @@ plain tensor ops with ``torch._int_mm`` for the exact int32 dot.
 ``quantize_model(mode="w4a8")`` adds int4 decode copies of each MLP's
 gate_up and down weights (``ops.int4_mlp.Int4Weight``); the MLP runs them
 through ``ops.int4_mlp.w4_swiglu`` where the JAX package's eligibility rule
-admits the shape and takes the int8 path otherwise. The JAX package's opt-in
-prefill-dequant mode (off by default) is not ported.
+admits the shape and takes the int8 path otherwise.
+
+``quantize_model(prefill_dequant_min_m=m)`` is the JAX package's opt-in
+prefill-dequant mode (its ``SPATIALTHINKER_PREFILL_DEQUANT_M``, off by
+default), taken as an argument: every quantized weight of the copy carries
+the threshold (the weight dict's ``"dequant_min_m"``), and a product of at
+least ``m`` rows dequantizes the weight (``dequantize_weight``) and runs a
+bf16 ``torch.matmul`` instead of the W8A8 kernel, as the JAX package runs an
+XLA dot there; the silu junction then stays unfused. Below ``m``, and at 0,
+nothing changes.
 """
 
 from __future__ import annotations
@@ -50,6 +58,18 @@ FUSED_SILU_MIN_M = 1024  # below it (decode) the junction stays unfused
 
 def is_quantized(w) -> bool:
     return isinstance(w, dict) and "qvalue" in w
+
+
+def _dequant_at(qw: QWeight, m: int) -> bool:
+    """Whether a product of ``m`` rows takes the prefill-dequant path."""
+    min_m = qw.get("dequant_min_m", 0)
+    return bool(min_m) and m >= min_m
+
+
+def dequantize_weight(qw: QWeight, contract_axis: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """The int8 weight times its per-channel scale, in ``dtype`` (both cast
+    to ``dtype`` first, as the JAX package does)."""
+    return qw["qvalue"].to(dtype) * qw["scale"].unsqueeze(contract_axis).to(dtype)
 
 
 def quantize_weight(w: torch.Tensor, contract_axis: int) -> QWeight:
@@ -104,6 +124,9 @@ def quantized_dot(x: torch.Tensor, qw: QWeight, contract_axis: int, out_dtype=No
     kernel for a CUDA tensor, the quantize -> ``_int_mm`` -> epilogue chain
     for a CPU tensor (the same values)."""
     out_dtype = out_dtype if out_dtype is not None else x.dtype
+    if _dequant_at(qw, math.prod(x.shape[:-1])):
+        w = _as_kn(dequantize_weight(qw, contract_axis), contract_axis)
+        return torch.matmul(x.to(torch.bfloat16), w).to(out_dtype)
     if not x.is_cuda:
         xq, xs = quantize_activation(x)
         return prequantized_dot(xq, xs, qw, contract_axis, out_dtype)
@@ -121,7 +144,9 @@ def fused_silu_quant_dot(gu: torch.Tensor, qdown: QWeight, out_dtype,
     + ``linear``)."""
     lead = gu.shape[:-1]
     m = math.prod(lead)
-    if m < FUSED_SILU_MIN_M or m % 8:
+    if m < FUSED_SILU_MIN_M or m % 8 or _dequant_at(qdown, m):
+        # (prefill-dequant: the down dot runs bf16, so an int8 junction would
+        # only quantize what the bf16 product then reads unquantized)
         return None
     from .silu_quant import fused_silu_quantize
 
@@ -163,34 +188,37 @@ class QuantLinear(nn.Module):
     """An ``nn.Linear`` with its (out, in) weight held as int8 rows + one fp32
     scale per output row. ``bias`` is the source layer's parameter, shared."""
 
-    def __init__(self, qvalue: torch.Tensor, scale: torch.Tensor, bias=None):
+    def __init__(self, qvalue: torch.Tensor, scale: torch.Tensor, bias=None,
+                 dequant_min_m: int = 0):
         super().__init__()
         self.register_buffer("qvalue", qvalue)
         self.register_buffer("scale", scale)
         self.bias = bias
+        self.dequant_min_m = dequant_min_m
 
     @classmethod
-    def from_linear(cls, lin: nn.Linear) -> "QuantLinear":
+    def from_linear(cls, lin: nn.Linear, dequant_min_m: int = 0) -> "QuantLinear":
         qw = quantize_weight(lin.weight.detach(), 1)
-        return cls(qw["qvalue"], qw["scale"], lin.bias)
+        return cls(qw["qvalue"], qw["scale"], lin.bias, dequant_min_m)
 
     @property
     def weight(self) -> QWeight:
-        return {"qvalue": self.qvalue, "scale": self.scale}
+        return {"qvalue": self.qvalue, "scale": self.scale, "dequant_min_m": self.dequant_min_m}
 
 
 class QuantEmbedding(nn.Module):
     """A (V, E) table as int8 rows + one fp32 scale per vocab row: the scales
     serve the row gather and, for a tied head, the logits' per-column dequant."""
 
-    def __init__(self, qvalue: torch.Tensor, scale: torch.Tensor):
+    def __init__(self, qvalue: torch.Tensor, scale: torch.Tensor, dequant_min_m: int = 0):
         super().__init__()
         self.register_buffer("qvalue", qvalue)
         self.register_buffer("scale", scale)
+        self.dequant_min_m = dequant_min_m
 
     @property
     def weight(self) -> QWeight:
-        return {"qvalue": self.qvalue, "scale": self.scale}
+        return {"qvalue": self.qvalue, "scale": self.scale, "dequant_min_m": self.dequant_min_m}
 
 
 def _pick_w4_group(k: int) -> Optional[int]:
@@ -203,7 +231,8 @@ def _pick_w4_group(k: int) -> Optional[int]:
 
 
 @torch.no_grad()
-def quantize_model(model, mode: str = "int8", fused_silu: bool = True):
+def quantize_model(model, mode: str = "int8", fused_silu: bool = True,
+                   prefill_dequant_min_m: int = 0):
     """A rollout copy of ``model`` (a ``Qwen25VL``) whose text decoder-stack
     matmul weights (qkv / o / gate_up / down), ``embed_tokens`` and an untied
     ``lm_head`` are int8 (counterpart of ``quantize_params``). The vision
@@ -235,16 +264,17 @@ def quantize_model(model, mode: str = "int8", fused_silu: bool = True):
     for src, dst in zip(src_text.layers, dst_text.layers):
         dst.input_layernorm = src.input_layernorm
         dst.post_attention_layernorm = src.post_attention_layernorm
-        dst.self_attn.qkv_proj = QuantLinear.from_linear(src.self_attn.qkv_proj)
-        dst.self_attn.o_proj = QuantLinear.from_linear(src.self_attn.o_proj)
-        dst.mlp.gate_up_proj = QuantLinear.from_linear(src.mlp.gate_up_proj)
-        dst.mlp.down_proj = QuantLinear.from_linear(src.mlp.down_proj)
+        m = prefill_dequant_min_m
+        dst.self_attn.qkv_proj = QuantLinear.from_linear(src.self_attn.qkv_proj, m)
+        dst.self_attn.o_proj = QuantLinear.from_linear(src.self_attn.o_proj, m)
+        dst.mlp.gate_up_proj = QuantLinear.from_linear(src.mlp.gate_up_proj, m)
+        dst.mlp.down_proj = QuantLinear.from_linear(src.mlp.down_proj, m)
         dst.mlp.fused_silu = fused_silu
         if want_w4:
             dst.mlp.gate_up_w4 = Int4Weight.from_weight(src.mlp.gate_up_proj.weight, g_e)
             dst.mlp.down_w4 = Int4Weight.from_weight(src.mlp.down_proj.weight, g_i)
     emb = quantize_weight(src_text.embed_tokens.weight.detach(), 1)
-    dst_text.embed_tokens = QuantEmbedding(emb["qvalue"], emb["scale"])
+    dst_text.embed_tokens = QuantEmbedding(emb["qvalue"], emb["scale"], prefill_dequant_min_m)
     if not model.cfg.text.tie_word_embeddings:
-        dst_text.lm_head = QuantLinear.from_linear(src_text.lm_head)
+        dst_text.lm_head = QuantLinear.from_linear(src_text.lm_head, prefill_dequant_min_m)
     return out.eval()

@@ -15,7 +15,7 @@ into one scale, then ``apply_optimizer_step``.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -57,7 +57,7 @@ class Critic(Qwen25VL):
 
 
 def compute_values(critic: Critic, batch: TrainBatch, vision: Optional[VisionInputs] = None,
-                   *, remat: bool = False) -> torch.Tensor:
+                   *, remat: Union[bool, str] = False) -> torch.Tensor:
     """(B, R) fp32 value predictions, 0 past each response."""
     hidden = _response_hidden(critic, batch, vision, remat)
     return critic.value_head(hidden) * batch.response_mask.float()
@@ -70,7 +70,7 @@ class CriticBatch(NamedTuple):
 
 
 def critic_loss_fn(critic: Critic, cb: CriticBatch, vision: Optional[VisionInputs], *,
-                   cliprange_value: float = 0.5, remat: bool = True
+                   cliprange_value: float = 0.5, remat: Union[bool, str] = True
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     vpreds = compute_values(critic, cb.train, vision, remat=remat)
     vf_loss, vf_clipfrac = compute_value_loss(
@@ -79,7 +79,7 @@ def critic_loss_fn(critic: Critic, cb: CriticBatch, vision: Optional[VisionInput
 
 
 def make_critic_update_fn(critic: Critic, optimizer: AdamW, *, cliprange_value: float = 0.5,
-                          max_grad_norm: float = 1.0, remat: bool = True,
+                          max_grad_norm: float = 1.0, remat: Union[bool, str] = True,
                           grad_accum_dtype=torch.float32):
     """Returns ``update(micro_batches: CriticBatch, vision=None) -> metrics``
     (a leading micro dim on every tensor, as ``make_update_fn`` takes them);

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import copy
 import logging
+import time
 import uuid
 from collections import defaultdict
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
@@ -58,6 +59,7 @@ from ..models.qwen2_5_vl.params import (
     config_from_hf_json, default_device, init_params, is_hf_checkpoint_dir, load_params,
 )
 from ..ops.quant import quantize_model
+from ..parallel.offload import HostLeaf, host_bytes, host_view, offload_to_host, restore_from_host
 from ..rewards.manager import RewardManager
 from ..rollout.engine import generate
 from ..rollout.continuous import effective_prefill_chunk, generate_continuous
@@ -68,6 +70,7 @@ from ..utils.profiling import device_memory_metrics, maybe_trace
 from ..utils.seqlen_balancing import balance_order
 from .checkpoint import CheckpointManager
 from .critic import Critic, CriticBatch, compute_values, make_critic_update_fn
+from .streamed_opt import make_streamed_optimizer
 from .metrics import (
     Timer, compute_data_metrics, compute_throughput_metrics, compute_timing_metrics,
     reduce_metrics,
@@ -385,9 +388,13 @@ def _obj(values) -> np.ndarray:
 class GRPOTrainer:
     """One GRPO/PPO training run on one GPU. ``model`` is the policy (a
     ``Qwen25VL`` on the device the run uses); the trainer updates it in place,
-    keeps a frozen copy as the reference policy when the KL term is on, and
-    owns the optimizer, the tracker and the checkpoint manager. ``device`` is
-    where the model lives (read from its parameters)."""
+    keeps a frozen copy as the reference policy when the KL term is on (on the
+    host under ``ref.offload``), and owns the optimizer (its state on the host
+    under ``optim.stream``, or between updates under
+    ``host_offload_optimizer``), the tracker and the checkpoint manager.
+    ``device`` is where the model lives (read from its parameters).
+    ``prefill_dequant_min_m`` > 0 turns on the rollout copy's prefill-dequant
+    mode (``ops.quant.quantize_model``)."""
 
     def __init__(
         self,
@@ -398,6 +405,7 @@ class GRPOTrainer:
         val_dataloader=None,
         reward_fn: Optional[RewardManager] = None,
         val_reward_fn: Optional[RewardManager] = None,
+        prefill_dequant_min_m: int = 0,
     ):
         self.config = config
         self.tokenizer = tokenizer
@@ -408,6 +416,7 @@ class GRPOTrainer:
         self.val_dataloader = val_dataloader
         self.reward_fn = reward_fn
         self.val_reward_fn = val_reward_fn or reward_fn
+        self.prefill_dequant_min_m = prefill_dequant_min_m
 
         algo = config.algorithm
         self.adv_estimator = algo.adv_estimator
@@ -448,18 +457,24 @@ class GRPOTrainer:
         self.kl_ctrl = get_kl_controller(algo.kl_type, algo.kl_coef, algo.kl_target, algo.kl_horizon)
 
         # reference policy = a frozen copy of the initial weights (a real
-        # copy: the update moves the policy in place)
-        self.ref_model = copy.deepcopy(model).requires_grad_(False) if self.use_ref else None
+        # copy: the update moves the policy in place). ref.offload keeps it
+        # on the host, copied leaf by leaf (no second copy on the card ever
+        # exists), and puts it on the card for the ref stage only.
+        self.ref_offload = config.worker.ref.offload
+        self.ref_model: Optional[Qwen25VL] = None
+        self.ref_host = None
+        if self.use_ref:
+            if self.ref_offload:
+                self.ref_host = offload_to_host(model.state_dict())
+            else:
+                self.ref_model = copy.deepcopy(model).requires_grad_(False)
+        # seconds and bytes of the last ref restore and streamed apply
+        self.host_state_stats: Dict[str, float] = {}
 
         actor = config.worker.actor
         opt_cfg = actor.optim
         sharding = actor.sharding
-        if sharding.remat and sharding.remat_policy == "dots":
-            logger.warning(
-                "sharding.remat_policy='dots' (save matmul outputs) has no counterpart here: "
-                "every decoder layer and vision block keeps its input only and recomputes the "
-                "rest in the backward, as remat_policy='full' does"
-            )
+        self.stream_opt = opt_cfg.stream
         update_kwargs = dict(
             clip_ratio_low=actor.clip_ratio_low,
             clip_ratio_high=actor.clip_ratio_high,
@@ -469,21 +484,40 @@ class GRPOTrainer:
             kl_penalty=actor.kl_penalty,
             entropy_coeff=actor.entropy_coeff,
             max_grad_norm=actor.max_grad_norm,
-            remat=bool(sharding.remat),
+            remat=sharding.remat_policy if sharding.remat else False,
             temperature=roll.temperature,
-            grad_accum_dtype=getattr(torch, opt_cfg.grad_accum_dtype or "float32"),
+            # "" = auto: bf16 under optim.stream (an fp32 accumulator would
+            # double what the card holds beside the parameters), fp32 otherwise
+            grad_accum_dtype=getattr(
+                torch, opt_cfg.grad_accum_dtype or ("bfloat16" if self.stream_opt else "float32")),
         )
-        self.optimizer = make_optimizer(
-            opt_cfg.lr,
+        opt_kwargs = dict(
             weight_decay=opt_cfg.weight_decay,
             betas=tuple(opt_cfg.betas),
             warmup_steps=int(opt_cfg.lr_warmup_ratio * max(opt_cfg.training_steps, 0)),
-            strategy=opt_cfg.strategy,
             use_kahan_summation=opt_cfg.use_kahan_summation,
         )
-        # moments allocated now: the paged engine's pool is sized from what is
-        # free once everything a run keeps resident is resident
+        if self.stream_opt:
+            # AnyPrecision AdamW with host-resident bf16 moments, streamed
+            # through the card (trainer/streamed_opt.py)
+            if opt_cfg.strategy == "adamw":
+                logger.warning(
+                    "optim.stream=true always uses bf16-moment AnyPrecisionAdamW; "
+                    "optim.strategy='adamw' (fp32 moments) is ignored -- set "
+                    "strategy='adamw_bf16' to silence this"
+                )
+            self.optimizer = make_streamed_optimizer(opt_cfg.lr, **opt_kwargs)
+        else:
+            self.optimizer = make_optimizer(opt_cfg.lr, strategy=opt_cfg.strategy, **opt_kwargs)
+        # moments allocated now (on the card, or on the host under stream): the
+        # paged engine's pool is sized from what is free on the card once
+        # everything a run keeps there is there
         self.optimizer.init(trainable_parameters(model, actor.model.freeze_vision_tower))
+        # host_offload_optimizer: the fused optimizer's state lives on the
+        # host except inside the update (the streamed one's always does)
+        self.offload_opt = sharding.host_offload_optimizer and not self.stream_opt
+        if self.offload_opt:
+            self.optimizer.state = offload_to_host(self.optimizer.state)
         self.update_fn = make_update_fn(
             model, self.optimizer, freeze_vision_tower=actor.model.freeze_vision_tower,
             **update_kwargs,
@@ -565,7 +599,8 @@ class GRPOTrainer:
         sharding = critic_cfg.sharding
         self.critic_update_fn = make_critic_update_fn(
             self.critic, self.critic_optimizer, cliprange_value=critic_cfg.cliprange_value,
-            max_grad_norm=critic_cfg.max_grad_norm, remat=bool(sharding.remat),
+            max_grad_norm=critic_cfg.max_grad_norm,
+            remat=sharding.remat_policy if sharding.remat else False,
             grad_accum_dtype=getattr(torch, opt.grad_accum_dtype or "float32"),
         )
 
@@ -595,7 +630,10 @@ class GRPOTrainer:
         Computed once, at the first rollout, and cached: by then everything a
         run keeps resident (policy, reference copy, moments, the int8 rollout
         copy) is resident, and a pool that changed from step to step would
-        make steps differ in what they can admit."""
+        make steps differ in what they can admit. What lives on the host (an
+        offloaded reference copy, streamed or offloaded moments) is not on
+        the card then, so the pool gets that room, as the JAX trainer's
+        estimate leaves host-resident trees out."""
         override = self.config.worker.rollout.kv_pages_override
         if override > 0:  # vLLM num_gpu_blocks_override parity
             return override
@@ -665,7 +703,8 @@ class GRPOTrainer:
         # the optimizer just rewrote the weights
         gen_model = self.model
         if roll.quantization != "none":
-            gen_model = quantize_model(self.model, mode=roll.quantization)
+            gen_model = quantize_model(self.model, mode=roll.quantization,
+                                       prefill_dequant_min_m=self.prefill_dequant_min_m)
         base = trim_prompt_padding(batch)
         repeated = base.repeat(n, interleave=True) if n > 1 else base
 
@@ -754,16 +793,44 @@ class GRPOTrainer:
         return compute_advantages(batch, self.adv_estimator, gamma=algo.gamma, lam=algo.lam)
 
     def update_actor(self, batch: RolloutBatch) -> Dict[str, float]:
+        if not self.offload_opt:
+            return self._update_actor_inner(batch)
+        host = self.optimizer.state
+        self.optimizer.state = restore_from_host(host)
+        try:
+            return self._update_actor_inner(batch)
+        finally:
+            self.optimizer.state = offload_to_host(self.optimizer.state, into=host)
+
+    def _update_actor_inner(self, batch: RolloutBatch) -> Dict[str, float]:
         actor = self.config.worker.actor
         common = dict(global_batch_size=actor.global_batch_size, ppo_epochs=actor.ppo_epochs,
                       global_step=self.global_step, device=self.device)
         if self.padding_free:
-            return update_actor_packed(
+            metrics = update_actor_packed(
                 batch, self.packed_update_fn, self.model_cfg.vision,
                 micro_rows=actor.micro_batch_size_per_device_for_update, **common)
-        return update_actor(
-            batch, self.update_fn, self.model_cfg.vision,
-            micro_batch_size=actor.micro_batch_size_per_device_for_update, **common)
+        else:
+            metrics = update_actor(
+                batch, self.update_fn, self.model_cfg.vision,
+                micro_batch_size=actor.micro_batch_size_per_device_for_update, **common)
+        if self.stream_opt:
+            self.host_state_stats.update(
+                apply_s=self.optimizer.last_apply_s,
+                apply_bytes_each_way=self.optimizer.last_apply_stats.get("measured_bytes", 0))
+        return metrics
+
+    def ref_policy(self) -> Qwen25VL:
+        """The reference policy on the card. An offloaded one is restored
+        into a new module for this call; the caller drops it afterwards."""
+        if self.ref_host is None:
+            return self.ref_model
+        t0 = time.perf_counter()
+        ref = Qwen25VL(self.model_cfg, device="meta", dtype=self.model.text.norm.weight.dtype)
+        ref.load_state_dict(restore_from_host(self.ref_host), assign=True)
+        self.host_state_stats.update(ref_restore_s=time.perf_counter() - t0,
+                                     ref_restore_bytes=host_bytes(self.ref_host))
+        return ref.requires_grad_(False)
 
     # ------------------------------------------------------------------- fit
 
@@ -853,8 +920,10 @@ class GRPOTrainer:
 
             if self.use_ref:
                 with timer("ref"):
+                    ref_model = self.ref_policy()
                     rolled.tensors["ref_log_probs"] = self.compute_log_probs_batched(
-                        rolled, self.ref_model)
+                        rolled, ref_model)
+                    del ref_model  # an offloaded reference leaves the card until the next step
 
             if self.use_critic:
                 with timer("values"):
@@ -973,8 +1042,11 @@ class GRPOTrainer:
 
     def save_checkpoint(self):
         """A GAE run nests parameters and optimizer state under ``"actor"``
-        and ``"critic"``, as the JAX trainer's checkpoints do."""
-        params, opt_state = self.model.state_dict(), self.optimizer.state
+        and ``"critic"``, as the JAX trainer's checkpoints do. Optimizer state
+        on the host (streamed, or offloaded between updates) is written from
+        its host copies, in the same layout."""
+        params = self.model.state_dict()
+        opt_state = host_view(self.optimizer.state)
         if self.use_critic:
             params = {"actor": params, "critic": self.critic.state_dict()}
             opt_state = {"actor": opt_state, "critic": self.critic_optimizer.state}
@@ -1002,10 +1074,10 @@ class GRPOTrainer:
             )
         if self.use_critic:
             self.critic.load_state_dict(params["critic"], strict=True)
-            _load_optimizer_state(self.critic_optimizer, opt_state["critic"])
+            _load_optimizer_state(self.critic_optimizer.state, opt_state["critic"])
             params, opt_state = params["actor"], opt_state["actor"]
         self.model.load_state_dict(params, strict=True)
-        _load_optimizer_state(self.optimizer, opt_state)
+        _load_optimizer_state(self.optimizer.state, opt_state)
         self.global_step = state["step"]
         if state.get("dataloader_state") and hasattr(self.train_dataloader, "load_state_dict"):
             self.train_dataloader.load_state_dict(state["dataloader_state"])
@@ -1014,10 +1086,10 @@ class GRPOTrainer:
 
 
 @torch.no_grad()
-def _load_optimizer_state(optimizer, saved) -> None:
-    """Copy a checkpoint's AdamW state into ``optimizer``'s own buffers, the
-    moments checked name by name."""
-    mine = optimizer.state
+def _load_optimizer_state(mine, saved) -> None:
+    """Copy a checkpoint's AdamW state into an optimizer's own state dict
+    ``mine`` (its buffers on the card, or their host copies), the moments
+    checked name by name and dtype by dtype."""
     mine["count"] = int(saved["count"])
     for kind in ("mu", "nu", "compensation"):
         if set(saved[kind]) != set(mine[kind]):
@@ -1026,7 +1098,15 @@ def _load_optimizer_state(optimizer, saved) -> None:
                 "(another strategy, or a frozen vision tower on one side)"
             )
         for name, value in saved[kind].items():
-            mine[kind][name].copy_(value)
+            target = mine[kind][name]
+            target = target.buffer if isinstance(target, HostLeaf) else target
+            if value.dtype != target.dtype:
+                raise ValueError(
+                    f"checkpoint optimizer state {kind!r} is {value.dtype}, this run's is "
+                    f"{target.dtype}: saved under another optim.strategy "
+                    "(optim.stream keeps bf16 moments)"
+                )
+            target.copy_(value)
 
 
 def _to_numpy(x) -> np.ndarray:

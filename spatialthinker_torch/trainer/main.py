@@ -6,6 +6,11 @@ GPU.
 The run uses the current CUDA device. ``SPATIALTHINKER_PLATFORM=cpu`` in the
 environment asks for the CPU instead (smoke runs and tests); without a card
 and without that request the entry point raises.
+
+``SPATIALTHINKER_PREFILL_DEQUANT_M`` (the JAX CLI's knob, 0 = off) is read
+here, once, and handed to the trainer as ``prefill_dequant_min_m``: the same
+environment line works for both packages' CLIs, while the library takes an
+argument (``ops.quant.quantize_model``).
 """
 
 from __future__ import annotations
@@ -62,10 +67,12 @@ def build_model(config: PPOConfig, device=None) -> Qwen25VL:
     return init_params(get_config(model_path), generator, device=device, dtype=dtype)
 
 
-def build_trainer(config: PPOConfig, tokenizer, model: Qwen25VL, train_ds, val_ds=None) -> GRPOTrainer:
+def build_trainer(config: PPOConfig, tokenizer, model: Qwen25VL, train_ds, val_ds=None, *,
+                  prefill_dequant_min_m: int = 0) -> GRPOTrainer:
     """Loaders, reward manager and trainer around datasets that exist: ``run``
     calls it after loading from files, a caller with rows in memory
-    (``RLHFDataset.from_rows``) gets the same trainer."""
+    (``RLHFDataset.from_rows``) gets the same trainer. ``prefill_dequant_min_m``
+    > 0 turns on the rollout copy's prefill-dequant mode."""
     train_loader = DataLoader(
         train_ds, config.data.rollout_batch_size, shuffle=config.data.shuffle,
         seed=config.data.seed, num_workers=config.data.num_workers,
@@ -82,11 +89,11 @@ def build_trainer(config: PPOConfig, tokenizer, model: Qwen25VL, train_ds, val_d
     )
     return GRPOTrainer(
         config=config, tokenizer=tokenizer, model=model, train_dataloader=train_loader,
-        val_dataloader=val_loader, reward_fn=reward_fn,
+        val_dataloader=val_loader, reward_fn=reward_fn, prefill_dequant_min_m=prefill_dequant_min_m,
     )
 
 
-def run(config: PPOConfig) -> None:
+def run(config: PPOConfig, prefill_dequant_min_m: int = 0) -> None:
     device = run_device()
     print(config_summary(config))
     model = build_model(config, device=device)
@@ -98,12 +105,13 @@ def run(config: PPOConfig) -> None:
     if config.data.val_files:
         val_ds = RLHFDataset(config.data.val_files, tokenizer, config.data, model.cfg,
                              limit_images=limit)
-    build_trainer(config, tokenizer, model, train_ds, val_ds).fit()
+    build_trainer(config, tokenizer, model, train_ds, val_ds,
+                  prefill_dequant_min_m=prefill_dequant_min_m).fit()
 
 
 def main(argv: Optional[list] = None) -> None:
     config = build_config(argv if argv is not None else sys.argv[1:])
-    run(config)
+    run(config, prefill_dequant_min_m=int(os.environ.get("SPATIALTHINKER_PREFILL_DEQUANT_M", "0")))
 
 
 if __name__ == "__main__":

@@ -14,15 +14,21 @@ Sequence layout: [prompt (left-padded to P) | response (right-padded to R)].
 hidden[:, P-1+i] predicts response token i, so the log-prob slice is
 hidden[:, P-1 : P+R-1].
 
+``optimizer`` is either ``optim.AdamW`` (state on the card) or
+``streamed_opt.StreamedAdamW`` (state on the host, streamed through the card):
+both update by ``step(named_params, grads, finite=, grad_scale=)``, so the
+JAX package's separate grad-then-apply program under ``optim.stream`` is the
+same ``make_update_fn`` here. ``remat`` is False, "full" or "dots" (True:
+"dots"), the JAX package's policies (``models.qwen2_5_vl.text.checkpointed``).
+
 Single device only: the JAX package's ``sp=`` argument (Ulysses sequence
-parallelism) waits for the multi-GPU port, and the host-streamed optimizer is
-not ported.
+parallelism) waits for the multi-GPU port.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -66,7 +72,7 @@ def _lm_head(model: Qwen25VL) -> torch.Tensor:
     return text.embed_tokens.weight if model.cfg.text.tie_word_embeddings else text.lm_head.weight
 
 
-def _response_hidden(model, batch: TrainBatch, vision, remat: bool) -> torch.Tensor:
+def _response_hidden(model, batch: TrainBatch, vision, remat: Union[bool, str]) -> torch.Tensor:
     hidden, _ = forward(
         model, batch.input_ids, batch.position_ids,
         segment_ids=batch.segment_ids, vision=vision, remat=remat,
@@ -78,7 +84,7 @@ def _response_hidden(model, batch: TrainBatch, vision, remat: bool) -> torch.Ten
 
 def compute_log_probs(
     model: Qwen25VL, batch: TrainBatch, vision: Optional[VisionInputs] = None,
-    *, remat: bool = False, chunk_size: int = 1024, compute_entropy: bool = False,
+    *, remat: Union[bool, str] = False, chunk_size: int = 1024, compute_entropy: bool = False,
     temperature: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, R) log-probs of the sampled responses under ``model`` (+ entropy),
@@ -92,7 +98,7 @@ def compute_log_probs(
 
 def compute_packed_log_probs(
     model: Qwen25VL, batch: PackedTrainBatch, vision: Optional[VisionInputs] = None,
-    *, remat: bool = False, chunk_size: int = 1024, compute_entropy: bool = False,
+    *, remat: Union[bool, str] = False, chunk_size: int = 1024, compute_entropy: bool = False,
     temperature: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rows, L) label log-probs on packed rows (masked positions -> 0).
@@ -136,7 +142,7 @@ def actor_loss_fn(
     model: Qwen25VL, batch: TrainBatch, vision: Optional[VisionInputs],
     *, clip_ratio_low: float, clip_ratio_high: float, clip_ratio_dual: float,
     use_kl_loss: bool, kl_loss_coef: float, kl_penalty: str, entropy_coeff: float = 0.0,
-    remat: bool = True, chunk_size: int = 1024, temperature: float = 1.0,
+    remat: Union[bool, str] = True, chunk_size: int = 1024, temperature: float = 1.0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     logp, entropy = compute_log_probs(
         model, batch, vision, remat=remat, chunk_size=chunk_size,
@@ -154,7 +160,7 @@ def packed_actor_loss_fn(
     model: Qwen25VL, batch: PackedTrainBatch, vision: Optional[VisionInputs] = None,
     *, clip_ratio_low: float, clip_ratio_high: float, clip_ratio_dual: float,
     use_kl_loss: bool, kl_loss_coef: float, kl_penalty: str, entropy_coeff: float = 0.0,
-    remat: bool = True, chunk_size: int = 1024, temperature: float = 1.0,
+    remat: Union[bool, str] = True, chunk_size: int = 1024, temperature: float = 1.0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Identical math to ``actor_loss_fn`` on packed rows: token-weighted
     masked means make the two layouts numerically equivalent."""

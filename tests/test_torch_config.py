@@ -2,9 +2,9 @@
 JAX package's: ``build_config`` on ``scripts/config.yaml`` and on every shipped
 script's own dotlist gives equal trees, field for field (exact equality: the
 values are parsed, not computed). Every knob of the rollout and sharding
-sections is read by non-config code of the port or rejected; the knobs the
-port rejects raise a ``ValueError`` that names the ROADMAP item which brings
-them, and the Mosaic-only ``page_size % 256`` rule is an even-page rule here.
+sections is read by non-config code of the port or rejected; the mesh knobs
+the port rejects raise a ``ValueError`` that names the ROADMAP item which
+brings them, the rest their reason, and the Mosaic-only ``page_size % 256`` rule is an even-page rule here.
 """
 
 import os
@@ -57,22 +57,49 @@ def test_cli_grammar_and_coercion():
         tc.build_config(["oops"])
 
 
+A13 = "ROADMAP A13"
+NO_IDLE_STAGE = "share one parameter set .no idle stage"  # the JAX tree's reason
 REJECTED = [
-    ("worker.actor.sharding.fsdp_size=4", "A13"), ("worker.actor.sharding.model_size=2", "A13"),
-    ("worker.ref.sharding.data_size=2", "A13"), ("worker.critic.sharding.fsdp_size=8", "A13"),
-    ("worker.actor.ulysses_sequence_parallel_size=2", "A13"), ("trainer.nnodes=2", "A13"),
-    ("worker.rollout.tensor_parallel_size=2", "A13"),
-    ("worker.actor.optim.stream=true", "A14"), ("worker.critic.optim.stream=true", "A14"),
-    ("worker.ref.offload=true", "A14"), ("worker.actor.sharding.host_offload_params=true", "A14"),
-    ("worker.actor.sharding.host_offload_optimizer=true", "A14"),
-    ("worker.ref.sharding.host_offload_params=true", "A14"),
+    ("worker.actor.sharding.fsdp_size=4", A13), ("worker.actor.sharding.model_size=2", A13),
+    ("worker.ref.sharding.data_size=2", A13), ("worker.critic.sharding.fsdp_size=8", A13),
+    ("worker.actor.ulysses_sequence_parallel_size=2", A13), ("trainer.nnodes=2", A13),
+    ("worker.rollout.tensor_parallel_size=2", A13),
+    ("worker.critic.optim.stream=true", "JAX critic reads only optim.lr"),
+    ("worker.actor.sharding.host_offload_params=true", NO_IDLE_STAGE),
+    ("worker.ref.sharding.host_offload_params=true", NO_IDLE_STAGE),
+    ("worker.critic.sharding.host_offload_optimizer=true", "JAX critic reads only optim.lr"),
+    ("worker.ref.sharding.host_offload_optimizer=true", "reference copy has no optimizer"),
 ]
 
 
 @pytest.mark.parametrize("override,item", REJECTED, ids=[o for o, _ in REJECTED])
 def test_unported_knobs_raise_with_their_roadmap_item(override, item):
-    with pytest.raises(ValueError, match=rf"ROADMAP {item}"):
+    """A mesh knob names the ROADMAP item that brings it; a knob the JAX
+    package refuses (``host_offload_params``) or never reads (the critic's
+    and the reference's host-state knobs) gives that reason."""
+    with pytest.raises(ValueError, match=item):
         tc.build_config([override])
+
+
+@pytest.mark.parametrize("override", [
+    "worker.actor.optim.stream=true", "worker.ref.offload=true",
+    "worker.actor.sharding.host_offload_optimizer=true",
+])
+def test_host_state_knobs_parse_as_the_jax_tree(override):
+    """The three host-state knobs of the actor and the reference are accepted
+    and give the JAX tree."""
+    ours = tc.build_config([YAML, override])
+    assert tc.to_dict(ours) == jc.to_dict(jc.build_config([YAML, override]))
+
+
+def test_the_7b_dotlist_with_host_state_parses_as_the_jax_tree():
+    """The shipped 7B script plus the two knobs that fit it on one GPU."""
+    argv = _dotlist("spatialthinker_7b_grpo.sh") + [
+        "worker.actor.optim.stream=true", "worker.ref.offload=true"]
+    ours = tc.build_config(argv)
+    assert tc.to_dict(ours) == jc.to_dict(jc.build_config(argv))
+    assert ours.worker.actor.optim.stream and ours.worker.ref.offload
+    assert ours.worker.actor.sharding.remat_policy == "dots"
 
 
 @pytest.mark.parametrize("override,match", [
@@ -114,7 +141,7 @@ def test_int4_pages_need_an_even_size_only():
 
 
 # knobs whose "use" is a validation error or a check in post_init by design
-EXEMPT = {"host_offload_params", "host_offload_optimizer", "data_size", "fsdp_size", "model_size",
+EXEMPT = {"host_offload_params", "data_size", "fsdp_size", "model_size",
           "tensor_parallel_size", "prompt_length"}
 
 

@@ -169,7 +169,8 @@ def test_qwen_synthetic_tokenizer_uses_the_config_ids():
     "spatialthinker_torch.utils.tokenizer", "spatialthinker_torch.utils.profiling",
     "spatialthinker_torch.trainer.metrics", "spatialthinker_torch.trainer.tracker",
     "spatialthinker_torch.trainer.checkpoint", "spatialthinker_torch.trainer.grpo_trainer",
-    "spatialthinker_torch.trainer.main", "chip_smoke", "profile_rollout", "time_flash", "time_w8a8",
+    "spatialthinker_torch.trainer.main", "spatialthinker_torch.trainer.streamed_opt",
+    "spatialthinker_torch.parallel.offload", "chip_smoke", "profile_rollout", "time_flash", "time_w8a8",
     "time_paged", "time_decode", "time_silu", "time_int4_mlp", "paged_cases",
 ])
 def test_port_imports_no_jax(module):
