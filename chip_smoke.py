@@ -68,7 +68,7 @@ non-zero without a device. In order:
    e. the trainer: ``build_config`` on the dotlist of the shipped
       ``scripts/spatialthinker_3b_grpo.sh`` with the deploy-scale knobs cut
       (16 prompts x n 8, prompt 512, response 64, 64 slots, page 256, one
-      card, the synthetic tokenizer, 2 steps, validation before training on 8
+      card, the synthetic tokenizer, 1 step, validation before training on 8
       held-out rows; and ``remat_policy=full``, since the shipped ``dots``
       does not fit one card beside fp32 moments at 3B), ``build_model`` (the
       3B preset, seeded random weights), seeded rows with 640 x 480 images
@@ -360,13 +360,14 @@ W4_PROBS_DIFF_LIMIT = 0.5
 CKPT_METRIC_RTOL, CKPT_METRIC_ATOL = 1e-3, 1e-5
 CKPT_PARAM_ATOL = 2.5e-6
 TRAINER_SCRIPT = "scripts/spatialthinker_3b_grpo.sh"
-# the deploy-scale knobs of the shipped script, cut to one card and two short steps
+# the deploy-scale knobs of the shipped script, cut to one card and one short step (with
+# path l, two steps took the smoke past 750 s of its 1,200; path g takes the trainer's next step)
 TRAINER_OVERRIDES = [
     "worker.actor.model.model_path=Qwen/Qwen2.5-VL-3B-Instruct",
     "worker.actor.model.tokenizer_path=synthetic",
     "data.rollout_batch_size=16", "data.max_prompt_length=512", "data.max_response_length=64",
     "worker.rollout.decode_batch_size=64", "worker.rollout.page_size=256",
-    "trainer.n_chips=1", "trainer.max_steps=2",
+    "trainer.n_chips=1", "trainer.max_steps=1",
     "trainer.val_before_train=true", "trainer.val_freq=-1", "trainer.save_freq=-1",
     "trainer.logger=['console','jsonl']",
     # the shipped default remat_policy=dots does not fit one card at 3B with
@@ -2083,7 +2084,7 @@ INT4_KERNELS = ("int4_gateup", "int4_down")
 
 
 def trainer_path(dev, card, work_dir):
-    """Path e: two steps of ``GRPOTrainer.fit`` at full 3B width on the shipped
+    """Path e: one step of ``GRPOTrainer.fit`` at full 3B width on the shipped
     script's dotlist. Returns (trainer, dataset, results)."""
     config = trainer_config(work_dir)
     t0 = time.perf_counter()
@@ -2117,7 +2118,7 @@ def trainer_path(dev, card, work_dir):
     moved = sum(a != b for a, b in zip(p_sums, checksums(model.parameters())))
     checks = {
         "validation before training logged val/reward_score": "val/reward_score" in records.get(0, {}),
-        "two step records": {1, 2} <= set(records) and trainer.global_step == 2,
+        "one step record": 1 in records and trainer.global_step == 1,
         "parameters moved": moved > 0,
         "reference copy untouched": checksums(trainer.ref_model.parameters()) == ref_sums,
         "every kernel of a step launched": all(launches[k] > 0 for k in TRAIN_KERNELS),
@@ -2125,7 +2126,7 @@ def trainer_path(dev, card, work_dir):
         "no torch._int_mm": launches["int_mm"] == 0,
         "pool sized from free memory": (trainer._paged_pool_cache or 0) > 0,
     }
-    for step in (1, 2):
+    for step in (1,):
         rec = records.get(step, {})
         for family in METRIC_FAMILIES:
             vals = [v for k, v in rec.items() if k.startswith(family)]
@@ -2142,7 +2143,7 @@ def trainer_path(dev, card, work_dir):
                   f"{rec['response_length/mean']:.1f}, kv peak_pages {rec['rollout/kv_peak_pages']:.0f} of "
                   f"{rec['rollout/kv_total_pages']:.0f}, preemptions {rec['rollout/kv_preemptions']:.0f}  [{card}]",
                   flush=True)
-    print(f"trainer fit: {fit_s:.2f} s for validation + 2 steps; val/reward_score "
+    print(f"trainer fit: {fit_s:.2f} s for validation + 1 step; val/reward_score "
           f"{records.get(0, {}).get('val/reward_score')}; page pool the trainer chose "
           f"{trainer._paged_pool_cache} pages of {roll.page_size}; parameter tensors moved {moved}; "
           f"peak allocated {peak_gb:.2f} GB, reserved {torch.cuda.max_memory_reserved() / 1e9:.2f} GB "
@@ -2151,7 +2152,7 @@ def trainer_path(dev, card, work_dir):
     if failed:
         raise AssertionError(f"trainer-path checks failed: {failed}")
     results = dict(fit_s=fit_s, launches=launches, peak_gb=peak_gb, pool_pages=trainer._paged_pool_cache,
-                   steps={s: {k: v for k, v in records[s].items() if k != "time"} for s in (1, 2)},
+                   steps={s: {k: v for k, v in records[s].items() if k != "time"} for s in (1,)},
                    val_reward_score=records[0]["val/reward_score"])
     return trainer, train_ds, results
 
@@ -2917,10 +2918,322 @@ def prefill_dequant_cases(dev, cfg) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# path l: the trainer's distributed branch (one rank over NCCL) and sequence
+# parallelism (two ranks on one card over gloo), each in processes of its own
+# ---------------------------------------------------------------------------
+
+# (l1) the wrapped model against itself unwrapped at world 1: FSDP's gather
+# of one shard is a copy, so the same kernels see the same weights
+L1_LOGP_ATOL = 1e-3
+# (l2) ring / Ulysses at sp = 2 against one flash call on the whole row: the
+# flash checks' limits (bf16 outputs; the ring merges bf16 partial outputs in
+# fp32, Ulysses runs the same kernel on a head slice)
+SP_OUT_ATOL = OUT_ATOL
+SP_GRAD_REL_TOL = BWD_REL_TOL
+# the 4-layer 3B model's packed log-probs at sp = 2 against sp = 1 on the
+# card: bf16 activations through 4 layers and 32 vision blocks, attention
+# rounded at other points (the ring's merge, Ulysses' head slices)
+SP_LOGP_ATOL = 5e-2
+SP_ROW = (6144, 1024, 1024)  # one packed row: the shipped 6,144 + 2,048 in three segments
+SP_WIDTHS = {"3b": (16, 2), "7b": (28, 4)}  # (q heads, kv heads), head dim 128
+SP_MODEL_LAYERS = 4
+PATH_L_TIMEOUT_S = 600
+FLASH_COUNTS = ("flash_fwd", "flash_ranges", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _run_ranks(args_per_rank, timeout: float, check: bool = True):
+    """This script's rank entry points as processes of their own (the smoke's
+    process keeps no process group); every one is stopped at ``timeout``."""
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), *map(str, a)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for a in args_per_rank]
+    deadline = time.perf_counter() + timeout
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=max(deadline - time.perf_counter(), 1))[0])
+            except subprocess.TimeoutExpired:
+                logs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if check:
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"path l rank {args_per_rank[procs.index(p)]} exited "
+                                     f"{p.returncode}:\n{log[-6000:]}")
+    return procs, logs
+
+
+def sp_fake_rollout(batch: RolloutBatch, vocab: int, seed: int, r: int = MAX_NEW_TOKENS) -> RolloutBatch:
+    """The prompts with ``r`` seeded response tokens each (every token valid)."""
+    base = gt.trim_prompt_padding(batch)
+    rng = np.random.default_rng(seed)
+    responses = rng.integers(5, vocab, size=(len(base), r)).astype(np.int32)
+    return rollout_batch_from_result(base, responses, np.ones_like(responses), np.zeros(responses.shape, np.float32))
+
+
+def path_l1_rank(work_dir: str, out: str) -> int:
+    """(l1) in its own process: one rank over NCCL, the trainer's distributed
+    branch on path (e)'s dotlist, ONE step of 128 samples."""
+    from spatialthinker_torch.parallel.multihost import initialize_if_needed
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    initialize_if_needed("cuda", init_method=f"file://{work_dir}/l1_store", world_size=1, rank=0)
+    config = trainer_config(work_dir, extra=[
+        "worker.actor.sharding.fsdp_size=-1", "trainer.max_steps=1", "trainer.val_before_train=false"])
+    t0 = time.perf_counter()
+    model = build_model(config)
+    tok = load_tokenizer(config.worker.actor.model.tokenizer_path, model.cfg)
+    train_ds = RLHFDataset.from_rows(scene_rows(config.data.rollout_batch_size, seed=21), tok, config.data,
+                                     model.cfg)
+    rolled = sp_fake_rollout(next(iter(DataLoader(train_ds, 16, shuffle=False))), model.cfg.text.vocab_size, 5)
+    micro = config.worker.actor.micro_batch_size_per_device_for_experience
+    plain = compute_log_probs_batched(model, rolled, micro_batch_size=micro, device=dev)
+    trainer = build_trainer(config, tok, model, train_ds)
+    wrapped = compute_log_probs_batched(trainer.model, rolled, micro_batch_size=micro, device=dev,
+                                        lockstep=trainer.lockstep)
+    diff = float(np.abs(wrapped - plain).max())
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    p_sums = checksums(p.to_local() for p in trainer.model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with forbid_plain_versions():
+        trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    log = Path(work_dir) / f"{config.trainer.experiment_name}_metrics.jsonl"
+    rec = {r["step"]: r for r in map(json.loads, log.read_text().splitlines())}.get(1, {})
+    moved = sum(a != b for a, b in zip(p_sums, checksums(p.to_local() for p in trainer.model.parameters())))
+    Path(out).write_text(json.dumps({
+        "logp_diff": diff, "bit_equal": diff == 0.0, "resident_gb": resident_gb,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "reserved_gb": torch.cuda.max_memory_reserved() / 1e9, "fit_s": fit_s, "moved": moved,
+        "sharded": type(next(trainer.model.parameters())).__name__,
+        "world": torch.distributed.get_world_size(), "backend": torch.distributed.get_backend(),
+        "launches": launches, "record": {k: v for k, v in rec.items() if k != "time"},
+        "pool_pages": trainer._paged_pool_cache}))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _sp_row(dev, hq: int, hkv: int, seed: int):
+    """One packed row of sum(SP_ROW) tokens (segments 1, 2, 3) at head dim
+    128: bf16 q, k, v and dO made alike on every rank."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = sum(SP_ROW)
+    q, do = (torch.randn((1, s, hq, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, s, hkv, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    seg = torch.cat([torch.full((n,), i + 1, dtype=torch.int32, device=dev) for i, n in enumerate(SP_ROW)])[None]
+    return q, k, v, seg, do
+
+
+def _sp_model_batch(cfg, dev, seed: int):
+    """One packed row of sum(SP_ROW) tokens with one 448 x 448 image in its
+    first segment (256 merged tokens), labels and a loss mask, and the
+    image's vision pack."""
+    from spatialthinker_torch.data.packing import pack_vision_batch, patch_dim
+    from spatialthinker_torch.trainer.train_step import PackedTrainBatch
+
+    rng = np.random.default_rng(seed)
+    s = sum(SP_ROW)
+    vcfg = cfg.vision
+    grid = np.asarray([[1, 32, 32]], dtype=np.int64)  # 1,024 patches, 256 merged tokens
+    n_img = int(grid.prod()) // vcfg.spatial_merge_unit
+    ids = rng.integers(5, cfg.text.vocab_size, size=(1, s)).astype(np.int64)
+    ids[0, 16 : 16 + n_img] = cfg.image_token_id
+    seg = np.concatenate([np.full(n, i + 1, np.int32) for i, n in enumerate(SP_ROW)])[None]
+    pos = np.concatenate([np.arange(n) for n in SP_ROW])[None, None].repeat(3, 0).astype(np.int64)
+    labels = np.roll(ids, -1, axis=1)
+    mask = np.ones((1, s), np.float32)
+    mask[0, np.cumsum(SP_ROW) - 1] = 0  # a segment's last token predicts nothing
+    patches = rng.normal(size=(int(grid.prod()), patch_dim(vcfg))).astype(np.float32)
+    vision = vision_to_device(pack_vision_batch([patches], [grid], vcfg), dev)
+    zeros = np.zeros((1, s), np.float32)
+    batch = PackedTrainBatch(*(torch.as_tensor(x, device=dev) for x in (ids, seg, pos, labels, mask, zeros, zeros, zeros)))
+    return batch, vision
+
+
+def path_l2_rank(rank: int, store: str, out: str) -> int:
+    """(l2) in its own process: rank ``rank`` of two on ``cuda:0`` over a gloo
+    group (NCCL refuses two ranks on one device): ring and Ulysses attention
+    at sp = 2 against one flash call on the whole row, at 3B's and 7B's heads,
+    then the 4-layer 3B model's packed log-probs at sp = 2 against sp = 1."""
+    import torch.distributed as dist
+
+    from spatialthinker_torch.models.qwen2_5_vl import init_params
+    from spatialthinker_torch.ops import ulysses
+    from spatialthinker_torch.ops.ring import ring_attention
+    from spatialthinker_torch.trainer.train_step import compute_packed_log_probs
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    specs = {name: ulysses.UlyssesSpec(dist.group.WORLD, backend=name) for name in ("ring", "ulysses")}
+    fns = {"ring": ring_attention, "ulysses": ulysses.ulysses_attention}
+    res = {"rank": rank, "backend": dist.get_backend(), "attention": {}, "model": {}}
+    for width, (hq, hkv) in SP_WIDTHS.items():
+        q, k, v, seg, do = _sp_row(dev, hq, hkv, seed=17)
+        scale = 128 ** -0.5
+
+        def whole():
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = fa.flash_attention(*leaves, seg, seg, causal=True, scale=scale)
+            o.backward(do)
+            return o, [t.grad for t in leaves]
+
+        ref_o, ref_g = whole()
+        one_rank_ms = cuda_ms(whole, iters=3, warmup=1)
+        for name, spec in specs.items():
+            chunk = lambda t: ulysses.seq_chunk(t, spec)  # noqa: E731
+
+            def sp_call():
+                leaves = [chunk(t).detach().clone().requires_grad_() for t in (q, k, v)]
+                o = fns[name](*leaves, spec, segment_ids=chunk(seg), causal=True)
+                o.backward(chunk(do))
+                return o, [t.grad for t in leaves]
+
+            dist.barrier()
+            reset_counts()
+            o, grads = sp_call()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in read_counts().items() if k in FLASH_COUNTS}
+            err = float((o.float() - chunk(ref_o).float()).abs().max())
+            grad_rel = [float((g.float() - chunk(r).float()).abs().max() / chunk(r).float().abs().max())
+                        for g, r in zip(grads, ref_g)]
+            dist.barrier()
+            sp_call()
+            copy0 = dict(ulysses.HOST_COPY)
+            sp_ms = cuda_ms(sp_call, iters=3, warmup=0)  # the host copies of these 3 calls only
+            copy_s = (ulysses.HOST_COPY["seconds"] - copy0["seconds"]) / 3
+            copy_mb = (ulysses.HOST_COPY["bytes"] - copy0["bytes"]) / 3 / 1e6
+            res["attention"][f"{name}_{width}"] = dict(
+                max_abs_err=err, grad_rel_err=grad_rel, launches=counts, sp_ms=sp_ms, one_rank_ms=one_rank_ms,
+                host_copy_s=copy_s, host_copy_mb=copy_mb,
+                ok=err <= SP_OUT_ATOL and max(grad_rel) <= SP_GRAD_REL_TOL)
+    cfg = qwen25_vl_3b()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=SP_MODEL_LAYERS))
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(23), device=dev, dtype=torch.bfloat16)
+    batch, vision = _sp_model_batch(cfg, dev, seed=29)
+    with torch.no_grad():
+        sp1 = model(compute_packed_log_probs, batch, vision)[0]
+        mask = batch.loss_mask.bool()
+        for name, spec in specs.items():
+            reset_counts()
+            sp2 = model(compute_packed_log_probs, batch, vision, sp=spec)[0]
+            torch.cuda.synchronize()
+            diff = float((sp2 - sp1)[mask].abs().max())
+            res["model"][name] = dict(max_abs_diff=diff, ok=diff <= SP_LOGP_ATOL,
+                                      launches={k: v for k, v in read_counts().items() if k in FLASH_COUNTS},
+                                      finite=bool(torch.isfinite(sp2).all()), mean_logp=float(sp2[mask].mean()))
+    Path(out).write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_probe_rank(rank: int, store: str, out: str) -> int:
+    """Two NCCL ranks on one device, one all-reduce: what NCCL says."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank, world_size=2)
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        result = f"no error: all_reduce gave {float(t)}"
+    except Exception as e:  # noqa: BLE001 -- the probe reports what NCCL raised
+        result = f"{type(e).__name__}: " + next((line for line in str(e).splitlines() if line.strip()), "")
+    Path(out).write_text(result)
+    return 0
+
+
+def path_l(card: str, work_dir: str) -> dict:
+    """Path l: (l1) the trainer's distributed branch at world 1 over NCCL and
+    (l2) ring / Ulysses sequence parallelism at sp = 2 on one card, each in
+    processes of their own, the kernels already built by this process."""
+    t_start = time.perf_counter()
+    work = Path(work_dir)
+    _run_ranks([["--path-l1", work, work / "l1.json"]], PATH_L_TIMEOUT_S)
+    l1 = json.loads((work / "l1.json").read_text())
+    rec = l1["record"]
+    timing = {k.split("/", 1)[1]: v for k, v in rec.items() if k.startswith("timing_s/")}
+    print(f"path l1 (the distributed branch, {l1['world']} rank over {l1['backend']}, parameters "
+          f"{l1['sharded']}): packed log-probs wrapped vs unwrapped max abs {l1['logp_diff']:.3e} (limit "
+          f"{L1_LOGP_ATOL}, bit-equal {l1['bit_equal']}); step: " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in sorted(timing.items()))
+          + f"; throughput {rec.get('perf/throughput', float('nan')):.1f} tok/s, mfu_actor "
+          f"{rec.get('perf/mfu_actor', float('nan')):.4f}, probs_diff_mean "
+          f"{rec.get('rollout/probs_diff_mean', float('nan')):.4f}, grad_norm "
+          f"{rec.get('actor/grad_norm', float('nan')):.3e}; pool {l1['pool_pages']} pages; resident "
+          f"{l1['resident_gb']:.2f} GB, peak allocated {l1['peak_gb']:.2f} GB, reserved {l1['reserved_gb']:.2f} GB "
+          f"[{card}]; launches {l1['launches']}", flush=True)
+    _run_ranks([["--nccl-probe", r, work / "nccl_store", work / f"nccl{r}.txt"] for r in range(2)], 120,
+               check=False)
+    nccl = [(work / f"nccl{r}.txt").read_text() if (work / f"nccl{r}.txt").exists() else "no report"
+            for r in range(2)]
+    print(f"path l2: NCCL with two ranks on one device: {nccl[0]} | {nccl[1]}", flush=True)
+    _run_ranks([["--path-l2", r, work / "l2_store", work / f"l2_{r}.json"] for r in range(2)], PATH_L_TIMEOUT_S)
+    l2 = [json.loads((work / f"l2_{r}.json").read_text()) for r in range(2)]
+    for key in l2[0]["attention"]:
+        for r in l2:
+            a = r["attention"][key]
+            print(f"path l2 {key} rank {r['rank']} ({r['backend']}, sp 2 on one card): max_abs_err "
+                  f"{a['max_abs_err']:.3e} (limit {SP_OUT_ATOL}), dq/dk/dv "
+                  + "/".join(f"{e:.2e}" for e in a["grad_rel_err"]) + f" of the largest (limit {SP_GRAD_REL_TOL}); "
+                  f"sp-2 call {a['sp_ms']:.3f} ms (fwd + bwd, of which host copies {a['host_copy_s'] * 1e3:.3f} ms "
+                  f"for {a['host_copy_mb']:.2f} MB) against one rank on the whole row {a['one_rank_ms']:.3f} ms "
+                  f"[{card}]; launches {a['launches']}", flush=True)
+    for name in ("ring", "ulysses"):
+        for r in l2:
+            m = r["model"][name]
+            print(f"path l2 model {name} rank {r['rank']}: 3B width, {SP_MODEL_LAYERS} text layers + the whole "
+                  f"vision tower, one {sum(SP_ROW)}-token packed row with one image: sp 2 vs sp 1 log-probs max "
+                  f"abs {m['max_abs_diff']:.3e} (limit {SP_LOGP_ATOL}), mean {m['mean_logp']:.3f}, launches "
+                  f"{m['launches']}", flush=True)
+    checks = {
+        "l1: a distributed step over NCCL with sharded parameters": l1["backend"] == "nccl"
+        and l1["sharded"] == "DTensor" and bool(rec),
+        "l1: wrapped log-probs within the limit": l1["logp_diff"] <= L1_LOGP_ATOL,
+        "l1: parameters moved": l1["moved"] > 0,
+        "l1: every kernel of a step launched": all(l1["launches"][k] > 0 for k in TRAIN_KERNELS),
+        "l1: no torch._int_mm": l1["launches"]["int_mm"] == 0,
+        "l1: rollout/probs_diff_mean within the limit": rec.get("rollout/probs_diff_mean", np.inf) <= PROBS_DIFF_LIMIT,
+        "l1: finite metrics": all(np.isfinite(v) for k, v in rec.items() if isinstance(v, (int, float))),
+        "l2: NCCL refused two ranks on one device": not any(x.startswith("no error") for x in nccl),
+        "l2: ring / Ulysses within the limits": all(a["ok"] for r in l2 for a in r["attention"].values()),
+        "l2: the flash kernels launched on every rank": all(
+            a["launches"][k] > 0 for r in l2 for a in r["attention"].values() for k in FLASH_COUNTS),
+        "l2: sp 2 model log-probs within the limit": all(m["ok"] and m["finite"] for r in l2 for m in r["model"].values()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"path l checks failed: {failed}")
+    seconds = time.perf_counter() - t_start
+    print(f"path l: {seconds:.1f} s", flush=True)
+    return {"l1": l1, "l2": l2, "nccl_two_ranks_one_device": nccl, "seconds": seconds}
+
+
+RANK_ENTRIES = {"--path-l1": lambda a: path_l1_rank(a[0], a[1]),
+                "--path-l2": lambda a: path_l2_rank(int(a[0]), a[1], a[2]),
+                "--nccl-probe": lambda a: nccl_probe_rank(int(a[0]), a[1], a[2])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] and sys.argv[1] in RANK_ENTRIES:  # a process of path l
+        return RANK_ENTRIES[sys.argv[1]](sys.argv[2:])
+    only_l = sys.argv[1:] == ["--only-path-l"]  # the build and path l alone
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch._int_mm = counted_int_mm
@@ -2934,6 +3247,12 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s ({csrc.library_path().name})", flush=True)
 
     cfg = qwen25_vl_3b()
+    if only_l:
+        with tempfile.TemporaryDirectory() as work_dir:
+            l_res = path_l(card, work_dir)
+        print(json.dumps({"path_l": l_res, "seconds": time.perf_counter() - t_start}), flush=True)
+        print(card, flush=True)
+        return 0
 
     # ---- the decode kernels the rollout knobs reach, against their plain versions ----
     quant_rows = 16 * 8  # path f: 16 prompts x n 8 through the dense engine
@@ -2988,6 +3307,10 @@ def main() -> int:
         k_res = sevenb_path(dev, card, work_dir)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- path l: the distributed branch and sequence parallelism, in processes of their own ----
+    with tempfile.TemporaryDirectory() as work_dir:
+        l_res = path_l(card, work_dir)
 
     def entry(name, route, source, replaces, cases, n_launch, **extra):
         main_case = cases[0]
@@ -3083,10 +3406,18 @@ def main() -> int:
               r["staged_cases"], r["h_launches"]["paged_staged"]),
     ]
     count_keys = {"int4_gateup_silu": "int4_gateup", "w8a8_matmul": "w8a8", "paged_staged_block": "paged_staged"}
+    l1_l = l_res["l1"]["launches"]
     for k in kernels:
         key = count_keys.get(k["name"], k["name"])
         k["launches_gae_path"], k["launches_eval_path"] = i_l[key], j_l[key]
         k["launches_7b_path"] = k_l[key]
+        k["launches_path_l1"] = l1_l[key]
+        if key in FLASH_COUNTS:  # per rank of path l2: the attention calls, then the model's
+            k["launches_path_l2"] = {
+                name: [r["attention"][name]["launches"][key] for r in l_res["l2"]]
+                for name in l_res["l2"][0]["attention"]} | {
+                f"model_{name}": [r["model"][name]["launches"][key] for r in l_res["l2"]]
+                for name in ("ring", "ulysses")}
     print(json.dumps({"kernels": kernels, "paths": {
         "dense": {"decode_tok_s": r["decode_tok_s"], "prefill_s": r["prefill_s"], "peak_gb": r["peak_gb"]},
         "paged_int4": {"decode_tok_s": r["decode_tok_s_paged"], "prefill_s": r["st"]["refill_s"],
@@ -3102,6 +3433,10 @@ def main() -> int:
                      "packed_logp_diff": r["train"]["packed_logp_diff"], "knobs": TRAIN},
         "trainer": trainer_res, "knobs": knob_res, "w4_controls": control_res, "continuous_w4a8": g_res,
         "checkpoint": ckpt_res, "gae": i_res, "eval": j_res, "sevenb": k_res,
+        "distributed": {"l1": {k: v for k, v in l_res["l1"].items() if k != "launches"},
+                        "l2": [{k: v for k, v in r.items()} for r in l_res["l2"]],
+                        "nccl_two_ranks_one_device": l_res["nccl_two_ranks_one_device"],
+                        "seconds": l_res["seconds"]},
         "prefill_dequant": dequant_cases,
     }, "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)

@@ -3,17 +3,21 @@
 The port's own copy of ``spatialthinker_tpu/core/config.py``: the same
 dataclasses, field for field, the same ``config=path.yaml key.sub=value``
 grammar, so ``scripts/config.yaml`` and the shipped scripts' dotlists parse
-into equal trees. What differs is validation. The port runs one process on
-one GPU, so the knobs that exist for a TPU mesh are rejected with the ROADMAP
-item that brings them, and the ones the JAX package refuses or never reads
-with their reason; none is ignored:
+into equal trees. What differs is validation: the knobs the port does not
+run yet are rejected with the ROADMAP item that brings them, and the ones
+the JAX package refuses or never reads with their reason; none is ignored:
 
-- ``worker.*.sharding.data_size / fsdp_size / model_size`` other than 1 or -1
-  (-1 = "every device left", which is the one GPU), ``ulysses_sequence_
-  parallel_size`` > 1, ``rollout.tensor_parallel_size`` > 1 and
-  ``trainer.nnodes`` > 1: ROADMAP A13 (multi-GPU). ``trainer.n_chips`` parses
-  as in the JAX tree (the shipped scripts set it); ``GRPOTrainer`` rejects a
-  value above 1.
+- the mesh (one process per GPU, ``parallel/mesh.py``):
+  ``sharding.data_size`` / ``fsdp_size`` / ``model_size`` (``fsdp_size`` -1 =
+  every rank the other two leave), ``ulysses_sequence_parallel_size`` > 1
+  with ``sequence_parallel_backend`` ``ulysses`` or ``ring`` on the
+  ``model`` axis, ``trainer.nnodes`` and ``trainer.n_chips`` are accepted;
+  the trainer checks them against the process group once it is up (the
+  mesh against the world size, ``n_chips`` against the ranks of this node,
+  sp against ``model_size``, the kv heads and the sequence length, as the
+  JAX trainer does). The actor's mesh serves the critic and the reference
+  too, as in JAX. ``model_size`` > 1 without sequence parallelism (Megatron
+  tensor parallelism) and ``rollout.tensor_parallel_size`` > 1: ROADMAP A13b.
 - ``sharding.host_offload_params``, with the JAX tree's reason: one parameter
   set serves rollout and training, so there is no idle stage to offload it
   across.
@@ -194,7 +198,7 @@ class RolloutConfig:
     # chunks; composes with the token budget (groups are chunked as well when
     # rows * P exceeds max_num_batched_tokens)
     prefill_rows: int = 0
-    tensor_parallel_size: int = 1   # > 1 rejected (ROADMAP A13)
+    tensor_parallel_size: int = 1   # > 1 rejected (ROADMAP A13b)
     # reuse the engine's sampled-token log-probs as old_log_probs instead of
     # recomputing them with the training forward
     use_rollout_log_probs: bool = False
@@ -243,7 +247,7 @@ class TrainerConfig:
     logger: List[str] = field(default_factory=lambda: ["console"])
     project_name: str = "spatialthinker_tpu"
     experiment_name: str = "default"
-    n_chips: int = 1                # devices per host; GRPOTrainer rejects > 1 (ROADMAP A13)
+    n_chips: int = 1                # GPUs per node: the trainer checks it against the node's ranks
     nnodes: int = 1
     critic_warmup: int = 0
     val_freq: int = -1
@@ -298,12 +302,19 @@ class PPOConfig:
                     "'full' (save layer inputs only)"
                 )
             for axis in ("data_size", "fsdp_size", "model_size"):
-                if getattr(sh, axis) not in (1, -1):
+                size = getattr(sh, axis)
+                if size < 1 and not (axis == "fsdp_size" and size == -1):
                     raise ValueError(
-                        f"worker.{role}.sharding.{axis}={getattr(sh, axis)}: the port runs "
-                        "one process on one GPU (1, or -1 = every device left); meshes "
-                        "come with ROADMAP A13 (multi-GPU)"
+                        f"worker.{role}.sharding.{axis}={size}: a mesh axis has a positive "
+                        "size (fsdp_size also -1: every rank the other axes leave)"
                     )
+            if sh.model_size > 1 and self.worker.actor.ulysses_sequence_parallel_size == 1:
+                raise ValueError(
+                    f"worker.{role}.sharding.model_size={sh.model_size} without sequence "
+                    "parallelism is Megatron tensor parallelism, which comes with ROADMAP "
+                    "A13b; the model axis carries sequence shards only (set "
+                    "worker.actor.ulysses_sequence_parallel_size to model_size)"
+                )
             if sh.host_offload_params:
                 raise ValueError(
                     f"worker.{role}.sharding.host_offload_params is not supported: "
@@ -319,21 +330,10 @@ class PPOConfig:
                        "the critic's optimizer state stays on the GPU (the JAX critic "
                        "reads only optim.lr, weight_decay and strategy)")
                 )
-        if self.worker.actor.ulysses_sequence_parallel_size > 1:
-            raise ValueError(
-                "worker.actor.ulysses_sequence_parallel_size="
-                f"{self.worker.actor.ulysses_sequence_parallel_size}: sequence parallelism "
-                "comes with ROADMAP A13 (multi-GPU)"
-            )
         if self.worker.critic.optim.stream:
             raise ValueError(
                 "worker.critic.optim.stream is not supported: the critic's moments stay "
                 "on the GPU (the JAX critic reads only optim.lr, weight_decay and strategy)"
-            )
-        if self.trainer.nnodes > 1:
-            raise ValueError(
-                f"trainer.nnodes={self.trainer.nnodes}: the port runs one process on one "
-                "GPU; several hosts come with ROADMAP A13 (multi-GPU)"
             )
         if self.worker.rollout.quantization not in ("none", "int8", "w4a8"):
             raise ValueError(
@@ -365,8 +365,8 @@ class PPOConfig:
         tp = self.worker.rollout.tensor_parallel_size
         if tp > 1:
             raise ValueError(
-                f"rollout.tensor_parallel_size={tp}: decode on several GPUs comes with "
-                "ROADMAP A13 (multi-GPU)"
+                f"rollout.tensor_parallel_size={tp}: tensor-parallel decode comes with "
+                "ROADMAP A13b; each rank runs its own engine on its own prompts"
             )
 
 

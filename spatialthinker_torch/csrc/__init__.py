@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import uuid
 from pathlib import Path
 from typing import Optional
 
@@ -101,7 +102,9 @@ def build(verbose: bool = False) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    stem = f"{out.stem}.{os.getpid()}"
+    # names of this build's own: ranks (or hosts sharing the directory) that
+    # build at once never touch each other's objects or link output
+    stem = f"{out.stem}.{os.getpid()}.{uuid.uuid4().hex[:8]}"
     objects = [BUILD_DIR / f"{stem}.{Path(name).stem}.o" for name in SOURCES]
     procs = [
         subprocess.Popen(
@@ -141,6 +144,18 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def refuse_sharded(**tensors) -> None:
+    """Raise, by argument name, for a sharded tensor (a ``DTensor``): the
+    kernels read ``data_ptr()`` of one device's memory, which for a DTensor
+    is one rank's shard only -- the caller must pass whole tensors."""
+    from torch.distributed.tensor import DTensor
+
+    for name, t in tensors.items():
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name} is a sharded DTensor; the CUDA kernels take whole tensors "
+                            "(gather it first, e.g. parallel.sharding.unsharded_copy)")
 
 
 def check_launch(rc: int, kernel: str) -> None:

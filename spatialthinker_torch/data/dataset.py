@@ -6,7 +6,8 @@ imports the JAX model package), unchanged in behaviour: ``load_rows``
 (parquet globs, json/jsonl, hub names with an ``@split`` suffix; the
 ``datasets`` package is imported only when a path is loaded),
 ``RLHFDataset`` over a path or in-memory rows, ``collate_fn`` and the
-stateful shuffling ``DataLoader`` (one process: no ``process_shard``).
+stateful shuffling ``DataLoader`` (``process_shard``: a rank's row slice of
+every global batch, several GPUs).
 """
 
 from __future__ import annotations
@@ -205,7 +206,8 @@ class DataLoader:
     device step instead of sitting on the trainer thread between steps."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 1,
-                 drop_last: bool = True, num_workers: int = 0, prefetch_batches: int = 2):
+                 drop_last: bool = True, num_workers: int = 0, prefetch_batches: int = 2,
+                 process_shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -213,6 +215,9 @@ class DataLoader:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.prefetch_batches = max(1, prefetch_batches)
+        # (rank, ranks): every rank walks the SAME global shuffle order (seeded
+        # identically) and takes its row slice of each batch
+        self.process_shard = process_shard
         self.epoch = 0
         self.position = 0  # batch index within epoch
 
@@ -230,7 +235,12 @@ class DataLoader:
 
     def _batch_indices(self, order: np.ndarray, position: int) -> np.ndarray:
         start = position * self.batch_size
-        return order[start : start + self.batch_size]
+        idx = order[start : start + self.batch_size]
+        if self.process_shard is not None:
+            i, n = self.process_shard
+            per = len(idx) // n
+            idx = idx[i * per : (i + 1) * per]
+        return idx
 
     def __iter__(self):
         if self.num_workers > 0:

@@ -15,6 +15,7 @@ from torch import nn
 from .config import Qwen25VLConfig
 from .host import VisionInputs
 from ...ops.quant import embed_rows
+from ...ops.ulysses import seq_chunk
 from .text import KVCache, TextModel, forward_hidden
 from .vision import VisionTower, vision_forward
 
@@ -25,6 +26,15 @@ class Qwen25VL(nn.Module):
         self.cfg = cfg
         self.text = TextModel(cfg.text, device, dtype)
         self.vision = VisionTower(cfg.vision, device, dtype)
+
+    def forward(self, fn, *args, **kwargs):
+        """``fn(self, *args, **kwargs)``: the model code is functions of the
+        module (``forward`` below, the log-prob and loss functions of
+        ``trainer/train_step.py``); calling one through the module
+        (``model(fn, ...)``) runs it inside the module's own forward, where a
+        sharded model's root parameters are gathered (FSDP's hooks,
+        ``parallel/sharding.py``). On a plain module it is the same call."""
+        return fn(self, *args, **kwargs)
 
 
 def vision_to_device(vision: Optional[VisionInputs], device) -> Optional[VisionInputs]:
@@ -76,20 +86,33 @@ def forward(
     kv_segment_ids: Optional[torch.Tensor] = None,
     remat: Union[bool, str] = False,
     int4_i8dot: bool = False,
+    sp=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (hidden_states (B, S, E), updated cache). Differentiable when
     gradients are enabled and no cache is given (the training forward);
     ``remat`` checkpoints each decoder layer and vision block; ``int4_i8dot``
-    picks the int8-dot decode kernel over an int4 cache."""
+    picks the int8-dot decode kernel over an int4 cache.
+
+    ``sp`` (an ``ops.ulysses.UlyssesSpec``, training forwards only): the
+    whole sequence is embedded and the vision tower runs whole on every sp
+    rank (as in JAX, whose vision tower takes no ``sp``); from the
+    embeddings on, this rank holds its chunk of the sequence, with its
+    positions and segment ids, and the hidden states returned are that
+    chunk (B, S / sp, E)."""
+    embeds = embed_inputs(model, input_ids, vision, remat=remat)
+    if sp is not None:
+        embeds, position_ids = seq_chunk(embeds, sp, 1), seq_chunk(position_ids, sp, 2)
+        segment_ids = None if segment_ids is None else seq_chunk(segment_ids, sp, 1)
     return forward_hidden(
         model.text,
-        inputs_embeds=embed_inputs(model, input_ids, vision, remat=remat),
+        inputs_embeds=embeds,
         position_ids=position_ids,
         segment_ids=segment_ids,
         cache=cache,
         kv_segment_ids=kv_segment_ids,
         remat=remat,
         int4_i8dot=int4_i8dot,
+        sp=sp,
     )
 
 

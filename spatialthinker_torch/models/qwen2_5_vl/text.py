@@ -35,6 +35,8 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ...ops.attention import attention
+from ...ops.ring import ring_attention
+from ...ops.ulysses import ulysses_attention
 from ...ops.decode_attention import decode_attention
 from ...ops.logprobs import matmul_fp32_out
 from ...ops.int4_mlp import w4_swiglu
@@ -76,14 +78,17 @@ def remat_policy(remat: Union[bool, str]) -> Optional[str]:
     return remat
 
 
-def checkpointed(fn, remat: Union[bool, str], *args):
-    """``fn(*args)`` under the checkpoint ``remat`` names: "full" keeps only
-    the inputs and recomputes the body in the backward, "dots" also keeps the
-    weight products (``dots_policy``)."""
+def checkpointed(fn, remat: Union[bool, str], *args, **kwargs):
+    """``fn(*args, **kwargs)`` under the checkpoint ``remat`` names: "full"
+    keeps only the inputs and recomputes the body in the backward, "dots"
+    also keeps the weight products (``dots_policy``). Under sequence
+    parallelism the exchanges of ring / Ulysses attention are neither, so
+    both policies run them again in the recompute, on every sp rank alike."""
     if remat_policy(remat) == "dots":
         return checkpoint(fn, *args, use_reentrant=False,
-                          context_fn=functools.partial(create_selective_checkpoint_contexts, dots_policy))
-    return checkpoint(fn, *args, use_reentrant=False)
+                          context_fn=functools.partial(create_selective_checkpoint_contexts, dots_policy),
+                          **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
 class RMSNorm(nn.Module):
@@ -376,8 +381,10 @@ class DecoderLayer(nn.Module):
         kv_segment_ids: Optional[torch.Tensor] = None,  # (B, Smax) valid cells incl. cached prefix
         attend_to_cache: bool = False,  # chunked prefill: s > 1 queries see the cached prefix
         int4_i8dot: bool = False,  # int4 cache: both decode dots on int8 operands
+        sp=None,  # Optional[ops.ulysses.UlyssesSpec]: x is this rank's sequence chunk
     ) -> torch.Tensor:
-        """No cache: causal self-attention. With a cache: write this step's
+        """No cache: causal self-attention (under ``sp``, ring or Ulysses
+        attention over the sp group's chunks). With a cache: write this step's
         k/v at ``cache.length``; then prefill (s > 1) attends the prompt's own
         k/v, chunked prefill (``attend_to_cache``) the dequantized live cache
         prefix plus the chunk through the flash kernel with a static
@@ -387,7 +394,12 @@ class DecoderLayer(nn.Module):
         b, s, _ = x.shape
         q, k, v = attention_inputs(self, cfg, x, cos, sin)
 
-        if cache is None:
+        if cache is None and sp is not None:
+            if sp.backend == "ring":
+                out = ring_attention(q, k, v, sp, segment_ids=segment_ids, causal=True)
+            else:
+                out = ulysses_attention(q, k, v, sp, segment_ids=segment_ids, causal=True)
+        elif cache is None:
             out = attention(q, k, v, segment_ids=segment_ids, causal=True)
         else:
             _write_cache(cache, layer_idx, k, v)
@@ -445,9 +457,14 @@ def forward_hidden(
     attend_to_cache: bool = False,
     remat: Union[bool, str] = False,
     int4_i8dot: bool = False,
+    sp=None,  # Optional[ops.ulysses.UlyssesSpec]; training forwards only
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack; returns (hidden_states (B, S, E), cache with
     its length advanced by S — the same buffers, written in place).
+
+    Under ``sp`` the inputs, positions and segment ids are this rank's
+    sequence chunk (``model.forward`` slices them), and so is the output;
+    attention is ring or Ulysses attention over the sp group.
 
     ``remat`` (training, no cache) wraps every decoder layer in
     ``torch.utils.checkpoint`` (``checkpointed``): "full" keeps the layer's
@@ -464,11 +481,14 @@ def forward_hidden(
     remat = remat_policy(remat)
     if remat and cache is not None:
         raise ValueError("remat is for the training forward; a cache is written in place")
+    if sp is not None and cache is not None:
+        raise ValueError("sequence parallelism is for the training forward; decode keeps a cache")
     for i, layer in enumerate(text.layers):
         if remat and torch.is_grad_enabled():
-            x = checkpointed(layer, remat, x, cos, sin, segment_ids, None, i)
+            x = checkpointed(layer, remat, x, cos, sin, segment_ids, None, i, sp=sp)
         else:
-            x = layer(x, cos, sin, segment_ids, cache, i, kv_segment_ids, attend_to_cache, int4_i8dot)
+            x = layer(x, cos, sin, segment_ids, cache, i, kv_segment_ids, attend_to_cache, int4_i8dot,
+                      sp=sp)
     if cache is not None:
         cache = KVCache(cache.k, cache.v, cache.length + x.shape[1], cache.k_scale, cache.v_scale)
     return text.norm(x), cache

@@ -284,6 +284,8 @@ def decode_attention_plain(
 
 
 def _check_cuda_inputs(q, k_cache, v_cache, kv_seg, layer_idx, k_scale, v_scale, mode: int) -> None:
+    csrc.refuse_sharded(q=q, k_cache=k_cache, v_cache=v_cache, kv_seg=kv_seg, k_scale=k_scale,
+                        v_scale=v_scale)
     b, hq, d = q.shape
     if k_cache.dim() != 5 or k_cache.shape != v_cache.shape or k_cache.dtype != v_cache.dtype:
         raise ValueError(f"cache shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)}")

@@ -97,6 +97,7 @@ def _check_cuda_inputs(q, k, v, q_seg, kv_seg, *, do=None, o=None, lse=None) -> 
     """Shape, dtype, device and layout checks shared by the forward and the
     backward launch: both reject the same inputs with the same messages. The
     backward passes its extra tensors (dO and o shaped like q, lse (B, Hq, Sq))."""
+    csrc.refuse_sharded(q=q, k=k, v=v, q_seg=q_seg, kv_seg=kv_seg, dO=do, o=o, lse=lse)
     b, sq, hq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does not fit q {tuple(q.shape)}")

@@ -352,6 +352,7 @@ def staged_offsets(m: int, k: int, plan: W4Plan) -> torch.Tensor:
 
 
 def _check_cuda_inputs(x: torch.Tensor, w: Int4Weight, n_cols: int) -> None:
+    csrc.refuse_sharded(x=x, q4=w.q4, gscale=w.gscale)
     m, k = x.shape
     group = k // w.gscale.shape[0]
     if x.dtype != torch.bfloat16:

@@ -230,6 +230,7 @@ def fused_w8a8_matmul_plain(x: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
 
 def _check_cuda_inputs(x: torch.Tensor, w: torch.Tensor, ws: torch.Tensor, out_dtype,
                        x_dtypes, xs: torch.Tensor = None) -> None:
+    csrc.refuse_sharded(x=x, w=w, ws=ws, xs=xs)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1] or x.shape[0] < 1:
         raise ValueError(f"x {tuple(x.shape)} does not fit the (N, K) weight {tuple(w.shape)}")
     m, k = x.shape

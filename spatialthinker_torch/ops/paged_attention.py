@@ -473,6 +473,8 @@ def _check_staged(staged: Staged, q, k_pool, mode: int):
 
 def _check_cuda_inputs(q, k_pool, v_pool, page_table, lengths, layer_idx, k_scale, v_scale,
                        mode: int, staged: Optional[Staged] = None) -> None:
+    csrc.refuse_sharded(q=q, k_pool=k_pool, v_pool=v_pool, page_table=page_table, lengths=lengths,
+                        k_scale=k_scale, v_scale=v_scale)
     s_slots, hq, d = q.shape
     if k_pool.dim() != 5 or k_pool.shape != v_pool.shape or k_pool.dtype != v_pool.dtype:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)}")

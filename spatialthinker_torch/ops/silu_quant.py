@@ -76,6 +76,7 @@ def silu_plan(i: int) -> SiluPlan:
 
 
 def _check_cuda_input(gu: torch.Tensor) -> None:
+    csrc.refuse_sharded(gu=gu)
     if gu.dim() != 2 or gu.shape[1] % 2 or gu.shape[0] < 1 or gu.shape[1] < 2:
         raise ValueError(f"gu must be a non-empty (M, 2I), got {tuple(gu.shape)}")
     if gu.dtype not in _DTYPES:

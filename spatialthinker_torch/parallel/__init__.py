@@ -1,4 +1,5 @@
-"""State that lives on the host between its uses (counterpart of
-``spatialthinker_tpu/parallel``; one process on one GPU, so of that package
-only ``offload.py`` has a counterpart so far: the mesh, sharding and
-multi-host modules come with the multi-GPU port)."""
+"""Several GPUs and host-resident state (counterpart of
+``spatialthinker_tpu/parallel``): ``mesh.py`` (the ``(data, fsdp, model)``
+mesh of one process per GPU and its groups), ``sharding.py`` (FSDP2 over it),
+``multihost.py`` (the process group and host data between ranks) and
+``offload.py`` (host copies of device state)."""

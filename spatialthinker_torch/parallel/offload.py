@@ -17,8 +17,9 @@ twice what the copies hold. A copy of a CPU tensor (the tests) is a plain
 CPU tensor.
 
 The JAX module keeps one buffer per distinct shard of a global array and
-rebuilds the array over its mesh; one process with one GPU has no shards and
-no mesh, so a leaf here is one tensor on one device.
+rebuilds the array over its mesh. Here a process owns one GPU: on several
+GPUs the trainer hands this module each rank's own shards
+(``sharding.local``), so a leaf is one tensor on one device either way.
 """
 
 from __future__ import annotations

@@ -1,0 +1,111 @@
+"""Parameter sharding of a multi-GPU run (counterpart of
+``spatialthinker_tpu/parallel/sharding.py``): FSDP2 (``fully_shard``) over the
+mesh's ``(data, fsdp x model)`` dims -- each text decoder layer, each vision
+block (and a critic's fp32 value head), then the root (embeddings, final
+norm, head, patch embed, merger) -- replicated over ``data`` (HSDP) and
+sharded over the rest.
+
+The JAX module's Megatron rule table (column-parallel qkv / gate_up,
+row-parallel o / down on the ``model`` axis) waits for ROADMAP A13b: here the
+``model`` axis carries sequence shards only and parameters are sharded over
+it as over ``fsdp``. Its ``_degrade_spec`` (replicate a dim whose size does
+not divide the mesh) is not needed: FSDP2 shards dim 0 in ``torch.chunk``
+pieces, padding the last, so every size divides.
+
+Gradients are SUMMED over the ranks (``set_gradient_divide_factor(1)`` with
+sum reductions): the update normalises each rank's loss by the global token
+count itself (``trainer/train_step.py``), so the sum is the global mean.
+
+The model functions take the module as an argument; they run inside the
+root's forward (``Qwen25VL.forward(fn, ...)``), which is what gathers the
+root's parameters around them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.fsdp import FSDPModule, fully_shard
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from .mesh import shard_mesh
+
+
+def shard_model(model: nn.Module, mesh: DeviceMesh, *, reshard_after_forward: bool = True) -> nn.Module:
+    """``fully_shard`` the text layers, the vision blocks and the root of a
+    ``Qwen25VL`` (or a critic) over ``mesh``, in place; returns the model."""
+    for p in model.parameters():  # FSDP shards contiguous parameters only
+        if not p.is_contiguous():
+            p.data = p.data.contiguous()
+    fsdp_mesh = shard_mesh(mesh)
+    if fsdp_mesh.shape[0] == 1:
+        fsdp_mesh = fsdp_mesh["shard"]  # one replica: plain FSDP
+    # a critic's fp32 value head is a unit of its own: one unit holds one dtype
+    units = list(model.text.layers) + list(model.vision.blocks) + (
+        [model.value_head] if hasattr(model, "value_head") else [])
+    for block in units:
+        fully_shard(block, mesh=fsdp_mesh, reshard_after_forward=reshard_after_forward)
+    fully_shard(model, mesh=fsdp_mesh, reshard_after_forward=reshard_after_forward)
+    for module in model.modules():
+        if isinstance(module, FSDPModule):
+            module.set_gradient_divide_factor(1.0)
+            module.set_force_sum_reduction_for_comms(True)
+    return model
+
+
+def is_sharded(model: nn.Module) -> bool:
+    return isinstance(model, FSDPModule)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a ``DTensor`` (the same storage); any other
+    tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def full_tensor(shard: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of which ``shard`` is this rank's piece, laid out as
+    the parameter ``like`` (a collective over ``like``'s mesh); ``shard``
+    itself when ``like`` is not sharded."""
+    if not isinstance(like, DTensor):
+        return shard
+    return DTensor.from_local(shard, like.device_mesh, like.placements, shape=like.shape,
+                              stride=like.stride()).full_tensor()
+
+
+def local_piece(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of ``full`` as the parameter ``like`` shards it (no
+    communication: every rank holds ``full``)."""
+    if not isinstance(like, DTensor):
+        return full
+    return distribute_tensor(full.to(like.device), like.device_mesh, like.placements,
+                             src_data_rank=None).to_local()
+
+
+def reshard(model: nn.Module) -> None:
+    """Free every gathered parameter of a sharded model."""
+    for module in model.modules():
+        if isinstance(module, FSDPModule):
+            module.reshard()
+
+
+@torch.no_grad()
+def full_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Every parameter whole, on every rank, on the model's device (one
+    gather per parameter)."""
+    reshard(model)
+    return {name: full_tensor(local(t), t).detach() for name, t in model.state_dict().items()}
+
+
+def unsharded_copy(model: nn.Module) -> nn.Module:
+    """A plain ``Qwen25VL`` with the whole parameters of a sharded one, for
+    code that reads whole weights outside the FSDP hooks: the rollout
+    engines, ``quantize_model``. The caller drops it afterwards."""
+    from ..models.qwen2_5_vl.model import Qwen25VL
+
+    copy = Qwen25VL(model.cfg, device="meta", dtype=model.text.norm.weight.dtype)
+    copy.load_state_dict(full_state(model), assign=True)
+    return copy.requires_grad_(False)

@@ -21,15 +21,27 @@ moved" is plain functions that the class calls with what it holds:
     update_critic               the critic's clipped-value update (GAE)
 
 Every function takes what the trainer class reads from ``self`` (model,
-update function, knobs, device) as explicit arguments. Single process only:
-the JAX trainer's cross-process negotiation of row lengths, row counts and
-vision widths and its globalized vision packs collapse to the identity here;
-they come with the multi-GPU port.
+update function, knobs, device) as explicit arguments.
+
+Several GPUs (one process each, launched by ``torchrun``; ``parallel/``): the
+trainer takes its distributed branch whenever a process group exists. The
+policy (and the reference copy, and the critic) is FSDP-sharded over the
+mesh's ``(data, fsdp x model)`` dims; each rank rolls out and scores its own
+prompts with its own engine on a gathered copy of the weights, the ranks of
+an sp group (the ``model`` axis) then share their rows, and the log-prob and
+update forwards run over each rank's rows, the sequence split over the sp
+group (``sp``). Every sharded forward and backward is a collective, so every
+rank must run the same number of them: ``Lockstep`` negotiates what depends
+on the data (packed row counts, whether a forward carries images), and
+padding rows carry segment id 0. Advantages, the KL controller and the
+logged metrics are computed on the union of the ranks' rows (the JAX
+trainer's global arrays), so every rank sees the same numbers.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import logging
 import time
 import uuid
@@ -38,6 +50,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..algos.advantages import (
     compute_gae_advantage_return, compute_grpo_outcome_advantage,
@@ -48,18 +61,22 @@ from ..algos.kl_controller import get_kl_controller
 from ..algos.losses import compute_kl
 from ..core.batch import RolloutBatch, trim_prompt_padding, trim_response_padding
 from ..core.config import PPOConfig
-from ..data.packing import pack_vision_batch, stack_vision_packs
+from ..data.packing import empty_vision_pack, pack_vision_batch, patch_dim, stack_vision_packs
 from ..data.text_packing import (
     PackedRows, SlotMap, gather_response_values, pack_train_rows, pad_rows_to_count,
 )
 from ..models.qwen2_5_vl.config import Qwen25VLConfig, VisionConfig, get_config
-from ..models.qwen2_5_vl.host import VisionInputs
+from ..models.qwen2_5_vl.host import VisionInputs, window_patch_len
 from ..models.qwen2_5_vl.model import Qwen25VL, vision_to_device
 from ..models.qwen2_5_vl.params import (
     config_from_hf_json, default_device, init_params, is_hf_checkpoint_dir, load_params,
 )
 from ..ops.quant import quantize_model
+from ..ops.ulysses import UlyssesSpec
+from ..parallel.mesh import batch_group, batch_rank, create_mesh, norm_group, sp_group
+from ..parallel.multihost import allgather_pyobj, negotiate_row_count
 from ..parallel.offload import HostLeaf, host_bytes, host_view, offload_to_host, restore_from_host
+from ..parallel.sharding import full_tensor, local, local_piece, shard_model, unsharded_copy
 from ..rewards.manager import RewardManager
 from ..rollout.engine import generate
 from ..rollout.continuous import effective_prefill_chunk, generate_continuous
@@ -77,12 +94,36 @@ from .metrics import (
 )
 from .tracker import Tracker
 from .train_step import (
-    PackedTrainBatch, TrainBatch, compute_log_probs, compute_packed_log_probs, make_optimizer,
-    make_packed_update_fn, make_update_fn, trainable_parameters,
+    DistGroups, PackedTrainBatch, TrainBatch, compute_log_probs, compute_packed_log_probs,
+    make_optimizer, make_packed_update_fn, make_update_fn, trainable_parameters,
 )
 
 logger = logging.getLogger(__name__)
 KV_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8, "int4": torch.uint8}
+
+
+class Lockstep:
+    """Agreement between ranks on what depends on the data, so every rank runs
+    the same number of sharded forwards and backwards (``group`` None: one
+    process, every value is its own)."""
+
+    def __init__(self, group=None):
+        self.group = group
+
+    def max(self, n: int) -> int:
+        return n if self.group is None else negotiate_row_count(n, self.group)
+
+    def any(self, flag: bool) -> bool:
+        return flag if self.group is None else self.max(int(flag)) > 0
+
+    def vision(self, vision: Optional[VisionInputs], cfg: VisionConfig, n_micro: int = 0):
+        """``vision``, or an all-padding pack (one window; ``n_micro`` > 0: one
+        per micro-batch, stacked) where another rank's forward runs the
+        vision tower and this one has no image: the tower is sharded too."""
+        if not self.any(vision is not None) or vision is not None:
+            return vision
+        empty = empty_vision_pack(cfg, window_patch_len(cfg), patch_dim(cfg))
+        return stack_vision_packs([empty] * n_micro, cfg) if n_micro else empty
 
 
 def rollout_batch_from_result(repeated: RolloutBatch, responses, response_mask,
@@ -176,31 +217,37 @@ def _pack_vision(batch: RolloutBatch, vision_cfg: VisionConfig) -> Optional[Visi
 @torch.no_grad()
 def compute_log_probs_batched(
     model: Qwen25VL, batch: RolloutBatch, *, micro_batch_size: int, padding_free: bool = True,
-    temperature: float = 1.0, chunk_size: int = 1024, device=None,
+    temperature: float = 1.0, chunk_size: int = 1024, device=None, sp=None,
+    lockstep: Optional[Lockstep] = None,
 ) -> np.ndarray:
     """Micro-batched old/ref log-prob recompute (no grad), (B, R) on the
     host. Both layouts split the rollout batch into experience-sized pieces
     of ``micro_batch_size`` samples first: the per-chunk fp32 logits inside
     the log-prob loop (rows x chunk x vocab) are what bound memory, so one
-    forward over the whole rollout would not fit at full vocabulary."""
+    forward over the whole rollout would not fit at full vocabulary.
+    ``lockstep`` (several GPUs) pads each piece's packed rows to the ranks'
+    common count and runs the vision tower wherever any rank's piece has an
+    image; ``sp`` splits the sequence over the sp group."""
     device = default_device() if device is None else device
+    lockstep = lockstep or Lockstep()
     vision_cfg = model.cfg.vision
     chunk = max(micro_batch_size, 1)
-    kw = dict(remat=False, temperature=temperature, chunk_size=chunk_size)
+    kw = dict(remat=False, temperature=temperature, chunk_size=chunk_size, sp=sp)
     outs = []
     if padding_free:
         r = batch.tensors["responses"].shape[1]
         for piece in batch.split(chunk):
             packed, slot_map = pack_rows(piece)
-            vision = vision_to_device(vision_for_packed(piece, slot_map, vision_cfg), device)
+            packed = pad_rows_to_count(packed, lockstep.max(packed.input_ids.shape[0]))
+            vision = lockstep.vision(vision_for_packed(piece, slot_map, vision_cfg), vision_cfg)
             ptb = to_device(PackedTrainBatch(*packed), device)
-            logp_rows = compute_packed_log_probs(model, ptb, vision, **kw)[0]
+            logp_rows = model(compute_packed_log_probs, ptb, vision_to_device(vision, device), **kw)[0]
             outs.append(gather_response_values(logp_rows.float().cpu().numpy(), slot_map, r))
         return np.concatenate(outs, axis=0)
     for piece in batch.split(chunk):
         tb = to_device(train_batch_views(piece), device)
-        vision = vision_to_device(_pack_vision(piece, vision_cfg), device)
-        outs.append(compute_log_probs(model, tb, vision, **kw)[0].float().cpu().numpy())
+        vision = vision_to_device(lockstep.vision(_pack_vision(piece, vision_cfg), vision_cfg), device)
+        outs.append(model(compute_log_probs, tb, vision, **kw)[0].float().cpu().numpy())
     return np.concatenate(outs, axis=0)
 
 
@@ -240,13 +287,16 @@ def iter_minibatches(batch: RolloutBatch, mini_bs: int, ppo_epochs: int, seed_mu
             yield batch.select(order[start : start + mini_bs])
 
 
-def packed_micro_batches(mini: RolloutBatch, vision_cfg: VisionConfig,
-                         micro_rows: int) -> Tuple[PackedTrainBatch, Optional[VisionInputs]]:
+def packed_micro_batches(mini: RolloutBatch, vision_cfg: VisionConfig, micro_rows: int,
+                         lockstep: Optional[Lockstep] = None
+                         ) -> Tuple[PackedTrainBatch, Optional[VisionInputs]]:
     """One mini-batch as the packed update takes it (host arrays): its samples
     bin-packed into rows, the rows padded to whole micro-batches of at most
     ``micro_rows`` and given a leading micro dim ((n_micro, rows, L); position
     ids (n_micro, 3, rows, L)), and one vision pack per micro-batch in its
-    rows' image order, stacked at a common width."""
+    rows' image order, stacked at a common width. ``lockstep``: the row count
+    (and so the micro-batch count) is the ranks' common one."""
+    lockstep = lockstep or Lockstep()
     micro_rows = max(micro_rows, 1)
     zeros = np.zeros_like(mini.tensors["old_log_probs"])
     packed, slot_map = pack_rows(
@@ -257,7 +307,7 @@ def packed_micro_batches(mini: RolloutBatch, vision_cfg: VisionConfig,
             "advantages": mini.tensors["advantages"],
         },
     )
-    rows_target = packed.input_ids.shape[0]
+    rows_target = lockstep.max(packed.input_ids.shape[0])
     n_micro = max((rows_target + micro_rows - 1) // micro_rows, 1)
     per = -(-rows_target // n_micro)   # rows per micro step (ceil)
     packed = pad_rows_to_count(packed, per * n_micro)
@@ -273,23 +323,24 @@ def packed_micro_batches(mini: RolloutBatch, vision_cfg: VisionConfig,
         for g in range(n_micro)
     ]
     return (PackedTrainBatch(*(micro_shape(x) for x in packed)),
-            stack_vision_packs(packs, vision_cfg))
+            lockstep.vision(stack_vision_packs(packs, vision_cfg), vision_cfg, n_micro))
 
 
 def update_actor_packed(
     batch: RolloutBatch, packed_update_fn: Callable, vision_cfg: VisionConfig, *,
     global_batch_size: int, micro_rows: int, ppo_epochs: int = 1, global_step: int = 0,
-    device=None,
+    device=None, lockstep: Optional[Lockstep] = None,
 ) -> Dict[str, float]:
     """Padding-free policy update: every mini-batch is bin-packed into rows,
     the rows cut into micro-batches of ``micro_rows``, and handed to
     ``packed_update_fn`` (``make_packed_update_fn``'s result). Returns the
-    metrics averaged over the mini-batches."""
+    metrics averaged over the mini-batches. ``global_batch_size`` counts
+    this process's rows (the trainer divides the global one by the ranks)."""
     device = default_device() if device is None else device
     metrics_acc: Dict[str, List[float]] = defaultdict(list)
     mini_bs = min(global_batch_size, len(batch))
     for mini in iter_minibatches(batch, mini_bs, ppo_epochs, 131, global_step):
-        ptb, vision = packed_micro_batches(mini, vision_cfg, micro_rows)
+        ptb, vision = packed_micro_batches(mini, vision_cfg, micro_rows, lockstep)
         metrics = packed_update_fn(to_device(ptb, device), vision_to_device(vision, device))
         for k, v in metrics.items():
             metrics_acc[k].append(float(v))
@@ -317,7 +368,7 @@ def _reshape_micro(x, n_micro: int) -> np.ndarray:
 def update_actor(
     batch: RolloutBatch, update_fn: Callable, vision_cfg: VisionConfig, *,
     global_batch_size: int, micro_batch_size: int, ppo_epochs: int = 1, global_step: int = 0,
-    device=None,
+    device=None, lockstep: Optional[Lockstep] = None,
 ) -> Dict[str, float]:
     """Policy update on the per-sample layout: mini-batches cut into
     micro-batches of ``micro_batch_size`` samples, one vision pack per
@@ -331,30 +382,31 @@ def update_actor(
         tb = train_batch_views(mini)
         micro_batches = to_device(TrainBatch(*(_reshape_micro(x, n_micro) for x in tb)), device)
         packs = [_pack_vision(piece, vision_cfg) for piece in mini.split(len(mini) // n_micro)]
-        vision = vision_to_device(stack_vision_packs(packs, vision_cfg), device)
-        for k, v in update_fn(micro_batches, vision).items():
+        vision = (lockstep or Lockstep()).vision(stack_vision_packs(packs, vision_cfg), vision_cfg, n_micro)
+        for k, v in update_fn(micro_batches, vision_to_device(vision, device)).items():
             metrics_acc[k].append(float(v))
     return reduce_metrics(metrics_acc)
 
 
 @torch.no_grad()
 def compute_values_batched(critic: Critic, batch: RolloutBatch, *, micro_batch_size: int,
-                           device=None) -> np.ndarray:
+                           device=None, sp=None, lockstep: Optional[Lockstep] = None) -> np.ndarray:
     """The critic's (B, R) values on the host, in experience-sized pieces of
     ``micro_batch_size`` samples on the per-sample layout."""
     device = default_device() if device is None else device
+    lockstep = lockstep or Lockstep()
     outs = []
     for piece in batch.split(max(micro_batch_size, 1)):
         tb = to_device(train_batch_views(piece), device)
-        vision = vision_to_device(_pack_vision(piece, critic.cfg.vision), device)
-        outs.append(compute_values(critic, tb, vision).cpu().numpy())
+        vision = lockstep.vision(_pack_vision(piece, critic.cfg.vision), critic.cfg.vision)
+        outs.append(critic(compute_values, tb, vision_to_device(vision, device), sp=sp).cpu().numpy())
     return np.concatenate(outs, axis=0)
 
 
 def update_critic(
     batch: RolloutBatch, critic_update_fn: Callable, vision_cfg: VisionConfig, *,
     global_batch_size: int, micro_batch_size: int, ppo_epochs: int = 1, global_step: int = 0,
-    device=None,
+    device=None, lockstep: Optional[Lockstep] = None,
 ) -> Dict[str, float]:
     """The critic's update on the per-sample layout: mini-batches (their own
     shuffle, ``seed_mult`` 173) cut into micro-batches of
@@ -372,8 +424,8 @@ def update_critic(
         cb = CriticBatch(train=to_device(TrainBatch(*(_reshape_micro(x, n_micro) for x in tb)), device),
                          **micro)
         packs = [_pack_vision(piece, vision_cfg) for piece in mini.split(len(mini) // n_micro)]
-        vision = vision_to_device(stack_vision_packs(packs, vision_cfg), device)
-        for k, v in critic_update_fn(cb, vision).items():
+        vision = (lockstep or Lockstep()).vision(stack_vision_packs(packs, vision_cfg), vision_cfg, n_micro)
+        for k, v in critic_update_fn(cb, vision_to_device(vision, device)).items():
             metrics_acc[k].append(float(v))
     return reduce_metrics(metrics_acc)
 
@@ -385,9 +437,39 @@ def _obj(values) -> np.ndarray:
     return arr
 
 
+def mesh_checks(config: PPOConfig, kv_heads: int, world: int, local_ranks: int) -> None:
+    """What a run on ``world`` ranks (``local_ranks`` of them on this node)
+    checks of its config before it builds the mesh: ``n_chips`` against the
+    node's ranks, the rollout batch against the ranks, and the JAX trainer's
+    sequence-parallel rules (its grpo_trainer.py sp block)."""
+    n_chips = config.trainer.n_chips
+    if n_chips != local_ranks:
+        raise ValueError(f"trainer.n_chips={n_chips} must equal the ranks on this node ({local_ranks})")
+    sh, actor = config.worker.actor.sharding, config.worker.actor
+    sp_size = actor.ulysses_sequence_parallel_size
+    if sp_size > 1:
+        if sp_size != sh.model_size:
+            raise ValueError(
+                f"ulysses_sequence_parallel_size={sp_size} must equal "
+                f"sharding.model_size={sh.model_size} (sp rides the model axis)")
+        if actor.sequence_parallel_backend == "ulysses" and kv_heads % sp_size:
+            raise ValueError(
+                f"kv heads ({kv_heads}) must be divisible by sp={sp_size} for the ulysses backend "
+                "-- sequence_parallel_backend=ring rotates KV instead and has no head cap")
+        seq = config.data.max_prompt_length + config.data.max_response_length
+        if seq % sp_size:
+            raise ValueError(f"sequence length {seq} must be divisible by sp={sp_size}")
+    if config.data.rollout_batch_size % world:
+        raise ValueError(
+            f"data.rollout_batch_size={config.data.rollout_batch_size} must be divisible "
+            f"by the {world} processes")
+
+
 class GRPOTrainer:
-    """One GRPO/PPO training run on one GPU. ``model`` is the policy (a
-    ``Qwen25VL`` on the device the run uses); the trainer updates it in place,
+    """One GRPO/PPO training run on one GPU, or one rank of a run on several
+    (a process group exists: the module docstring). ``model`` is the policy (a
+    ``Qwen25VL`` on the device the run uses, whole: the trainer shards it
+    when it runs on several GPUs); the trainer updates it in place,
     keeps a frozen copy as the reference policy when the KL term is on (on the
     host under ``ref.offload``), and owns the optimizer (its state on the host
     under ``optim.stream``, or between updates under
@@ -421,11 +503,7 @@ class GRPOTrainer:
         algo = config.algorithm
         self.adv_estimator = algo.adv_estimator
         self.use_critic = self.adv_estimator == "gae"
-        if config.trainer.n_chips > 1:
-            raise ValueError(
-                f"trainer.n_chips={config.trainer.n_chips}: the port runs one process on one "
-                "GPU; several come with ROADMAP A13 (multi-GPU). Set trainer.n_chips=1"
-            )
+        self._setup_mesh()
         if self.adv_estimator in ("grpo", "rloo") and config.worker.rollout.n < 2:
             # group-relative baselines degenerate to zero advantage at n=1:
             # training would silently produce zero gradients
@@ -464,8 +542,10 @@ class GRPOTrainer:
         self.ref_model: Optional[Qwen25VL] = None
         self.ref_host = None
         if self.use_ref:
-            if self.ref_offload:
-                self.ref_host = offload_to_host(model.state_dict())
+            if self.ref_offload:  # several GPUs: each rank's own shards
+                self.ref_host = offload_to_host({n: local(t) for n, t in model.state_dict().items()})
+            elif self.mesh is not None:
+                self.ref_model = self._sharded_policy({n: local(p) for n, p in model.named_parameters()})
             else:
                 self.ref_model = copy.deepcopy(model).requires_grad_(False)
         # seconds and bytes of the last ref restore and streamed apply
@@ -490,6 +570,7 @@ class GRPOTrainer:
             # double what the card holds beside the parameters), fp32 otherwise
             grad_accum_dtype=getattr(
                 torch, opt_cfg.grad_accum_dtype or ("bfloat16" if self.stream_opt else "float32")),
+            groups=self.groups, sp=self.sp,
         )
         opt_kwargs = dict(
             weight_decay=opt_cfg.weight_decay,
@@ -541,8 +622,9 @@ class GRPOTrainer:
             temperature=vo.temperature, top_p=vo.top_p, top_k=vo.top_k, n=vo.n
         )
 
-        self.tracker = Tracker(
-            config.trainer.logger, config.trainer.project_name, config.trainer.experiment_name,
+        self.tracker = Tracker(  # several GPUs: rank 0 logs
+            config.trainer.logger if self.rank == 0 else [], config.trainer.project_name,
+            config.trainer.experiment_name,
             base_dir=config.trainer.save_checkpoint_path or ".",
         )
         self.ckpt = CheckpointManager(
@@ -589,6 +671,8 @@ class GRPOTrainer:
             backbone = init_params(self.critic_model_cfg, generator, device=self.device, dtype=dtype)
         self.critic = Critic(backbone, generator)
         del backbone
+        if self.mesh is not None:
+            shard_model(self.critic, self.mesh)
         opt = critic_cfg.optim
         self.critic_optimizer = make_optimizer(
             opt.lr, weight_decay=opt.weight_decay, betas=tuple(opt.betas),
@@ -602,23 +686,73 @@ class GRPOTrainer:
             max_grad_norm=critic_cfg.max_grad_norm,
             remat=sharding.remat_policy if sharding.remat else False,
             grad_accum_dtype=getattr(torch, opt.grad_accum_dtype or "float32"),
+            groups=self.groups, sp=self.sp,
         )
 
     def compute_values_batched(self, batch: RolloutBatch) -> np.ndarray:
         return compute_values_batched(
             self.critic, batch,
             micro_batch_size=self.config.worker.critic.micro_batch_size_per_device_for_experience,
-            device=self.device,
+            device=self.device, sp=self.sp, lockstep=self.lockstep,
         )
 
     def update_critic(self, batch: RolloutBatch) -> Dict[str, float]:
         critic = self.config.worker.critic
         return update_critic(
             batch, self.critic_update_fn, self.critic.cfg.vision,
-            global_batch_size=critic.global_batch_size,
+            global_batch_size=self._local_rows(critic.global_batch_size),
             micro_batch_size=critic.micro_batch_size_per_device_for_update,
             ppo_epochs=critic.ppo_epochs, global_step=self.global_step, device=self.device,
+            lockstep=self.lockstep,
         )
+
+    # ------------------------------------------------------------------- mesh
+
+    def _setup_mesh(self) -> None:
+        """The distributed branch's state, set whenever a process group
+        exists (``mesh`` None otherwise): the mesh (``parallel/mesh.py``),
+        the sharded policy, the sp spec and the groups the update reduces
+        over, with the JAX trainer's checks."""
+        config, model = self.config, self.model
+        self.mesh = self.sp = self.groups = None
+        self.lockstep = Lockstep()
+        self.world, self.rank, self.batch_ranks, self.batch_index = 1, 0, 1, 0
+        n_chips = config.trainer.n_chips
+        if not dist.is_initialized():
+            if n_chips > 1:
+                raise ValueError(
+                    f"trainer.n_chips={n_chips} but this process has no process group: launch "
+                    f"one rank per GPU (torchrun --nproc_per_node={n_chips} -m "
+                    "spatialthinker_torch.trainer.main ...), or set trainer.n_chips=1")
+            return
+        self.world, self.rank = dist.get_world_size(), dist.get_rank()
+        local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", self.world // max(config.trainer.nnodes, 1)))
+        mesh_checks(config, self.model_cfg.text.num_key_value_heads, self.world, local_ranks)
+        sh, actor = config.worker.actor.sharding, config.worker.actor
+        sp_size = actor.ulysses_sequence_parallel_size
+        self.mesh = create_mesh(sh.data_size, sh.fsdp_size, sh.model_size, device_type=self.device.type)
+        self.groups = DistGroups(batch=batch_group(self.mesh), norm=norm_group(self.mesh))
+        self.batch_ranks = dist.get_world_size(self.groups.batch)
+        self.batch_index = batch_rank(self.mesh)
+        if sp_size > 1:
+            self.sp = UlyssesSpec(sp_group(self.mesh), self.groups.batch, actor.sequence_parallel_backend)
+        self.lockstep = Lockstep(dist.group.WORLD)
+        shard_model(model, self.mesh)
+
+    def _local_rows(self, global_rows: int) -> int:
+        """A global row count (``global_batch_size``) as this rank's share."""
+        return max(global_rows // self.batch_ranks, 1)
+
+    def _sharded_policy(self, shards: Dict[str, torch.Tensor]) -> Qwen25VL:
+        """A second sharded policy (the reference) holding ``shards`` (this
+        rank's pieces, on the card or the host), frozen."""
+        ref = Qwen25VL(self.model_cfg, device="meta", dtype=self.model.text.norm.weight.dtype)
+        shard_model(ref, self.mesh)
+        ref.to_empty(device=self.device)
+        with torch.no_grad():
+            for name, p in ref.named_parameters():
+                local(p).copy_(shards[name])
+        return ref.requires_grad_(False)
 
     # ------------------------------------------------------------------ utils
 
@@ -689,7 +823,11 @@ class GRPOTrainer:
         once; the host-side tensors are repeated to match the [prompt0 x n,
         ...] row order. (The JAX trainer's per-sample prefill exists for
         meshes whose batch axis does not divide the unique prompts; one device
-        always groups.)"""
+        always groups.) On several GPUs each rank runs its own engine on its
+        own prompts over a gathered copy of the weights (``unsharded_copy``;
+        the JAX trainer's lockstep engines over one global queue and a page
+        pool sharded over pages exist because XLA runs one program over every
+        device); greedy rows are the same either way."""
         n = sampling.n
         generator = generator if generator is not None else self._rollout_generator(0)
         self._last_rollout_stats = {}  # per-rollout telemetry, never stale
@@ -701,11 +839,13 @@ class GRPOTrainer:
         # the rollout copy follows the knobs as they stand at this rollout
         # (W8A8, or W8A8 + int4 MLP decode copies), quantized anew each time:
         # the optimizer just rewrote the weights
-        gen_model = self.model
+        gen_model = self.model if self.mesh is None else unsharded_copy(self.model)
         if roll.quantization != "none":
-            gen_model = quantize_model(self.model, mode=roll.quantization,
+            gen_model = quantize_model(gen_model, mode=roll.quantization,
                                        prefill_dequant_min_m=self.prefill_dequant_min_m)
-        base = trim_prompt_padding(batch)
+        # one prompt width on every rank: the sp group shares its rows later
+        base = trim_prompt_padding(
+            batch, negotiated_max=self.lockstep.max(int(batch.tensors["segment_ids"].sum(-1).max())))
         repeated = base.repeat(n, interleave=True) if n > 1 else base
 
         kv_dtype = KV_CACHE_DTYPES[roll.kv_cache_dtype]
@@ -785,7 +925,7 @@ class GRPOTrainer:
             model, batch,
             micro_batch_size=self.config.worker.actor.micro_batch_size_per_device_for_experience,
             padding_free=self.padding_free, temperature=self.config.worker.rollout.temperature,
-            device=self.device,
+            device=self.device, sp=self.sp, lockstep=self.lockstep,
         )
 
     def compute_advantages(self, batch: RolloutBatch) -> Tuple[np.ndarray, np.ndarray]:
@@ -804,8 +944,9 @@ class GRPOTrainer:
 
     def _update_actor_inner(self, batch: RolloutBatch) -> Dict[str, float]:
         actor = self.config.worker.actor
-        common = dict(global_batch_size=actor.global_batch_size, ppo_epochs=actor.ppo_epochs,
-                      global_step=self.global_step, device=self.device)
+        common = dict(global_batch_size=self._local_rows(actor.global_batch_size),
+                      ppo_epochs=actor.ppo_epochs, global_step=self.global_step, device=self.device,
+                      lockstep=self.lockstep)
         if self.padding_free:
             metrics = update_actor_packed(
                 batch, self.packed_update_fn, self.model_cfg.vision,
@@ -826,8 +967,11 @@ class GRPOTrainer:
         if self.ref_host is None:
             return self.ref_model
         t0 = time.perf_counter()
-        ref = Qwen25VL(self.model_cfg, device="meta", dtype=self.model.text.norm.weight.dtype)
-        ref.load_state_dict(restore_from_host(self.ref_host), assign=True)
+        if self.mesh is not None:
+            ref = self._sharded_policy(host_view(self.ref_host))
+        else:
+            ref = Qwen25VL(self.model_cfg, device="meta", dtype=self.model.text.norm.weight.dtype)
+            ref.load_state_dict(restore_from_host(self.ref_host), assign=True)
         self.host_state_stats.update(ref_restore_s=time.perf_counter() - t0,
                                      ref_restore_bytes=host_bytes(self.ref_host))
         return ref.requires_grad_(False)
@@ -897,11 +1041,14 @@ class GRPOTrainer:
             with timer("reward"):
                 reward_tensor, reward_metrics = self.reward_fn(rolled)
                 rolled.tensors["token_level_scores"] = reward_tensor
+                reward_metrics = self._gather_lists(reward_metrics)
 
             # trim the response buffer to the batch's longest response
             # (bucketed): most rollouts hit EOS early, so the log-prob and
             # update forwards see far fewer padded positions
-            rolled = trim_response_padding(rolled)
+            rolled = trim_response_padding(
+                rolled, negotiated_max=self.lockstep.max(int(rolled.tensors["response_mask"].sum(-1).max())))
+            rolled = self._share_sp(rolled)
 
             with timer("balance"):
                 # Karmarkar-Karp token-load balance across micro-batch slots
@@ -930,6 +1077,9 @@ class GRPOTrainer:
                     rolled.tensors["values"] = self.compute_values_batched(rolled)
 
             with timer("adv"):
+                # on the union of the ranks' rows (whitening and the KL
+                # controller read batch statistics); this rank keeps its rows
+                kld = None
                 if self.use_kl_in_reward and self.use_ref:
                     kld = compute_kl(
                         torch.as_tensor(rolled.tensors["old_log_probs"]),
@@ -939,15 +1089,16 @@ class GRPOTrainer:
                     rolled.tensors["token_level_rewards"] = (
                         rolled.tensors["token_level_scores"] - self.kl_ctrl.kl_coef * kld
                     )
-                    mean_kl = float(
-                        (kld.sum(-1) / np.maximum(rolled.tensors["response_mask"].sum(-1), 1)).mean()
-                    )
-                    self.kl_ctrl.update(mean_kl, len(rolled))
                 else:
                     rolled.tensors["token_level_rewards"] = rolled.tensors["token_level_scores"]
-                adv, ret = self.compute_advantages(rolled)
-                rolled.tensors["advantages"] = adv
-                rolled.tensors["returns"] = ret
+                glob = self._global_rows(rolled, **({} if kld is None else {"kld": kld}))
+                if kld is not None:
+                    kld, mask = glob.tensors["kld"], glob.tensors["response_mask"]
+                    self.kl_ctrl.update(float((kld.sum(-1) / np.maximum(mask.sum(-1), 1)).mean()), len(glob))
+                adv, ret = self.compute_advantages(glob)
+                rows = self._own_rows(len(rolled))
+                rolled.tensors["advantages"] = adv[rows]
+                rolled.tensors["returns"] = ret[rows]
 
             critic_metrics: Dict[str, float] = {}
             if self.use_critic:
@@ -968,13 +1119,14 @@ class GRPOTrainer:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
 
+        # the logged numbers are the union of the ranks' rows, as JAX's global arrays
+        patches = [0 if p is None else len(p) for p in rolled.non_tensors.get("patches", [])]
+        rolled = self._global_rows(rolled, patch_count=np.asarray(patches or [0] * len(rolled)))
         num_tokens = int(rolled.tensors["response_mask"].sum() + rolled.tensors["segment_ids"].sum())
         seqlens_all = rolled.tensors["full_segment_ids"].sum(-1).astype(np.int64).tolist()
-        vision_patches = float(sum(
-            0 if p is None else len(p) for p in rolled.non_tensors.get("patches", [])
-        ))
+        vision_patches = float(rolled.tensors["patch_count"].sum())
         mfu = compute_mfu(
-            self.flops_counter, seqlens_all, timer.timing["update_actor"], 1,
+            self.flops_counter, seqlens_all, timer.timing["update_actor"], self.world,
             self.config.worker.actor.ppo_epochs, vision_patches=vision_patches,
         )
         drift = not roll.use_rollout_log_probs and "rollout_log_probs" in rolled.tensors
@@ -999,8 +1151,48 @@ class GRPOTrainer:
             **actor_metrics,
             **critic_metrics,
             **compute_timing_metrics(timer.timing, num_tokens),
-            **compute_throughput_metrics(num_tokens, timer.timing["step"], 1),
+            **compute_throughput_metrics(num_tokens, timer.timing["step"], self.world),
         }
+
+    # ------------------------------------------------------- rows across ranks
+
+    def _gather_lists(self, metrics: Dict[str, list], group=None) -> Dict[str, list]:
+        """Per-row metric lists of every rank, concatenated (one process: as
+        they are)."""
+        if self.mesh is None:
+            return metrics
+        parts = allgather_pyobj(metrics, group)
+        return {k: [x for part in parts for x in np.asarray(part[k]).tolist()] for k in metrics}
+
+    @staticmethod
+    def _concat(parts: List[RolloutBatch]) -> RolloutBatch:
+        return RolloutBatch(
+            tensors={k: np.concatenate([p.tensors[k] for p in parts]) for k in parts[0].tensors},
+            non_tensors={k: _obj([x for p in parts for x in p.non_tensors[k]]) for k in parts[0].non_tensors},
+            meta=parts[0].meta,
+        )
+
+    def _share_sp(self, rolled: RolloutBatch) -> RolloutBatch:
+        """The rows of the whole sp group (each rank rolled out its own
+        prompts), in sp-rank order: the ranks of an sp group hold the same
+        rows from here on and split their sequence."""
+        if self.sp is None:
+            return rolled
+        return self._concat(allgather_pyobj(rolled, self.sp.group))
+
+    def _global_rows(self, rolled: RolloutBatch, **extra) -> RolloutBatch:
+        """The union of the batch group's rows (tensors, ``extra`` per-row
+        arrays and the uids) in batch-rank order; one process: its own."""
+        tensors = {**rolled.tensors, **extra}
+        uid = {"uid": rolled.non_tensors["uid"]} if "uid" in rolled.non_tensors else {}
+        mine = RolloutBatch(tensors=tensors, non_tensors=uid, meta=rolled.meta)
+        if self.mesh is None:
+            return mine
+        return self._concat(allgather_pyobj(mine, self.groups.batch))
+
+    def _own_rows(self, n: int) -> slice:
+        """This rank's rows of ``_global_rows``' result."""
+        return slice(self.batch_index * n, (self.batch_index + 1) * n)
 
     # ------------------------------------------------------------- validation
 
@@ -1022,6 +1214,10 @@ class GRPOTrainer:
                      str(rolled.non_tensors["ground_truth"][i]),
                      float(reward_tensor[i].sum()))
                 )
+        # every rank scored its own rows: the whole validation set's
+        all_scores = self._gather_lists(all_scores)
+        if self.mesh is not None:
+            candidates = [c for part in allgather_pyobj(candidates) for c in part]
         # deterministic subsample of the whole validation set (sort by input,
         # fixed-seed shuffle, take N); only the selected rows are decoded
         cap = self.config.trainer.val_generations_to_log
@@ -1044,24 +1240,58 @@ class GRPOTrainer:
         """A GAE run nests parameters and optimizer state under ``"actor"``
         and ``"critic"``, as the JAX trainer's checkpoints do. Optimizer state
         on the host (streamed, or offloaded between updates) is written from
-        its host copies, in the same layout."""
-        params = self.model.state_dict()
-        opt_state = host_view(self.optimizer.state)
+        its host copies, in the same layout. On several GPUs every tensor is
+        gathered whole and rank 0 writes the same files, so a checkpoint
+        resumes on any number of GPUs (``tools/model_merger.py`` reads it
+        unchanged)."""
+        params = self._full_params(self.model)
+        opt_state = self._full_opt_state(self.optimizer.state, self.model)
         if self.use_critic:
-            params = {"actor": params, "critic": self.critic.state_dict()}
-            opt_state = {"actor": opt_state, "critic": self.critic_optimizer.state}
-        self.ckpt.save(
-            self.global_step,
-            params=params,
-            opt_state=opt_state,
-            dataloader_state=getattr(self.train_dataloader, "state_dict", lambda: {})(),
-            rng_state=self.generator.get_state(),
-        )
+            params = {"actor": params, "critic": self._full_params(self.critic)}
+            opt_state = {"actor": opt_state,
+                         "critic": self._full_opt_state(self.critic_optimizer.state, self.critic)}
+        if self.rank == 0:
+            self.ckpt.save(
+                self.global_step,
+                params=params,
+                opt_state=opt_state,
+                dataloader_state=getattr(self.train_dataloader, "state_dict", lambda: {})(),
+                rng_state=self.generator.get_state(),
+            )
+        if self.mesh is not None:
+            dist.barrier()
+
+    def _full_params(self, model) -> Dict[str, torch.Tensor]:
+        """The state dict to write: whole tensors (on rank 0, on the host,
+        several GPUs)."""
+        if self.mesh is None:
+            return model.state_dict()
+        from torch.distributed.checkpoint.state_dict import StateDictOptions, get_model_state_dict
+
+        return get_model_state_dict(model, options=StateDictOptions(full_state_dict=True, cpu_offload=True))
+
+    def _full_opt_state(self, state, model):
+        """An optimizer state to write: each moment of a sharded parameter
+        gathered whole, one at a time (rank 0 keeps it on the host)."""
+        state = host_view(state)
+        if self.mesh is None:
+            return state
+        params = dict(model.named_parameters())
+        out = {"count": state["count"]}
+        for kind in ("mu", "nu", "compensation"):
+            out[kind] = {}
+            for name, shard in state[kind].items():
+                whole = full_tensor(shard.to(self.device), params[name])
+                if self.rank == 0:
+                    out[kind][name] = whole.cpu()
+        return out
 
     def load_checkpoint(self):
         path = self.config.trainer.load_checkpoint_path
         if not path:
             return
+        if self.mesh is not None:
+            return self._load_checkpoint_sharded(path)
         state = self.ckpt.load(path)
         if state is None:
             return
@@ -1083,6 +1313,77 @@ class GRPOTrainer:
             self.train_dataloader.load_state_dict(state["dataloader_state"])
         if state.get("rng_state") is not None:
             self.generator.set_state(state["rng_state"])
+
+
+    def _load_checkpoint_sharded(self, path: str) -> None:
+        """``load_checkpoint`` on several GPUs: rank 0 reads the files and
+        broadcasts; each rank keeps its pieces."""
+        from torch.distributed.checkpoint.state_dict import StateDictOptions, set_model_state_dict
+
+        state = self.ckpt.load(path) if self.rank == 0 else None
+        box = [None if state is None else {k: v for k, v in state.items()
+                                            if k not in ("params", "opt_state")}]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is None:
+            return
+        params = state["params"] if state is not None else {}
+        opt_state = state["opt_state"] if state is not None else {}
+        nested = [set(params) == {"actor", "critic"}]
+        dist.broadcast_object_list(nested, src=0)
+        if nested[0] != self.use_critic:
+            raise ValueError(
+                "checkpoint layout does not match this run: a GAE run (algorithm.adv_estimator="
+                "gae) saves and loads {'actor', 'critic'}, every other estimator the policy alone"
+            )
+        pairs = [(self.model, self.optimizer, "actor")]
+        if self.use_critic:
+            pairs.append((self.critic, self.critic_optimizer, "critic"))
+        options = StateDictOptions(full_state_dict=True, broadcast_from_rank0=True)
+        for model, optimizer, role in pairs:
+            p = params.get(role, {}) if self.use_critic else params
+            o = opt_state.get(role, {}) if self.use_critic else opt_state
+            # the broadcast sends a tensor's storage as it lies: make it row-major
+            set_model_state_dict(model, {k: v.contiguous() for k, v in p.items()}, options=options)
+            _load_sharded_optimizer_state(optimizer.state, o, model, self.device)
+        self.global_step = box[0]["step"]
+        if box[0].get("dataloader_state") and hasattr(self.train_dataloader, "load_state_dict"):
+            self.train_dataloader.load_state_dict(box[0]["dataloader_state"])
+        if box[0].get("rng_state") is not None:
+            self.generator.set_state(box[0]["rng_state"])
+
+
+@torch.no_grad()
+def _load_sharded_optimizer_state(mine, saved, model, device) -> None:
+    """``_load_optimizer_state`` on several GPUs: ``saved`` (whole tensors)
+    is rank 0's, each moment broadcast and cut to this rank's piece."""
+    params = dict(model.named_parameters())
+    box = [{"count": int(saved["count"]),
+            "names": {k: sorted(saved[k]) for k in ("mu", "nu", "compensation")},
+            "dtypes": {k: {n: v.dtype for n, v in saved[k].items()}
+                       for k in ("mu", "nu", "compensation")}} if saved else None]
+    dist.broadcast_object_list(box, src=0)
+    meta = box[0]
+    mine["count"] = meta["count"]
+    for kind in ("mu", "nu", "compensation"):
+        if set(meta["names"][kind]) != set(mine[kind]):
+            raise ValueError(
+                f"checkpoint optimizer state {kind!r} does not match this run's "
+                "(another strategy, or a frozen vision tower on one side)"
+            )
+        for name in meta["names"][kind]:
+            target = mine[kind][name]
+            target = target.buffer if isinstance(target, HostLeaf) else target
+            if meta["dtypes"][kind][name] != target.dtype:
+                raise ValueError(
+                    f"checkpoint optimizer state {kind!r} is {meta['dtypes'][kind][name]}, this "
+                    f"run's is {target.dtype}: saved under another optim.strategy "
+                    "(optim.stream keeps bf16 moments)"
+                )
+            like = params[name]
+            whole = (saved[kind][name].to(device).contiguous() if saved else
+                     torch.empty(like.shape, dtype=target.dtype, device=device))
+            dist.broadcast(whole, src=0)
+            target.copy_(local_piece(whole, like))
 
 
 @torch.no_grad()

@@ -1,11 +1,16 @@
 """CLI entry point: ``python -m spatialthinker_torch.trainer.main config=cfg.yaml
 key.sub=value ...`` — the grammar of the JAX package's ``trainer/main.py`` and
-of the reference (verl/trainer/main.py:88-105, scripts/*.sh), one process, one
-GPU.
+of the reference (verl/trainer/main.py:88-105, scripts/*.sh).
 
-The run uses the current CUDA device. ``SPATIALTHINKER_PLATFORM=cpu`` in the
-environment asks for the CPU instead (smoke runs and tests); without a card
-and without that request the entry point raises.
+One process runs on the current CUDA device. Several GPUs: one process per
+GPU, ``torchrun --nproc_per_node=N -m spatialthinker_torch.trainer.main ...
+trainer.n_chips=N``; each rank takes ``cuda:LOCAL_RANK`` before anything
+touches a card, brings the process group up (NCCL; ``parallel/multihost.py``,
+also when ``trainer.nnodes`` > 1), builds the model and hands the trainer,
+which shards it, its row slice of every batch. ``SPATIALTHINKER_PLATFORM=cpu``
+in the environment asks for the CPU instead (smoke runs and tests; gloo
+between ranks); without a card and without that request the entry point
+raises.
 
 ``SPATIALTHINKER_PREFILL_DEQUANT_M`` (the JAX CLI's knob, 0 = off) is read
 here, once, and handed to the trainer as ``prefill_dequant_min_m``: the same
@@ -20,11 +25,13 @@ import sys
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..core.config import PPOConfig, build_config, config_summary
 from ..data.dataset import DataLoader, RLHFDataset
 from ..models.qwen2_5_vl import Qwen25VL, Qwen25VLConfig, get_config, init_params
 from ..models.qwen2_5_vl.params import default_device, is_hf_checkpoint_dir, load_params
+from ..parallel.multihost import initialize_if_needed, launched
 from ..rewards.manager import RewardManager
 from .grpo_trainer import GRPOTrainer
 
@@ -73,15 +80,17 @@ def build_trainer(config: PPOConfig, tokenizer, model: Qwen25VL, train_ds, val_d
     calls it after loading from files, a caller with rows in memory
     (``RLHFDataset.from_rows``) gets the same trainer. ``prefill_dequant_min_m``
     > 0 turns on the rollout copy's prefill-dequant mode."""
+    # several GPUs: every rank walks the same global order and takes its rows
+    shard = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else None
     train_loader = DataLoader(
         train_ds, config.data.rollout_batch_size, shuffle=config.data.shuffle,
         seed=config.data.seed, num_workers=config.data.num_workers,
-        prefetch_batches=config.data.prefetch_batches,
+        prefetch_batches=config.data.prefetch_batches, process_shard=shard,
     )
     val_loader = None
     if val_ds is not None:
         val_bs = config.data.val_batch_size if config.data.val_batch_size > 0 else len(val_ds)
-        val_loader = DataLoader(val_ds, val_bs, shuffle=False)
+        val_loader = DataLoader(val_ds, val_bs, shuffle=False, process_shard=shard)
     reward_cfg = config.worker.reward
     reward_fn = RewardManager(
         tokenizer, reward_cfg.score_function,
@@ -94,8 +103,13 @@ def build_trainer(config: PPOConfig, tokenizer, model: Qwen25VL, train_ds, val_d
 
 
 def run(config: PPOConfig, prefill_dequant_min_m: int = 0) -> None:
+    on_card = os.environ.get("SPATIALTHINKER_PLATFORM", "").lower() != "cpu"
+    if launched() and on_card and torch.cuda.is_available():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
     device = run_device()
-    print(config_summary(config))
+    initialize_if_needed(device.type, force=config.trainer.nnodes > 1)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(config_summary(config))
     model = build_model(config, device=device)
     tokenizer = load_tokenizer(config.worker.actor.model.tokenizer_path, model.cfg)
     limit = config.worker.rollout.limit_images

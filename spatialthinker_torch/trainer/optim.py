@@ -21,7 +21,8 @@ moments, compensation and count untouched -- when ``finite`` is false.
 Parameters, moments and buffers are updated in place; a leaf's fp32
 temporaries are capped by walking it in row chunks. State is kept by
 parameter name: ``{"count": int, "mu": {name: tensor}, "nu": ...,
-"compensation": ...}``.
+"compensation": ...}``. A sharded parameter (FSDP's ``DTensor``) is walked as
+this rank's shard (``to_local()``), and its state has the shard's shape.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
+
+from ..parallel.sharding import local
 
 _CHUNK_ELEMENTS = 1 << 24  # fp32 temporaries of one chunk: 64 MB each
 
@@ -119,6 +122,7 @@ class AdamW:
         return torch.bfloat16 if self.strategy == "adamw_bf16" else torch.float32
 
     def _leaf_state(self, name: str, p: torch.Tensor):
+        p = local(p)
         mu, nu, comp = self.state["mu"], self.state["nu"], self.state["compensation"]
         if name not in mu:
             mu[name] = torch.zeros_like(p, dtype=self.moment_dtype)
@@ -146,6 +150,7 @@ class AdamW:
             if g is None:
                 continue
             mu, nu, comp = self._leaf_state(name, p)
+            p, g = local(p), local(g)
             for sl in _row_chunks(p):
                 if self.strategy == "adamw":
                     adamw_leaf_(p[sl], g[sl], mu[sl], nu[sl], **hyper)

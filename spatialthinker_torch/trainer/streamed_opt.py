@@ -24,7 +24,9 @@ host moments are current.
 ``state`` has the fused optimizer's layout (``{"count", "mu", "nu",
 "compensation"}``, keyed by parameter name; ``compensation`` empty without
 Kahan), so checkpoints are written and read as the fused optimizer's are. A
-non-finite step changes nothing, the count included.
+non-finite step changes nothing, the count included. On several GPUs each
+rank pins and streams the moments of its own parameter shards only
+(``to_local()``); the JAX class runs on one device only.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple, TypedDict
 import torch
 
 from ..parallel.offload import pinned_zeros
+from ..parallel.sharding import local
 from .optim import _row_chunks, any_precision_leaf_
 
 # leaves at least this big stream in row slices; smaller leaves go whole
@@ -80,6 +83,7 @@ class StreamedAdamW:
         """Allocate the host moments (and compensation) of every named
         parameter, zeroed. Nothing is allocated on the card."""
         for name, p in named_params:
+            p = local(p)  # a sharded parameter: this rank's shard only
             if name in self.state["mu"]:
                 continue
             self.state["mu"][name] = _host_zeros(p, self.moment_dtype)
@@ -123,6 +127,7 @@ class StreamedAdamW:
             g = grads.get(name)
             if g is None:
                 continue
+            p, g = local(p), local(g)
             mu_h, nu_h = state["mu"][name], state["nu"][name]
             comp_h = state["compensation"].get(name)
             if p.dim() == 0:  # a scalar goes as one row

@@ -21,8 +21,19 @@ JAX package's separate grad-then-apply program under ``optim.stream`` is the
 same ``make_update_fn`` here. ``remat`` is False, "full" or "dots" (True:
 "dots"), the JAX package's policies (``models.qwen2_5_vl.text.checkpointed``).
 
-Single device only: the JAX package's ``sp=`` argument (Ulysses sequence
-parallelism) waits for the multi-GPU port.
+Several GPUs (one process each, the model sharded by ``parallel/sharding.py``):
+``groups`` (``DistGroups``) makes the update equal the single-process update
+on the union of the ranks' rows. Each micro-batch's loss and metrics on a
+rank are its own tokens' sum over the GLOBAL token count of that micro-batch
+(the JAX package's token mean over the global micro-batch), FSDP sums the
+ranks' gradients, the norm sums the squares of every rank's shards, so the
+clip and the NaN skip are one decision for all ranks, and the metrics are
+summed over the ranks. Every rank must run the same number of micro-batches
+(the trainer negotiates it). ``sp`` (``ops.ulysses.UlyssesSpec``) is
+sequence parallelism over the mesh's ``model`` axis: each rank of an sp group
+holds a chunk of the same rows' sequence; the losses work on position-aligned
+chunks (the per-sample layout's responses placed at their prediction slots),
+the log-prob functions gather the chunks of their result.
 """
 
 from __future__ import annotations
@@ -32,11 +43,15 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+import torch.distributed as dist
+
 from ..algos.losses import compute_kl, compute_policy_loss
 from ..algos.masked import masked_mean
 from ..models.qwen2_5_vl.host import VisionInputs
 from ..models.qwen2_5_vl.model import Qwen25VL, forward
 from ..ops.logprobs import log_probs_from_hidden
+from ..ops.ulysses import all_gather_seq, seq_chunk
+from ..parallel.sharding import is_sharded, local
 from .optim import AdamW, make_schedule
 
 
@@ -66,6 +81,35 @@ class PackedTrainBatch(NamedTuple):
     advantages: torch.Tensor     # (rows, L)
 
 
+class DistGroups(NamedTuple):
+    """Where a multi-GPU update reduces (``parallel/mesh.py``): ``batch`` the
+    ranks holding other rows (a micro-batch's global token count), ``norm``
+    the ranks whose shards make one copy of the parameters (the gradient
+    norm); the metrics sum over every rank (each token lives on one)."""
+
+    batch: dist.ProcessGroup
+    norm: dist.ProcessGroup
+
+
+def sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` in fp64 (on the card for NCCL, on the host
+    for gloo)."""
+    dev = t.device if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    x = t.detach().to(dev, torch.float64)
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def _aligned(x: torch.Tensor, s: int) -> torch.Tensor:
+    """(B, R) response values -> (B, S) at their prediction slots P-1 ..
+    P+R-2 (zeros elsewhere): the per-sample layout as position-aligned rows,
+    which a sequence chunk can slice."""
+    b, r = x.shape
+    out = x.new_zeros((b, s))
+    out[:, s - r - 1 : s - 1] = x
+    return out
+
+
 def _lm_head(model: Qwen25VL) -> torch.Tensor:
     """The (V, E) head: the embedding table of a tied model."""
     text = model.text
@@ -82,13 +126,42 @@ def _response_hidden(model, batch: TrainBatch, vision, remat: Union[bool, str]) 
     return hidden[:, p - 1 : p - 1 + r]  # (B, R, E)
 
 
+def _hidden_chunk(model, batch, vision, remat, sp) -> torch.Tensor:
+    """This sp rank's chunk of the hidden states (B, S / sp, E)."""
+    hidden, _ = forward(model, batch.input_ids, batch.position_ids, segment_ids=batch.segment_ids,
+                        vision=vision, remat=remat, sp=sp)
+    return hidden
+
+
+def _response_log_probs_chunk(model, batch: TrainBatch, vision, *, remat, chunk_size,
+                              compute_entropy, temperature, sp):
+    """Log-probs (+ entropy) of this sp rank's chunk of the position-aligned
+    responses, (B, S / sp) each, 0 off the responses."""
+    s = batch.input_ids.shape[1]
+    labels = seq_chunk(_aligned(batch.responses, s), sp)
+    mask = seq_chunk(_aligned(batch.response_mask.float(), s), sp)
+    logp, entropy = log_probs_from_hidden(
+        _hidden_chunk(model, batch, vision, remat, sp), labels, _lm_head(model),
+        chunk_size=chunk_size, compute_entropy=compute_entropy, temperature=temperature,
+    )
+    return logp * mask, entropy * mask
+
+
 def compute_log_probs(
     model: Qwen25VL, batch: TrainBatch, vision: Optional[VisionInputs] = None,
     *, remat: Union[bool, str] = False, chunk_size: int = 1024, compute_entropy: bool = False,
-    temperature: float = 1.0,
+    temperature: float = 1.0, sp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, R) log-probs of the sampled responses under ``model`` (+ entropy),
-    evaluated at the rollout temperature (behavior-policy distribution)."""
+    evaluated at the rollout temperature (behavior-policy distribution).
+    Under ``sp`` every rank of the sp group returns the whole (B, R),
+    gathered from the chunks without a gradient (the loss works on chunks)."""
+    if sp is not None:
+        s, r = batch.input_ids.shape[1], batch.responses.shape[1]
+        chunks = _response_log_probs_chunk(
+            model, batch, vision, remat=remat, chunk_size=chunk_size,
+            compute_entropy=compute_entropy, temperature=temperature, sp=sp)
+        return tuple(all_gather_seq(t, sp.group)[:, s - r - 1 : s - 1] for t in chunks)
     hidden = _response_hidden(model, batch, vision, remat)
     return log_probs_from_hidden(
         hidden, batch.responses, _lm_head(model), chunk_size=chunk_size,
@@ -96,27 +169,50 @@ def compute_log_probs(
     )
 
 
+def _packed_log_probs_chunk(model, batch: PackedTrainBatch, vision, *, remat, chunk_size,
+                            compute_entropy, temperature, sp):
+    labels, mask = batch.labels, batch.loss_mask
+    if sp is not None:
+        labels, mask = seq_chunk(labels, sp), seq_chunk(mask, sp)
+    hidden, _ = forward(
+        model, batch.input_ids, batch.position_ids,
+        segment_ids=batch.segment_ids, vision=vision, remat=remat, sp=sp,
+    )
+    logp, entropy = log_probs_from_hidden(
+        hidden, labels, _lm_head(model), chunk_size=chunk_size,
+        compute_entropy=compute_entropy, temperature=temperature,
+    )
+    return logp * mask, entropy * mask
+
+
 def compute_packed_log_probs(
     model: Qwen25VL, batch: PackedTrainBatch, vision: Optional[VisionInputs] = None,
     *, remat: Union[bool, str] = False, chunk_size: int = 1024, compute_entropy: bool = False,
-    temperature: float = 1.0,
+    temperature: float = 1.0, sp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rows, L) label log-probs on packed rows (masked positions -> 0).
-    ``vision`` must be packed in the rows' image-token order (row-major)."""
-    hidden, _ = forward(
-        model, batch.input_ids, batch.position_ids,
-        segment_ids=batch.segment_ids, vision=vision, remat=remat,
-    )
-    logp, entropy = log_probs_from_hidden(
-        hidden, batch.labels, _lm_head(model), chunk_size=chunk_size,
-        compute_entropy=compute_entropy, temperature=temperature,
-    )
-    return logp * batch.loss_mask, entropy * batch.loss_mask
+    ``vision`` must be packed in the rows' image-token order (row-major).
+    Under ``sp`` the sp group's chunks are gathered, as in
+    ``compute_log_probs``."""
+    out = _packed_log_probs_chunk(model, batch, vision, remat=remat, chunk_size=chunk_size,
+                                  compute_entropy=compute_entropy, temperature=temperature, sp=sp)
+    if sp is not None:
+        out = tuple(all_gather_seq(t, sp.group) for t in out)
+    return out
+
+
+def token_share(values: Dict[str, torch.Tensor], mask: torch.Tensor, n_tokens) -> Dict[str, torch.Tensor]:
+    """Masked means over this rank's tokens -> this rank's share of the
+    means over ``n_tokens`` tokens (None: unchanged)."""
+    if n_tokens is None:
+        return values
+    share = mask.sum() / n_tokens
+    return {k: v * share for k, v in values.items()}
 
 
 def _policy_loss(logp, entropy, mask, old_log_probs, ref_log_probs, advantages, *,
                  clip_ratio_low, clip_ratio_high, clip_ratio_dual, use_kl_loss, kl_loss_coef,
-                 kl_penalty, entropy_coeff):
+                 kl_penalty, entropy_coeff, n_tokens=None):
     pg_loss, clip_hi, clip_lo, ppo_kl = compute_policy_loss(
         old_log_probs, logp, advantages, mask, clip_ratio_low, clip_ratio_high, clip_ratio_dual,
     )
@@ -135,7 +231,8 @@ def _policy_loss(logp, entropy, mask, old_log_probs, ref_log_probs, advantages, 
         entropy_loss = masked_mean(entropy, mask)
         loss = loss - entropy_coeff * entropy_loss
         metrics["actor/entropy_loss"] = entropy_loss
-    return loss, metrics
+    out = token_share({"loss": loss, **metrics}, mask, n_tokens)
+    return out.pop("loss"), out
 
 
 def actor_loss_fn(
@@ -143,16 +240,25 @@ def actor_loss_fn(
     *, clip_ratio_low: float, clip_ratio_high: float, clip_ratio_dual: float,
     use_kl_loss: bool, kl_loss_coef: float, kl_penalty: str, entropy_coeff: float = 0.0,
     remat: Union[bool, str] = True, chunk_size: int = 1024, temperature: float = 1.0,
+    sp=None, n_tokens=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logp, entropy = compute_log_probs(
-        model, batch, vision, remat=remat, chunk_size=chunk_size,
-        compute_entropy=entropy_coeff != 0.0, temperature=temperature,
-    )
+    """The policy loss of a micro-batch; ``n_tokens`` (the micro-batch's
+    global token count, several GPUs) turns its means into this rank's share."""
+    knobs = dict(remat=remat, chunk_size=chunk_size, compute_entropy=entropy_coeff != 0.0,
+                 temperature=temperature)
+    if sp is None:
+        logp, entropy = compute_log_probs(model, batch, vision, **knobs)
+        per_token = (batch.response_mask.float(), batch.old_log_probs, batch.ref_log_probs,
+                     batch.advantages)
+    else:
+        logp, entropy = _response_log_probs_chunk(model, batch, vision, sp=sp, **knobs)
+        s = batch.input_ids.shape[1]
+        per_token = tuple(seq_chunk(_aligned(x.float(), s), sp) for x in (
+            batch.response_mask, batch.old_log_probs, batch.ref_log_probs, batch.advantages))
     return _policy_loss(
-        logp, entropy, batch.response_mask.float(), batch.old_log_probs, batch.ref_log_probs,
-        batch.advantages, clip_ratio_low=clip_ratio_low, clip_ratio_high=clip_ratio_high,
+        logp, entropy, *per_token, clip_ratio_low=clip_ratio_low, clip_ratio_high=clip_ratio_high,
         clip_ratio_dual=clip_ratio_dual, use_kl_loss=use_kl_loss, kl_loss_coef=kl_loss_coef,
-        kl_penalty=kl_penalty, entropy_coeff=entropy_coeff,
+        kl_penalty=kl_penalty, entropy_coeff=entropy_coeff, n_tokens=n_tokens,
     )
 
 
@@ -161,18 +267,21 @@ def packed_actor_loss_fn(
     *, clip_ratio_low: float, clip_ratio_high: float, clip_ratio_dual: float,
     use_kl_loss: bool, kl_loss_coef: float, kl_penalty: str, entropy_coeff: float = 0.0,
     remat: Union[bool, str] = True, chunk_size: int = 1024, temperature: float = 1.0,
+    sp=None, n_tokens=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Identical math to ``actor_loss_fn`` on packed rows: token-weighted
     masked means make the two layouts numerically equivalent."""
-    logp, entropy = compute_packed_log_probs(
+    logp, entropy = _packed_log_probs_chunk(
         model, batch, vision, remat=remat, chunk_size=chunk_size,
-        compute_entropy=entropy_coeff != 0.0, temperature=temperature,
+        compute_entropy=entropy_coeff != 0.0, temperature=temperature, sp=sp,
     )
+    per_token = (batch.loss_mask, batch.old_log_probs, batch.ref_log_probs, batch.advantages)
+    if sp is not None:
+        per_token = tuple(seq_chunk(x, sp) for x in per_token)
     return _policy_loss(
-        logp, entropy, batch.loss_mask, batch.old_log_probs, batch.ref_log_probs,
-        batch.advantages, clip_ratio_low=clip_ratio_low, clip_ratio_high=clip_ratio_high,
+        logp, entropy, *per_token, clip_ratio_low=clip_ratio_low, clip_ratio_high=clip_ratio_high,
         clip_ratio_dual=clip_ratio_dual, use_kl_loss=use_kl_loss, kl_loss_coef=kl_loss_coef,
-        kl_penalty=kl_penalty, entropy_coeff=entropy_coeff,
+        kl_penalty=kl_penalty, entropy_coeff=entropy_coeff, n_tokens=n_tokens,
     )
 
 
@@ -182,10 +291,20 @@ def trainable_parameters(model: Qwen25VL, freeze_vision_tower: bool = False):
             if not (freeze_vision_tower and n.startswith("vision."))]
 
 
-def _global_norm_f32(grads) -> torch.Tensor:
-    """Global L2 norm with fp32 accumulation and no fp32 copy of a leaf."""
+def _global_norm_f32(grads, group=None) -> torch.Tensor:
+    """Global L2 norm with fp32 accumulation and no fp32 copy of a leaf;
+    ``grads`` are this rank's shards, their squares summed over ``group``."""
     sq = sum(torch.linalg.vector_norm(g, dtype=torch.float32).square() for g in grads.values())
+    if group is not None:
+        sq = sum_over(sq, group).to(sq.device, torch.float32)
     return torch.sqrt(sq)
+
+
+def _token_mask(batch) -> torch.Tensor:
+    """The mask a micro-batch's losses average over."""
+    if isinstance(batch, PackedTrainBatch):
+        return batch.loss_mask
+    return getattr(batch, "train", batch).response_mask
 
 
 def _index(batch, i: int):
@@ -205,11 +324,15 @@ def _micro(batch, vision, i: int):
 def _make_grad_fn(model: Qwen25VL, loss_fn: Callable, *, max_grad_norm: float = 1.0,
                   grad_accum_dtype=torch.float32, freeze_vision_tower: bool = False,
                   loss_key: Optional[str] = "actor/loss", norm_key: str = "actor/grad_norm",
-                  **loss_kwargs):
+                  groups: Optional[DistGroups] = None, **loss_kwargs):
     """The accumulation loop shared by the actor's and the critic's updates:
-    ``loss_fn(model, micro_batch, vision, **loss_kwargs) -> (loss, metrics)``;
-    ``loss_key`` names the loss among the metrics (None: not logged),
-    ``norm_key`` the gradient norm."""
+    ``loss_fn(model, micro_batch, vision, **loss_kwargs) -> (loss, metrics)``,
+    run inside the model's forward (``model(loss_fn, ...)``); ``loss_key``
+    names the loss among the metrics (None: not logged), ``norm_key`` the
+    gradient norm. ``groups``: several GPUs (the module docstring); the
+    accumulators then hold this rank's gradient shards."""
+    sharded = is_sharded(model)
+
     def grad_step(micro_batches, vision=None):
         """micro_batches: a batch tuple with a leading (n_micro,) dim on every
         tensor; ``vision``, when present, a ``VisionInputs`` stacked the same
@@ -217,7 +340,7 @@ def _make_grad_fn(model: Qwen25VL, loss_fn: Callable, *, max_grad_norm: float = 
         named = trainable_parameters(model, freeze_vision_tower)
         frozen = [p for n, p in model.named_parameters()
                   if freeze_vision_tower and n.startswith("vision.") and p.requires_grad]
-        acc = {n: torch.zeros_like(p, dtype=grad_accum_dtype) for n, p in named}
+        acc = {n: torch.zeros_like(local(p), dtype=grad_accum_dtype) for n, p in named}
 
         def accumulate_into(a):
             def hook(p):
@@ -225,7 +348,10 @@ def _make_grad_fn(model: Qwen25VL, loss_fn: Callable, *, max_grad_norm: float = 
                 p.grad = None
             return hook
 
-        handles = [p.register_post_accumulate_grad_hook(accumulate_into(acc[n])) for n, p in named]
+        # FSDP writes each micro-batch's reduced shard into .grad itself (no
+        # accumulate hook fires on a sharded parameter): taken after backward
+        handles = [] if sharded else [
+            p.register_post_accumulate_grad_hook(accumulate_into(acc[n])) for n, p in named]
         for p in frozen:
             p.requires_grad_(False)
         n_micro = _n_micro(micro_batches)
@@ -233,8 +359,18 @@ def _make_grad_fn(model: Qwen25VL, loss_fn: Callable, *, max_grad_norm: float = 
         try:
             for i in range(n_micro):
                 mb, vis = _micro(micro_batches, vision, i)
-                loss, metrics = loss_fn(model, mb, vis, **loss_kwargs)
+                kwargs = dict(loss_kwargs)
+                if groups is not None:  # clamped as masked_mean clamps its count
+                    kwargs["n_tokens"] = max(sum_over(_token_mask(mb).float().sum(), groups.batch).item(), 1e-8)
+                loss, metrics = model(loss_fn, mb, vis, **kwargs)
                 loss.backward()
+                if sharded:
+                    for n, p in named:
+                        if p.grad is not None:
+                            acc[n].add_(local(p.grad).to(acc[n].dtype))
+                            p.grad = None
+                    for p in frozen:  # FSDP may reduce them anyway; they never step
+                        p.grad = None
                 if loss_key is not None:
                     metrics[loss_key] = loss
                 for key, value in metrics.items():
@@ -245,8 +381,10 @@ def _make_grad_fn(model: Qwen25VL, loss_fn: Callable, *, max_grad_norm: float = 
             for p in frozen:
                 p.requires_grad_(True)
         metrics = {k: v / n_micro for k, v in sums.items()}
+        if groups is not None:  # each rank holds its share of every mean
+            metrics = {k: sum_over(v, dist.group.WORLD).float().to(v.device) for k, v in metrics.items()}
 
-        grad_norm = _global_norm_f32(acc) / n_micro
+        grad_norm = _global_norm_f32(acc, None if groups is None else groups.norm) / n_micro
         metrics[norm_key] = grad_norm
         norm = float(grad_norm)
         finite = math.isfinite(norm)

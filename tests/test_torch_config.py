@@ -57,13 +57,10 @@ def test_cli_grammar_and_coercion():
         tc.build_config(["oops"])
 
 
-A13 = "ROADMAP A13"
+A13 = "ROADMAP A13"  # A13b: tensor parallelism (the mesh itself runs, tests/test_torch_mesh.py)
 NO_IDLE_STAGE = "share one parameter set .no idle stage"  # the JAX tree's reason
 REJECTED = [
-    ("worker.actor.sharding.fsdp_size=4", A13), ("worker.actor.sharding.model_size=2", A13),
-    ("worker.ref.sharding.data_size=2", A13), ("worker.critic.sharding.fsdp_size=8", A13),
-    ("worker.actor.ulysses_sequence_parallel_size=2", A13), ("trainer.nnodes=2", A13),
-    ("worker.rollout.tensor_parallel_size=2", A13),
+    ("worker.actor.sharding.model_size=2", A13), ("worker.rollout.tensor_parallel_size=2", A13),
     ("worker.critic.optim.stream=true", "JAX critic reads only optim.lr"),
     ("worker.actor.sharding.host_offload_params=true", NO_IDLE_STAGE),
     ("worker.ref.sharding.host_offload_params=true", NO_IDLE_STAGE),

@@ -131,7 +131,7 @@ def test_flagship_script_dotlist_runs_e2e(tmp_path):
             "worker.rollout.max_num_batched_tokens=", "trainer.",
         ))
     ]
-    with pytest.raises(ValueError, match="ROADMAP A13"):  # the yaml's n_chips=4 reaches the trainer
+    with pytest.raises(ValueError, match="no process group"):  # the yaml's n_chips=4 reaches the trainer
         build(tmp_path, *keep)
     trainer, cfg = build(tmp_path, *keep, "trainer.n_chips=1", "trainer.val_freq=-1", "trainer.save_freq=-1",
                          "trainer.val_before_train=false")
@@ -567,7 +567,7 @@ def test_main_on_a_jsonl_file(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["trainer.n_chips=2"], "ROADMAP A13"),
+    (["trainer.n_chips=2"], "torchrun --nproc_per_node=2"),
     (["worker.rollout.n=1"], "needs worker.rollout.n > 1"),
     (["worker.actor.global_batch_size=3"], "must be divisible"),
 ])
