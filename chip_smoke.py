@@ -60,7 +60,8 @@ non-zero without a device. In order:
       int8 and int4 (no int8 dots) pools;
    then d. the training path: one GRPO step through the functions of
       ``spatialthinker_torch/trainer/grpo_trainer.py``, at 3B widths with
-      ``TRAIN_LAYERS`` of the 36 text layers -- the paged rollout of
+      ``TRAIN_LAYERS`` of the 36 text layers and ``TRAIN_VISION_DEPTH`` of
+      the 32 vision blocks (``cut_depth``) -- the paged rollout of
       path b's requests, old log-probs (policy) and ref log-probs (a frozen copy) on
       packed multimodal rows, GRPO advantages, the packed actor update
       (dual-clip loss + ``low_var_kl``, per-layer checkpointing, the flash
@@ -91,8 +92,9 @@ non-zero without a device. In order:
    i. the critic: path e's dotlist with ``algorithm.adv_estimator=gae`` and
       both optimizers on bf16 moments without a Kahan buffer, the critic's
       checkpoints at ``remat_policy=full`` as the actor's
-      (``GAE_OVERRIDES``), a fresh trainer at full 3B width and depth (the
-      critic shares the actor's preset: bf16 backbone, fp32 value head), ONE
+      (``GAE_OVERRIDES``), a fresh trainer at full 3B width and
+      ``cut_depth`` (the critic shares the actor's preset: bf16
+      backbone, fp32 value head), ONE
       ``train_step``: the paged rollout, old / ref log-probs, the critic's
       values, GAE, the critic's update, the actor's update; the flash calls
       of its first critic micro-batch recorded (``record_call``) and #1 / #2
@@ -116,6 +118,24 @@ non-zero without a device. In order:
       its pages), the first silu junction call and a decode call of kernel A
       recorded, and each kernel held against its plain version on them
       after the step, beside kernel A at the five 7B linears;
+   l. several GPUs on one card, in processes of their own: (l1) the
+      distributed branch at world 1 over NCCL (path e's dotlist at
+      ``cut_depth``, one step), a probe of two NCCL ranks on one
+      device, (l2) ring / Ulysses at sp = 2 as two gloo processes on
+      ``cuda:0`` (``--only-path-l`` runs the build and path l alone);
+   m. Megatron tensor parallelism at tp = 2 as two gloo processes on
+      ``cuda:0``: (m1) the 4-layer 3B model's packed log-probs against the
+      unsharded model's, in fp32 through the plain attention and in bf16
+      through the kernels, beside planted faults as negative controls;
+      (m2) the trainer at ``model_size=2`` / ``tensor_parallel_size=2`` on
+      path e's dotlist at ``TP_M2_LAYERS`` text layers and
+      ``TRAIN_VISION_DEPTH`` vision blocks (full widths), 3 prompts x n 8,
+      ONE step: one paged engine a TP group (W8A8, int4 pools,
+      ``int4_i8dot``), old / ref log-probs, the packed update -- a check of
+      correctness, not a timing;
+      before them, in the main process, every kernel a TP rank runs at its
+      TP-local shapes against its plain version (``tp_kernel_cases``;
+      ``--only-path-m`` runs the build, these and path m alone);
 5. checks what came out: finite log-probs <= 0 of the expected shapes; the
    kernel-path prefill logits as close to an fp32 reference as the plain
    path's; the int4 path's rollout log-probs against the bf16 model's
@@ -167,6 +187,15 @@ non-zero without a device. In order:
    streamed each way, ``rollout/probs_diff_mean`` within
    ``PROBS_DIFF_LIMIT``, every kernel of a step launched, no dense decode
    kernel and no ``torch._int_mm``;
+   for path m the TP model's fp32 log-probs within ``TP_FP32_LOGP_ATOL`` of
+   the unsharded model's and its bf16 ones no further from the fp32 model
+   than ``TP_BF16_DRIFT_RATIO`` times the unsharded bf16 model's (and the
+   planted faults of ``TP_FAULTS_SEEN`` further), every row-parallel
+   partial summed in fp32, a finite step record,
+   ``rollout/probs_diff_mean`` within ``PROBS_DIFF_LIMIT``, both ranks'
+   sampled tokens equal, parameters moved, every TP kernel (#1-#3, #9,
+   #12's split mode, kernel A's row quantize in its split mode, kernel A
+   fused and prequantized) launched on both ranks and the one-pass #12 not;
 6. prints one JSON line of kernel results (each with its launches on paths i,
    j and k: ``launches_gae_path``, ``launches_eval_path``,
    ``launches_7b_path``) and of the paths (among them, as a record and not a
@@ -185,6 +214,7 @@ import dataclasses
 import gc
 import inspect
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -234,8 +264,11 @@ from spatialthinker_torch.trainer.metrics import Timer
 from spatialthinker_torch.trainer.train_step import (
     make_optimizer, make_packed_grad_fn, make_packed_update_fn,
 )
+from spatialthinker_torch.models.qwen2_5_vl.config import qwen25_vl_7b
 from spatialthinker_torch.models.qwen2_5_vl.model import vision_to_device
 from spatialthinker_torch.utils.synthetic_tokenizer import QwenSyntheticTokenizer
+
+PROCESS_T0 = time.perf_counter()  # this process's start, after its imports
 
 # bf16 kernel vs fp32-softmax plain version on the same bf16 inputs: both
 # accumulate in fp32 and round the softmax weights and the output to bf16 at
@@ -332,10 +365,24 @@ ACTOR = dict(
 # global_batch_size 128 of the shipped script cut to 64: two optimizer steps per GRPO step
 TRAIN = dict(global_batch_size=64, micro_rows=4, experience_micro=16, lr=1e-6, strategy="adamw")
 GRPO_STEPS = 1
-# Path d runs at 3B widths with 6 of the 36 text layers (the whole vision
-# tower): paths e and i take the same step at full depth through the trainer,
-# and the smoke has to stay within half its time limit on a slow host.
+# Paths d, i and l1 run at 3B widths with 6 of the 36 text layers and 8 of
+# the 32 vision blocks (full attention in every fourth block, as in the whole
+# tower; at 6 text layers the whole tower was ~70% of a sample's forward):
+# paths e and k take a step at full depth through the trainer, and the smoke
+# has to stay within its 800 s on a slow host.
 TRAIN_LAYERS = 6
+TRAIN_VISION_DEPTH, TRAIN_FULLATT = 8, (3, 7)
+
+
+def cut_depth(cfg, layers: int = TRAIN_LAYERS):
+    """``cfg`` at ``layers`` text layers and ``TRAIN_VISION_DEPTH`` vision
+    blocks, every width as it is."""
+    return dataclasses.replace(
+        cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=layers),
+        vision=dataclasses.replace(cfg.vision, depth=TRAIN_VISION_DEPTH, fullatt_block_indexes=TRAIN_FULLATT))
+
+
+
 # A log-prob piece of 16 samples runs the vision tower over their 16 images as
 # one sequence (32,768 slots); its full-attention forward is recorded in path d
 # as the first vision call of at least this many slots.
@@ -498,6 +545,8 @@ PLAIN_VERSIONS = [
     (pa, "paged_attention_gathered"),
     (sq, "fused_silu_quantize_plain"), (i4, "w4_gateup_silu_plain"), (i4, "w4_matmul_plain"),
     (i8m, "fused_w8a8_matmul_plain"), (i8m, "w8a8_matmul_prequantized_plain"),
+    (sq, "silu_row_amax_plain"), (sq, "silu_quantize_with_amax_plain"),
+    (i8m, "row_amax_plain"), (i8m, "quantize_rows_with_amax_plain"),
 ]
 
 _LIBRARY_INT_MM = torch._int_mm
@@ -537,7 +586,8 @@ def reset_counts() -> None:
                da._launch_int8_kernel, da._launch_int4_kernel, da._launch_int4_i8_kernel,
                pa._launch_pool_kernel, pa._launch_int4_i8_kernel, pa._launch_int4_kernel,
                sq.fused_silu_quantize, i4.w4_gateup_silu, i4.w4_matmul, i8m.fused_w8a8_matmul,
-               i8m.w8a8_matmul_prequantized, counted_int_mm):
+               i8m.w8a8_matmul_prequantized, sq.silu_row_amax, sq.silu_quantize_with_amax, i8m.row_amax,
+               i8m.quantize_rows_with_amax, counted_int_mm):
         fn.launches = 0
     pa._launch.staged_launches = 0
 
@@ -558,6 +608,10 @@ def read_counts() -> dict:
         "int4_gateup": i4.w4_gateup_silu.launches, "int4_down": i4.w4_matmul.launches,
         "w8a8": i8m.fused_w8a8_matmul.launches, "w8a8_prequantized": i8m.w8a8_matmul_prequantized.launches,
         "paged_staged": pa._launch.staged_launches, "int_mm": counted_int_mm.launches,
+        # #12's split mode (tensor parallelism), its two passes
+        "silu_amax": sq.silu_row_amax.launches, "silu_with_amax": sq.silu_quantize_with_amax.launches,
+        # kernel A's row quantize in its split mode (a row-parallel input under tensor parallelism)
+        "quant_amax": i8m.row_amax.launches, "quant_with_amax": i8m.quantize_rows_with_amax.launches,
     }
 
 
@@ -1985,7 +2039,7 @@ def earlier_paths(dev, card, cfg) -> dict:
     # ---- path d: one GRPO step (rollout, log-probs, advantages, packed update) ----
     del dense, g4, g16, paged, prep16, qmodel
     torch.cuda.empty_cache()
-    train_cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=TRAIN_LAYERS))
+    train_cfg = cut_depth(cfg)
     train_model = init_params(train_cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
     holder = {"model": None, "quantize_s": 0.0}  # the rollout quantizes the policy it trains
     train = training_path(dev, train_model, holder, host, paged_kw, card)
@@ -2476,15 +2530,20 @@ def _is_vision_call(cfg, windows: bool):
 
 def gae_path(dev, card, work_dir) -> tuple:
     """Path i: ONE ``train_step`` of the trainer with ``algorithm.adv_estimator=gae``
-    at full 3B width and depth (the critic shares the actor's preset). The
+    at full 3B width and ``cut_depth`` (the critic shares the actor's
+    preset, so its depth too; paths e and k take a step at full depth). The
     first critic micro-batch's flash calls are recorded, and #1 / #2 / #3 held
     against their plain versions on those segment ids afterwards. Returns
     (trainer, results)."""
+    from spatialthinker_torch.models.qwen2_5_vl import init_params
+
     config = trainer_config(work_dir, GAE_OVERRIDES)
     t0 = time.perf_counter()
-    model = build_model(config)
+    cfg = qwen25_vl_3b()
+    cfg = cut_depth(cfg)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(config.trainer.seed), device=dev,
+                        dtype=torch.bfloat16)
     tok = load_tokenizer(config.worker.actor.model.tokenizer_path, model.cfg)
-    cfg = model.cfg
     train_ds = RLHFDataset.from_rows(scene_rows(config.data.rollout_batch_size, seed=23), tok, config.data, cfg)
     trainer = build_trainer(config, tok, model, train_ds)
     critic = trainer.critic
@@ -2942,9 +3001,11 @@ PATH_L_TIMEOUT_S = 600
 FLASH_COUNTS = ("flash_fwd", "flash_ranges", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv")
 
 
-def _run_ranks(args_per_rank, timeout: float, check: bool = True):
+def _run_ranks(args_per_rank, timeout: float, check=True):
     """This script's rank entry points as processes of their own (the smoke's
-    process keeps no process group); every one is stopped at ``timeout``."""
+    process keeps no process group), all started at once; every one is
+    stopped at ``timeout``. ``check``: fail on a non-zero exit, for every
+    process or (a list) for those marked True."""
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), *map(str, a)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for a in args_per_rank]
@@ -2955,14 +3016,16 @@ def _run_ranks(args_per_rank, timeout: float, check: bool = True):
             try:
                 logs.append(p.communicate(timeout=max(deadline - time.perf_counter(), 1))[0])
             except subprocess.TimeoutExpired:
-                logs.append("timed out")
+                p.kill()
+                logs.append((p.communicate()[0] or "") + "\ntimed out")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    if check:
-        for p, log in zip(procs, logs):
+    checked = check if isinstance(check, list) else [check] * len(procs)
+    for p, log, c in zip(procs, logs, checked):
+        if c:
             if p.returncode != 0:
                 raise AssertionError(f"path l rank {args_per_rank[procs.index(p)]} exited "
                                      f"{p.returncode}:\n{log[-6000:]}")
@@ -2979,7 +3042,9 @@ def sp_fake_rollout(batch: RolloutBatch, vocab: int, seed: int, r: int = MAX_NEW
 
 def path_l1_rank(work_dir: str, out: str) -> int:
     """(l1) in its own process: one rank over NCCL, the trainer's distributed
-    branch on path (e)'s dotlist, ONE step of 128 samples."""
+    branch on path (e)'s dotlist at ``cut_depth`` (full width), ONE
+    step of 128 samples (path e takes the same step at full depth)."""
+    from spatialthinker_torch.models.qwen2_5_vl import init_params
     from spatialthinker_torch.parallel.multihost import initialize_if_needed
 
     torch.cuda.set_device(0)
@@ -2987,8 +3052,10 @@ def path_l1_rank(work_dir: str, out: str) -> int:
     initialize_if_needed("cuda", init_method=f"file://{work_dir}/l1_store", world_size=1, rank=0)
     config = trainer_config(work_dir, extra=[
         "worker.actor.sharding.fsdp_size=-1", "trainer.max_steps=1", "trainer.val_before_train=false"])
-    t0 = time.perf_counter()
-    model = build_model(config)
+    cfg = qwen25_vl_3b()
+    cfg = cut_depth(cfg)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(config.trainer.seed), device=dev,
+                        dtype=torch.bfloat16)
     tok = load_tokenizer(config.worker.actor.model.tokenizer_path, model.cfg)
     train_ds = RLHFDataset.from_rows(scene_rows(config.data.rollout_batch_size, seed=21), tok, config.data,
                                      model.cfg)
@@ -3166,7 +3233,9 @@ def path_l(card: str, work_dir: str) -> dict:
     l1 = json.loads((work / "l1.json").read_text())
     rec = l1["record"]
     timing = {k.split("/", 1)[1]: v for k, v in rec.items() if k.startswith("timing_s/")}
-    print(f"path l1 (the distributed branch, {l1['world']} rank over {l1['backend']}, parameters "
+    print(f"path l1 (the distributed branch, {TRAIN_LAYERS} of 36 text layers and {TRAIN_VISION_DEPTH} of 32 vision "
+          f"blocks, {l1['world']} rank over "
+          f"{l1['backend']}, parameters "
           f"{l1['sharded']}): packed log-probs wrapped vs unwrapped max abs {l1['logp_diff']:.3e} (limit "
           f"{L1_LOGP_ATOL}, bit-equal {l1['bit_equal']}); step: " + ", ".join(
               f"{k} {v:.3f} s" for k, v in sorted(timing.items()))
@@ -3176,12 +3245,14 @@ def path_l(card: str, work_dir: str) -> dict:
           f"{rec.get('actor/grad_norm', float('nan')):.3e}; pool {l1['pool_pages']} pages; resident "
           f"{l1['resident_gb']:.2f} GB, peak allocated {l1['peak_gb']:.2f} GB, reserved {l1['reserved_gb']:.2f} GB "
           f"[{card}]; launches {l1['launches']}", flush=True)
-    _run_ranks([["--nccl-probe", r, work / "nccl_store", work / f"nccl{r}.txt"] for r in range(2)], 120,
-               check=False)
+    # the NCCL probe (which must fail) beside the two gloo ranks of l2: its processes hold
+    # nothing on the card but NCCL's refusal
+    _run_ranks([["--nccl-probe", r, work / "nccl_store", work / f"nccl{r}.txt"] for r in range(2)]
+               + [["--path-l2", r, work / "l2_store", work / f"l2_{r}.json"] for r in range(2)], PATH_L_TIMEOUT_S,
+               check=[False, False, True, True])
     nccl = [(work / f"nccl{r}.txt").read_text() if (work / f"nccl{r}.txt").exists() else "no report"
             for r in range(2)]
     print(f"path l2: NCCL with two ranks on one device: {nccl[0]} | {nccl[1]}", flush=True)
-    _run_ranks([["--path-l2", r, work / "l2_store", work / f"l2_{r}.json"] for r in range(2)], PATH_L_TIMEOUT_S)
     l2 = [json.loads((work / f"l2_{r}.json").read_text()) for r in range(2)]
     for key in l2[0]["attention"]:
         for r in l2:
@@ -3222,18 +3293,534 @@ def path_l(card: str, work_dir: str) -> dict:
     return {"l1": l1, "l2": l2, "nccl_two_ranks_one_device": nccl, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# path m: Megatron tensor parallelism on the model axis (two ranks on one card
+# over gloo, each in a process of its own), and the kernels at the TP-local
+# shapes a rank of a TP group gives them
+# ---------------------------------------------------------------------------
+
+# (m1) the 4-layer 3B model's packed log-probs at tp = 2 against the unsharded
+# model. In fp32 (plain attention) the two differ only in summation order:
+# every GEMM of the TP model has other widths, the row-parallel partials and
+# the vocab reductions are summed across ranks.
+TP_FP32_LOGP_ATOL = 2e-3
+# In bf16 through the kernels every GEMM of other widths rounds at other
+# points (1.04e-1 max abs over the 8,191 labels against the unsharded bf16
+# model on an H100, where ring sp, which changes attention only, gave 4.3e-2):
+# the TP model may be at most this many times as far from the fp32 model as
+# the unsharded bf16 model is. Planted faults are run beside it as negative
+# controls: those of TP_FAULTS_SEEN must read above the limit; the bf16-
+# partials fault is read and printed (that the partials reach the group's
+# sum in fp32 is checked on the forward's calls themselves).
+TP_BF16_DRIFT_RATIO = 2.0
+TP_FAULTS_SEEN = ("heads", "vocab")
+TP_SHAPES = {"3b": (qwen25_vl_3b, 2), "7b": (qwen25_vl_7b, 4)}  # (preset, its largest tp)
+TP_MS = (129, 4096)
+# (m2) each rank's page pool: two processes share one card, so neither sizes
+# its pool from what the card has free (the other rank's allocations race it)
+TP_M2_PAGES = 1024
+# n 8 as shipped; 3 prompts: the refill's prefill has 3 x 512 rows, above the
+# silu junction's threshold (FUSED_SILU_MIN_M, 1,024), so #12's split mode
+# runs (one prompt's 512 would not). Every forward's row-parallel sums cross
+# host memory through gloo, the vision tower's most of all, so the depth is
+# cut (text and vision) rather than the lanes: 24 samples check correctness,
+# their step time is no measurement of TP.
+TP_M2_PROMPTS, TP_M2_N = 3, 8
+TP_M2_LAYERS = 4
+TP_KERNELS = ("flash_fwd", "flash_ranges", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv",
+              "paged_attention_int4_i8", "silu_amax", "silu_with_amax", "quant_amax", "quant_with_amax", "w8a8",
+              "w8a8_prequantized")
+PATH_M_TIMEOUT_S = 600
+
+
+def tp_linears(cfg, tp: int) -> dict:
+    """The four decoder linears of one rank of a TP group of ``tp``: (K, N)."""
+    tc = cfg.text
+    hd, hq, hkv, inter = tc.head_dim, tc.num_attention_heads // tp, tc.num_key_value_heads // tp, \
+        tc.intermediate_size // tp
+    return {"qkv": (tc.hidden_size, (hq + 2 * hkv) * hd), "o": (hq * hd, tc.hidden_size),
+            "gate_up": (tc.hidden_size, 2 * inter), "down": (inter, tc.hidden_size)}
+
+
+def w8a8_prequant_case(xq, xs, w, ws, label: str) -> dict:
+    """Kernel A's prequantized entry (a row-parallel product under TP: fp32
+    partial sums) against the plain chain: bit-equal."""
+    out = i8m.w8a8_matmul_prequantized(xq, xs, w, ws, torch.float32)
+    ref = i8m.w8a8_matmul_prequantized_plain(xq, xs, w, ws, torch.float32)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    equal = torch.equal(out, ref)
+    ms = cuda_ms(lambda: i8m.w8a8_matmul_prequantized(xq, xs, w, ws, torch.float32))
+    plain_ms = cuda_ms(lambda: i8m.w8a8_matmul_prequantized_plain(xq, xs, w, ws, torch.float32), iters=10)
+    lib_ms = cuda_ms(lambda: i8m.int8_matmul(xq, w.t()))
+    (m, k), n = xq.shape, w.shape[0]
+    b_ms, b_by = bound_ms(nbytes(xq, xs, w, ws, out), 2.0 * m * n * k, "int8")
+    plan = i8m.w8a8_plan(m, n, k).describe()
+    print(f"w8a8 prequantized [{label}]: xq{tuple(xq.shape)} w({n}, {k}) -> float32 max_abs_err={err:.3e} "
+          f"bit_equal={equal} ms={ms:.4f} plain_ms={plain_ms:.4f} int_mm_ms={lib_ms:.4f} bound_ms={b_ms:.5f} "
+          f"({b_by}) plan={json.dumps(plan)}", flush=True)
+    if not equal:
+        raise AssertionError(f"W8A8 prequantized kernel differs from the plain chain [{label}]")
+    return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, plan=plan, prequantized=True)
+
+
+def paged_tp_case(dev, g: int, label: str) -> dict:
+    """#9 at the shipped scale (129 lanes, page 1,024) on ONE kv head with G
+    query heads: a TP rank's pools (3B / 2: G 8; 7B / 4: G 7). The bound
+    counts each distinct page's live cells once, at one kv head."""
+    case = paged_cases.make_shipped(torch, np, dev, kind="int4")
+    case["q"] = case["q"][:, :g].contiguous()
+    for key in ("k", "v", "ks", "vs"):
+        case[key] = case[key][:, :, :1].contiguous()
+    q = case["q"]
+    args = paged_cases.call_args(torch, case, dev)
+    scale = q.shape[-1] ** -0.5
+    o_ref, m_ref, l_ref = pa.paged_attention_int4_i8_plain(*args, scale)
+    o, m, l = pa.paged_attention(*args, return_stats=True, int4_i8dot=True)
+    torch.cuda.synchronize()
+    err = (o.float() - o_ref.float()).abs().max().item()
+    stat_err = max((m - m_ref).abs().max().item(), ((l - l_ref).abs() / (1 + l_ref.abs())).max().item())
+    plan, twice = paged_plan_and_twice("int4_i8", args)
+    plain_ms = cuda_ms(lambda: pa.paged_attention_int4_i8_plain(*args, scale), iters=5)
+    ms = cuda_ms(lambda: pa.paged_attention(*args, return_stats=True, int4_i8dot=True))
+    page, live = case["page"], {}
+    for lane, ell in enumerate(case["lengths"]):
+        for pi in range(-(-int(ell) // page)):
+            pid = int(case["table"][lane, pi])
+            live[pid] = max(live.get(pid, 0), min(page, int(ell) - pi * page))
+    d = q.shape[-1]
+    cell_bytes = 2 * (d // 2 + 2)  # K and V nibbles and their bf16 scales, one kv head
+    n_bytes = sum(live.values()) * cell_bytes + nbytes(q, o, m, l, args[3], args[4])
+    cells = int(case["lengths"].sum())
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * cells * g * d, "int8")
+    print(f"paged int4_i8 [{label}]: q{tuple(q.shape)} pool{tuple(case['k'].shape)} cells={cells} "
+          f"max_abs_err={err:.3e} stat_err={stat_err:.3e} bit_identical_twice={twice} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}, distinct pages) plan={json.dumps(plan)}",
+          flush=True)
+    if not (err <= PAGED_OUT_ATOL["int4_i8"] and stat_err <= PAGED_STAT_ATOL and twice):
+        raise AssertionError(f"paged kernel (int4_i8) disagrees with plain or with itself [{label}]")
+    return dict(shape=label, max_abs_err=err, stat_err=stat_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, bit_identical_twice=twice, plan=plan)
+
+
+def silu_split_case(gu, tp: int, label: str) -> dict:
+    """#12's split mode on the ``tp`` column slices of one whole ``gu`` (M,
+    2I), the TP group's ranks emulated in one process: pass 1 on each slice,
+    the max of their amaxes, pass 2 on each slice. The slices' q side by side
+    and their scales must equal the one-pass kernel on the whole row bit for
+    bit, and each pass its plain version; the one-pass kernel at a slice's
+    width (I / tp) must equal its plain version bit for bit too."""
+    m, inter = gu.shape[0], gu.shape[1] // 2
+    part = inter // tp
+    pieces = [torch.cat([gu[:, r * part:(r + 1) * part], gu[:, inter + r * part:inter + (r + 1) * part]], dim=1)
+              .contiguous() for r in range(tp)]
+    amaxes = [sq.silu_row_amax(p) for p in pieces]
+    amax = torch.stack(amaxes).amax(dim=0)
+    outs = [sq.silu_quantize_with_amax(p, amax) for p in pieces]
+    q_whole, s_whole = sq.fused_silu_quantize(gu)
+    q_one, s_one = sq.fused_silu_quantize(pieces[0])
+    torch.cuda.synchronize()
+    q_split = torch.cat([o[0] for o in outs], dim=1)
+    split_equal_whole = bool(torch.equal(q_split, q_whole) and all(torch.equal(o[1], s_whole) for o in outs))
+    amax_equal_plain = all(torch.equal(a, sq.silu_row_amax_plain(p)) for a, p in zip(amaxes, pieces))
+    q_ref, s_ref = sq.silu_quantize_with_amax_plain(pieces[0], amax)
+    pass2_equal_plain = bool(torch.equal(outs[0][0], q_ref) and torch.equal(outs[0][1], s_ref))
+    one_ref = sq.fused_silu_quantize_plain(pieces[0])
+    one_pass_equal = bool(torch.equal(q_one, one_ref[0]) and torch.equal(s_one, one_ref[1]))
+    err = float((outs[0][0].int() - q_ref.int()).abs().max())
+    p0 = pieces[0]
+    ms1 = cuda_ms(lambda: sq.silu_row_amax(p0))
+    ms2 = cuda_ms(lambda: sq.silu_quantize_with_amax(p0, amax))
+    one_ms = cuda_ms(lambda: sq.fused_silu_quantize(p0))
+    plain_ms = cuda_ms(lambda: sq.silu_quantize_with_amax_plain(p0, sq.silu_row_amax_plain(p0)), iters=10)
+    b1, b1_by = bound_ms(nbytes(p0, amax), 6.0 * m * part, "fp32")
+    b2, b2_by = bound_ms(nbytes(p0, amax, q_ref, s_ref), 12.0 * m * part, "fp32")
+    print(f"silu_quant split [{label}]: {tp} slices of gu{tuple(p0.shape)} (whole I {inter}) pass 1 ms={ms1:.4f} "
+          f"(bound {b1:.5f}, {b1_by}) pass 2 ms={ms2:.4f} (bound {b2:.5f}, {b2_by}) one-pass kernel on a slice "
+          f"ms={one_ms:.4f} plain split ms={plain_ms:.4f}; split equal to the one-pass kernel on the whole row "
+          f"{split_equal_whole}, pass 1 equal to plain {amax_equal_plain}, pass 2 equal to plain "
+          f"{pass2_equal_plain}, one pass on a slice equal to plain {one_pass_equal}", flush=True)
+    if not (split_equal_whole and amax_equal_plain and pass2_equal_plain and one_pass_equal):
+        raise AssertionError(f"silu_quant split mode disagrees [{label}]")
+    return dict(shape=label, max_abs_err=err, ms=ms1 + ms2, pass1_ms=ms1, pass2_ms=ms2, one_pass_ms=one_ms,
+                plain_ms=plain_ms, bound_ms=b1 + b2, bound_by=b2_by, library_ms=None,
+                bit_equal_to_plain=pass2_equal_plain and amax_equal_plain, split_equal_whole=split_equal_whole,
+                one_pass_bit_equal=one_pass_equal)
+
+
+def quantize_split_case(x, tp: int, label: str) -> dict:
+    """Kernel A's row quantize in its split mode on the ``tp`` column slices
+    of one whole row-parallel input ``x`` (m, K), the TP group's ranks
+    emulated in one process: pass 1 on each slice, the max of their amaxes,
+    pass 2 on each slice. The slices' xq side by side and their scales must
+    equal ``quantize_rows`` of the whole row (the arithmetic of the TPU
+    kernel's body) bit for bit, and each pass its plain version. Returns the
+    case and rank 0's (xq, xs) for the prequantized GEMM."""
+    m, k = x.shape
+    part = k // tp
+    pieces = [x[:, r * part:(r + 1) * part].contiguous() for r in range(tp)]
+    amaxes = [i8m.row_amax(p) for p in pieces]
+    amax = torch.stack(amaxes).amax(dim=0)
+    outs = [i8m.quantize_rows_with_amax(p, amax) for p in pieces]
+    xq_whole, xs_whole = i8m.quantize_rows(x)
+    torch.cuda.synchronize()
+    xq_split = torch.cat([o[0] for o in outs], dim=1)
+    split_equal_whole = bool(torch.equal(xq_split, xq_whole) and all(torch.equal(o[1], xs_whole) for o in outs))
+    amax_equal_plain = all(torch.equal(a, i8m.row_amax_plain(p)) for a, p in zip(amaxes, pieces))
+    q_ref, s_ref = i8m.quantize_rows_with_amax_plain(pieces[0], amax)
+    pass2_equal_plain = bool(torch.equal(outs[0][0], q_ref) and torch.equal(outs[0][1], s_ref))
+    err = float((xq_split.int() - xq_whole.int()).abs().max())
+    p0 = pieces[0]
+    ms1 = cuda_ms(lambda: i8m.row_amax(p0))
+    ms2 = cuda_ms(lambda: i8m.quantize_rows_with_amax(p0, amax))
+    plain_ms = cuda_ms(lambda: i8m.quantize_rows_with_amax_plain(p0, i8m.row_amax_plain(p0)), iters=10)
+    b1, b1_by = bound_ms(nbytes(p0, amax), 2.0 * m * part, "fp32")
+    b2, b2_by = bound_ms(nbytes(p0, amax, q_ref, s_ref), 4.0 * m * part, "fp32")
+    print(f"row quantize split [{label}]: {tp} slices of x{tuple(p0.shape)} (whole K {k}) pass 1 ms={ms1:.4f} "
+          f"(bound {b1:.5f}, {b1_by}) pass 2 ms={ms2:.4f} (bound {b2:.5f}, {b2_by}) plain split ms={plain_ms:.4f}; "
+          f"split equal to quantize_rows of the whole row {split_equal_whole}, pass 1 equal to plain "
+          f"{amax_equal_plain}, pass 2 equal to plain {pass2_equal_plain}", flush=True)
+    if not (split_equal_whole and amax_equal_plain and pass2_equal_plain):
+        raise AssertionError(f"row quantize split mode disagrees [{label}]")
+    return dict(shape=label, max_abs_err=err, ms=ms1 + ms2, pass1_ms=ms1, pass2_ms=ms2, plain_ms=plain_ms,
+                bound_ms=b1 + b2, bound_by=b2_by, library_ms=None,
+                bit_equal_to_plain=pass2_equal_plain and amax_equal_plain,
+                split_equal_whole=split_equal_whole), outs[0]
+
+
+def tp_kernel_cases(dev) -> dict:
+    """Every kernel a TP rank runs, at the shapes a rank of a TP group gives
+    it (3B at tp 2, 7B at tp 4): #1-#3 on text rows of one kv head and the
+    vision forms at 16 / tp heads, #9 at one kv head, kernel A at the eight
+    local linears (o and down also as the row-parallel products run: the
+    row quantize's split mode, then the prequantized entry), #12's split
+    mode at the local I."""
+    out = {"flash": [], "prep": [], "dq": [], "dkv": [], "w8a8": [], "paged": [], "silu": [], "quant_split": []}
+    cfg3 = qwen25_vl_3b()
+    synth = synthetic_training_cases(cfg3)  # (name, heads, segment ids, causal): text, vision full, windows
+    cases = []
+    for size, (preset, tp) in TP_SHAPES.items():
+        cfg = preset()
+        tc, vc = cfg.text, cfg.vision
+        heads = [(tc.num_attention_heads // tp, tc.num_key_value_heads // tp, tc.head_dim)] + \
+            [(vc.num_heads // tp, vc.num_heads // tp, vc.head_dim)] * 2
+        cases += [(f"tp_{size}_{name.split('_', 1)[1]}", h, seg, causal)
+                  for (name, _, seg, causal), h in zip(synth, heads)]
+    f, p, q, k = check_flash_training(dev, cases)
+    out["flash"], out["prep"], out["dq"], out["dkv"] = f, p, q, k
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for size, (preset, tp) in TP_SHAPES.items():
+        for name, (kk, n) in tp_linears(preset(), tp).items():
+            w = torch.randint(-127, 128, (n, kk), generator=gen, device=dev, dtype=torch.int8)
+            ws = torch.rand((n,), generator=gen, device=dev) * 2e-3 + 1e-4
+            for m in TP_MS:
+                x = torch.randn((m, kk), generator=gen, device=dev).to(torch.bfloat16)
+                out["w8a8"].append(w8a8_case(x, w, ws, torch.bfloat16, f"tp_{size}_{name}_m{m}"))
+                if name in ("o", "down"):  # x is rank 0's K columns of a whole row
+                    whole = torch.cat([x] + [torch.randn((m, kk), generator=gen, device=dev).to(torch.bfloat16)
+                                             for _ in range(tp - 1)], dim=1)
+                    case, (xq, xs) = quantize_split_case(whole, tp, f"tp_{size}_{name}_m{m}")
+                    out["quant_split"].append(case)
+                    out["w8a8"].append(w8a8_prequant_case(xq, xs, w, ws, f"tp_{size}_{name}_prequantized_m{m}"))
+            del w, ws
+        torch.cuda.empty_cache()
+    out["paged"] = [paged_tp_case(dev, 8, "tp_3b_129_lanes_page_1024_one_kv_head_g8"),
+                    paged_tp_case(dev, 7, "tp_7b_129_lanes_page_1024_one_kv_head_g7")]
+    rng = np.random.default_rng(23)
+    for size, (preset, tp) in TP_SHAPES.items():
+        inter = preset().text.intermediate_size
+        out["silu"].append(silu_split_case(randn_bf16(rng, dev, 4096, 2 * inter), tp,
+                                           f"tp_{size}_rows_4096_local_i_{inter // tp}"))
+    torch.cuda.empty_cache()
+    return out
+
+
+def path_m1_rank(rank: int, store: str, out: str) -> int:
+    """(m1) in a process of its own (``path_m_rank``): rank ``rank`` of a TP group of two on
+    ``cuda:0`` over gloo. The 4-layer 3B model (the whole vision tower) on one
+    8,192-token packed row with one 256-token image: packed log-probs of the
+    unsharded model and of this rank's TP shard of it, first in fp32 through
+    the plain attention (the decomposition itself), then in bf16 through the
+    kernels (launches counted, plain versions forbidden)."""
+    import torch.distributed as dist
+
+    from spatialthinker_torch.models.qwen2_5_vl import init_params
+    from spatialthinker_torch.models.qwen2_5_vl import text as text_mod, vision as vision_mod
+    from spatialthinker_torch.parallel import tensor as tensor_mod
+    from spatialthinker_torch.parallel.tensor import TPSpec, shard_for_rank
+    from spatialthinker_torch.trainer.train_step import compute_packed_log_probs
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    tp = TPSpec(dist.group.WORLD)
+    partials = {"fp32": 0, "other": 0}  # the dtypes of the row-parallel partials the TP forward sums
+
+    def recording(reduce):
+        def call(x, group, out_dtype=None):
+            if out_dtype is not None:  # a row-parallel product (the vocab lookup passes none)
+                partials["fp32" if x.dtype == torch.float32 else "other"] += 1
+            return reduce(x, group, out_dtype)
+        return call
+    cfg = qwen25_vl_3b()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=SP_MODEL_LAYERS))
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(23), device=dev, dtype=torch.bfloat16)
+    batch, vision = _sp_model_batch(cfg, dev, seed=29)
+    mask = batch.loss_mask.bool()
+    logp = {}
+    with torch.no_grad():
+        with plain_attention():
+            fp32 = copy.deepcopy(model).float()
+            logp["whole_fp32"] = fp32(compute_packed_log_probs, batch, vision)[0]
+            fp32 = gt.tp_local(fp32, tp)
+            logp["tp_fp32"] = fp32(compute_packed_log_probs, batch, vision)[0]
+            del fp32
+            torch.cuda.empty_cache()
+        with forbid_plain_versions():
+            logp["whole_bf16"] = model(compute_packed_log_probs, batch, vision)[0]
+            local_model = gt.tp_local(model, tp)
+            # the planted faults' weights: rank 0's query / key / value heads of text layer 0
+            # and rank 0's vocab rows, which rank 1 takes in the controls below
+            whole = model.state_dict()
+            faults = {"heads": shard_for_rank({k: v for k, v in whole.items()
+                                               if k.startswith("text.layers.0.self_attn.qkv_proj.")}, 2, 0),
+                      "vocab": shard_for_rank({k: v for k, v in whole.items()
+                                               if k in ("text.embed_tokens.weight", "text.lm_head.weight")}, 2, 0)}
+            del model, whole
+            torch.cuda.empty_cache()
+            dist.barrier()
+            reset_counts()
+            saved_reduce = text_mod.reduce_from_tp, vision_mod.reduce_from_tp
+            text_mod.reduce_from_tp, vision_mod.reduce_from_tp = (recording(f) for f in saved_reduce)
+            t0 = time.perf_counter()
+            try:
+                logp["tp_bf16"] = local_model(compute_packed_log_probs, batch, vision)[0]
+                torch.cuda.synchronize()
+            finally:
+                text_mod.reduce_from_tp, vision_mod.reduce_from_tp = saved_reduce
+            tp_s = time.perf_counter() - t0
+            launches = read_counts()
+            # negative controls of the bf16 limit (launches not counted): (1) every partial
+            # rounded to bf16 before the group's sum; (2) rank 1 holding rank 0's heads of
+            # text layer 0; (3) rank 1 holding rank 0's vocab rows
+            saved_sum = tensor_mod._sum_fp32
+            tensor_mod._sum_fp32 = lambda x, group, out_dtype=None: saved_sum(x.to(torch.bfloat16), group, out_dtype)
+            try:
+                logp["fault_bf16_partials"] = local_model(compute_packed_log_probs, batch, vision)[0]
+            finally:
+                tensor_mod._sum_fp32 = saved_sum
+            params = dict(local_model.named_parameters())
+            for name, planted in faults.items():
+                kept = {k: params[k].detach().clone() for k in planted}
+                if rank == 1:
+                    for k, v in planted.items():
+                        params[k].data.copy_(v)
+                logp[f"fault_{name}"] = local_model(compute_packed_log_probs, batch, vision)[0]
+                for k, v in kept.items():
+                    params[k].data.copy_(v)
+            torch.cuda.synchronize()
+
+    def diff(a, b):
+        return float((logp[a] - logp[b])[mask].abs().max())
+
+    res = dict(rank=rank, fp32_diff=diff("tp_fp32", "whole_fp32"), bf16_diff=diff("tp_bf16", "whole_bf16"),
+               tp_bf16_drift=diff("tp_bf16", "whole_fp32"), whole_bf16_drift=diff("whole_bf16", "whole_fp32"),
+               finite=bool(torch.isfinite(logp["tp_bf16"]).all()), mean_logp=float(logp["tp_bf16"][mask].mean()),
+               seconds=tp_s, launches=launches, partials=partials, process_s=time.perf_counter() - PROCESS_T0,
+               shard_gb=sum(p.numel() * p.element_size() for p in local_model.parameters()) / 1e9)
+    res["ratio"] = res["tp_bf16_drift"] / res["whole_bf16_drift"]
+    res["fault_ratios"] = {k[len("fault_"):]: diff(k, "whole_fp32") / res["whole_bf16_drift"]
+                           for k in logp if k.startswith("fault_")}
+    res["ok"] = (res["fp32_diff"] <= TP_FP32_LOGP_ATOL and res["ratio"] <= TP_BF16_DRIFT_RATIO
+                 and partials["fp32"] > 0 and partials["other"] == 0
+                 and all(res["fault_ratios"][k] > TP_BF16_DRIFT_RATIO for k in TP_FAULTS_SEEN))
+    Path(out).write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def path_m2_rank(rank: int, store: str, work_dir: str, out: str) -> int:
+    """(m2) after (m1) in the same process: rank ``rank`` of two on ``cuda:0`` over gloo,
+    the trainer at ``model_size=2`` without sp and ``tensor_parallel_size=2``
+    on path (e)'s dotlist, at ``TP_M2_LAYERS`` text layers and
+    ``TRAIN_VISION_DEPTH`` vision blocks (``cut_depth``), full widths: ONE
+    step of ``fit()`` (the paged rollout
+    at W8A8 + int4 pools + int4_i8dot on one engine a TP group, old and ref
+    log-probs, the packed update)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from spatialthinker_torch.models.qwen2_5_vl import init_params
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()  # (m1) ran in this process before
+    os.environ["LOCAL_WORLD_SIZE"] = "2"
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    config = trainer_config(work_dir, extra=[
+        "worker.actor.sharding.fsdp_size=1", "worker.actor.sharding.model_size=2",
+        "worker.rollout.tensor_parallel_size=2", "trainer.n_chips=2", "trainer.max_steps=1",
+        "trainer.val_before_train=false", f"worker.rollout.kv_pages_override={TP_M2_PAGES}",
+        # few samples: every forward's activations cross host memory through gloo (at 6 text
+        # layers and the whole vision tower 128 samples took 505 s, 16 took 74.6 s on an H100,
+        # NVIDIA H100 80GB HBM3, 700.00 W)
+        f"data.rollout_batch_size={TP_M2_PROMPTS}", f"worker.rollout.n={TP_M2_N}",
+        f"trainer.experiment_name=path_m2_rank{rank}"])
+    cfg = cut_depth(qwen25_vl_3b(), TP_M2_LAYERS)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(config.trainer.seed), device=dev,
+                        dtype=torch.bfloat16)
+    tok = load_tokenizer(config.worker.actor.model.tokenizer_path, model.cfg)
+    train_ds = RLHFDataset.from_rows(scene_rows(config.data.rollout_batch_size, seed=21), tok, config.data,
+                                     model.cfg)
+    t0 = time.perf_counter()
+    print(f"m2 rank {rank}: model and rows ready", flush=True)
+    trainer = build_trainer(config, tok, model, train_ds)
+    print(f"m2 rank {rank}: trainer built in {time.perf_counter() - t0:.2f} s", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    tokens = []
+    generate = trainer.generate_sequences
+
+    def recording(batch, sampling, generator=None):
+        rolled = generate(batch, sampling, generator)
+        tokens.append(hashlib.sha256(np.ascontiguousarray(rolled.tensors["responses"]).tobytes()).hexdigest())
+        return rolled
+
+    trainer.generate_sequences = recording
+    silu_rows = []  # the rows of each call of #12's split mode (the prefill's m)
+    split = sq.fused_silu_quantize_split
+
+    def silu_split(gu, combine):
+        silu_rows.append(int(gu.shape[0]))
+        return split(gu, combine)
+
+    sq.fused_silu_quantize_split = silu_split
+    p_sums = checksums(p for p in trainer.model.parameters())
+    ref_sums = checksums(p for p in trainer.ref_model.parameters())
+    dist.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    with forbid_plain_versions():
+        trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    print(f"m2 rank {rank}: fit {fit_s:.2f} s", flush=True)
+    launches = read_counts()
+    log = Path(work_dir) / f"{config.trainer.experiment_name}_metrics.jsonl"
+    rec = ({r["step"]: r for r in map(json.loads, log.read_text().splitlines())}.get(1, {})
+           if log.exists() else {})
+    if rank != 0:  # rank 0 logs; every rank computed the same record
+        rec = {}
+    moved = sum(a != b for a, b in zip(p_sums, checksums(p for p in trainer.model.parameters())))
+    Path(out).write_text(json.dumps({
+        "rank": rank, "record": {k: v for k, v in rec.items() if k != "time"}, "fit_s": fit_s, "build_s": build_s,
+        "moved": moved, "ref_untouched": checksums(p for p in trainer.ref_model.parameters()) == ref_sums,
+        "tokens": tokens, "launches": launches, "resident_gb": resident_gb,
+        "silu_split_rows": sorted(set(silu_rows)),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "rollout_copy_gb": trainer.rollout_copy_bytes / 1e9, "pool_pages": trainer._paged_pool_cache,
+        "tp": [trainer.tp.rank, trainer.tp.size], "backend": dist.get_backend(), "world": dist.get_world_size(),
+        "policy_shard_gb": sum(p.numel() * p.element_size() for p in trainer.model.parameters()) / 1e9}))
+    dist.destroy_process_group()
+    return 0
+
+
+def path_m_rank(rank: int, work: Path) -> int:
+    """(m1), then (m2), in one process a rank (one start-up for both)."""
+    path_m1_rank(rank, str(work / "m1_store"), str(work / f"m1_{rank}.json"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path_m2_rank(rank, str(work / "m2_store"), str(work), str(work / f"m2_{rank}.json"))
+
+
+def path_m(card: str, work_dir: str) -> dict:
+    """Path m: (m1) the TP model at tp = 2 against the unsharded model and
+    (m2) the trainer at ``model_size=2`` / ``tensor_parallel_size=2``, one
+    after the other in two processes on ``cuda:0`` over gloo (NCCL refuses
+    two ranks on one device), the kernels already built by this process."""
+    t_start = time.perf_counter()
+    work = Path(work_dir)
+    _run_ranks([["--path-m", r, work] for r in range(2)], PATH_M_TIMEOUT_S)
+    m1 = [json.loads((work / f"m1_{r}.json").read_text()) for r in range(2)]
+    for r in m1:
+        print(f"path m1 rank {r['rank']} (gloo, tp 2 on one card): 3B width, {SP_MODEL_LAYERS} text layers + the "
+              f"whole vision tower, one {sum(SP_ROW)}-token packed row with one image: tp 2 vs the unsharded "
+              f"model's log-probs, fp32 (plain attention) max abs {r['fp32_diff']:.3e} (limit {TP_FP32_LOGP_ATOL}), "
+              f"bf16 (kernels) max abs {r['bf16_diff']:.3e}; from the fp32 model: tp bf16 {r['tp_bf16_drift']:.3e}, "
+              f"unsharded bf16 {r['whole_bf16_drift']:.3e} (ratio {r['ratio']:.4f}, limit {TP_BF16_DRIFT_RATIO}; "
+              f"planted faults' ratios {json.dumps(r['fault_ratios'])}, those of {list(TP_FAULTS_SEEN)} must exceed "
+              f"it); row-parallel partials summed {r['partials']}; mean "
+              f"{r['mean_logp']:.3f}, the tp bf16 forward {r['seconds']:.3f} s, shard {r['shard_gb']:.3f} GB "
+              f"[{card}]; launches {dict((k, v) for k, v in r['launches'].items() if v)}", flush=True)
+    m2 = [json.loads((work / f"m2_{r}.json").read_text()) for r in range(2)]
+    rec = m2[0]["record"]
+    timing = {k.split("/", 1)[1]: v for k, v in rec.items() if k.startswith("timing_s/")}
+    for r in m2:
+        print(f"path m2 rank {r['rank']} (tp rank {r['tp'][0]} of {r['tp'][1]}, {r['world']} ranks over {r['backend']} on one card; two "
+              f"processes share the card, the collectives cross host memory): fit {r['fit_s']:.2f} s, trainer "
+              f"built in {r['build_s']:.2f} s ({TP_M2_PROMPTS} prompts x n {TP_M2_N}, {TP_M2_LAYERS} text layers, "
+              f"{TRAIN_VISION_DEPTH} vision blocks: a correctness check, not a timing), #12's split mode at m "
+              f"{r['silu_split_rows']}, policy shard {r['policy_shard_gb']:.3f} GB, rollout copy "
+              f"{r['rollout_copy_gb']:.3f} GB, resident {r['resident_gb']:.2f} GB, peak {r['peak_gb']:.2f} GB, "
+              f"pool {r['pool_pages']} pages [{card}]; launches {r['launches']}", flush=True)
+    print(f"path m2 step: " + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(timing.items()))
+          + f"; throughput {rec.get('perf/throughput', float('nan')):.1f} tok/s, probs_diff_mean "
+          f"{rec.get('rollout/probs_diff_mean', float('nan')):.4f}, actor/grad_norm "
+          f"{rec.get('actor/grad_norm', float('nan')):.3e}, kv peak_pages {rec.get('rollout/kv_peak_pages', -1):.0f} "
+          f"[{card}]", flush=True)
+    checks = {
+        "m1: tp 2 log-probs within the limits on both ranks": all(r["ok"] and r["finite"] for r in m1),
+        "m1: the planted faults beyond the bf16 limit": all(
+            r["fault_ratios"][k] > TP_BF16_DRIFT_RATIO for r in m1 for k in TP_FAULTS_SEEN),
+        "m1: every row-parallel partial summed in fp32": all(
+            r["partials"]["fp32"] > 0 and r["partials"]["other"] == 0 for r in m1),
+        "m1: the flash forward launched on both ranks": all(r["launches"]["flash_fwd"] > 0 for r in m1),
+        "m2: one step record with finite metrics": bool(rec) and all(
+            np.isfinite(v) for v in rec.values() if isinstance(v, (int, float))),
+        "m2: rollout/probs_diff_mean within the limit": rec.get("rollout/probs_diff_mean", np.inf) <= PROBS_DIFF_LIMIT,
+        "m2: parameters moved on both ranks": all(r["moved"] > 0 for r in m2),
+        "m2: reference copies untouched": all(r["ref_untouched"] for r in m2),
+        "m2: both ranks sampled the same tokens": bool(m2[0]["tokens"]) and m2[0]["tokens"] == m2[1]["tokens"],
+        "m2: every TP kernel launched on both ranks": all(r["launches"][k] > 0 for r in m2 for k in TP_KERNELS),
+        "m2: the one-pass silu junction not (TP splits I)": all(r["launches"]["silu_quant"] == 0 for r in m2),
+        "m2: #12's split mode above the junction's threshold": all(
+            max(r["silu_split_rows"], default=0) > tq.FUSED_SILU_MIN_M for r in m2),
+        "m2: no dense decode kernel, no torch._int_mm": all(
+            r["launches"]["decode_attention"] == 0 and r["launches"]["int_mm"] == 0 for r in m2),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"path m checks failed: {failed}")
+    seconds = time.perf_counter() - t_start
+    print(f"path m: {seconds:.1f} s (m1 {m1[0]['process_s']:.1f} s of rank 0's process)", flush=True)
+    return {"m1": m1, "m2": m2, "seconds": seconds}
+
+
+
 RANK_ENTRIES = {"--path-l1": lambda a: path_l1_rank(a[0], a[1]),
                 "--path-l2": lambda a: path_l2_rank(int(a[0]), a[1], a[2]),
-                "--nccl-probe": lambda a: nccl_probe_rank(int(a[0]), a[1], a[2])}
+                "--nccl-probe": lambda a: nccl_probe_rank(int(a[0]), a[1], a[2]),
+                "--path-m": lambda a: path_m_rank(int(a[0]), Path(a[1]))}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if sys.argv[1:2] and sys.argv[1] in RANK_ENTRIES:  # a process of path l
+    if sys.argv[1:2] and sys.argv[1] in RANK_ENTRIES:  # a process of path l or m
+        import faulthandler
+
+        # a rank that hangs in a collective shows where before it is stopped
+        faulthandler.dump_traceback_later(PATH_M_TIMEOUT_S - 60, exit=False)
         return RANK_ENTRIES[sys.argv[1]](sys.argv[2:])
     only_l = sys.argv[1:] == ["--only-path-l"]  # the build and path l alone
+    only_m = sys.argv[1:] == ["--only-path-m"]  # the build, the TP-local kernel cases and path m alone
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch._int_mm = counted_int_mm
@@ -3247,6 +3834,14 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s ({csrc.library_path().name})", flush=True)
 
     cfg = qwen25_vl_3b()
+    if only_m:
+        tp_cases = tp_kernel_cases(dev)
+        with tempfile.TemporaryDirectory() as work_dir:
+            m_res = path_m(card, work_dir)
+        print(json.dumps({"tp_kernel_cases": tp_cases, "path_m": m_res,
+                          "seconds": time.perf_counter() - t_start}), flush=True)
+        print(card, flush=True)
+        return 0
     if only_l:
         with tempfile.TemporaryDirectory() as work_dir:
             l_res = path_l(card, work_dir)
@@ -3254,6 +3849,14 @@ def main() -> int:
         print(card, flush=True)
         return 0
 
+    phases, lap_t = {}, [t_start]  # seconds of each phase below, for the time budget
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phases[name], lap_t[0] = now - lap_t[0], now
+        print(f"phase {name}: {phases[name]:.1f} s", flush=True)
+
+    lap("build")
     # ---- the decode kernels the rollout knobs reach, against their plain versions ----
     quant_rows = 16 * 8  # path f: 16 prompts x n 8 through the dense engine
     int8_cases = check_decode_quant(dev, cfg, "int8", quant_rows, 640, 512)
@@ -3269,13 +3872,16 @@ def main() -> int:
         int4_dn_cases.extend(dn_cases)
     int4_fallback = check_int4_fallback(dev, cfg)
     w8a8_cases = check_w8a8(dev, cfg)
+    tp_cases = tp_kernel_cases(dev)  # at the shapes a rank of a TP group gives them (path m)
     dequant_cases = prefill_dequant_cases(dev, cfg)
     torch.cuda.empty_cache()
+    lap("kernel cases")
 
     # ---- the serving and update kernels, paths a-d ----
     r = earlier_paths(dev, card, cfg)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("paths a-d")
     print(f"after paths a-d: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated", flush=True)
 
     # ---- paths e and f: the trainer; then the checkpoint round trip ----
@@ -3293,6 +3899,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"after paths e-g and the checkpoint round trip: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           "still allocated", flush=True)
+    lap("paths e-g and the checkpoint")
 
     # ---- paths i and j: the critic through the trainer, then the eval harness on its policy ----
     with tempfile.TemporaryDirectory() as work_dir:
@@ -3301,16 +3908,24 @@ def main() -> int:
         del gae_trainer
         gc.collect()
         torch.cuda.empty_cache()
+    lap("paths i-j")
 
     # ---- path k: the shipped 7B script through the trainer, state on the host ----
     with tempfile.TemporaryDirectory() as work_dir:
         k_res = sevenb_path(dev, card, work_dir)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("path k")
 
     # ---- path l: the distributed branch and sequence parallelism, in processes of their own ----
     with tempfile.TemporaryDirectory() as work_dir:
         l_res = path_l(card, work_dir)
+    lap("path l")
+
+    # ---- path m: Megatron tensor parallelism, two ranks of a TP group on one card ----
+    with tempfile.TemporaryDirectory() as work_dir:
+        m_res = path_m(card, work_dir)
+    lap("path m")
 
     def entry(name, route, source, replaces, cases, n_launch, **extra):
         main_case = cases[0]
@@ -3331,7 +3946,8 @@ def main() -> int:
     k_kern, k_l = k_res.pop("kernels"), k_res["launches"]
     kernels = [
         entry("flash_fwd", "cuda", "spatialthinker_torch/csrc/flash_attention.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:45", r["flash_cases"] + i_flash["fwd"] + k_kern["fwd"],
+              "spatialthinker_tpu/ops/flash_attention.py:45",
+              r["flash_cases"] + i_flash["fwd"] + k_kern["fwd"] + tp_cases["flash"],
               paged_l["flash_fwd"],
               launches_dense_path=dense_l["flash_fwd"], launches_bf16_pool_path=bf16_l["flash_fwd"],
               launches_training_path=train_l["flash_fwd"], launches_trainer_path=trainer_l["flash_fwd"]),
@@ -3344,15 +3960,18 @@ def main() -> int:
         # the backward's pre-pass (delta and the segment range tables) takes the place of
         # the XLA rowsum of _flash_bwd; no one PyTorch call computes it
         entry("flash_bwd_prep", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:343", r["prep_cases"] + i_flash["prep"] + k_kern["prep"],
+              "spatialthinker_tpu/ops/flash_attention.py:343",
+              r["prep_cases"] + i_flash["prep"] + k_kern["prep"] + tp_cases["prep"],
               train_l["flash_bwd_prep"],
               launches_trainer_path=trainer_l["flash_bwd_prep"]),
         entry("flash_bwd_dq", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:192", r["dq_cases"] + i_flash["dq"] + k_kern["dq"],
+              "spatialthinker_tpu/ops/flash_attention.py:192",
+              r["dq_cases"] + i_flash["dq"] + k_kern["dq"] + tp_cases["dq"],
               train_l["flash_bwd_dq"],
               launches_trainer_path=trainer_l["flash_bwd_dq"]),
         entry("flash_bwd_dkv", "cuda", "spatialthinker_torch/csrc/flash_attention_bwd.cu",
-              "spatialthinker_tpu/ops/flash_attention.py:255", r["dkv_cases"] + i_flash["dkv"] + k_kern["dkv"],
+              "spatialthinker_tpu/ops/flash_attention.py:255",
+              r["dkv_cases"] + i_flash["dkv"] + k_kern["dkv"] + tp_cases["dkv"],
               train_l["flash_bwd_dkv"],
               launches_trainer_path=trainer_l["flash_bwd_dkv"]),
         entry("decode_attention", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:138",
@@ -3373,7 +3992,7 @@ def main() -> int:
         entry("paged_attention_int4", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:225",
               paged_int4_cases, knob_res["paged_int4"]["launches"]["paged_attention_int4"]),
         entry("paged_attention_int4_i8", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:338",
-              r["int4_cases"] + k_kern["paged"], paged_l["paged_attention_int4_i8"],
+              r["int4_cases"] + k_kern["paged"] + tp_cases["paged"], paged_l["paged_attention_int4_i8"],
               launches_training_path=train_l["paged_attention_int4_i8"],
               launches_trainer_path=trainer_l["paged_attention_int4_i8"]),
         entry("silu_quant", "cuda", "spatialthinker_torch/csrc/silu_quant.cu",
@@ -3393,7 +4012,7 @@ def main() -> int:
         # library_ms: torch._int_mm alone on the pre-quantized x (the dot without quantize or epilogue)
         entry("w8a8_matmul", "cuda", "spatialthinker_torch/csrc/int8_matmul.cu",
               "spatialthinker_tpu/ops/int8_matmul.py:46",
-              r["w8a8_cases"] + g_res["w8a8_cases"] + w8a8_cases + k_kern["w8a8"],
+              r["w8a8_cases"] + g_res["w8a8_cases"] + w8a8_cases + k_kern["w8a8"] + tp_cases["w8a8"],
               paged_l["w8a8"], replaces_also="spatialthinker_tpu/ops/int8_matmul.py:65",
               library="torch._int_mm on the pre-quantized x",
               launches_prequantized_path_b=paged_l["w8a8_prequantized"],
@@ -3404,11 +4023,30 @@ def main() -> int:
                                                              g_res["launches"]))),
         entry("paged_staged_block", "cuda", paged_cu, "spatialthinker_tpu/ops/paged_attention.py:59",
               r["staged_cases"], r["h_launches"]["paged_staged"]),
+        # #12's split mode (tensor parallelism: the row scale over the whole I): launches are
+        # path m2's, rank 0, both passes (each rank's in launches_path_m)
+        entry("silu_quant_split", "cuda", "spatialthinker_torch/csrc/silu_quant.cu",
+              "spatialthinker_tpu/ops/int8_matmul.py:128", tp_cases["silu"],
+              m_res["m2"][0]["launches"]["silu_amax"] + m_res["m2"][0]["launches"]["silu_with_amax"]),
+        # kernel A's row quantize in its split mode (a row-parallel input under tensor parallelism:
+        # the scale of the whole K); launches are path m2's, rank 0, both passes
+        entry("w8a8_quantize_split", "cuda", "spatialthinker_torch/csrc/int8_matmul.cu",
+              "spatialthinker_tpu/ops/int8_matmul.py:52", tp_cases["quant_split"],
+              m_res["m2"][0]["launches"]["quant_amax"] + m_res["m2"][0]["launches"]["quant_with_amax"],
+              replaces_also="spatialthinker_tpu/ops/int8_matmul.py:70"),
     ]
     count_keys = {"int4_gateup_silu": "int4_gateup", "w8a8_matmul": "w8a8", "paged_staged_block": "paged_staged"}
     l1_l = l_res["l1"]["launches"]
+    count_keys["silu_quant_split"] = ("silu_amax", "silu_with_amax")
+    count_keys["w8a8_quantize_split"] = ("quant_amax", "quant_with_amax")
     for k in kernels:
         key = count_keys.get(k["name"], k["name"])
+        # per rank of path m2 (the trainer at tp 2) and of m1 (the model's forward)
+        pick = (lambda c: c[key[0]] + c[key[1]]) if isinstance(key, tuple) else (lambda c: c[key])
+        k["launches_path_m"] = {"m2": [pick(r["launches"]) for r in m_res["m2"]],
+                                "m1": [pick(r["launches"]) for r in m_res["m1"]]}
+        if isinstance(key, tuple):
+            continue
         k["launches_gae_path"], k["launches_eval_path"] = i_l[key], j_l[key]
         k["launches_7b_path"] = k_l[key]
         k["launches_path_l1"] = l1_l[key]
@@ -3438,6 +4076,9 @@ def main() -> int:
                         "nccl_two_ranks_one_device": l_res["nccl_two_ranks_one_device"],
                         "seconds": l_res["seconds"]},
         "prefill_dequant": dequant_cases,
+        "phase_seconds": phases,
+        "tensor_parallel": {"m1": m_res["m1"], "m2": [{k: v for k, v in r.items() if k != "launches"}
+                                                       for r in m_res["m2"]], "seconds": m_res["seconds"]},
     }, "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

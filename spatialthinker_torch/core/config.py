@@ -16,8 +16,13 @@ the JAX package refuses or never reads with their reason; none is ignored:
   mesh against the world size, ``n_chips`` against the ranks of this node,
   sp against ``model_size``, the kv heads and the sequence length, as the
   JAX trainer does). The actor's mesh serves the critic and the reference
-  too, as in JAX. ``model_size`` > 1 without sequence parallelism (Megatron
-  tensor parallelism) and ``rollout.tensor_parallel_size`` > 1: ROADMAP A13b.
+  too, as in JAX. ``model_size`` > 1 without sequence parallelism is
+  Megatron tensor parallelism (``parallel/tensor.py``; the trainer checks
+  the kv-head cap) and the rollout is tensor-parallel with it, one paged
+  engine a TP group; ``rollout.tensor_parallel_size`` is 1 or
+  ``model_size``, as the JAX tree checks. Under TP the dense and continuous
+  engines, ``quantization=w4a8`` and a TP rollout beside sequence
+  parallelism are refused: ROADMAP A13c.
 - ``sharding.host_offload_params``, with the JAX tree's reason: one parameter
   set serves rollout and training, so there is no idle stage to offload it
   across.
@@ -104,8 +109,8 @@ class OptimConfig:
 
 @dataclass
 class ShardingConfig:
-    """The JAX tree's mesh axis sizes. The port accepts 1 and -1 ("every
-    device left" = the one GPU) and rejects the rest until it has a mesh."""
+    """The JAX tree's mesh axis sizes, checked against the process group by
+    the trainer (``parallel/mesh.py``)."""
 
     data_size: int = 1          # replica/ddp axis
     fsdp_size: int = -1         # parameter-shard axis
@@ -198,7 +203,7 @@ class RolloutConfig:
     # chunks; composes with the token budget (groups are chunked as well when
     # rows * P exceeds max_num_batched_tokens)
     prefill_rows: int = 0
-    tensor_parallel_size: int = 1   # > 1 rejected (ROADMAP A13b)
+    tensor_parallel_size: int = 1   # 1 or actor.sharding.model_size (decode shares the training mesh)
     # reuse the engine's sampled-token log-probs as old_log_probs instead of
     # recomputing them with the training forward
     use_rollout_log_probs: bool = False
@@ -308,13 +313,6 @@ class PPOConfig:
                         f"worker.{role}.sharding.{axis}={size}: a mesh axis has a positive "
                         "size (fsdp_size also -1: every rank the other axes leave)"
                     )
-            if sh.model_size > 1 and self.worker.actor.ulysses_sequence_parallel_size == 1:
-                raise ValueError(
-                    f"worker.{role}.sharding.model_size={sh.model_size} without sequence "
-                    "parallelism is Megatron tensor parallelism, which comes with ROADMAP "
-                    "A13b; the model axis carries sequence shards only (set "
-                    "worker.actor.ulysses_sequence_parallel_size to model_size)"
-                )
             if sh.host_offload_params:
                 raise ValueError(
                     f"worker.{role}.sharding.host_offload_params is not supported: "
@@ -363,10 +361,34 @@ class PPOConfig:
                 "token cells per byte"
             )
         tp = self.worker.rollout.tensor_parallel_size
-        if tp > 1:
+        if tp != 1 and tp != self.worker.actor.sharding.model_size:
             raise ValueError(
-                f"rollout.tensor_parallel_size={tp}: tensor-parallel decode comes with "
-                "ROADMAP A13b; each rank runs its own engine on its own prompts"
+                f"rollout.tensor_parallel_size={tp} conflicts with "
+                f"actor.sharding.model_size={self.worker.actor.sharding.model_size}: "
+                "decode shares the training mesh; set actor.sharding.model_size "
+                "(and leave tensor_parallel_size at 1 or equal to it)"
+            )
+        roll = self.worker.rollout
+        model_size = self.worker.actor.sharding.model_size
+        if model_size > 1 and self.worker.actor.ulysses_sequence_parallel_size == 1:
+            # Megatron TP: the rollout runs one paged engine per TP group
+            if roll.name != "continuous" or roll.page_size <= 0:
+                raise ValueError(
+                    f"rollout.name={roll.name!r} with page_size={roll.page_size} under tensor "
+                    f"parallelism (sharding.model_size={model_size}): a TP rollout runs the paged "
+                    "engine (rollout.name=continuous, page_size > 0); the dense and continuous "
+                    "engines under TP are ROADMAP A13c"
+                )
+            if roll.quantization == "w4a8":
+                raise ValueError(
+                    "rollout.quantization=w4a8 under tensor parallelism: the int4 rule reads the "
+                    "whole contraction, which TP splits (ROADMAP A13c); use int8"
+                )
+        elif tp > 1:
+            raise ValueError(
+                f"rollout.tensor_parallel_size={tp} with sequence parallelism on the model axis: "
+                "tensor-parallel decode runs when the model axis is tensor-parallel "
+                "(ulysses_sequence_parallel_size=1); beside sp it is ROADMAP A13c"
             )
 
 

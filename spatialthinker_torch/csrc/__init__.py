@@ -59,6 +59,8 @@ _SIGNATURES = {
     "st_decode_split_smem": [_I] * 4,
     # gu, q, s, M, I, row stride, dtype, stream
     "st_silu_quant": [_P] * 3 + [_I] * 2 + [_L, _I, _P],
+    # gu, q, s, amax, M, I, row stride, dtype, pass (1: amax, 2: quantize with it), stream
+    "st_silu_quant_split": [_P] * 4 + [_I] * 2 + [_L, _I, _I, _P],
     # I -> threads / bytes of dynamic shared memory of a row's CTA
     "st_silu_quant_threads": [_I],
     "st_silu_quant_smem": [_I],
@@ -74,6 +76,8 @@ _SIGNATURES = {
     "st_int4_mlp": [_P] * 5 + [_I] * 10 + [_P],
     # x, x_f32, xq, xs, w, ws, out, out_f32, m, n, k, quantize, mb, bn, splits, stages, stream
     "st_int8_matmul": [_P, _I] + [_P] * 5 + [_I] * 9 + [_P],
+    # x, x_f32, xq, xs, amax, m, k, pass (1: amax, 2: quantize with it), stream
+    "st_quantize_rows_split": [_P, _I] + [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -17,7 +17,9 @@
 //   Bit-equal to the plain version on any device, whatever the plan: the
 //   int32 sum is exact (K * 127^2 < 2^31), so any split of K summed in int32
 //   in any order gives the same acc. With `quantize` = 0 the caller passes xq
-//   and xs already made (the rows the silu junction quantized).
+//   and xs already made (the rows the silu junction quantized, or the row
+//   quantize's split mode: `st_quantize_rows_split`, for a tensor-parallel
+//   rank whose K / tp columns take the scale of the whole row's amax).
 //
 // What bounds it on the H100, and what the design does about it:
 // - Decode (m <= 256: the engines' 65, 128, 129 and 136 lanes): bytes. Every
@@ -127,9 +129,16 @@ __device__ __forceinline__ void vec_store(const uint4& v, float s, int8_t* xq, f
   *reinterpret_cast<uint32_t*>(xq) = q.u;
 }
 
-template <typename InT, int HOLD>
+// MODE 0: one pass (the row's own amax). Under tensor parallelism a rank
+// holds K / tp of a row whose scale is the amax over the whole K, so the
+// split mode runs the kernel twice: MODE 1 writes each row's local amax to
+// `amax_io` and nothing else; the group all-reduces MAX; MODE 2 reads the
+// group's amax from `amax_io` and quantizes with its scale, as MODE 0 does
+// with its own.
+template <typename InT, int HOLD, int MODE>
 __global__ void __launch_bounds__(QTHREADS)
-quantize_rows_kernel(const InT* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs, int k) {
+quantize_rows_kernel(const InT* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs,
+                     float* __restrict__ amax_io, int k) {
   griddep_launch_dependents();  // the GEMM may start streaming weights now
   constexpr int VEC = 16 / sizeof(InT);
   const int row = blockIdx.x;
@@ -137,26 +146,44 @@ quantize_rows_kernel(const InT* __restrict__ x, int8_t* __restrict__ xq, float* 
   const int nv = k / VEC;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * k);
   uint4 held[HOLD];
-  float amax = 0.f;
-#pragma unroll
-  for (int j = 0; j < HOLD; ++j) {
-    const int v = threadIdx.x + j * QTHREADS;
-    if (v < nv) {
-      held[j] = xr[v];
-      amax = vec_amax(held[j], amax, InT());
-    }
-  }
-  for (int v = threadIdx.x + HOLD * QTHREADS; v < nv; v += QTHREADS) amax = vec_amax(xr[v], amax, InT());
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  __shared__ float warp_max[QTHREADS / 32];
   __shared__ float row_scale;
-  if (lane == 0) warp_max[warp] = amax;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float v = 0.f;
-    for (int w = 0; w < QTHREADS / 32; ++w) v = fmaxf(v, warp_max[w]);
-    row_scale = fmaxf(v, EPS) / 127.0f;  // IEEE division, as the plain version
-    xs[row] = row_scale;
+  if constexpr (MODE == 2) {
+    // the group's amax: the row is read once, by the stores below
+#pragma unroll
+    for (int j = 0; j < HOLD; ++j) {
+      const int v = threadIdx.x + j * QTHREADS;
+      if (v < nv) held[j] = xr[v];
+    }
+    if (threadIdx.x == 0) {
+      row_scale = fmaxf(amax_io[row], EPS) / 127.0f;  // IEEE division, as the plain version
+      xs[row] = row_scale;
+    }
+  } else {
+    float amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < HOLD; ++j) {
+      const int v = threadIdx.x + j * QTHREADS;
+      if (v < nv) {
+        held[j] = xr[v];
+        amax = vec_amax(held[j], amax, InT());
+      }
+    }
+    for (int v = threadIdx.x + HOLD * QTHREADS; v < nv; v += QTHREADS) amax = vec_amax(xr[v], amax, InT());
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    __shared__ float warp_max[QTHREADS / 32];
+    if (lane == 0) warp_max[warp] = amax;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float v = 0.f;
+      for (int w = 0; w < QTHREADS / 32; ++w) v = fmaxf(v, warp_max[w]);
+      if constexpr (MODE == 1) {
+        amax_io[row] = v;
+      } else {
+        row_scale = fmaxf(v, EPS) / 127.0f;  // IEEE division, as the plain version
+        xs[row] = row_scale;
+      }
+    }
+    if constexpr (MODE == 1) return;
   }
   __syncthreads();
   const float s = row_scale;
@@ -445,15 +472,24 @@ w8a8_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constan
 
 // ---- host side ----
 
-template <typename InT>
-cudaError_t launch_quantize(const InT* x, void* xq, void* xs, int m, int k, cudaStream_t s) {
+template <typename InT, int MODE = 0>
+cudaError_t launch_quantize(const InT* x, void* xq, void* xs, int m, int k, cudaStream_t s,
+                            void* amax_io = nullptr) {
   const int per_thread = (k / (16 / static_cast<int>(sizeof(InT))) + QTHREADS - 1) / QTHREADS;
-  auto kernel = per_thread <= 1   ? quantize_rows_kernel<InT, 1>
-                : per_thread <= 2 ? quantize_rows_kernel<InT, 2>
-                : per_thread <= 4 ? quantize_rows_kernel<InT, 4>
-                                  : quantize_rows_kernel<InT, 8>;
-  kernel<<<m, QTHREADS, 0, s>>>(x, static_cast<int8_t*>(xq), static_cast<float*>(xs), k);
+  auto kernel = per_thread <= 1   ? quantize_rows_kernel<InT, 1, MODE>
+                : per_thread <= 2 ? quantize_rows_kernel<InT, 2, MODE>
+                : per_thread <= 4 ? quantize_rows_kernel<InT, 4, MODE>
+                                  : quantize_rows_kernel<InT, 8, MODE>;
+  kernel<<<m, QTHREADS, 0, s>>>(x, static_cast<int8_t*>(xq), static_cast<float*>(xs),
+                                static_cast<float*>(amax_io), k);
   return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_quantize_split(const void* x, int x_f32, void* xq, void* xs, void* amax, int m, int k,
+                                  cudaStream_t s) {
+  return x_f32 ? launch_quantize<float, MODE>(static_cast<const float*>(x), xq, xs, m, k, s, amax)
+               : launch_quantize<__nv_bfloat16, MODE>(static_cast<const __nv_bfloat16*>(x), xq, xs, m, k, s, amax);
 }
 
 // A (rows, k) int8 row-major matrix, read in boxes of 128 k-bytes x box_rows
@@ -589,4 +625,18 @@ extern "C" int st_int8_matmul(const void* x, int x_f32, void* xq, void* xs, cons
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return out_f32 ? dispatch<float>(mb, bn, p) : dispatch<__nv_bfloat16>(mb, bn, p);
+}
+
+// The row quantize's split mode (tensor parallelism: the row's scale is the
+// amax over the whole K, K / tp of it on this rank). pass 1 writes each
+// row's local amax (m,) fp32 to `amax` (xq and xs untouched); pass 2 writes
+// xq (m, k) int8 and xs (m,) fp32 with the scale of `amax` (the group's,
+// all-reduced MAX in between). K a multiple of 32, as the GEMM takes it.
+extern "C" int st_quantize_rows_split(const void* x, int x_f32, void* xq, void* xs, void* amax, int m, int k,
+                                      int pass, void* stream) {
+  if (m < 1 || k < 32 || k % 32 != 0 || (pass != 1 && pass != 2)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = pass == 1 ? launch_quantize_split<1>(x, x_f32, xq, xs, amax, m, k, s)
+                                    : launch_quantize_split<2>(x, x_f32, xq, xs, amax, m, k, s);
+  return static_cast<int>(err);
 }

@@ -25,6 +25,14 @@
 // five at the 3B width, two at the 7B width, each with its whole row's loads
 // outstanding. Widths that are no multiple of 16 (or rows not 16-byte
 // aligned) take scalar loads and stores with the tail masked.
+//
+// Tensor parallelism splits I over the ranks of a group, and the row's
+// scale is the amax over the WHOLE I (the single-device value). The split
+// mode runs the same kernel in two passes: pass 1 (MODE 1) writes each
+// row's local amax and keeps no h; the group takes the max of the ranks'
+// amaxes; pass 2 (MODE 2) recomputes h, quantizes with the group's amax
+// and writes q and the scale. The one-pass mode (MODE 0) is the kernel as
+// it was.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -53,10 +61,12 @@ __device__ __forceinline__ int8_t quantize(float h, float scale) {
 }
 
 // VEC: every chunk is whole and 16-byte aligned (I % 16 == 0, aligned rows).
-template <typename T, bool VEC>
+// MODE 0: one pass; 1: the row amax into `amax`, nothing else; 2: q and s
+// from the row amax read from `amax`.
+template <typename T, bool VEC, int MODE>
 __global__ void __launch_bounds__(MAX_THREADS)
 silu_quant_kernel(const T* __restrict__ gu, int8_t* __restrict__ q, float* __restrict__ s, int I,
-                  long long stride) {
+                  long long stride, float* __restrict__ amax_io) {
   constexpr int PER = 16 / sizeof(T);   // values of a 16-byte load
   constexpr int LOADS = CHUNK / PER;    // 16-byte loads of a chunk, per half
   extern __shared__ float4 h4[];        // h of chunk c, floats 4 j .. 4 j + 3, at h4[j * chunks + c]
@@ -99,9 +109,11 @@ silu_quant_kernel(const T* __restrict__ gu, int8_t* __restrict__ q, float* __res
         hv[e] = silu_mul(gf, uf);
         amax = fmaxf(amax, fabsf(hv[e]));
       }
+      if (MODE != 1) {
 #pragma unroll
-      for (int j = 0; j < CHUNK / 4; ++j)
-        h4[j * chunks + c] = make_float4(hv[4 * j], hv[4 * j + 1], hv[4 * j + 2], hv[4 * j + 3]);
+        for (int j = 0; j < CHUNK / 4; ++j)
+          h4[j * chunks + c] = make_float4(hv[4 * j], hv[4 * j + 1], hv[4 * j + 2], hv[4 * j + 3]);
+      }
     }
   }
 
@@ -112,6 +124,11 @@ silu_quant_kernel(const T* __restrict__ gu, int8_t* __restrict__ q, float* __res
   __syncthreads();  // also: every chunk's h is in shared memory
   float row_amax = 0.f;
   for (int w = 0; w < (int)(blockDim.x >> 5); ++w) row_amax = fmaxf(row_amax, warp_amax[w]);
+  if (MODE == 1) {
+    if (threadIdx.x == 0) amax_io[blockIdx.x] = row_amax;
+    return;
+  }
+  if (MODE == 2) row_amax = amax_io[blockIdx.x];
   const float scale = fmaxf(row_amax, EPS) * (1.0f / 127.0f);
   if (threadIdx.x == 0) s[blockIdx.x] = scale;
 
@@ -144,12 +161,12 @@ int row_threads(int I) {
 
 int row_smem(int I) { return (I + CHUNK - 1) / CHUNK * CHUNK * 4; }
 
-template <typename T, bool VEC>
-int launch(const void* gu, void* q, void* s, int M, int I, long long stride, cudaStream_t stream) {
-  auto kernel = silu_quant_kernel<T, VEC>;
+template <typename T, bool VEC, int MODE>
+int launch(const void* gu, void* q, void* s, float* amax, int M, int I, long long stride, cudaStream_t stream) {
+  auto kernel = silu_quant_kernel<T, VEC, MODE>;
   int device = 0;
   cudaGetDevice(&device);
-  static bool configured[64] = {};  // per device: the opt-in to large dynamic shared memory
+  static bool configured[64] = {};  // per device and instance: the opt-in to large dynamic shared memory
   if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!configured[device]) {
     const int static_bytes = MAX_THREADS / 32 * 4;
@@ -158,16 +175,36 @@ int launch(const void* gu, void* q, void* s, int M, int I, long long stride, cud
     if (err != cudaSuccess) return static_cast<int>(err);
     configured[device] = true;
   }
-  kernel<<<M, row_threads(I), row_smem(I), stream>>>(static_cast<const T*>(gu), static_cast<int8_t*>(q),
-                                                      static_cast<float*>(s), I, stride);
+  kernel<<<M, row_threads(I), MODE == 1 ? 0 : row_smem(I), stream>>>(
+      static_cast<const T*>(gu), static_cast<int8_t*>(q), static_cast<float*>(s), I, stride, amax);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dtype(const void* gu, void* q, void* s, int M, int I, long long stride, cudaStream_t stream) {
+template <typename T, int MODE>
+int launch_dtype(const void* gu, void* q, void* s, float* amax, int M, int I, long long stride,
+                 cudaStream_t stream) {
   const bool vec = I % CHUNK == 0 && (stride * (long long)sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(gu) % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  return vec ? launch<T, true>(gu, q, s, M, I, stride, stream) : launch<T, false>(gu, q, s, M, I, stride, stream);
+  return vec ? launch<T, true, MODE>(gu, q, s, amax, M, I, stride, stream)
+             : launch<T, false, MODE>(gu, q, s, amax, M, I, stride, stream);
+}
+
+template <int MODE>
+int launch_mode(const void* gu, void* q, void* s, float* amax, int M, int I, long long stride, int dtype,
+                cudaStream_t stream) {
+  switch (dtype) {
+    case 0:
+      return launch_dtype<__nv_bfloat16, MODE>(gu, q, s, amax, M, I, stride, stream);
+    case 1:
+      return launch_dtype<__half, MODE>(gu, q, s, amax, M, I, stride, stream);
+    default:
+      return launch_dtype<float, MODE>(gu, q, s, amax, M, I, stride, stream);
+  }
+}
+
+bool refused(int M, int I, long long stride, int dtype) {
+  return M < 1 || M > 0x7fffffff || I < 1 || stride < 2LL * I || dtype < 0 || dtype > 2 ||
+         row_smem(I) > MAX_SMEM - MAX_THREADS / 32 * 4;
 }
 
 }  // namespace
@@ -183,16 +220,19 @@ extern "C" int st_silu_quant_smem(int I) { return row_smem(I); }
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int st_silu_quant(const void* gu, void* q, void* s, int M, int I, long long stride, int dtype,
                              void* stream) {
-  if (M < 1 || M > 0x7fffffff || I < 1 || stride < 2LL * I || dtype < 0 || dtype > 2 ||
-      row_smem(I) > MAX_SMEM - MAX_THREADS / 32 * 4)
+  if (refused(M, I, stride, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mode<0>(gu, q, s, nullptr, M, I, stride, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The split mode's two passes, on a rank's I columns: pass 1 writes the row
+// amax (M) fp32 into `amax` (q and s untouched); pass 2 reads the group's
+// row amax from `amax` and writes q and s as the one-pass mode does.
+extern "C" int st_silu_quant_split(const void* gu, void* q, void* s, void* amax, int M, int I,
+                                   long long stride, int dtype, int pass, void* stream) {
+  if (refused(M, I, stride, dtype) || (pass != 1 && pass != 2) || amax == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_dtype<__nv_bfloat16>(gu, q, s, M, I, stride, st);
-    case 1:
-      return launch_dtype<__half>(gu, q, s, M, I, stride, st);
-    default:
-      return launch_dtype<float>(gu, q, s, M, I, stride, st);
-  }
+  float* a = static_cast<float*>(amax);
+  return pass == 1 ? launch_mode<1>(gu, q, s, a, M, I, stride, dtype, st)
+                   : launch_mode<2>(gu, q, s, a, M, I, stride, dtype, st);
 }

@@ -2,7 +2,13 @@
 (counterpart of ``spatialthinker_tpu/models/qwen2_5_vl/model.py``).
 
 The merge scatters vision embeddings into image-token slots with a
-cumulative-index gather, as the JAX package does."""
+cumulative-index gather, as the JAX package does.
+
+``tp`` (a ``parallel.tensor.TPSpec``) builds one rank's Megatron shard: every
+module at its local widths (heads, kv heads, I, the vocab rows, vision heads
+and I), ``cfg`` the whole model's (RoPE, m-RoPE and every check read it).
+``whole_vocab`` keeps ``embed_tokens`` / ``lm_head`` whole (the rollout
+copy)."""
 
 from __future__ import annotations
 
@@ -14,18 +20,18 @@ from torch import nn
 
 from .config import Qwen25VLConfig
 from .host import VisionInputs
-from ...ops.quant import embed_rows
 from ...ops.ulysses import seq_chunk
-from .text import KVCache, TextModel, forward_hidden
+from .text import KVCache, TextModel, embed_ids, forward_hidden
 from .vision import VisionTower, vision_forward
 
 
 class Qwen25VL(nn.Module):
-    def __init__(self, cfg: Qwen25VLConfig, device=None, dtype=None):
+    def __init__(self, cfg: Qwen25VLConfig, device=None, dtype=None, tp=None, whole_vocab: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.text = TextModel(cfg.text, device, dtype)
-        self.vision = VisionTower(cfg.vision, device, dtype)
+        self.tp = tp
+        self.text = TextModel(cfg.text, device, dtype, tp, whole_vocab)
+        self.vision = VisionTower(cfg.vision, device, dtype, tp)
 
     def forward(self, fn, *args, **kwargs):
         """``fn(self, *args, **kwargs)``: the model code is functions of the
@@ -64,9 +70,7 @@ def embed_inputs(
     """Token embeddings with vision embeddings merged into image-token slots
     (B, S, E). Chunked prefill embeds the whole prompt once: the vision tower
     is not chunkable, images merge before the sequence is split."""
-    embeds = embed_rows(
-        model.text.embed_tokens.weight, input_ids, dtype=model.text.norm.weight.dtype
-    )
+    embeds = embed_ids(model.text, input_ids)
     if vision is not None:
         vision_embeds = vision_forward(model.vision, *vision, remat=remat)
         embeds = merge_multimodal_embeds(

@@ -23,10 +23,14 @@
 - ``init_params``: random weights drawn directly on the device from a
   ``torch.Generator`` (normal * 0.02, zero biases, unit norms — the JAX
   package's init scheme).
-- ``build_model``: a state dict -> a ``Qwen25VL`` on a device.
+- ``build_model``: a state dict -> a ``Qwen25VL`` on a device; with ``tp``
+  (a ``parallel.tensor.TPSpec``) this rank's Megatron shard of it, cut by
+  ``parallel.tensor.shard_for_rank`` before anything reaches the device (a
+  JAX tree through ``params_from_jax`` or an HF checkpoint alike).
 - ``load_params``: a local HF checkpoint directory (``config.json`` +
   ``*.safetensors``; the ``safetensors`` package is imported only here) -> a
-  ``Qwen25VL`` on a device. ``trainer_state_from_jax``: a JAX trainer's
+  ``Qwen25VL`` on a device (``tp``: this rank's shard, the whole files read
+  to the host only). ``trainer_state_from_jax``: a JAX trainer's
   parameters, Adam moments, count and step as numpy trees -> what a port
   trainer loads, so both trainers start a step from the same state. A JAX
   critic tree (the backbone + ``value_head``) carries both ways as well:
@@ -275,11 +279,18 @@ def default_device() -> torch.device:
 
 
 def build_model(cfg: Qwen25VLConfig, state: Mapping[str, torch.Tensor], *,
-                device=None, dtype=torch.bfloat16) -> Qwen25VL:
+                device=None, dtype=torch.bfloat16, tp=None) -> Qwen25VL:
     """A ``Qwen25VL`` holding ``state`` (every parameter, strictly) on
-    ``device`` (default: the current CUDA device)."""
+    ``device`` (default: the current CUDA device); with ``tp`` the TP-local
+    model holding this rank's shard of the whole ``state`` (unquantized)."""
     device = default_device() if device is None else device
-    model = Qwen25VL(cfg, device="meta", dtype=dtype)
+    if tp is not None:
+        from ...parallel.tensor import shard_for_rank
+
+        if any(k.endswith((".qvalue", ".q4")) for k in state):
+            raise ValueError("a tensor-parallel model is built from an unquantized state dict")
+        state = shard_for_rank(state, tp.size, tp.rank)
+    model = Qwen25VL(cfg, device="meta", dtype=dtype, tp=tp)
     loaded = {}
     for key, value in state.items():
         prefix, _, leaf = key.rpartition(".")
@@ -373,9 +384,11 @@ def is_hf_checkpoint_dir(path: str) -> bool:
     return os.path.isdir(path) and any(f.endswith(".safetensors") for f in os.listdir(path))
 
 
-def load_params(model_dir: str, *, device=None, dtype=torch.bfloat16) -> Qwen25VL:
+def load_params(model_dir: str, *, device=None, dtype=torch.bfloat16, tp=None) -> Qwen25VL:
     """A ``Qwen25VL`` from a local HF checkpoint directory, on ``device``
-    (default: the current CUDA device)."""
+    (default: the current CUDA device). ``tp``: this rank's TP shard only --
+    the files are read to the host, and only the shard moves to ``device``
+    (``trainer.main`` and the critic load so under tensor parallelism)."""
     from safetensors.torch import load_file
 
     files = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
@@ -385,7 +398,7 @@ def load_params(model_dir: str, *, device=None, dtype=torch.bfloat16) -> Qwen25V
     for f in files:
         state.update(load_file(f))
     cfg = config_from_hf_json(model_dir)
-    return build_model(cfg, params_from_hf_state_dict(state, cfg), device=device, dtype=dtype)
+    return build_model(cfg, params_from_hf_state_dict(state, cfg), device=device, dtype=dtype, tp=tp)
 
 
 def trainer_state_from_jax(cfg: Qwen25VLConfig, *, params, mu, nu, count: int, step: int,

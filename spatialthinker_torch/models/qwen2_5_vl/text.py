@@ -40,7 +40,11 @@ from ...ops.ulysses import ulysses_attention
 from ...ops.decode_attention import decode_attention
 from ...ops.logprobs import matmul_fp32_out
 from ...ops.int4_mlp import w4_swiglu
-from ...ops.quant import embed_rows, fused_silu_quant_dot, is_quantized, linear, quantized_dot
+from ...ops.quant import (
+    embed_rows, fused_silu_quant_dot, is_quantized, linear, quantized_dot, row_parallel_dot,
+    row_parallel_silu_dot,
+)
+from ...parallel.tensor import copy_to_tp, reduce_from_tp, tp_size, vocab_range
 from .config import TextConfig
 from .rope import apply_rotary, compute_cos_sin, make_inv_freq
 
@@ -57,7 +61,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 # a weight is one of these two ops (``F.linear`` with a bias on a contiguous
 # input is ``addmm``, without one ``mm``); attention's products carry batch
 # dims (``bmm``, or a kernel) and are not among them.
-WEIGHT_PRODUCT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# (A row-parallel product under tensor parallelism is ``mm`` with an fp32
+# output, ``matmul_fp32_out``, on the card.)
+WEIGHT_PRODUCT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) + (
+    (torch.ops.aten.mm.dtype,) if hasattr(torch.ops.aten.mm, "dtype") else ())
 
 
 def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -259,17 +266,24 @@ def _layer_kv(ck, cv, layer_idx: int, dtype, k_scale=None, v_scale=None, end=Non
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TextConfig, device=None, dtype=None):
+    """The fused QKV and o products of one layer at this rank's heads: all
+    of them, or under tensor parallelism (``tp``) the rank's whole GQA
+    groups (the config's heads / tp, its kv heads / tp)."""
+
+    def __init__(self, cfg: TextConfig, device=None, dtype=None, tp=None):
         super().__init__()
-        h, hkv, d, e = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, cfg.hidden_size
+        t = tp_size(tp)
+        h, hkv, d, e = cfg.num_attention_heads // t, cfg.num_key_value_heads // t, cfg.head_dim, cfg.hidden_size
+        self.num_heads, self.num_kv_heads = h, hkv
         self.qkv_proj = nn.Linear(e, hkv * (h // hkv + 2) * d, bias=True, device=device, dtype=dtype)
         self.o_proj = nn.Linear(h * d, e, bias=False, device=device, dtype=dtype)
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: TextConfig, device=None, dtype=None):
+    def __init__(self, cfg: TextConfig, device=None, dtype=None, tp=None):
         super().__init__()
-        e, inter = cfg.hidden_size, cfg.intermediate_size
+        self.tp = tp
+        e, inter = cfg.hidden_size, cfg.intermediate_size // tp_size(tp)
         self.gate_up_proj = nn.Linear(e, 2 * inter, bias=False, device=device, dtype=dtype)
         self.down_proj = nn.Linear(inter, e, bias=False, device=device, dtype=dtype)
         # w4a8 tree: int4 decode copies (ops.int4_mlp.Int4Weight), else None
@@ -284,8 +298,22 @@ class MLP(nn.Module):
         its order: on the w4a8 tree the int4 copies first (``w4_swiglu``, None
         where the shape is refused); on the quantized tree prefill-sized m
         (>= 1024 rows, a multiple of 8) through the fused silu->int8 junction
-        and the int8 down dot; otherwise silu + ``linear``."""
+        and the int8 down dot; otherwise silu + ``linear``.
+
+        Under tensor parallelism gate_up is column-parallel (this rank's I
+        columns) and down row-parallel: the rank's partial down product is
+        summed over the group in fp32. On the quantized tree the down input's
+        per-row scale is the amax over the whole I (``ops.quant``'s
+        ``row_parallel_*``); the w4a8 copies are never built under TP."""
         gup, down = self.gate_up_proj.weight, self.down_proj.weight
+        if tp_size(self.tp) > 1:
+            gu = linear(copy_to_tp(x, self.tp), gup, contract_axis=1)
+            if is_quantized(gup):
+                part = row_parallel_silu_dot(gu, down, self.tp, fused=self.fused_silu)
+            else:
+                gate, up = gu.chunk(2, dim=-1)
+                part = matmul_fp32_out(F.silu(gate) * up, down)
+            return reduce_from_tp(part, self.tp, out_dtype=x.dtype)
         if self.gate_up_w4 is not None and self.w4:
             out = w4_swiglu(x, self.gate_up_w4, self.down_w4, out_dtype=x.dtype)
             if out is not None:
@@ -319,20 +347,29 @@ def fused_qkv(attn: Attention, normed: torch.Tensor, h: int, hkv: int, d: int):
 def attention_inputs(layer: "DecoderLayer", cfg: TextConfig, x: torch.Tensor, cos, sin):
     """Shared head of every decoder layer (prefill, dense-cache decode and the
     paged engine's per-slot decode): rms-norm -> fused QKV -> mRoPE. The
-    engines differ only in how they write k/v into their cache."""
-    normed = layer.input_layernorm(x)
-    q, k, v = fused_qkv(
-        layer.self_attn, normed, cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    )
+    engines differ only in how they write k/v into their cache. Under tensor
+    parallelism q / k / v are this rank's heads."""
+    normed = copy_to_tp(layer.input_layernorm(x), layer.tp)
+    attn = layer.self_attn
+    q, k, v = fused_qkv(attn, normed, attn.num_heads, attn.num_kv_heads, cfg.head_dim)
     q, k = apply_rotary(q, k, cos, sin)
     return q, k, v
 
 
 def finish_layer(layer: "DecoderLayer", cfg: TextConfig, x: torch.Tensor, out: torch.Tensor):
     """Shared tail of every decoder layer: o_proj residual + SwiGLU MLP
-    residual. ``out`` is the attention output (B, S, H, D)."""
+    residual. ``out`` is the attention output (B, S, H, D); under tensor
+    parallelism this rank's heads, whose o_proj rows give a partial sum
+    that the group adds in fp32 (each rank's partial product kept in fp32,
+    so the only difference from one device is the order of the sum)."""
     b, s = out.shape[:2]
-    x = x + linear(out.reshape(b, s, -1), layer.self_attn.o_proj.weight, contract_axis=1)
+    o = out.reshape(b, s, -1)
+    w = layer.self_attn.o_proj.weight
+    if tp_size(layer.tp) > 1:
+        part = row_parallel_dot(o, w, layer.tp) if is_quantized(w) else matmul_fp32_out(o, w)
+        x = x + reduce_from_tp(part, layer.tp, out_dtype=x.dtype)
+    else:
+        x = x + linear(o, w, contract_axis=1)
     return x + layer.mlp(layer.post_attention_layernorm(x))
 
 
@@ -362,13 +399,14 @@ def _write_cache(cache: KVCache, layer_idx: int, k: torch.Tensor, v: torch.Tenso
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: TextConfig, device=None, dtype=None):
+    def __init__(self, cfg: TextConfig, device=None, dtype=None, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, dtype)
-        self.self_attn = Attention(cfg, device, dtype)
+        self.self_attn = Attention(cfg, device, dtype, tp)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, dtype)
-        self.mlp = MLP(cfg, device, dtype)
+        self.mlp = MLP(cfg, device, dtype, tp)
 
     def forward(
         self,
@@ -433,16 +471,43 @@ class DecoderLayer(nn.Module):
 
 
 class TextModel(nn.Module):
-    def __init__(self, cfg: TextConfig, device=None, dtype=None):
+    """The decoder stack. Under tensor parallelism (``tp``) its layers hold
+    this rank's shards and ``embed_tokens`` / ``lm_head`` this rank's vocab
+    rows (``vocab_split``), unless ``whole_vocab`` keeps them whole (the
+    rollout copy: logits and sampling stay local)."""
+
+    def __init__(self, cfg: TextConfig, device=None, dtype=None, tp=None, whole_vocab: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, device=device, dtype=dtype)
+        self.tp = tp
+        self.vocab_split = tp_size(tp) > 1 and not whole_vocab
+        self.vocab_start, vocab_end = vocab_range(cfg.vocab_size, tp if self.vocab_split else None)
+        vocab = vocab_end - self.vocab_start
+        self.embed_tokens = nn.Embedding(vocab, cfg.hidden_size, device=device, dtype=dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device, dtype) for _ in range(cfg.num_hidden_layers)
+            DecoderLayer(cfg, device, dtype, tp) for _ in range(cfg.num_hidden_layers)
         )
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device, dtype)
         if not cfg.tie_word_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, device=device, dtype=dtype)
+            self.lm_head = nn.Linear(cfg.hidden_size, vocab, bias=False, device=device, dtype=dtype)
+
+
+def embed_ids(text: TextModel, ids: torch.Tensor) -> torch.Tensor:
+    """Token embeddings (..., E) in the model's dtype. A vocab-split table
+    looks up the ids in its rows (zeros for the others' ids) and the group
+    adds the ranks' rows: one rank holds each id, so the sum is exact."""
+    w = text.embed_tokens.weight
+    if not text.vocab_split:
+        return embed_rows(w, ids, dtype=text.norm.weight.dtype)
+    local = ids - text.vocab_start
+    inside = (local >= 0) & (local < w.shape[0])
+    rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)), w)
+    return reduce_from_tp(torch.where(inside[..., None], rows, torch.zeros_like(rows)), text.tp)
+
+
+def kv_heads(text: TextModel) -> int:
+    """The kv heads a cache of this model holds (this rank's under TP)."""
+    return text.layers[0].self_attn.num_kv_heads
 
 
 def forward_hidden(
@@ -472,7 +537,7 @@ def forward_hidden(
     also keeps its four weight products, as the JAX package's policies do."""
     cfg = text.cfg
     if inputs_embeds is None:
-        inputs_embeds = embed_rows(text.embed_tokens.weight, input_ids, dtype=text.norm.weight.dtype)
+        inputs_embeds = embed_ids(text, input_ids)
     x = inputs_embeds
     inv_freq = torch.as_tensor(
         make_inv_freq(cfg.head_dim, cfg.rope_theta), dtype=torch.float32, device=x.device
@@ -498,6 +563,9 @@ def logits_from_hidden(text: TextModel, hidden: torch.Tensor) -> torch.Tensor:
     """fp32 logits (..., V): bf16 operands, fp32 accumulation AND fp32 output
     (the JAX dot's preferred_element_type=float32 — rounding the logits to
     bf16 would shift greedy ties and sampled log-probs)."""
+    if text.vocab_split:
+        raise ValueError("a vocab-split head gives one rank's logits: the log-prob functions take "
+                         "it (ops.logprobs), the rollout copy keeps the head whole")
     head = text.embed_tokens.weight if text.cfg.tie_word_embeddings else text.lm_head.weight
     if is_quantized(head):
         # rollout tree: the int8 dot; the per-vocab-row scales are the

@@ -10,6 +10,12 @@ batch and the ``fullatt_block_indexes`` blocks as one (1, N, H, D) sequence
 masked by frame ids, both through the flash kernel. Blocks are a
 ``ModuleList`` run by a Python loop; the full/windowed choice is a Python
 branch on the block index.
+
+Under tensor parallelism (``tp``) a block holds this rank's heads of qkv
+(column-parallel, ``[q | k | v]`` each cut alike) and its columns of proj
+(row-parallel), its I of gate / up / down, and the merger its columns of fc1
+and rows of fc2, by the JAX rule table. A row-parallel product's partial sum
+is kept in fp32 and added over the group, then its (replicated) bias.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import attention
+from ...ops.logprobs import matmul_fp32_out
+from ...parallel.tensor import copy_to_tp, reduce_from_tp, tp_size
 from .config import VisionConfig
 from .host import window_patch_len
 from .rope import rotate_half
@@ -29,28 +37,42 @@ from .text import RMSNorm, checkpointed, remat_policy
 VISION_EPS = 1e-6
 
 
+def row_parallel(lin: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """``lin(x)`` of a row-parallel Linear: the group's fp32 partial
+    products added, rounded once, then the bias (replicated); ``lin(x)``
+    itself without TP."""
+    if tp_size(tp) == 1:
+        return lin(x)
+    return reduce_from_tp(matmul_fp32_out(x, lin.weight), tp, out_dtype=x.dtype) + lin.bias
+
+
 class VisionMLP(nn.Module):
-    def __init__(self, cfg: VisionConfig, device=None, dtype=None):
+    def __init__(self, cfg: VisionConfig, device=None, dtype=None, tp=None):
         super().__init__()
-        e, inter = cfg.hidden_size, cfg.intermediate_size
+        self.tp = tp
+        e, inter = cfg.hidden_size, cfg.intermediate_size // tp_size(tp)
         self.gate_proj = nn.Linear(e, inter, device=device, dtype=dtype)
         self.up_proj = nn.Linear(e, inter, device=device, dtype=dtype)
         self.down_proj = nn.Linear(inter, e, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        x = copy_to_tp(x, self.tp)
+        return row_parallel(self.down_proj, F.silu(self.gate_proj(x)) * self.up_proj(x), self.tp)
 
 
 class VisionBlock(nn.Module):
-    def __init__(self, cfg: VisionConfig, device=None, dtype=None):
+    def __init__(self, cfg: VisionConfig, device=None, dtype=None, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         e = cfg.hidden_size
+        self.num_heads = cfg.num_heads // tp_size(tp)
+        width = self.num_heads * cfg.head_dim
         self.norm1 = RMSNorm(e, VISION_EPS, device, dtype)
         self.norm2 = RMSNorm(e, VISION_EPS, device, dtype)
-        self.qkv = nn.Linear(e, 3 * e, device=device, dtype=dtype)
-        self.proj = nn.Linear(e, e, device=device, dtype=dtype)
-        self.mlp = VisionMLP(cfg, device, dtype)
+        self.qkv = nn.Linear(e, 3 * width, device=device, dtype=dtype)
+        self.proj = nn.Linear(width, e, device=device, dtype=dtype)
+        self.mlp = VisionMLP(cfg, device, dtype, tp)
 
     def forward(
         self,
@@ -60,36 +82,37 @@ class VisionBlock(nn.Module):
         segment_ids: torch.Tensor,  # (1, N) frame ids, or (num_windows, wlen) window ids
     ) -> torch.Tensor:
         n, e = x.shape
-        h, d = self.cfg.num_heads, self.cfg.head_dim
-        q, k, v = self.qkv(self.norm1(x)).reshape(1, n, 3, h, d).unbind(2)
+        h, d = self.num_heads, self.cfg.head_dim
+        q, k, v = self.qkv(copy_to_tp(self.norm1(x), self.tp)).reshape(1, n, 3, h, d).unbind(2)
         q = (q * cos + rotate_half(q) * sin).to(x.dtype)
         k = (k * cos + rotate_half(k) * sin).to(x.dtype)
         rows, width = segment_ids.shape
         out = attention(
             q.reshape(rows, width, h, d), k.reshape(rows, width, h, d), v.reshape(rows, width, h, d),
             segment_ids=segment_ids, causal=False,
-        ).reshape(n, e)
-        x = x + self.proj(out)
+        ).reshape(n, h * d)
+        x = x + row_parallel(self.proj, out, self.tp)
         return x + self.mlp(self.norm2(x))
 
 
 class PatchMerger(nn.Module):
-    def __init__(self, cfg: VisionConfig, device=None, dtype=None):
+    def __init__(self, cfg: VisionConfig, device=None, dtype=None, tp=None):
         super().__init__()
         width = cfg.spatial_merge_unit * cfg.hidden_size
         self.ln_q = RMSNorm(cfg.hidden_size, VISION_EPS, device, dtype)
-        self.fc1 = nn.Linear(width, width, device=device, dtype=dtype)
-        self.fc2 = nn.Linear(width, cfg.out_hidden_size, device=device, dtype=dtype)
+        self.fc1 = nn.Linear(width, width // tp_size(tp), device=device, dtype=dtype)
+        self.fc2 = nn.Linear(width // tp_size(tp), cfg.out_hidden_size, device=device, dtype=dtype)
 
 
 class VisionTower(nn.Module):
-    def __init__(self, cfg: VisionConfig, device=None, dtype=None):
+    def __init__(self, cfg: VisionConfig, device=None, dtype=None, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         din = cfg.in_channels * cfg.temporal_patch_size * cfg.patch_size * cfg.patch_size
         self.patch_embed = nn.Linear(din, cfg.hidden_size, bias=False, device=device, dtype=dtype)
-        self.blocks = nn.ModuleList(VisionBlock(cfg, device, dtype) for _ in range(cfg.depth))
-        self.merger = PatchMerger(cfg, device, dtype)
+        self.blocks = nn.ModuleList(VisionBlock(cfg, device, dtype, tp) for _ in range(cfg.depth))
+        self.merger = PatchMerger(cfg, device, dtype, tp)
 
 
 def _vision_cos_sin(pos_ids: torch.Tensor, head_dim: int, theta: float = 10000.0):
@@ -143,5 +166,5 @@ def vision_forward(
     m = tower.merger
     x = m.ln_q(x)
     x = x.reshape(n // cfg.spatial_merge_unit, cfg.spatial_merge_unit * e)
-    x = m.fc2(F.gelu(m.fc1(x), approximate="none"))
+    x = row_parallel(m.fc2, F.gelu(m.fc1(copy_to_tp(x, tower.tp)), approximate="none"), tower.tp)
     return x.index_select(0, reverse_index.long())

@@ -25,7 +25,15 @@ partials are summed in any order gives the same acc. ``w8a8_plan`` is the
 one source of truth for how the card cuts the work (``csrc/int8_matmul.cu``
 refuses a plan it cannot run); the CPU tests hold it. ``w8a8_matmul_prequantized``
 runs the same kernel without its quantize prologue, for rows an earlier
-kernel already quantized (the silu junction).
+kernel already quantized (the silu junction, or the prologue's split mode).
+
+Under tensor parallelism a row-parallel product's input holds K / tp of a
+row whose scale is the amax over the whole K: ``quantize_rows_split`` runs
+the prologue in two passes -- each row's local amax (``row_amax``), the
+caller's ``combine_amax`` (the group's max, an all-reduce), then the rows
+quantized with that amax (``quantize_rows_with_amax``) -- and its plain
+version takes the same split. With ``combine_amax`` the identity it equals
+``quantize_rows`` bit for bit.
 
 The weight is the port's (N, K) row-major int8 matrix (``QuantLinear``,
 contraction on axis 1) with one fp32 scale per row. The kernel takes K a
@@ -191,6 +199,19 @@ def quantize_rows(x: torch.Tensor):
     return torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8), xs
 
 
+def row_amax_plain(x: torch.Tensor) -> torch.Tensor:
+    """The split mode's pass 1: each row's amax of |x|, (..., 1) fp32."""
+    return x.float().abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_rows_with_amax_plain(x: torch.Tensor, amax: torch.Tensor):
+    """The split mode's pass 2: ``quantize_rows`` with the row amax ``amax``
+    (..., 1) fp32 in place of x's own."""
+    amax = torch.clamp(amax, min=_EPS)
+    xs = amax / torch.full_like(amax, 127.0)
+    return torch.clamp(torch.round(x.float() / xs), -127, 127).to(torch.int8), xs
+
+
 def w8a8_epilogue(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor, out_dtype) -> torch.Tensor:
     """(m, N) int32 -> ``(float(acc) * xs) * ws`` in ``out_dtype``."""
     return (acc.float() * xs.reshape(-1, 1) * ws.reshape(1, -1)).to(out_dtype)
@@ -323,3 +344,63 @@ def w8a8_matmul_prequantized(xq: torch.Tensor, xs: torch.Tensor, w: torch.Tensor
 
 fused_w8a8_matmul.launches = 0
 w8a8_matmul_prequantized.launches = 0
+
+
+def _check_split_input(x: torch.Tensor) -> None:
+    csrc.refuse_sharded(x=x)
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] % KERNEL_K_MULTIPLE:
+        raise ValueError(f"the row quantize takes a non-empty (m, K), K a multiple of {KERNEL_K_MULTIPLE}, "
+                         f"got {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the row quantize takes bf16 or fp32, got {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
+
+
+def _launch_split(x, xq, xs, amax, pass_: int) -> None:
+    m, k = x.shape
+    args = (x.data_ptr(), int(x.dtype == torch.float32), xq.data_ptr(), xs.data_ptr(), amax.data_ptr(), m, k,
+            pass_)
+    with torch.cuda.device(x.device):
+        rc = csrc.library().st_quantize_rows_split(*args, _stream(x.device))
+    csrc.check_launch(rc, f"row quantize split pass {pass_}")
+
+
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """The split mode's pass 1: each row's amax of |x| (m, K), (m, 1) fp32
+    -- the kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if not x.is_cuda:
+        return row_amax_plain(x)
+    _check_split_input(x)
+    amax = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
+    _launch_split(x, amax, amax, amax, 1)  # pass 1 writes amax only
+    row_amax.launches += 1
+    return amax
+
+
+def quantize_rows_with_amax(x: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split mode's pass 2: (xq (m, K) int8, xs (m, 1) fp32) of x
+    quantized with the scale of the row amax ``amax`` (m, 1) fp32 -- the
+    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if not x.is_cuda:
+        return quantize_rows_with_amax_plain(x, amax)
+    _check_split_input(x)
+    m, k = x.shape
+    if amax.shape != (m, 1) or amax.dtype != torch.float32 or amax.device != x.device:
+        raise ValueError(f"amax must be ({m}, 1) fp32 on {x.device}, got {tuple(amax.shape)} {amax.dtype}")
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    _launch_split(x, xq, xs, amax.contiguous(), 2)
+    quantize_rows_with_amax.launches += 1
+    return xq, xs
+
+
+def quantize_rows_split(x: torch.Tensor, combine_amax) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xq (m, K) int8, xs (m, 1) fp32) of a rank's K columns with the row
+    scale of the whole row: pass 1, then ``combine_amax`` of the (m, 1) fp32
+    amax (the group's max, in place or returned), then pass 2."""
+    return quantize_rows_with_amax(x, combine_amax(row_amax(x)))
+
+
+row_amax.launches = 0
+quantize_rows_with_amax.launches = 0

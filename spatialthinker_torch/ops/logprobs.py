@@ -13,6 +13,14 @@ dtype, fp32 accumulation and fp32 output (``preferred_element_type=float32``)
 -- in the chunks and in ``matmul_fp32_out``, which carries its own gradient.
 ``head`` is in PyTorch's (V, E) layout (``embed_tokens.weight`` of a tied
 model as it is; the JAX function takes the (E, V) transpose).
+
+Vocab-parallel (``tp``: the head is this rank's vocab rows, from
+``vocab_start``): each chunk's logits are the rank's columns; the max, the
+sum of exponentials, the target's logit (on the rank that holds it) and the
+entropy's sum of p * z are all-reduced over the group, so every rank gets
+the whole log-prob and entropy (``_ChunkLogProbTP``). Its backward builds
+the rank's columns of the cotangent and all-reduces the hidden state's
+gradient. Without ``tp`` the code is the single-device one.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from ..parallel.tensor import all_reduce_max, all_reduce_sum, tp_size
 
 
 def _logits_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -107,12 +117,71 @@ class _ChunkLogProb(torch.autograd.Function):
         return g_hidden, None, g_head, None, None
 
 
-def _chunk_logprob(hidden_chunk, labels_chunk, head, compute_entropy: bool, inv_temperature: float):
+class _ChunkLogProbTP(torch.autograd.Function):
+    """``_ChunkLogProb`` over a vocab-split head: ``head`` (V / tp, E) holds
+    the vocab rows [``start``, ``start`` + V / tp). Per chunk the rank's
+    fp32 logits z; the group's max m, sum of exp(z - m) (lse), the label's
+    logit (zero off the rank that holds it) and sum of p * z are
+    all-reduced. The backward's cotangent on the rank's columns is
+    ``g_logp * (onehot - p) - g_ent * p * (z - E_p[z])``; the hidden state's
+    gradient (g @ head) is summed over the group, the head's stays local."""
+
+    @staticmethod
+    def forward(ctx, hidden, labels, head, compute_entropy: bool, inv_temperature: float, tp, start: int):
+        z = _logits_fp32(hidden, head)
+        if inv_temperature != 1.0:
+            z.mul_(inv_temperature)
+        m = all_reduce_max(z.amax(dim=-1), tp)
+        lse = torch.log(all_reduce_sum(torch.exp(z - m[:, None]).sum(dim=-1), tp)) + m
+        local = labels - start
+        inside = (local >= 0) & (local < head.shape[0])
+        picked = torch.gather(z, -1, torch.where(inside, local, torch.zeros_like(local))[:, None])[:, 0]
+        logp = all_reduce_sum(torch.where(inside, picked, torch.zeros_like(picked)), tp) - lse
+        if compute_entropy:
+            entropy = lse - all_reduce_sum(torch.sum(torch.exp(z - lse[:, None]) * z, dim=-1), tp)
+        else:
+            entropy = torch.zeros_like(logp)
+            ctx.mark_non_differentiable(entropy)
+        ctx.save_for_backward(hidden, labels, head, lse, entropy)
+        ctx.compute_entropy, ctx.inv_temperature, ctx.tp, ctx.start = compute_entropy, inv_temperature, tp, start
+        return logp, entropy
+
+    @staticmethod
+    def backward(ctx, g_logp, g_entropy):
+        hidden, labels, head, lse, entropy = ctx.saved_tensors
+        z = _logits_fp32(hidden, head)
+        if ctx.inv_temperature != 1.0:
+            z.mul_(ctx.inv_temperature)
+        p = torch.exp(z - lse[:, None])
+        if ctx.compute_entropy:
+            g = -p * ((z - (lse - entropy)[:, None]) * g_entropy[:, None] + g_logp[:, None])
+        else:
+            g = -p * g_logp[:, None]
+        local = labels - ctx.start
+        inside = (local >= 0) & (local < head.shape[0])
+        g.scatter_add_(-1, torch.where(inside, local, torch.zeros_like(local))[:, None],
+                       torch.where(inside, g_logp, torch.zeros_like(g_logp))[:, None].to(g.dtype))
+        if ctx.inv_temperature != 1.0:
+            g.mul_(ctx.inv_temperature)
+        g = g.to(hidden.dtype)
+        g_hidden = g_head = None
+        if ctx.needs_input_grad[0]:
+            g_hidden = (all_reduce_sum((g @ head).float(), ctx.tp)).to(hidden.dtype)
+        if ctx.needs_input_grad[2]:
+            g_head = (g.t() @ hidden).to(head.dtype)
+        return g_hidden, None, g_head, None, None, None, None
+
+
+def _chunk_logprob(hidden_chunk, labels_chunk, head, compute_entropy: bool, inv_temperature: float,
+                   tp=None, start: int = 0):
     """hidden (B, C, E) x head (V, E) -> (logp (B, C), entropy (B, C))."""
     b, c, e = hidden_chunk.shape
-    logp, entropy = _ChunkLogProb.apply(
-        hidden_chunk.reshape(b * c, e), labels_chunk.reshape(b * c).long(), head,
-        compute_entropy, inv_temperature)
+    args = (hidden_chunk.reshape(b * c, e), labels_chunk.reshape(b * c).long(), head,
+            compute_entropy, inv_temperature)
+    if tp_size(tp) > 1:
+        logp, entropy = _ChunkLogProbTP.apply(*args, tp, start)
+    else:
+        logp, entropy = _ChunkLogProb.apply(*args)
     return logp.reshape(b, c), entropy.reshape(b, c)
 
 
@@ -124,10 +193,13 @@ def log_probs_from_hidden(
     chunk_size: int = 1024,
     compute_entropy: bool = False,
     temperature: float = 1.0,
+    tp=None,
+    vocab_start: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (log_probs (B, S) fp32, entropy (B, S) fp32). ``temperature``
     divides the logits before the softmax: the PPO forward must evaluate the
-    tempered distribution the rollout sampled from."""
+    tempered distribution the rollout sampled from. ``tp``: ``head`` is this
+    rank's vocab rows from ``vocab_start`` (the module docstring)."""
     s = hidden.shape[1]
     if s % chunk_size != 0:
         chunk_size = _best_chunk(s, chunk_size)
@@ -136,7 +208,7 @@ def log_probs_from_hidden(
     for start in range(0, s, chunk_size):
         h = hidden[:, start : start + chunk_size]
         y = labels[:, start : start + chunk_size]
-        logp, ent = _chunk_logprob(h, y, head, compute_entropy, inv_t)
+        logp, ent = _chunk_logprob(h, y, head, compute_entropy, inv_t, tp, vocab_start)
         logps.append(logp)
         ents.append(ent)
     return torch.cat(logps, dim=1), torch.cat(ents, dim=1)

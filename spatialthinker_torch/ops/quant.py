@@ -35,6 +35,18 @@ least ``m`` rows dequantizes the weight (``dequantize_weight``) and runs a
 bf16 ``torch.matmul`` instead of the W8A8 kernel, as the JAX package runs an
 XLA dot there; the silu junction then stays unfused. Below ``m``, and at 0,
 nothing changes.
+
+Under tensor parallelism (a rank's shard of a TP-local model,
+``parallel/tensor.py``) every number equals the slice of the single-device
+copy: column-parallel weights (qkv, gate_up) quantize as they are; the
+row-parallel ones (o, down) take each output channel's amax over the whole
+contraction, the group's max (``quantize_weight(..., tp=)``), and so does
+the per-row scale of their input (``row_parallel_dot``,
+``row_parallel_silu_dot``: the group's max of the rows' amaxes between the
+two passes of kernel A's row quantize in its split mode, then kernel A's
+prequantized entry; at prefill-sized m the silu junction's split mode).
+Each rank's product is a partial sum in fp32 that the caller adds over the
+group.
 """
 
 from __future__ import annotations
@@ -46,8 +58,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor import all_reduce_max, tp_size
 from .int4_mlp import Int4Weight
-from .int8_matmul import fused_w8a8_matmul, int8_matmul, w8a8_epilogue, w8a8_matmul_prequantized
+from .int8_matmul import (
+    fused_w8a8_matmul, int8_matmul, quantize_rows_split, w8a8_epilogue, w8a8_matmul_prequantized,
+)
 from .int8_matmul import quantize_rows as quantize_activation  # per-token (last-dim) int8, scale (..., 1)
 
 QWeight = Dict[str, torch.Tensor]
@@ -72,12 +87,14 @@ def dequantize_weight(qw: QWeight, contract_axis: int, dtype=torch.bfloat16) -> 
     return qw["qvalue"].to(dtype) * qw["scale"].unsqueeze(contract_axis).to(dtype)
 
 
-def quantize_weight(w: torch.Tensor, contract_axis: int) -> QWeight:
+def quantize_weight(w: torch.Tensor, contract_axis: int, tp=None) -> QWeight:
     """Symmetric per-output-channel int8: one scale per slice of the
     contraction axis. ``scale`` keeps the weight's non-contracted dims in
-    order — the broadcast the int32 dot result needs."""
+    order — the broadcast the int32 dot result needs. ``tp``: ``w`` is a
+    row-parallel shard (its contraction split over the group), whose
+    channel amax is the group's max."""
     wf = w.float()
-    a = wf.abs().amax(dim=contract_axis)
+    a = all_reduce_max(wf.abs().amax(dim=contract_axis), tp)
     scale = torch.clamp(a, min=_EPS) / 127.0
     q = torch.clamp(torch.round(wf / scale.unsqueeze(contract_axis)), -127, 127).to(torch.int8)
     return {"qvalue": q, "scale": scale}
@@ -155,6 +172,37 @@ def fused_silu_quant_dot(gu: torch.Tensor, qdown: QWeight, out_dtype,
     return res.reshape(*lead, *res.shape[1:])
 
 
+def row_parallel_dot(x: torch.Tensor, qw: QWeight, tp, contract_axis: int = 1) -> torch.Tensor:
+    """This rank's fp32 partial sum of x (..., K / tp) @ a row-parallel int8
+    weight shard: x quantized with the whole row's scale (kernel A's row
+    quantize in its split mode, the group's max of the rows' amaxes between
+    its passes), then kernel A's prequantized entry (their plain versions on
+    the CPU). Prefill-dequant m: the dequantized shard's bf16 product."""
+    if _dequant_at(qw, math.prod(x.shape[:-1])):
+        w = _as_kn(dequantize_weight(qw, contract_axis), contract_axis)
+        return torch.matmul(x.to(torch.bfloat16), w).float()
+    lead = x.shape[:-1]
+    xq, xs = quantize_rows_split(x.reshape(-1, x.shape[-1]).contiguous(), lambda a: all_reduce_max(a, tp))
+    return prequantized_dot(xq.reshape(*lead, -1), xs.reshape(*lead, 1), qw, contract_axis, torch.float32)
+
+
+def row_parallel_silu_dot(gu: torch.Tensor, qdown: QWeight, tp, fused: bool = True) -> torch.Tensor:
+    """The TP shard's SwiGLU tail on the quantized tree: ``gu`` (..., 2I / tp)
+    -> this rank's fp32 partial of the down product. Prefill-sized m (as
+    ``fused_silu_quant_dot`` admits it) runs the silu junction's split mode
+    with the group's row amax; otherwise silu * up and ``row_parallel_dot``."""
+    lead = gu.shape[:-1]
+    m = math.prod(lead)
+    if fused and m >= FUSED_SILU_MIN_M and m % 8 == 0 and not _dequant_at(qdown, m):
+        from .silu_quant import fused_silu_quantize_split
+
+        xq, xs = fused_silu_quantize_split(gu.reshape(m, gu.shape[-1]), lambda a: all_reduce_max(a, tp))
+        res = prequantized_dot(xq, xs, qdown, 1, torch.float32)
+        return res.reshape(*lead, *res.shape[1:])
+    gate, up = gu.chunk(2, dim=-1)
+    return row_parallel_dot(F.silu(gate) * up, qdown, tp)
+
+
 def embed_rows(w: Union[torch.Tensor, QWeight], ids: torch.Tensor,
                dtype=torch.bfloat16) -> torch.Tensor:
     """Embedding-table row gather, quantized or plain. Rows of an int8 table
@@ -197,8 +245,9 @@ class QuantLinear(nn.Module):
         self.dequant_min_m = dequant_min_m
 
     @classmethod
-    def from_linear(cls, lin: nn.Linear, dequant_min_m: int = 0) -> "QuantLinear":
-        qw = quantize_weight(lin.weight.detach(), 1)
+    def from_linear(cls, lin: nn.Linear, dequant_min_m: int = 0, tp=None) -> "QuantLinear":
+        """``tp``: a row-parallel shard (its channel amax is the group's)."""
+        qw = quantize_weight(lin.weight.detach(), 1, tp)
         return cls(qw["qvalue"], qw["scale"], lin.bias, dequant_min_m)
 
     @property
@@ -248,16 +297,24 @@ def quantize_model(model, mode: str = "int8", fused_silu: bool = True,
     ``fused_silu=False`` keeps the MLP junction unfused at every m (the JAX
     package's ``SPATIALTHINKER_FUSED_SILU=0``). The JAX package's
     ``SPATIALTHINKER_W4=0`` (int4 copies built, never run) is an MLP's ``w4``
-    attribute set to False."""
+    attribute set to False.
+
+    A TP-local ``model`` (its ``tp`` set; ``embed_tokens`` / ``lm_head``
+    whole, as the rollout copy keeps them) gives a TP-local copy: o and down
+    take the group's channel amax. ``w4a8`` under TP is ROADMAP A13c."""
     if mode not in ("int8", "w4a8"):
         raise ValueError(f"unknown quantization mode {mode!r}")
     from ..models.qwen2_5_vl.model import Qwen25VL
 
+    tp = model.tp
+    if tp_size(tp) > 1 and (mode == "w4a8" or model.text.vocab_split):
+        raise ValueError("quantize_model under tensor parallelism takes a rollout copy with the whole "
+                         "vocab, in mode int8 (w4a8 under TP: ROADMAP A13c)")
     tc = model.cfg.text
     g_e, g_i = _pick_w4_group(tc.hidden_size), _pick_w4_group(tc.intermediate_size)
     want_w4 = mode == "w4a8" and g_e is not None and g_i is not None
 
-    out = Qwen25VL(model.cfg, device="meta", dtype=model.text.norm.weight.dtype)
+    out = Qwen25VL(model.cfg, device="meta", dtype=model.text.norm.weight.dtype, tp=tp, whole_vocab=True)
     out.vision = model.vision
     src_text, dst_text = model.text, out.text
     dst_text.norm = src_text.norm
@@ -266,9 +323,9 @@ def quantize_model(model, mode: str = "int8", fused_silu: bool = True,
         dst.post_attention_layernorm = src.post_attention_layernorm
         m = prefill_dequant_min_m
         dst.self_attn.qkv_proj = QuantLinear.from_linear(src.self_attn.qkv_proj, m)
-        dst.self_attn.o_proj = QuantLinear.from_linear(src.self_attn.o_proj, m)
+        dst.self_attn.o_proj = QuantLinear.from_linear(src.self_attn.o_proj, m, tp)
         dst.mlp.gate_up_proj = QuantLinear.from_linear(src.mlp.gate_up_proj, m)
-        dst.mlp.down_proj = QuantLinear.from_linear(src.mlp.down_proj, m)
+        dst.mlp.down_proj = QuantLinear.from_linear(src.mlp.down_proj, m, tp)
         dst.mlp.fused_silu = fused_silu
         if want_w4:
             dst.mlp.gate_up_w4 = Int4Weight.from_weight(src.mlp.gate_up_proj.weight, g_e)

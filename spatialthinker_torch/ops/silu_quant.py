@@ -17,14 +17,22 @@ quantizes from the on-chip copy (``silu_plan`` states the launch). It is
 built with the other kernels of ``csrc/`` and launched by one C call; no
 Triton is imported on any path of the port.
 
-The wrapper runs the plain version for CPU tensors only; a CUDA tensor
+Under tensor parallelism a rank holds I / tp columns while the row's scale is
+the amax over the whole I: ``fused_silu_quantize_split`` runs the kernel's
+split mode in two passes -- each row's local amax, ``combine_amax`` (the
+group's max, an all-reduce), then h recomputed and quantized with that amax
+-- and its plain version takes the same split (``silu_row_amax_plain``,
+``silu_quantize_with_amax_plain``). With ``combine_amax`` the identity the
+split equals the one-pass version bit for bit.
+
+The wrappers run the plain versions for CPU tensors only; a CUDA tensor
 launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -48,6 +56,23 @@ def fused_silu_quantize_plain(gu: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
     s = torch.clamp(amax, min=_EPS) / 127.0
     q = torch.clamp(torch.round(h / s), -127, 127).to(torch.int8)
     return q, s
+
+
+def _silu_h(gu: torch.Tensor) -> torch.Tensor:
+    i = gu.shape[-1] // 2
+    g = gu[:, :i].float()
+    return (g * torch.sigmoid(g)) * gu[:, i:].float()
+
+
+def silu_row_amax_plain(gu: torch.Tensor) -> torch.Tensor:
+    """The split mode's pass 1: each row's amax of |h|, (M, 1) fp32."""
+    return _silu_h(gu).abs().amax(dim=1, keepdim=True)
+
+
+def silu_quantize_with_amax_plain(gu: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split mode's pass 2: h quantized with the scale of ``amax`` (M, 1)."""
+    s = torch.clamp(amax, min=_EPS) / 127.0
+    return torch.clamp(torch.round(_silu_h(gu) / s), -127, 127).to(torch.int8), s
 
 
 @dataclass(frozen=True)
@@ -109,3 +134,57 @@ def fused_silu_quantize(gu: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 fused_silu_quantize.launches = 0
+
+
+def _launch_split(gu, q, s, amax, pass_: int) -> None:
+    m, two_i = gu.shape
+    args = (gu.data_ptr(), q.data_ptr(), s.data_ptr(), amax.data_ptr(), m, two_i // 2, gu.stride(0),
+            _DTYPES[gu.dtype], pass_)
+    lib = csrc.library()
+    with torch.cuda.device(gu.device):
+        rc = lib.st_silu_quant_split(*args, _stream(gu.device))
+    csrc.check_launch(rc, f"silu quantize split pass {pass_}")
+
+
+def silu_row_amax(gu: torch.Tensor) -> torch.Tensor:
+    """The split mode's pass 1: each row's amax of |h|, (M, 1) fp32 -- the
+    kernel for CUDA tensors (q and s untouched), the plain version for CPU
+    tensors."""
+    if not gu.is_cuda:
+        return silu_row_amax_plain(gu)
+    _check_cuda_input(gu)
+    m = gu.shape[0]
+    amax = torch.empty((m, 1), dtype=torch.float32, device=gu.device)
+    _launch_split(gu, amax, amax, amax, 1)  # pass 1 writes amax only
+    silu_row_amax.launches += 1
+    return amax
+
+
+def silu_quantize_with_amax(gu: torch.Tensor, amax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split mode's pass 2: (q (M, I) int8, scale (M, 1) fp32) of ``gu``
+    quantized with the scale of the row amax ``amax`` (M, 1) fp32 -- the
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not gu.is_cuda:
+        return silu_quantize_with_amax_plain(gu, amax)
+    _check_cuda_input(gu)
+    m, two_i = gu.shape
+    if amax.shape != (m, 1) or amax.dtype != torch.float32 or amax.device != gu.device:
+        raise ValueError(f"amax must be ({m}, 1) fp32 on {gu.device}, got {tuple(amax.shape)} {amax.dtype}")
+    q = torch.empty((m, two_i // 2), dtype=torch.int8, device=gu.device)
+    s = torch.empty((m, 1), dtype=torch.float32, device=gu.device)
+    _launch_split(gu, q, s, amax.contiguous(), 2)
+    silu_quantize_with_amax.launches += 1
+    return q, s
+
+
+def fused_silu_quantize_split(gu: torch.Tensor, combine_amax: Callable[[torch.Tensor], torch.Tensor]
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q (M, I) int8, scale (M, 1) fp32) of a rank's I columns with the
+    row scale of the whole I: pass 1 (each row's local amax), then
+    ``combine_amax`` of that (M, 1) fp32 tensor (the group's max, in place
+    or returned), then pass 2."""
+    return silu_quantize_with_amax(gu, combine_amax(silu_row_amax(gu)))
+
+
+silu_row_amax.launches = 0
+silu_quantize_with_amax.launches = 0

@@ -5,19 +5,23 @@ out as a ``(data, fsdp, model)`` grid, rank ``(d * fsdp + f) * model + m``.
 - ``data``  -- replica axis: parameters are replicated over it (HSDP's
   replicate dim), rows are split over it.
 - ``fsdp``  -- parameter-shard axis (ZeRO-3); rows are split over it too.
-- ``model`` -- sequence axis: the ranks of one ``model`` group hold the same
-  rows and split their sequence (Ulysses or ring attention, ``ops/``);
-  parameters are sharded over it as over ``fsdp`` (a memory layout, not
-  tensor parallelism: the Megatron rules of the JAX package's
-  ``sharding.py`` wait for ROADMAP A13b).
+- ``model`` -- the ranks of one ``model`` group hold the same rows. With
+  sequence parallelism (sp = ``model_size``) they split their sequence
+  (Ulysses or ring attention, ``ops/``) and parameters are sharded over the
+  axis as over ``fsdp`` (a memory layout; JAX shards the MLP over ``model``
+  there too, the same math). Without sp it is Megatron tensor parallelism
+  (``tp_group``, ``parallel/tensor.py``): each rank holds its TP shard of
+  every weight, built at local widths, and FSDP shards that over
+  ``(data, fsdp)`` only (``fsdp_mesh``).
 
 There is no ``NamedSharding`` or ``PartitionSpec``. What takes their place:
 a parameter is a ``DTensor`` that ``fully_shard`` placed on ``shard_mesh``
-(``(data, fsdp x model)``: Replicate, then Shard(0)); a batch is each rank's
-own rows as plain tensors, the ``batch_group`` ranks holding disjoint rows
-(the JAX ``P(BATCH_AXES)``) and the ``sp_group`` ranks the same rows split
-along the sequence (the JAX ``P(BATCH_AXES, "model")`` of sequence-parallel
-activations).
+(``(data, fsdp x model)``: Replicate, then Shard(0)) or, under TP, on
+``fsdp_mesh`` (``(data, fsdp)``) of a TP-local module; a batch is each
+rank's own rows as plain tensors, the ``batch_group`` ranks holding disjoint
+rows (the JAX ``P(BATCH_AXES)``) and the ``model`` group's ranks the same
+rows (split along the sequence under sp: the JAX ``P(BATCH_AXES, "model")``
+of sequence-parallel activations).
 """
 
 from __future__ import annotations
@@ -73,6 +77,12 @@ def _batch_mesh(mesh: DeviceMesh) -> DeviceMesh:
                       mesh_dim_names=("batch", MODEL_AXIS))
 
 
+def fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """``(data, fsdp)`` of this rank's ``model`` index, the mesh FSDP takes
+    under tensor parallelism; ``fsdp`` alone with one replica."""
+    return mesh[FSDP_AXIS] if mesh.shape[0] == 1 else mesh[(DATA_AXIS, FSDP_AXIS)]
+
+
 def batch_group(mesh: DeviceMesh) -> dist.ProcessGroup:
     """The ranks holding disjoint rows (``data x fsdp``, one ``model``
     index): row slicing, row negotiation and batch reductions."""
@@ -88,7 +98,17 @@ def sp_group(mesh: DeviceMesh) -> dist.ProcessGroup:
     return mesh.get_group(MODEL_AXIS)
 
 
-def norm_group(mesh: DeviceMesh) -> dist.ProcessGroup:
+def tp_group(mesh: DeviceMesh) -> dist.ProcessGroup:
+    """The ranks of one ``model`` group under tensor parallelism: the same
+    rows, each rank its shard of every weight."""
+    return mesh.get_group(MODEL_AXIS)
+
+
+def norm_group(mesh: DeviceMesh, tensor_parallel: bool = False) -> dist.ProcessGroup:
     """The ranks whose parameter shards together make one copy of the
-    parameters (``fsdp x model``): a global norm sums over these."""
+    parameters (``fsdp x model``): a global norm sums over these. Under
+    tensor parallelism one copy of this rank's TP shards (``fsdp``); the
+    norm then adds the TP group's split leaves (``train_step``)."""
+    if tensor_parallel:
+        return mesh.get_group(FSDP_AXIS)
     return shard_mesh(mesh).get_group("shard")

@@ -25,7 +25,15 @@ Scatter plans keep fixed shapes per refill geometry: unused entries target
 the reserved dummy page 0 and padded queue rows the trash lane ``slots``;
 page 0 may receive writes and is always masked by the lengths.
 
-Not ported: the multi-device branch (``mesh=``).
+Tensor parallelism: a TP-local model (``parallel/tensor.py``; the rollout
+copy keeps ``embed_tokens`` and the head whole) runs here as it is, each rank
+of the TP group driving one engine on the same prompts: its pools hold its
+kv heads, its layers all-reduce their row-parallel products, and with equal
+inputs and the group's sampler seed every rank makes the same host
+decisions (admission, preemption, finished lanes), so the ranks stay in
+lockstep. The JAX package's multi-device branch (``mesh=``: lockstep engines
+over one global queue and a page pool sharded over pages) is not ported:
+ranks that hold other rows run engines of their own.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from ..models.qwen2_5_vl.rope import compute_cos_sin, make_inv_freq
 from ..models.qwen2_5_vl.text import (
     KV4_BIAS,
     KVCache,
+    kv_heads,
     _pack_nibbles,
     _quantize_kv,
     _quantize_kv4,
@@ -98,14 +107,17 @@ class PagedState:
 
 def init_paged_state(cfg: Qwen25VLConfig, slots: int, total_pages: int, page_size: int,
                      p_max: int, max_new_tokens: int, kv_dtype=torch.bfloat16,
-                     stage_width: int = 16, device=None) -> PagedState:
+                     stage_width: int = 16, device=None, num_kv_heads: Optional[int] = None) -> PagedState:
+    """``num_kv_heads``: the heads the pools hold (a TP rank's), default the
+    config's."""
     if device is None:
         from ..models.qwen2_5_vl.params import default_device
 
         device = default_device()
     t = cfg.text
-    pool_shape = (t.num_hidden_layers, total_pages, t.num_key_value_heads, page_size, t.head_dim)
-    stage_shape = (t.num_hidden_layers, slots, t.num_key_value_heads, stage_width, t.head_dim)
+    hkv = t.num_key_value_heads if num_kv_heads is None else num_kv_heads
+    pool_shape = (t.num_hidden_layers, total_pages, hkv, page_size, t.head_dim)
+    stage_shape = (t.num_hidden_layers, slots, hkv, stage_width, t.head_dim)
     quantized = kv_dtype in (torch.int8, torch.uint8)
 
     def zeros(shape, dtype):
@@ -214,7 +226,7 @@ def prefill_paged(
     int4 = state.k_pool.dtype == torch.uint8
     max_new = state.responses.shape[1]
 
-    scratch = KVCache.init(t.num_hidden_layers, u, p, t.num_key_value_heads, t.head_dim,
+    scratch = KVCache.init(t.num_hidden_layers, u, p, kv_heads(model.text), t.head_dim,
                            dtype=state.k_pool.dtype, device=state.k_pool.device)
     seg32 = segment_ids.to(torch.int32)
     hidden, scratch = prefill_forward(
@@ -560,7 +572,8 @@ def generate_paged(
         return torch.as_tensor(np.asarray(x), device=device)
 
     state = init_paged_state(cfg, n_lanes, total_pages, page_size, p_max, max_new_tokens,
-                             kv_cache_dtype, stage_width=decode_chunk_size, device=device)
+                             kv_cache_dtype, stage_width=decode_chunk_size, device=device,
+                             num_kv_heads=kv_heads(model.text))
     allocator = PageAllocator(total_pages)
 
     responses = np.full((n_out, max_new_tokens), cfg.pad_token_id, dtype=np.int64)

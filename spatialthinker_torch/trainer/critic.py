@@ -11,9 +11,10 @@ with the clipped value loss in place of the policy loss: one backward per
 micro-batch, the mean over micro-batches, the global norm as
 ``critic/grad_norm``, the clip to ``max_grad_norm`` and the NaN skip folded
 into one scale, then ``apply_optimizer_step``. On several GPUs the critic is
-sharded as the actor is and takes the same ``groups`` and ``sp``
-(``train_step``'s module docstring); the JAX critic runs one program over
-the mesh and takes no ``sp``.
+sharded as the actor is (TP-local under tensor parallelism, its fp32 value
+head replicated) and takes the same ``groups`` and ``sp`` (``train_step``'s
+module docstring); the JAX critic runs one program over the mesh and takes
+no ``sp``.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ class Critic(Qwen25VL):
     def __init__(self, backbone: Qwen25VL, generator: torch.Generator):
         nn.Module.__init__(self)
         self.cfg = backbone.cfg
+        self.tp = backbone.tp  # a TP-local backbone: the head stays replicated
         self.text = backbone.text
         self.vision = backbone.vision
         device = backbone.text.norm.weight.device

@@ -36,6 +36,19 @@ on the data (packed row counts, whether a forward carries images), and
 padding rows carry segment id 0. Advantages, the KL controller and the
 logged metrics are computed on the union of the ranks' rows (the JAX
 trainer's global arrays), so every rank sees the same numbers.
+
+Tensor parallelism (``sharding.model_size`` > 1 without sp; ``parallel/
+tensor.py``): the trainer keeps this rank's Megatron shard of the policy
+it is given (cut by ``tp_local`` from a whole one; ``trainer.main`` loads an
+HF checkpoint as the shard itself, on the mesh from ``run_mesh``) and
+FSDP-shards that over ``(data, fsdp)``; the reference and the critic are
+TP-local alike (the critic's HF backbone loads as a shard too). The ranks
+of a TP group take the same prompts (the loader's shard is the batch index)
+and run ONE paged engine on them in lockstep: each rank's copy holds its
+heads' weights and kv pools, ``embed_tokens`` and the head whole
+(``tp_rollout_copy``), its page pool the group's smallest, its sampler the
+group's stream, so the group draws the same tokens. The dense and continuous
+engines and ``w4a8`` under TP are refused by the config (ROADMAP A13c).
 """
 
 from __future__ import annotations
@@ -69,14 +82,18 @@ from ..models.qwen2_5_vl.config import Qwen25VLConfig, VisionConfig, get_config
 from ..models.qwen2_5_vl.host import VisionInputs, window_patch_len
 from ..models.qwen2_5_vl.model import Qwen25VL, vision_to_device
 from ..models.qwen2_5_vl.params import (
-    config_from_hf_json, default_device, init_params, is_hf_checkpoint_dir, load_params,
+    build_model, config_from_hf_json, default_device, init_params, is_hf_checkpoint_dir, load_params,
 )
 from ..ops.quant import quantize_model
 from ..ops.ulysses import UlyssesSpec
-from ..parallel.mesh import batch_group, batch_rank, create_mesh, norm_group, sp_group
+from ..parallel.mesh import batch_group, batch_rank, create_mesh, norm_group, sp_group, tp_group
 from ..parallel.multihost import allgather_pyobj, negotiate_row_count
 from ..parallel.offload import HostLeaf, host_bytes, host_view, offload_to_host, restore_from_host
-from ..parallel.sharding import full_tensor, local, local_piece, shard_model, unsharded_copy
+from ..parallel.sharding import (
+    full_state, full_tensor, local, local_piece, rollout_bytes, shard_model, tp_rollout_copy,
+    unsharded_copy,
+)
+from ..parallel.tensor import TPSpec, gather_leaf, split_of
 from ..rewards.manager import RewardManager
 from ..rollout.engine import generate
 from ..rollout.continuous import effective_prefill_chunk, generate_continuous
@@ -437,16 +454,52 @@ def _obj(values) -> np.ndarray:
     return arr
 
 
+def tensor_parallel_size(config: PPOConfig) -> int:
+    """The TP degree of a run: ``model_size`` when the model axis is not
+    carrying sequence shards, else 1."""
+    sh, actor = config.worker.actor.sharding, config.worker.actor
+    return sh.model_size if actor.ulysses_sequence_parallel_size == 1 else 1
+
+
+def tp_local(model: Qwen25VL, tp: TPSpec) -> Qwen25VL:
+    """This rank's Megatron shard of a whole ``model`` (``build_model`` with
+    ``tp``: new tensors, the whole model can be dropped)."""
+    weight = model.text.norm.weight
+    out = build_model(model.cfg, model.state_dict(), device=weight.device, dtype=weight.dtype, tp=tp)
+    return out.train(model.training)
+
+
+def run_mesh(config: PPOConfig, kv_heads: int, device_type: str):
+    """The mesh of a run over the default process group, after
+    ``mesh_checks``: what ``GRPOTrainer`` builds unless it is handed one (a
+    caller that loads each rank's TP shard needs the ``model`` group first)."""
+    world = dist.get_world_size()
+    local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", world // max(config.trainer.nnodes, 1)))
+    mesh_checks(config, kv_heads, world, local_ranks)
+    sh = config.worker.actor.sharding
+    return create_mesh(sh.data_size, sh.fsdp_size, sh.model_size, device_type=device_type)
+
+
 def mesh_checks(config: PPOConfig, kv_heads: int, world: int, local_ranks: int) -> None:
     """What a run on ``world`` ranks (``local_ranks`` of them on this node)
     checks of its config before it builds the mesh: ``n_chips`` against the
-    node's ranks, the rollout batch against the ranks, and the JAX trainer's
+    node's ranks, the rollout batch against the ranks that hold other rows,
+    the JAX trainer's kv-head cap of tensor parallelism and its
     sequence-parallel rules (its grpo_trainer.py sp block)."""
     n_chips = config.trainer.n_chips
     if n_chips != local_ranks:
         raise ValueError(f"trainer.n_chips={n_chips} must equal the ranks on this node ({local_ranks})")
     sh, actor = config.worker.actor.sharding, config.worker.actor
     sp_size = actor.ulysses_sequence_parallel_size
+    tp = tensor_parallel_size(config)
+    if tp > 1 and kv_heads % tp:
+        raise ValueError(
+            f"sharding.model_size={sh.model_size} must divide the model's "
+            f"num_key_value_heads={kv_heads}: the fused qkv_proj is tensor-parallel "
+            "over KV-head groups (use fsdp_size for further sharding, or "
+            "sequence_parallel_backend=ring to ride the model axis with "
+            "sequence shards instead)"
+        )
     if sp_size > 1:
         if sp_size != sh.model_size:
             raise ValueError(
@@ -459,10 +512,10 @@ def mesh_checks(config: PPOConfig, kv_heads: int, world: int, local_ranks: int) 
         seq = config.data.max_prompt_length + config.data.max_response_length
         if seq % sp_size:
             raise ValueError(f"sequence length {seq} must be divisible by sp={sp_size}")
-    if config.data.rollout_batch_size % world:
+    if config.data.rollout_batch_size % (world // tp):
         raise ValueError(
             f"data.rollout_batch_size={config.data.rollout_batch_size} must be divisible "
-            f"by the {world} processes")
+            f"by the {world // tp} processes that hold other rows")
 
 
 class GRPOTrainer:
@@ -488,6 +541,7 @@ class GRPOTrainer:
         reward_fn: Optional[RewardManager] = None,
         val_reward_fn: Optional[RewardManager] = None,
         prefill_dequant_min_m: int = 0,
+        mesh=None,
     ):
         self.config = config
         self.tokenizer = tokenizer
@@ -503,7 +557,8 @@ class GRPOTrainer:
         algo = config.algorithm
         self.adv_estimator = algo.adv_estimator
         self.use_critic = self.adv_estimator == "gae"
-        self._setup_mesh()
+        self._setup_mesh(mesh)
+        model = self.model  # under TP this rank's shard of the policy
         if self.adv_estimator in ("grpo", "rloo") and config.worker.rollout.n < 2:
             # group-relative baselines degenerate to zero advantage at n=1:
             # training would silently produce zero gradients
@@ -665,10 +720,14 @@ class GRPOTrainer:
         critic_cfg = self.config.worker.critic
         dtype = getattr(torch, critic_cfg.model.param_dtype)
         generator = torch.Generator(device=self.device).manual_seed(self.config.trainer.seed + 1)
+        # the critic's backbone is TP-local as the actor is: this rank's shard of the HF
+        # checkpoint, or of the random backbone (drawn whole: every layout holds one model)
         if self._critic_weights_dir:
-            backbone = load_params(self._critic_weights_dir, device=self.device, dtype=dtype)
+            backbone = load_params(self._critic_weights_dir, device=self.device, dtype=dtype, tp=self.tp)
         else:
             backbone = init_params(self.critic_model_cfg, generator, device=self.device, dtype=dtype)
+            if self.tp is not None:
+                backbone = tp_local(backbone, self.tp)
         self.critic = Critic(backbone, generator)
         del backbone
         if self.mesh is not None:
@@ -708,17 +767,25 @@ class GRPOTrainer:
 
     # ------------------------------------------------------------------- mesh
 
-    def _setup_mesh(self) -> None:
+    def _setup_mesh(self, mesh=None) -> None:
         """The distributed branch's state, set whenever a process group
-        exists (``mesh`` None otherwise): the mesh (``parallel/mesh.py``),
-        the sharded policy, the sp spec and the groups the update reduces
-        over, with the JAX trainer's checks."""
+        exists (``mesh`` None otherwise): the mesh (``parallel/mesh.py``; the
+        one given, from ``run_mesh``, or a new one), the sharded policy, the
+        sp spec and the groups the update reduces over, with the JAX
+        trainer's checks. Under TP the policy given is cut to this rank's
+        shard, unless it is one already (``main.build_model`` loads an HF
+        checkpoint so, on the given mesh's ``model`` group)."""
         config, model = self.config, self.model
-        self.mesh = self.sp = self.groups = None
+        self.mesh = self.sp = self.groups = self.tp = None
         self.lockstep = Lockstep()
         self.world, self.rank, self.batch_ranks, self.batch_index = 1, 0, 1, 0
         n_chips = config.trainer.n_chips
         if not dist.is_initialized():
+            if config.worker.actor.sharding.model_size > 1:
+                raise ValueError(
+                    f"sharding.model_size={config.worker.actor.sharding.model_size} needs that many "
+                    "ranks (tensor or sequence parallelism over a process group): launch them with "
+                    "torchrun, or set model_size=1")
             if n_chips > 1:
                 raise ValueError(
                     f"trainer.n_chips={n_chips} but this process has no process group: launch "
@@ -726,12 +793,21 @@ class GRPOTrainer:
                     "spatialthinker_torch.trainer.main ...), or set trainer.n_chips=1")
             return
         self.world, self.rank = dist.get_world_size(), dist.get_rank()
-        local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", self.world // max(config.trainer.nnodes, 1)))
-        mesh_checks(config, self.model_cfg.text.num_key_value_heads, self.world, local_ranks)
-        sh, actor = config.worker.actor.sharding, config.worker.actor
+        actor = config.worker.actor
         sp_size = actor.ulysses_sequence_parallel_size
-        self.mesh = create_mesh(sh.data_size, sh.fsdp_size, sh.model_size, device_type=self.device.type)
-        self.groups = DistGroups(batch=batch_group(self.mesh), norm=norm_group(self.mesh))
+        kv_heads = self.model_cfg.text.num_key_value_heads
+        self.mesh = mesh if mesh is not None else run_mesh(config, kv_heads, self.device.type)
+        if tensor_parallel_size(config) > 1:
+            if model.tp is None:
+                self.tp = TPSpec(tp_group(self.mesh))
+                self.model = model = tp_local(model, self.tp)
+            elif model.tp.group is tp_group(self.mesh):
+                self.tp = model.tp
+            else:
+                raise ValueError("the policy is a TP shard on another group than this mesh's model group: "
+                                 "build it on the mesh the trainer is given (trainer.main.run)")
+        self.groups = DistGroups(batch=batch_group(self.mesh), norm=norm_group(self.mesh, self.tp is not None),
+                                 tp=None if self.tp is None else self.tp.group)
         self.batch_ranks = dist.get_world_size(self.groups.batch)
         self.batch_index = batch_rank(self.mesh)
         if sp_size > 1:
@@ -746,7 +822,7 @@ class GRPOTrainer:
     def _sharded_policy(self, shards: Dict[str, torch.Tensor]) -> Qwen25VL:
         """A second sharded policy (the reference) holding ``shards`` (this
         rank's pieces, on the card or the host), frozen."""
-        ref = Qwen25VL(self.model_cfg, device="meta", dtype=self.model.text.norm.weight.dtype)
+        ref = Qwen25VL(self.model_cfg, device="meta", dtype=self.model.text.norm.weight.dtype, tp=self.tp)
         shard_model(ref, self.mesh)
         ref.to_empty(device=self.device)
         with torch.no_grad():
@@ -772,7 +848,10 @@ class GRPOTrainer:
         if override > 0:  # vLLM num_gpu_blocks_override parity
             return override
         if self._paged_pool_cache is None:
-            self._paged_pool_cache = self._paged_pool_size_uncached(page_size, kv_dtype)
+            pages = self._paged_pool_size_uncached(page_size, kv_dtype)
+            if self.tp is not None:  # one engine a TP group: every rank admits alike
+                pages = -Lockstep(self.tp.group).max(-pages)
+            self._paged_pool_cache = pages
         return self._paged_pool_cache
 
     def _paged_pool_size_uncached(self, page_size: int, kv_dtype) -> int:
@@ -783,10 +862,11 @@ class GRPOTrainer:
         torch.cuda.empty_cache()
         free_now, total = torch.cuda.mem_get_info(self.device)
         t = self.model_cfg.text
+        heads = t.num_key_value_heads // (1 if self.tp is None else self.tp.size)  # this rank's pools
         elem = {torch.int8: 1.0, torch.uint8: 0.5}.get(kv_dtype, 2.0)  # uint8 = packed int4
-        cell = int(2 * t.num_hidden_layers * t.num_key_value_heads * t.head_dim * elem)
+        cell = int(2 * t.num_hidden_layers * heads * t.head_dim * elem)
         if elem < 2:  # bf16 scales per (k, v) token-head in both quantized formats
-            cell += 2 * t.num_hidden_layers * t.num_key_value_heads * 2
+            cell += 2 * t.num_hidden_layers * heads * 2
         roll = self.config.worker.rollout
         slots = roll.decode_batch_size if roll.decode_batch_size > 0 else 32
         u = max(slots // max(roll.n, 1), 1)
@@ -827,7 +907,9 @@ class GRPOTrainer:
         own prompts over a gathered copy of the weights (``unsharded_copy``;
         the JAX trainer's lockstep engines over one global queue and a page
         pool sharded over pages exist because XLA runs one program over every
-        device); greedy rows are the same either way."""
+        device); greedy rows are the same either way. Under tensor parallelism
+        the ranks of a TP group run one paged engine on the same prompts over
+        their shards (``tp_rollout_copy``; the module docstring)."""
         n = sampling.n
         generator = generator if generator is not None else self._rollout_generator(0)
         self._last_rollout_stats = {}  # per-rollout telemetry, never stale
@@ -839,10 +921,14 @@ class GRPOTrainer:
         # the rollout copy follows the knobs as they stand at this rollout
         # (W8A8, or W8A8 + int4 MLP decode copies), quantized anew each time:
         # the optimizer just rewrote the weights
-        gen_model = self.model if self.mesh is None else unsharded_copy(self.model)
+        if self.tp is not None:
+            gen_model = tp_rollout_copy(self.model)
+        else:
+            gen_model = self.model if self.mesh is None else unsharded_copy(self.model)
         if roll.quantization != "none":
             gen_model = quantize_model(gen_model, mode=roll.quantization,
                                        prefill_dequant_min_m=self.prefill_dequant_min_m)
+        self.rollout_copy_bytes = rollout_bytes(gen_model)
         # one prompt width on every rank: the sp group shares its rows later
         base = trim_prompt_padding(
             batch, negotiated_max=self.lockstep.max(int(batch.tensors["segment_ids"].sum(-1).max())))
@@ -1156,12 +1242,17 @@ class GRPOTrainer:
 
     # ------------------------------------------------------- rows across ranks
 
-    def _gather_lists(self, metrics: Dict[str, list], group=None) -> Dict[str, list]:
+    def _rows_group(self):
+        """The ranks holding other rows: every rank, or the batch group under
+        TP (a TP group holds the same rows)."""
+        return None if self.tp is None else self.groups.batch
+
+    def _gather_lists(self, metrics: Dict[str, list]) -> Dict[str, list]:
         """Per-row metric lists of every rank, concatenated (one process: as
         they are)."""
         if self.mesh is None:
             return metrics
-        parts = allgather_pyobj(metrics, group)
+        parts = allgather_pyobj(metrics, self._rows_group())
         return {k: [x for part in parts for x in np.asarray(part[k]).tolist()] for k in metrics}
 
     @staticmethod
@@ -1217,7 +1308,7 @@ class GRPOTrainer:
         # every rank scored its own rows: the whole validation set's
         all_scores = self._gather_lists(all_scores)
         if self.mesh is not None:
-            candidates = [c for part in allgather_pyobj(candidates) for c in part]
+            candidates = [c for part in allgather_pyobj(candidates, self._rows_group()) for c in part]
         # deterministic subsample of the whole validation set (sort by input,
         # fixed-seed shuffle, take N); only the selected rows are decoded
         cap = self.config.trainer.val_generations_to_log
@@ -1266,6 +1357,8 @@ class GRPOTrainer:
         several GPUs)."""
         if self.mesh is None:
             return model.state_dict()
+        if self.tp is not None:  # gathered over the TP group too: the HF layout
+            return {k: v.cpu() for k, v in full_state(model).items()}
         from torch.distributed.checkpoint.state_dict import StateDictOptions, get_model_state_dict
 
         return get_model_state_dict(model, options=StateDictOptions(full_state_dict=True, cpu_offload=True))
@@ -1281,7 +1374,7 @@ class GRPOTrainer:
         for kind in ("mu", "nu", "compensation"):
             out[kind] = {}
             for name, shard in state[kind].items():
-                whole = full_tensor(shard.to(self.device), params[name])
+                whole = gather_leaf(name, full_tensor(shard.to(self.device), params[name]), self.tp)
                 if self.rank == 0:
                     out[kind][name] = whole.cpu()
         return out
@@ -1342,9 +1435,12 @@ class GRPOTrainer:
         for model, optimizer, role in pairs:
             p = params.get(role, {}) if self.use_critic else params
             o = opt_state.get(role, {}) if self.use_critic else opt_state
-            # the broadcast sends a tensor's storage as it lies: make it row-major
-            set_model_state_dict(model, {k: v.contiguous() for k, v in p.items()}, options=options)
-            _load_sharded_optimizer_state(optimizer.state, o, model, self.device)
+            if self.tp is not None:
+                _load_tp_params(model, p, self.device, self.tp)
+            else:
+                # the broadcast sends a tensor's storage as it lies: make it row-major
+                set_model_state_dict(model, {k: v.contiguous() for k, v in p.items()}, options=options)
+            _load_sharded_optimizer_state(optimizer.state, o, model, self.device, self.tp)
         self.global_step = box[0]["step"]
         if box[0].get("dataloader_state") and hasattr(self.train_dataloader, "load_state_dict"):
             self.train_dataloader.load_state_dict(box[0]["dataloader_state"])
@@ -1353,9 +1449,30 @@ class GRPOTrainer:
 
 
 @torch.no_grad()
-def _load_sharded_optimizer_state(mine, saved, model, device) -> None:
+def _load_tp_params(model, saved, device, tp) -> None:
+    """A checkpoint's whole parameters (rank 0's ``saved``) into a TP-local
+    model: each broadcast and cut to this rank's TP shard and FSDP piece."""
+    for name, p in model.named_parameters():
+        whole = (saved[name].to(device, p.dtype).contiguous() if saved else
+                 torch.empty(_whole_shape(name, p, tp), dtype=p.dtype, device=device))
+        dist.broadcast(whole, src=0)
+        local(p).copy_(local_piece(whole, p, name, tp))
+
+
+def _whole_shape(name: str, p, tp) -> Tuple[int, ...]:
+    """The whole (HF-layout) shape of a TP-local parameter ``p``."""
+    shape = list(p.shape)
+    split = split_of(name)
+    if split is not None:
+        shape[split[0]] *= tp.size
+    return tuple(shape)
+
+
+@torch.no_grad()
+def _load_sharded_optimizer_state(mine, saved, model, device, tp=None) -> None:
     """``_load_optimizer_state`` on several GPUs: ``saved`` (whole tensors)
-    is rank 0's, each moment broadcast and cut to this rank's piece."""
+    is rank 0's, each moment broadcast and cut to this rank's piece (its TP
+    shard first under ``tp``)."""
     params = dict(model.named_parameters())
     box = [{"count": int(saved["count"]),
             "names": {k: sorted(saved[k]) for k in ("mu", "nu", "compensation")},
@@ -1380,10 +1497,11 @@ def _load_sharded_optimizer_state(mine, saved, model, device) -> None:
                     "(optim.stream keeps bf16 moments)"
                 )
             like = params[name]
+            shape = like.shape if tp is None else _whole_shape(name, like, tp)
             whole = (saved[kind][name].to(device).contiguous() if saved else
-                     torch.empty(like.shape, dtype=target.dtype, device=device))
+                     torch.empty(shape, dtype=target.dtype, device=device))
             dist.broadcast(whole, src=0)
-            target.copy_(local_piece(whole, like))
+            target.copy_(local_piece(whole, like, name, tp))
 
 
 @torch.no_grad()

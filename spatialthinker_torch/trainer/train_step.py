@@ -34,6 +34,14 @@ sequence parallelism over the mesh's ``model`` axis: each rank of an sp group
 holds a chunk of the same rows' sequence; the losses work on position-aligned
 chunks (the per-sample layout's responses placed at their prediction slots),
 the log-prob functions gather the chunks of their result.
+
+Tensor parallelism (``groups.tp``, the mesh's ``model`` axis without sp):
+the ranks of a TP group hold the same rows and their shards of every
+weight; the log-probs are vocab-parallel (``ops.logprobs``), the metrics
+are summed over the batch group only (a token lives on every rank of its TP
+group), and the gradient norm sums the squares of the split leaves over the
+TP group and counts the replicated ones once (their gradients are equal on
+every rank of the group).
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from ..models.qwen2_5_vl.model import Qwen25VL, forward
 from ..ops.logprobs import log_probs_from_hidden
 from ..ops.ulysses import all_gather_seq, seq_chunk
 from ..parallel.sharding import is_sharded, local
+from ..parallel.tensor import split_of
 from .optim import AdamW, make_schedule
 
 
@@ -85,10 +94,13 @@ class DistGroups(NamedTuple):
     """Where a multi-GPU update reduces (``parallel/mesh.py``): ``batch`` the
     ranks holding other rows (a micro-batch's global token count), ``norm``
     the ranks whose shards make one copy of the parameters (the gradient
-    norm); the metrics sum over every rank (each token lives on one)."""
+    norm; under TP, one copy of this rank's TP shards); the metrics sum over
+    every rank (each token lives on one), or over ``batch`` under TP.
+    ``tp``: the TP group, None without tensor parallelism."""
 
     batch: dist.ProcessGroup
     norm: dist.ProcessGroup
+    tp: Optional[dist.ProcessGroup] = None
 
 
 def sum_over(t: torch.Tensor, group) -> torch.Tensor:
@@ -116,6 +128,13 @@ def _lm_head(model: Qwen25VL) -> torch.Tensor:
     return text.embed_tokens.weight if model.cfg.text.tie_word_embeddings else text.lm_head.weight
 
 
+def _vocab_tp(model: Qwen25VL) -> dict:
+    """``log_probs_from_hidden``'s vocab-parallel arguments of a model whose
+    head is split over its TP group (none otherwise)."""
+    text = model.text
+    return dict(tp=text.tp, vocab_start=text.vocab_start) if text.vocab_split else {}
+
+
 def _response_hidden(model, batch: TrainBatch, vision, remat: Union[bool, str]) -> torch.Tensor:
     hidden, _ = forward(
         model, batch.input_ids, batch.position_ids,
@@ -141,7 +160,7 @@ def _response_log_probs_chunk(model, batch: TrainBatch, vision, *, remat, chunk_
     labels = seq_chunk(_aligned(batch.responses, s), sp)
     mask = seq_chunk(_aligned(batch.response_mask.float(), s), sp)
     logp, entropy = log_probs_from_hidden(
-        _hidden_chunk(model, batch, vision, remat, sp), labels, _lm_head(model),
+        _hidden_chunk(model, batch, vision, remat, sp), labels, _lm_head(model), **_vocab_tp(model),
         chunk_size=chunk_size, compute_entropy=compute_entropy, temperature=temperature,
     )
     return logp * mask, entropy * mask
@@ -164,7 +183,7 @@ def compute_log_probs(
         return tuple(all_gather_seq(t, sp.group)[:, s - r - 1 : s - 1] for t in chunks)
     hidden = _response_hidden(model, batch, vision, remat)
     return log_probs_from_hidden(
-        hidden, batch.responses, _lm_head(model), chunk_size=chunk_size,
+        hidden, batch.responses, _lm_head(model), **_vocab_tp(model), chunk_size=chunk_size,
         compute_entropy=compute_entropy, temperature=temperature,
     )
 
@@ -179,7 +198,7 @@ def _packed_log_probs_chunk(model, batch: PackedTrainBatch, vision, *, remat, ch
         segment_ids=batch.segment_ids, vision=vision, remat=remat, sp=sp,
     )
     logp, entropy = log_probs_from_hidden(
-        hidden, labels, _lm_head(model), chunk_size=chunk_size,
+        hidden, labels, _lm_head(model), **_vocab_tp(model), chunk_size=chunk_size,
         compute_entropy=compute_entropy, temperature=temperature,
     )
     return logp * mask, entropy * mask
@@ -291,13 +310,25 @@ def trainable_parameters(model: Qwen25VL, freeze_vision_tower: bool = False):
             if not (freeze_vision_tower and n.startswith("vision."))]
 
 
-def _global_norm_f32(grads, group=None) -> torch.Tensor:
+def _global_norm_f32(grads, group=None, tp_group=None) -> torch.Tensor:
     """Global L2 norm with fp32 accumulation and no fp32 copy of a leaf;
-    ``grads`` are this rank's shards, their squares summed over ``group``."""
-    sq = sum(torch.linalg.vector_norm(g, dtype=torch.float32).square() for g in grads.values())
-    if group is not None:
-        sq = sum_over(sq, group).to(sq.device, torch.float32)
-    return torch.sqrt(sq)
+    ``grads`` are this rank's shards, their squares summed over ``group``.
+    ``tp_group``: the leaves split over it (``parallel.tensor.SPLITS``) add
+    their squares over it too; the replicated ones count once."""
+    def squares(names):
+        return sum((torch.linalg.vector_norm(grads[n], dtype=torch.float32).square() for n in names),
+                   torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device))
+
+    if tp_group is None:
+        sq = sum(torch.linalg.vector_norm(g, dtype=torch.float32).square() for g in grads.values())
+        if group is not None:
+            sq = sum_over(sq, group).to(sq.device, torch.float32)
+        return torch.sqrt(sq)
+    split = [n for n in grads if split_of(n) is not None]
+    replicated = [n for n in grads if split_of(n) is None]
+    sq_split = sum_over(sum_over(squares(split), group), tp_group)
+    sq = sq_split + sum_over(squares(replicated), group)
+    return torch.sqrt(sq.to(next(iter(grads.values())).device, torch.float32))
 
 
 def _token_mask(batch) -> torch.Tensor:
@@ -381,10 +412,12 @@ def _make_grad_fn(model: Qwen25VL, loss_fn: Callable, *, max_grad_norm: float = 
             for p in frozen:
                 p.requires_grad_(True)
         metrics = {k: v / n_micro for k, v in sums.items()}
-        if groups is not None:  # each rank holds its share of every mean
-            metrics = {k: sum_over(v, dist.group.WORLD).float().to(v.device) for k, v in metrics.items()}
+        if groups is not None:  # each rank holds its share of every mean (once a TP group)
+            over = dist.group.WORLD if groups.tp is None else groups.batch
+            metrics = {k: sum_over(v, over).float().to(v.device) for k, v in metrics.items()}
 
-        grad_norm = _global_norm_f32(acc, None if groups is None else groups.norm) / n_micro
+        grad_norm = _global_norm_f32(acc, None if groups is None else groups.norm,
+                                     None if groups is None else groups.tp) / n_micro
         metrics[norm_key] = grad_norm
         norm = float(grad_norm)
         finite = math.isfinite(norm)

@@ -1091,6 +1091,67 @@ def test_silu_quant_kernel_dtypes_and_widths(dev, m, i, dtype):
     assert torch.equal(q_w, q) and torch.equal(s_w, s)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("m,i,tp", [(4096, 11008, 2), (1024, 18944, 4), (33, 172, 2)])
+def test_silu_quant_split_mode_equals_one_pass(dev, m, i, tp, dtype):
+    """The split mode (tensor parallelism: each rank's I / tp columns with the
+    row scale of the whole I) on ``tp`` column slices, their amaxes maxed:
+    the slices' q side by side and each slice's scale equal the one-pass
+    kernel on the whole row bit for bit, each pass its plain version, and
+    one launch a pass."""
+    from spatialthinker_torch.ops import silu_quant as sqm
+
+    rng = np.random.default_rng(m + i + tp)
+    gu = torch.from_numpy(rng.normal(size=(m, 2 * i)).astype(np.float32)).to(dev, dtype)
+    gu[m // 2] = 0
+    part = i // tp
+    pieces = [torch.cat([gu[:, r * part:(r + 1) * part], gu[:, i + r * part:i + (r + 1) * part]], dim=1).contiguous()
+              for r in range(tp)]
+    before = sqm.silu_row_amax.launches, sqm.silu_quantize_with_amax.launches
+    amaxes = [sqm.silu_row_amax(p) for p in pieces]
+    amax = torch.stack(amaxes).amax(dim=0)
+    outs = [sqm.silu_quantize_with_amax(p, amax) for p in pieces]
+    q, s = fused_silu_quantize(gu)
+    torch.cuda.synchronize()
+    assert (sqm.silu_row_amax.launches, sqm.silu_quantize_with_amax.launches) == (before[0] + tp, before[1] + tp)
+    assert torch.equal(torch.cat([o[0] for o in outs], dim=1), q)
+    assert all(torch.equal(o[1], s) for o in outs)
+    for p, a, (qo, so) in zip(pieces, amaxes, outs):
+        assert torch.equal(a, sqm.silu_row_amax_plain(p))
+        q_ref, s_ref = sqm.silu_quantize_with_amax_plain(p, amax)
+        assert torch.equal(qo, q_ref) and torch.equal(so, s_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("m,k,tp", [(129, 2048, 2), (4096, 11008, 2), (129, 3584, 4), (1024, 18944, 4), (1, 64, 2)])
+def test_quantize_rows_split_mode_equals_one_pass(dev, m, k, tp, dtype):
+    """Kernel A's row quantize in its split mode (a row-parallel product's
+    input under tensor parallelism: each rank's K / tp columns with the scale
+    of the whole row) on ``tp`` column slices, their amaxes maxed: the slices'
+    xq side by side and each slice's scale equal ``quantize_rows`` of the
+    whole row bit for bit, each pass its plain version, one launch a pass."""
+    rng = np.random.default_rng(m + k + tp)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev, dtype)
+    x[m // 2] = 0  # the eps floor
+    part = k // tp
+    pieces = [x[:, r * part:(r + 1) * part].contiguous() for r in range(tp)]
+    before = i8.row_amax.launches, i8.quantize_rows_with_amax.launches
+    amaxes = [i8.row_amax(p) for p in pieces]
+    amax = torch.stack(amaxes).amax(dim=0)
+    outs = [i8.quantize_rows_with_amax(p, amax) for p in pieces]
+    xq, xs = i8.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert (i8.row_amax.launches, i8.quantize_rows_with_amax.launches) == (before[0] + tp, before[1] + tp)
+    assert torch.equal(torch.cat([o[0] for o in outs], dim=1), xq)
+    assert all(torch.equal(o[1], xs) for o in outs)
+    for p, a, (qo, so) in zip(pieces, amaxes, outs):
+        assert torch.equal(a, i8.row_amax_plain(p))
+        q_ref, s_ref = i8.quantize_rows_with_amax_plain(p, amax)
+        assert torch.equal(qo, q_ref) and torch.equal(so, s_ref)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        i8.row_amax(x[:, :48].contiguous())
+
+
 def test_silu_plan_matches_the_c_side(dev):
     from spatialthinker_torch import csrc
     from spatialthinker_torch.ops import silu_quant as sqm

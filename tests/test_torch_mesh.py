@@ -159,8 +159,10 @@ def test_sequence_parallelism_on_the_model_axis_parses(tmp_path):
                                       "worker.critic.sharding.model_size=4",
                                       "worker.rollout.tensor_parallel_size=2"])
 def test_tensor_parallel_knobs_name_a13b(override):
-    with pytest.raises(ValueError, match="ROADMAP A13b"):
-        tc.build_config([override])
+    """The knobs of ROADMAP A13b are accepted beside the paged engine, as the
+    JAX tree parses them (a TP rollout runs one paged engine a TP group)."""
+    argv = ["worker.actor.sharding.model_size=2", "worker.rollout.name=continuous", override]
+    assert tc.to_dict(tc.build_config(argv)) == jc.to_dict(jc.build_config(argv))
 
 
 @pytest.mark.parametrize("override", ["worker.actor.sharding.data_size=0",
@@ -181,6 +183,11 @@ def test_nonpositive_mesh_sizes_raise(override):
     (["trainer.n_chips=2", "worker.actor.ulysses_sequence_parallel_size=2",
       "worker.actor.sharding.model_size=2", "data.max_prompt_length=31"], 2, 2, "sequence length"),
     (["trainer.n_chips=3"], 3, 3, "rollout_batch_size=.* divisible by the 3 processes"),
+    # tensor parallelism: JAX's kv-head cap (2 kv heads), and the rows split over the batch ranks only
+    (["trainer.n_chips=4", "worker.actor.sharding.model_size=4", "worker.rollout.name=continuous"], 4, 4,
+     "model_size=4 must divide the model's num_key_value_heads=2"),
+    (["trainer.n_chips=6", "worker.actor.sharding.model_size=2", "worker.rollout.name=continuous"], 6, 6,
+     "rollout_batch_size=8 must be divisible by the 3 processes that hold other rows"),
 ])
 def test_mesh_checks_are_the_jax_trainers(extra, world, local, match):
     from spatialthinker_torch.trainer.grpo_trainer import mesh_checks

@@ -152,15 +152,20 @@ def _full_params(trainer):
     return {k: v.numpy() for k, v in full_state(trainer.model).items()}
 
 
-def _rank_rows(rolled):
-    """This rank's rows of a rollout batch given as its tensors and non-tensors."""
+def _rank_rows(rolled, trainer=None):
+    """This rank's rows of a rollout batch given as its tensors and
+    non-tensors: a slice by rank, or under tensor parallelism by the
+    trainer's batch index (a TP group holds the same rows)."""
     import numpy as np
     import torch.distributed as dist
 
     from spatialthinker_torch.core.batch import RolloutBatch
 
-    n = len(rolled["tensors"]["responses"]) // dist.get_world_size()
-    rows = slice(dist.get_rank() * n, (dist.get_rank() + 1) * n)
+    index, ranks = dist.get_rank(), dist.get_world_size()
+    if trainer is not None and trainer.tp is not None:
+        index, ranks = trainer.batch_index, trainer.batch_ranks
+    n = len(rolled["tensors"]["responses"]) // ranks
+    rows = slice(index * n, (index + 1) * n)
     return RolloutBatch(tensors={k: np.array(v[rows]) for k, v in rolled["tensors"].items()},
                         non_tensors={k: v[rows].copy() for k, v in rolled["non_tensors"].items()})
 
@@ -181,8 +186,8 @@ def task_train_step(p):
         if trainer.critic is not None:  # the JAX critic's weights, this rank's pieces
             with torch.no_grad():
                 for n, t in trainer.critic.named_parameters():
-                    local(t).copy_(local_piece(p["critic_state"][n], t))
-        mine = _rank_rows(p["rolled"])
+                    local(t).copy_(local_piece(p["critic_state"][n], t, n, trainer.tp))
+        mine = _rank_rows(p["rolled"], trainer)
         trainer.generate_sequences = lambda batch, sampling, generator=None: mine.select(slice(None))
         trainer.global_step = 1
         metrics = trainer.train_step(RolloutBatch(tensors={"input_ids": np.zeros((len(mine) // 2, 1), np.int32)}))
@@ -194,7 +199,9 @@ def task_train_step(p):
 
 
 def task_rollout(p):
-    """This rank's half of the prompts through the trainer's greedy rollout."""
+    """This rank's share of the prompts (by rank, or under tensor parallelism
+    by batch index: a TP group shares them) through the trainer's greedy
+    rollout, with the bytes of its rollout copy."""
     import numpy as np
     import torch.distributed as dist
 
@@ -202,11 +209,15 @@ def task_rollout(p):
 
     trainer, _ = _trainer(p)
     rank, world = dist.get_rank(), dist.get_world_size()
+    if trainer.tp is not None:  # a TP group shares its prompts
+        rank, world = trainer.batch_index, trainer.batch_ranks
     batch = RolloutBatch(**p["batch"])
     n = len(batch) // world
     rolled = trainer.generate_sequences(batch.select(slice(rank * n, (rank + 1) * n)),
                                         trainer.sampling.override(temperature=0.0))
-    return {k: np.asarray(rolled.tensors[k]) for k in ("responses", "response_mask", "rollout_log_probs")}
+    out = {k: np.asarray(rolled.tensors[k]) for k in ("responses", "response_mask", "rollout_log_probs")}
+    out["batch_index"], out["copy_bytes"] = trainer.batch_index, trainer.rollout_copy_bytes
+    return out
 
 
 def _opt_state(trainer):
@@ -226,7 +237,7 @@ def task_checkpoint(p):
 
     trainer, _ = _trainer(p, [f"trainer.save_checkpoint_path={p['save_dir']}", "trainer.save_freq=1"])
     trainer.reward_fn = reward_fn
-    mine = _rank_rows(p["rolled"])
+    mine = _rank_rows(p["rolled"], trainer)
     trainer.generate_sequences = lambda batch, sampling, generator=None: mine.select(slice(None))
     trainer.global_step = 1
     trainer.train_step(RolloutBatch(tensors={"input_ids": np.zeros((len(mine) // 2, 1), np.int32)}))
@@ -297,6 +308,113 @@ def task_mesh(p):
     return out
 
 
+def _tp():
+    import torch.distributed as dist
+
+    from spatialthinker_torch.parallel.tensor import TPSpec
+
+    return TPSpec(dist.group.WORLD)
+
+
+def task_tp_shards(p):
+    """``shard_for_rank`` then ``gather_full`` of a whole state dict, and
+    this rank's shard."""
+    from spatialthinker_torch.parallel.tensor import gather_full, shard_for_rank
+
+    tp = _tp()
+    mine = shard_for_rank(p["state"], tp.size, tp.rank)
+    return {"whole": {k: v.numpy() for k, v in gather_full(mine, tp).items()},
+            "mine": {k: tuple(v.shape) for k, v in mine.items()}}
+
+
+def task_tp_vocab(p):
+    """The vocab-parallel log-prob and entropy of this rank's head rows, with
+    the gradients of the hidden state and of the rank's rows."""
+    import torch
+
+    from spatialthinker_torch.ops.logprobs import log_probs_from_hidden
+
+    tp = _tp()
+    out = []
+    for case in p["cases"]:
+        v = case["head"].shape[0] // tp.size
+        hidden = torch.as_tensor(case["hidden"]).requires_grad_()
+        head = torch.as_tensor(case["head"][tp.rank * v : (tp.rank + 1) * v]).requires_grad_()
+        logp, ent = log_probs_from_hidden(hidden, torch.as_tensor(case["labels"]), head, chunk_size=case["chunk"],
+                                          compute_entropy=True, temperature=case["temperature"],
+                                          tp=tp, vocab_start=tp.rank * v)
+        (logp * torch.as_tensor(case["g_logp"]) + ent * torch.as_tensor(case["g_ent"])).sum().backward()
+        out.append({"logp": logp.detach().numpy(), "ent": ent.detach().numpy(),
+                    "g_hidden": hidden.grad.numpy(), "g_head": head.grad.numpy()})
+    return out
+
+
+def task_tp_logprobs(p):
+    """tp = world log-probs (packed and per-sample) of the TP-local model."""
+    import torch
+
+    from spatialthinker_torch.models.qwen2_5_vl.model import vision_to_device
+    from spatialthinker_torch.trainer.grpo_trainer import tp_local
+    from spatialthinker_torch.trainer.train_step import (
+        PackedTrainBatch, TrainBatch, compute_log_probs, compute_packed_log_probs,
+    )
+
+    model = tp_local(_model(p), _tp())
+    out = {"widths": {n: tuple(t.shape) for n, t in model.named_parameters()}}
+    with torch.no_grad():
+        batch = PackedTrainBatch(*(torch.as_tensor(x) for x in p["packed"]))
+        out["packed"] = model(compute_packed_log_probs, batch, None, chunk_size=4)[0].numpy()
+        batch = TrainBatch(*(torch.as_tensor(x) for x in p["train"]))
+        vision = vision_to_device(p.get("train_vision"), "cpu")
+        out["train"] = model(compute_log_probs, batch, vision, chunk_size=4)[0].numpy()
+    return out
+
+
+def task_tp_quant(p):
+    """The TP-local W8A8 rollout copy's int8 weights and scales, and the
+    row-parallel inputs ``p["x"]`` of o / down quantized by this rank's
+    K columns with the group's row amax (the row quantize's split mode)."""
+    import torch
+
+    from spatialthinker_torch.ops.int8_matmul import quantize_rows_split
+    from spatialthinker_torch.ops.quant import quantize_model
+    from spatialthinker_torch.parallel.sharding import tp_rollout_copy
+    from spatialthinker_torch.parallel.tensor import all_reduce_max, shard_for_rank
+    from spatialthinker_torch.trainer.grpo_trainer import tp_local
+
+    tp = _tp()
+    q = quantize_model(tp_rollout_copy(tp_local(_model(p), tp)))
+    out = {k: v.numpy() for k, v in q.state_dict().items() if k.endswith((".qvalue", ".scale"))}
+    for name, x in p["x"].items():  # x is the whole (rows, K) input of a row-parallel product
+        piece = shard_for_rank({name: torch.as_tensor(x)}, tp.size, tp.rank)[name]
+        xq, xs = quantize_rows_split(piece.contiguous(), lambda a: all_reduce_max(a, tp))
+        out[f"xq:{name}"], out[f"xs:{name}"] = xq.numpy(), xs.numpy()
+    return out
+
+
+def task_tp_load(p):
+    """``trainer.main``'s multi-GPU start at tp = world: the mesh first, then
+    the policy loaded from an HF directory as this rank's shard, then the
+    trainer on that mesh (the critic's backbone loaded as a shard too):
+    what each rank holds."""
+    from spatialthinker_torch.core import config as tc
+    from spatialthinker_torch.data.dataset import RLHFDataset
+    from spatialthinker_torch.parallel.mesh import tp_group
+    from spatialthinker_torch.parallel.tensor import TPSpec
+    from spatialthinker_torch.trainer import main as tm
+    from spatialthinker_torch.trainer.grpo_trainer import run_mesh
+
+    cfg = tc.build_config(list(p["dotlist"]))
+    mesh = run_mesh(cfg, tm.model_config(cfg).text.num_key_value_heads, "cpu")
+    model = tm.build_model(cfg, device="cpu", tp=TPSpec(tp_group(mesh)))
+    tok = tm.load_tokenizer("synthetic", model.cfg)
+    trainer = tm.build_trainer(cfg, tok, model, RLHFDataset.from_rows(p["rows"], tok, cfg.data, model.cfg),
+                               mesh=mesh)
+    return {"kept": trainer.model is model and trainer.tp is model.tp,
+            "actor": {k: v.numpy() for k, v in trainer.model.state_dict().items()},
+            "critic": {k: v.numpy() for k, v in trainer.critic.state_dict().items()}}
+
+
 TASKS = {
     "ring": _attention_task("ring"),
     "ulysses": _attention_task("ulysses"),
@@ -305,6 +423,11 @@ TASKS = {
     "rollout": task_rollout,
     "checkpoint": task_checkpoint,
     "mesh": task_mesh,
+    "tp_shards": task_tp_shards,
+    "tp_vocab": task_tp_vocab,
+    "tp_logprobs": task_tp_logprobs,
+    "tp_quant": task_tp_quant,
+    "tp_load": task_tp_load,
 }
 
 
