@@ -76,11 +76,12 @@ non-zero without a device. In order:
       through ``RLHFDataset.from_rows``, the ``spatial_sgg`` reward,
       ``build_trainer(...).fit()``;
    f. the rollout knobs that reach the other decode kernels, through the same
-      trainer's ``generate_sequences``: the dense engine (``rollout.name=jax``)
+      trainer's ``generate_sequences`` on ``KNOB_PROMPTS`` of its prompts x n 8
+      (64 rows): the dense engine (``rollout.name=jax``)
       over an int8 cache, an int4 cache and an int4 cache with ``int4_i8dot``,
       the paged engine with int4 pools without ``int4_i8dot``, the continuous
       engine (``page_size=0``) over an int8 cache, and the dense engine with
-      the w4a8 copy (128 rows through the int4 MLP kernels);
+      the w4a8 copy (64 rows through the int4 MLP kernels);
    g. the same trainer with path e's dotlist and four knobs changed
       (``rollout.name=continuous``, ``page_size=0``, ``quantization=w4a8``,
       ``decode_batch_size=128``): ONE ``train_step`` — 16 prompts x n 8
@@ -132,10 +133,18 @@ non-zero without a device. In order:
       ``TRAIN_VISION_DEPTH`` vision blocks (full widths), 3 prompts x n 8,
       ONE step: one paged engine a TP group (W8A8, int4 pools,
       ``int4_i8dot``), old / ref log-probs, the packed update -- a check of
-      correctness, not a timing;
+      correctness, not a timing; (m3) that trainer's ``generate_sequences``
+      on 2 prompts x n 4 with the dense engine on the w4a8 copy (int4 KV,
+      int8 dots: #13, #14's split entry, #6) and the continuous engine over
+      an int8 cache (#4'), both ranks the same tokens (a TP rollout beside
+      sp needs the policy FSDP-sharded over both ranks: gloo carries no CUDA
+      all-gather and NCCL refuses two ranks on one card, so it is held on
+      the CPU and waits for several cards);
       before them, in the main process, every kernel a TP rank runs at its
-      TP-local shapes against its plain version (``tp_kernel_cases``;
-      ``--only-path-m`` runs the build, these and path m alone);
+      TP-local shapes against its plain version (``tp_kernel_cases``: also
+      #4, #4', #5 and #6 at one kv head, #13 at the local I and #14's split
+      entry on the padded shards; ``--only-path-m`` runs the build, these
+      and path m alone);
 5. checks what came out: finite log-probs <= 0 of the expected shapes; the
    kernel-path prefill logits as close to an fp32 reference as the plain
    path's; the int4 path's rollout log-probs against the bf16 model's
@@ -365,12 +374,13 @@ ACTOR = dict(
 # global_batch_size 128 of the shipped script cut to 64: two optimizer steps per GRPO step
 TRAIN = dict(global_batch_size=64, micro_rows=4, experience_micro=16, lr=1e-6, strategy="adamw")
 GRPO_STEPS = 1
-# Paths d, i and l1 run at 3B widths with 6 of the 36 text layers and 8 of
+# Paths d, i and l1 run at 3B widths with 4 of the 36 text layers (6 until
+# the TP cases of the dense / continuous engines and w4a8 were added) and 8 of
 # the 32 vision blocks (full attention in every fourth block, as in the whole
 # tower; at 6 text layers the whole tower was ~70% of a sample's forward):
 # paths e and k take a step at full depth through the trainer, and the smoke
 # has to stay within its 800 s on a slow host.
-TRAIN_LAYERS = 6
+TRAIN_LAYERS = 4
 TRAIN_VISION_DEPTH, TRAIN_FULLATT = 8, (3, 7)
 
 
@@ -425,6 +435,9 @@ TRAINER_OVERRIDES = [
     "worker.actor.sharding.remat_policy=full",
 ]
 TRAINER_VAL_ROWS = 8
+# path f's knob cases and the w4 controls: 8 of path e's 16 prompts x n 8 = 64 rows, one wave of the
+# paged engine's 64 slots and of the continuous engine's 72 lanes (the full batch took two)
+KNOB_PROMPTS = 8
 CKPT_LAYERS = 4
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -544,6 +557,7 @@ PLAIN_VERSIONS = [
     (pa, "paged_attention_int4_i8_plain"), (pa, "paged_attention_int4_plain"),
     (pa, "paged_attention_gathered"),
     (sq, "fused_silu_quantize_plain"), (i4, "w4_gateup_silu_plain"), (i4, "w4_matmul_plain"),
+    (i4, "w4_matmul_split_plain"),
     (i8m, "fused_w8a8_matmul_plain"), (i8m, "w8a8_matmul_prequantized_plain"),
     (sq, "silu_row_amax_plain"), (sq, "silu_quantize_with_amax_plain"),
     (i8m, "row_amax_plain"), (i8m, "quantize_rows_with_amax_plain"),
@@ -585,7 +599,7 @@ def reset_counts() -> None:
                da.decode_attention,
                da._launch_int8_kernel, da._launch_int4_kernel, da._launch_int4_i8_kernel,
                pa._launch_pool_kernel, pa._launch_int4_i8_kernel, pa._launch_int4_kernel,
-               sq.fused_silu_quantize, i4.w4_gateup_silu, i4.w4_matmul, i8m.fused_w8a8_matmul,
+               sq.fused_silu_quantize, i4.w4_gateup_silu, i4.w4_matmul, i4.w4_matmul_split, i8m.fused_w8a8_matmul,
                i8m.w8a8_matmul_prequantized, sq.silu_row_amax, sq.silu_quantize_with_amax, i8m.row_amax,
                i8m.quantize_rows_with_amax, counted_int_mm):
         fn.launches = 0
@@ -606,6 +620,8 @@ def read_counts() -> dict:
         "paged_attention_int4": pa._launch_int4_kernel.launches,
         "silu_quant": sq.fused_silu_quantize.launches,
         "int4_gateup": i4.w4_gateup_silu.launches, "int4_down": i4.w4_matmul.launches,
+        # #14's split entry (a row-parallel down shard under tensor parallelism)
+        "int4_down_split": i4.w4_matmul_split.launches,
         "w8a8": i8m.fused_w8a8_matmul.launches, "w8a8_prequantized": i8m.w8a8_matmul_prequantized.launches,
         "paged_staged": pa._launch.staged_launches, "int_mm": counted_int_mm.launches,
         # #12's split mode (tensor parallelism), its two passes
@@ -885,7 +901,7 @@ def check_flash_training(dev, cases):
     return fwd_cases, prep_cases, dq_cases, dkv_cases
 
 
-def check_decode(dev, cfg, rows: int, width: int, prompt_len: int):
+def check_decode(dev, cfg, rows: int, width: int, prompt_len: int, label: str = "sampled_call_cache"):
     """Dense decode kernel vs plain at the sampled call's cache shape."""
     rng = np.random.default_rng(2)
     tc = cfg.text
@@ -914,12 +930,12 @@ def check_decode(dev, cfg, rows: int, width: int, prompt_len: int):
     cell_bytes = 2 * tc.num_key_value_heads * tc.head_dim * 2  # k and v, bf16
     b_ms, b_by = bound_ms(cells * cell_bytes + nbytes(q, out, seg),
                           4.0 * cells * tc.num_attention_heads * tc.head_dim, "bf16")
-    print(f"decode: q{tuple(q.shape)} cache{tuple(kc.shape)} layer={layer} max_abs_err={err:.3e} "
+    print(f"decode [{label}]: q{tuple(q.shape)} cache{tuple(kc.shape)} layer={layer} max_abs_err={err:.3e} "
           f"bit_identical_twice={twice} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
           f"bound_ms={b_ms:.5f} ({b_by}) plan={json.dumps(plan)}", flush=True)
     if not (err <= OUT_ATOL and twice):
         raise AssertionError("decode kernel disagrees with plain or with itself")
-    return [dict(shape="sampled_call_cache", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    return [dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bit_identical_twice=twice, plan=plan)]
 
 
@@ -936,7 +952,7 @@ def decode_plan_and_twice(q, kc, vc, seg, layer, ks=None, vs=None, i8=False):
     return plan, bool(torch.equal(first, second))
 
 
-def check_decode_quant(dev, cfg, kind: str, rows: int, width: int, prompt_len: int):
+def check_decode_quant(dev, cfg, kind: str, rows: int, width: int, prompt_len: int, label: str = ""):
     """A quantized dense-decode kernel vs the plain version at the trainer's
     dense-engine shape (path f): every row of the rollout batch mid-generation
     over the full layer stack, random stored values and scales, ragged
@@ -962,7 +978,7 @@ def check_decode_quant(dev, cfg, kind: str, rows: int, width: int, prompt_len: i
     seg_np[rows - 1] = 0  # a row with no valid cell
     seg = torch.from_numpy(seg_np).to(dev)
     return decode_quant_case(cfg, kind, q, kc, vc, seg, n_layers - 1, ks, vs,
-                             f"{kind}_cache_{rows}_rows_width_{width}")
+                             label or f"{kind}_cache_{rows}_rows_width_{width}")
 
 
 def decode_quant_case(cfg, kind: str, q, kc, vc, seg, layer: int, ks, vs, label: str):
@@ -2223,7 +2239,7 @@ KNOB_CASES = [
     # the continuous engine with W8A8 weights over an int8 slot cache (#4')
     ("continuous_int8", dict(name="continuous", page_size=0, kv_cache_dtype="int8", int4_i8dot=False),
      ("decode_attention_int8",), None),
-    # the dense engine with the w4a8 copy: 128 rows decode through the int4 MLP
+    # the dense engine with the w4a8 copy: 64 rows decode through the int4 MLP
     ("dense_w4a8", dict(name="jax", kv_cache_dtype="int4", int4_i8dot=True, quantization="w4a8"),
      ("decode_attention_int4_i8", "int4_gateup", "int4_down"), W4_PROBS_DIFF_LIMIT),
 ]
@@ -2256,7 +2272,7 @@ def knob_paths(dev, card, trainer, train_ds, paged_probs_diff: float) -> dict:
     """Path f: one rollout per knob case (``knob_rollout``). The continuous
     engine's case also keeps one decode call's inputs and holds its kernel
     against the plain version on them."""
-    batch = next(iter(DataLoader(train_ds, trainer.config.data.rollout_batch_size, shuffle=False)))
+    batch = next(iter(DataLoader(train_ds, KNOB_PROMPTS, shuffle=False)))
     out = {}
     for label, knobs, kernels, limit in KNOB_CASES:
         limit = paged_probs_diff + INT8_CACHE_EXTRA_DRIFT if limit is None else limit
@@ -2316,7 +2332,7 @@ def w4_controls(card, trainer, train_ds) -> dict:
     """The dense_w4a8 knob case with each of ``W4_CONTROLS``: the int4
     kernels still launch, and ``rollout/probs_diff_mean`` must exceed
     ``W4_PROBS_DIFF_LIMIT`` -- the limit tells a sound copy from these."""
-    batch = next(iter(DataLoader(train_ds, trainer.config.data.rollout_batch_size, shuffle=False)))
+    batch = next(iter(DataLoader(train_ds, KNOB_PROMPTS, shuffle=False)))
     knobs = next(k for label, k, _, _ in KNOB_CASES if label == "dense_w4a8")
     real = gt.quantize_model
     out = {}
@@ -3327,6 +3343,16 @@ TP_M2_PAGES = 1024
 # their step time is no measurement of TP.
 TP_M2_PROMPTS, TP_M2_N = 3, 8
 TP_M2_LAYERS = 4
+# (m3) the same trainer after (m2)'s step, its own generate_sequences on 2 prompts x n 4 with the
+# engines (m2) does not run under TP: label, rollout knobs, the kernels it must launch, its limit on
+# rollout/probs_diff_mean
+TP_M3_PROMPTS, TP_M3_N = 2, 4
+TP_M3_CASES = (
+    ("dense_w4a8", dict(name="jax", quantization="w4a8", kv_cache_dtype="int4", int4_i8dot=True),
+     ("int4_gateup", "int4_down_split", "decode_attention_int4_i8"), W4_PROBS_DIFF_LIMIT),
+    ("continuous_int8", dict(name="continuous", page_size=0, quantization="int8", kv_cache_dtype="int8",
+                             int4_i8dot=False), ("decode_attention_int8",), PROBS_DIFF_LIMIT),
+)
 TP_KERNELS = ("flash_fwd", "flash_ranges", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv",
               "paged_attention_int4_i8", "silu_amax", "silu_with_amax", "quant_amax", "quant_with_amax", "w8a8",
               "w8a8_prequantized")
@@ -3489,13 +3515,142 @@ def quantize_split_case(x, tp: int, label: str) -> dict:
                 split_equal_whole=split_equal_whole), outs[0]
 
 
+def tp_text_cfg(preset, tp: int):
+    """``preset()`` with one TP rank's text heads: what the decode kernels
+    see of a TP-local model (3B / 2 and 7B / 4: one kv head)."""
+    cfg = preset()
+    tc = cfg.text
+    heads = tc.num_attention_heads // tp  # hidden_size follows, so head_dim (hidden / heads) stays
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        tc, num_attention_heads=heads, num_key_value_heads=tc.num_key_value_heads // tp,
+        hidden_size=heads * tc.head_dim))
+
+
+# the dense decode kernels at one kv head (a TP rank's cache): (kind, rows, width) -- #4 at path a's
+# rows, #4' at the continuous engine's 72 lanes (path m3's), #5 at path f's rows, #6 at path m3's 8
+TP_DECODE_CASES = (("bf16", 20, 640), ("int8", 72, 640), ("int4", 128, 768), ("int4_i8", 8, 768))
+
+
+def tp_decode_cases(dev) -> dict:
+    """#4, #4', #5 and #6 on one kv head with G = 8 (3B / 2) and G = 7 (7B /
+    4), each against its plain version; the plan (``decode_plan``) printed:
+    with one kv head a call has a half or a quarter of the (row, kv head)
+    pairs, which the cluster split spreads over the idle SMs."""
+    out = {kind: [] for kind, _, _ in TP_DECODE_CASES}
+    for size, (preset, tp) in TP_SHAPES.items():
+        cfg = tp_text_cfg(preset, tp)
+        g = cfg.text.num_attention_heads
+        for kind, rows, width in TP_DECODE_CASES:
+            label = f"tp_{size}_one_kv_head_g{g}_{rows}_rows_width_{width}"
+            if kind == "bf16":
+                out[kind] += check_decode(dev, cfg, rows, width, 512, label=label)
+            else:
+                out[kind] += check_decode_quant(dev, cfg, kind, rows, width, 512, label=label)
+        torch.cuda.empty_cache()
+    return out
+
+
+TP_INT4_MS = (8, 136)  # path m3's dense rows; the continuous engine's 136 lanes at 128 slots
+
+
+def tp_int4_cases(dev) -> dict:
+    """The int4 MLP kernels at a TP rank's shapes (3B / 2: local I 5,504;
+    7B / 4: 4,736), group 128: #13 against its plain version at the local
+    N; #14's split entry on each rank's columns of one whole row (the ranks
+    emulated in one process: kernel A's row-amax pass on each, the max of
+    the amaxes, then #14 quantizing with it against the rank's down shard,
+    zero-padded to 5,632 / 4,864 rows) against its plain version, and the
+    ranks' fp32 partials summed against the one-pass #14 on the whole row."""
+    out = {"gateup": [], "down_split": []}
+    sms = pa.device_sms(dev.index)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    for size, (preset, tp) in TP_SHAPES.items():
+        tc = preset().text
+        e, inter = tc.hidden_size, tc.intermediate_size
+        part = inter // tp
+        gu_w = torch.randn((2 * part, e), device=dev, generator=gen) * 0.02
+        gu4 = i4.Int4Weight.from_weight(gu_w, 128, rule_n=inter)
+        gu8 = quantize_weight(gu_w, 1)["qvalue"]  # the W8A8 shard: the yardstick
+        del gu_w
+        dn_w = torch.randn((e, inter), device=dev, generator=gen) * 0.02
+        whole4 = i4.Int4Weight.from_weight(dn_w, 128)
+        shards = [i4.Int4Weight.from_weight(dn_w[:, r * part:(r + 1) * part], 128, rule_k=inter)
+                  for r in range(tp)]
+        dn8 = quantize_weight(dn_w[:, :part], 1, None)["qvalue"]  # rank 0's W8A8 shard: the yardstick
+        del dn_w
+        for m in TP_INT4_MS:
+            rng = np.random.default_rng(40 + m)
+            x = randn_bf16(rng, dev, m, e)
+            label = f"tp_{size}_local_i_{part}"
+            xq = quantize_activation(x)[0]
+
+            def gateup_lib():
+                acc = int8_matmul(xq, gu8.t())
+                return F.silu(acc[:, :part].float()) * acc[:, part:].float()
+
+            _, gu_case = _int4_case(
+                f"gate_up_{label}", m, lambda: i4._gateup(x, gu4),
+                lambda: i4.w4_gateup_silu_plain(x, gu4.q4, gu4.gscale), gateup_lib,
+                lambda o: nbytes(x, gu4.q4, gu4.gscale, o), 2.0 * m * e * 2 * part,
+                i4.w4_plan(m, e, part, True, sms))
+            print(f"int4 gate_up+silu [{label}_m{m}]: E={e} local I={part} (whole {inter}) group 128 "
+                  f"max_abs_err={gu_case['max_abs_err']:.3e} (of max |out|: {gu_case['rel_err']:.2e}, tol "
+                  f"{INT4_REL_TOL}) bit_identical_twice={gu_case['bit_identical_twice']} ms={gu_case['ms']:.4f} "
+                  f"device_us={gu_case['device_us']:.2f} plain_ms={gu_case['plain_ms']:.4f} int_mm_int8_shard_ms="
+                  f"{gu_case['library_ms']:.4f} bound_ms={gu_case['bound_ms']:.5f} ({gu_case['bound_by']}) "
+                  f"plan={json.dumps(gu_case['plan'])}",
+                  flush=True)
+            if not (gu_case["rel_err"] <= INT4_REL_TOL and gu_case["bit_identical_twice"]):
+                raise AssertionError(f"int4 gate_up kernel disagrees at a TP-local shape [{label}_m{m}]")
+            out["gateup"].append(gu_case)
+            h = randn_bf16(rng, dev, m, inter)
+            pieces = [h[:, r * part:(r + 1) * part].contiguous() for r in range(tp)]
+            amax = torch.stack([i8m.row_amax(p) for p in pieces]).amax(dim=0)
+            partials = [i4.w4_matmul_split(p, w, lambda a: amax) for p, w in zip(pieces, shards)]
+            plains = [i4.w4_matmul_split_plain(p, amax, w.q4, w.gscale) for p, w in zip(pieces, shards)]
+            again = i4.w4_matmul_split(pieces[0], shards[0], lambda a: amax)
+            one_pass = i4._down(h, whole4, torch.float32)  # the kernel, whatever the rule says of m
+            torch.cuda.synchronize()
+            summed = torch.stack(partials).sum(dim=0)
+            err = max((a - b).abs().max().item() for a, b in zip(partials, plains))
+            rel = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(partials, plains))
+            sum_rel = (summed - one_pass).abs().max().item() / one_pass.abs().max().item()
+            twice = bool(torch.equal(partials[0], again))
+            p0, w0 = pieces[0], shards[0]
+            ms = cuda_ms(lambda: i4.w4_matmul_split(p0, w0, lambda a: amax))
+            dev_us = device_us(lambda: i4.w4_matmul_split(p0, w0, lambda a: amax))
+            plain_ms = cuda_ms(lambda: i4.w4_matmul_split_plain(p0, amax, w0.q4, w0.gscale), iters=5, warmup=1)
+            xq0 = quantize_activation(p0)[0]
+            lib_ms = cuda_ms(lambda: int8_matmul(xq0, dn8.t()))
+            kp = 2 * w0.q4.shape[1]
+            b_ms, b_by = bound_ms(nbytes(p0, amax, w0.q4, w0.gscale, partials[0]), 2.0 * m * kp * e, "int8")
+            plan = i4.w4_plan(m, kp, e, False, sms).describe()
+            case = dict(shape=f"down_split_{label}_padded_{kp}_m{m}", max_abs_err=err, rel_err=rel,
+                        summed_rel_err=sum_rel, bit_identical_twice=twice, ms=ms, device_us=dev_us,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, plan=plan)
+            print(f"int4 down split [{label}_m{m}]: {tp} ranks' columns of h({m}, {inter}), each {part} "
+                  f"padded to {kp}, -> fp32 partials (m, {e}): max_abs_err={err:.3e} against the plain split "
+                  f"(of max |out|: {rel:.2e}, tol {INT4_F32_REL_TOL}); the partials summed against the one-pass "
+                  f"kernel on the whole row {sum_rel:.2e} of max |out| (tol {INT4_REL_TOL}); "
+                  f"bit_identical_twice={twice} ms={ms:.4f} device_us={dev_us:.2f} (row amax + #14) "
+                  f"plain_ms={plain_ms:.4f} int_mm_int8_shard_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+                  f"plan={json.dumps(plan)}", flush=True)
+            if not (rel <= INT4_F32_REL_TOL and sum_rel <= INT4_REL_TOL and twice):
+                raise AssertionError(f"int4 down split entry disagrees [{label}_m{m}]")
+            out["down_split"].append(case)
+        del gu4, gu8, whole4, shards, dn8
+        torch.cuda.empty_cache()
+    return out
+
+
 def tp_kernel_cases(dev) -> dict:
     """Every kernel a TP rank runs, at the shapes a rank of a TP group gives
     it (3B at tp 2, 7B at tp 4): #1-#3 on text rows of one kv head and the
     vision forms at 16 / tp heads, #9 at one kv head, kernel A at the eight
     local linears (o and down also as the row-parallel products run: the
     row quantize's split mode, then the prequantized entry), #12's split
-    mode at the local I."""
+    mode at the local I; the dense decode kernels #4, #4', #5, #6 at one
+    kv head; #13 at the local I and #14's split entry on its padded shard."""
     out = {"flash": [], "prep": [], "dq": [], "dkv": [], "w8a8": [], "paged": [], "silu": [], "quant_split": []}
     cfg3 = qwen25_vl_3b()
     synth = synthetic_training_cases(cfg3)  # (name, heads, segment ids, causal): text, vision full, windows
@@ -3525,6 +3680,8 @@ def tp_kernel_cases(dev) -> dict:
                     out["w8a8"].append(w8a8_prequant_case(xq, xs, w, ws, f"tp_{size}_{name}_prequantized_m{m}"))
             del w, ws
         torch.cuda.empty_cache()
+    out["decode"] = tp_decode_cases(dev)
+    out["int4"] = tp_int4_cases(dev)
     out["paged"] = [paged_tp_case(dev, 8, "tp_3b_129_lanes_page_1024_one_kv_head_g8"),
                     paged_tp_case(dev, 7, "tp_7b_129_lanes_page_1024_one_kv_head_g7")]
     rng = np.random.default_rng(23)
@@ -3718,7 +3875,10 @@ def path_m2_rank(rank: int, store: str, work_dir: str, out: str) -> int:
     if rank != 0:  # rank 0 logs; every rank computed the same record
         rec = {}
     moved = sum(a != b for a, b in zip(p_sums, checksums(p for p in trainer.model.parameters())))
+    trainer.generate_sequences, sq.fused_silu_quantize_split = generate, split
+    m3 = path_m3_cases(trainer, train_ds)
     Path(out).write_text(json.dumps({
+        "m3": m3,
         "rank": rank, "record": {k: v for k, v in rec.items() if k != "time"}, "fit_s": fit_s, "build_s": build_s,
         "moved": moved, "ref_untouched": checksums(p for p in trainer.ref_model.parameters()) == ref_sums,
         "tokens": tokens, "launches": launches, "resident_gb": resident_gb,
@@ -3731,8 +3891,31 @@ def path_m2_rank(rank: int, store: str, work_dir: str, out: str) -> int:
     return 0
 
 
+def path_m3_cases(trainer, train_ds) -> dict:
+    """(m3), on (m2)'s trainer after its step: ``generate_sequences`` on
+    ``TP_M3_PROMPTS`` prompts x n ``TP_M3_N`` with each of ``TP_M3_CASES``'s
+    knobs (one engine a TP group: the dense engine with the w4a8 copy, int4
+    KV and int8 dots; the continuous engine over an int8 cache), then the
+    trainer's own log-probs of the tokens (``knob_rollout``, plain versions
+    forbidden): tokens, launches, seconds, probs_diff."""
+    import hashlib
+
+    batch = next(iter(DataLoader(train_ds, TP_M3_PROMPTS, shuffle=False)))
+    trainer.sampling = trainer.sampling.override(n=TP_M3_N)
+    out = {}
+    for label, knobs, _, limit in TP_M3_CASES:
+        rolled, counts, gen_s, diff = knob_rollout(trainer, batch, knobs)
+        resp = np.ascontiguousarray(rolled.tensors["responses"])
+        out[label] = dict(tokens=hashlib.sha256(resp.tobytes()).hexdigest(), rows=int(resp.shape[0]),
+                          launches=counts, seconds=gen_s, probs_diff=diff, limit=limit,
+                          finite=bool(np.isfinite(rolled.tensors["rollout_log_probs"]).all()))
+        del rolled
+    return out
+
+
 def path_m_rank(rank: int, work: Path) -> int:
-    """(m1), then (m2), in one process a rank (one start-up for both)."""
+    """(m1), then (m2) with (m3) on its trainer, in one process a rank (one
+    start-up for both)."""
     path_m1_rank(rank, str(work / "m1_store"), str(work / f"m1_{rank}.json"))
     gc.collect()
     torch.cuda.empty_cache()
@@ -3774,7 +3957,22 @@ def path_m(card: str, work_dir: str) -> dict:
           f"{rec.get('rollout/probs_diff_mean', float('nan')):.4f}, actor/grad_norm "
           f"{rec.get('actor/grad_norm', float('nan')):.3e}, kv peak_pages {rec.get('rollout/kv_peak_pages', -1):.0f} "
           f"[{card}]", flush=True)
+    for label, _, kernels, limit in TP_M3_CASES:
+        for r in m2:
+            c = r["m3"][label]
+            print(f"path m3 {label} rank {r['rank']} (tp rank {r['tp'][0]} of {r['tp'][1]}, one engine a TP group; "
+                  f"{TP_M3_PROMPTS} prompts x n {TP_M3_N} = {c['rows']} rows, (m2)'s trainer): {c['seconds']:.2f} s, "
+                  f"probs_diff_mean {c['probs_diff']:.4f} (limit {limit}), tokens {c['tokens'][:16]} [{card}]; "
+                  f"launches {dict((k, v) for k, v in c['launches'].items() if v)}", flush=True)
+    m3 = {label: [r["m3"][label] for r in m2] for label, _, _, _ in TP_M3_CASES}
     checks = {
+        "m3: both ranks sampled the same tokens": all(c[0]["tokens"] == c[1]["tokens"] for c in m3.values()),
+        "m3: rollout/probs_diff_mean within the limits": all(
+            c["finite"] and c["probs_diff"] <= c["limit"] for cs in m3.values() for c in cs),
+        "m3: #13, #14's split entry and #6 (dense w4a8), #4' (continuous int8) on both ranks": all(
+            c["launches"][k] > 0 for label, _, kernels, _ in TP_M3_CASES for c in m3[label] for k in kernels),
+        "m3: the one-pass #14 not (TP splits I), no torch._int_mm": all(
+            c["launches"]["int4_down"] == 0 and c["launches"]["int_mm"] == 0 for cs in m3.values() for c in cs),
         "m1: tp 2 log-probs within the limits on both ranks": all(r["ok"] and r["finite"] for r in m1),
         "m1: the planted faults beyond the bf16 limit": all(
             r["fault_ratios"][k] > TP_BF16_DRIFT_RATIO for r in m1 for k in TP_FAULTS_SEEN),
@@ -3975,15 +4173,16 @@ def main() -> int:
               train_l["flash_bwd_dkv"],
               launches_trainer_path=trainer_l["flash_bwd_dkv"]),
         entry("decode_attention", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:138",
-              r["decode_cases"], dense_l["decode_attention"]),
+              r["decode_cases"] + tp_cases["decode"]["bf16"], dense_l["decode_attention"]),
         entry("decode_attention_int8", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:138",
-              int8_cases + knob_res["continuous_int8"]["decode_cases"],
+              int8_cases + knob_res["continuous_int8"]["decode_cases"] + tp_cases["decode"]["int8"],
               knob_res["dense_int8"]["launches"]["decode_attention_int8"],
               launches_continuous_int8=knob_res["continuous_int8"]["launches"]["decode_attention_int8"]),
         entry("decode_attention_int4", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:192",
-              int4_dense_cases, knob_res["dense_int4"]["launches"]["decode_attention_int4"]),
+              int4_dense_cases + tp_cases["decode"]["int4"],
+              knob_res["dense_int4"]["launches"]["decode_attention_int4"]),
         entry("decode_attention_int4_i8", "cuda", decode_cu, "spatialthinker_tpu/ops/decode_attention.py:257",
-              int4_i8_dense_cases + g_res["decode_cases"],
+              int4_i8_dense_cases + g_res["decode_cases"] + tp_cases["decode"]["int4_i8"],
               knob_res["dense_int4_i8dot"]["launches"]["decode_attention_int4_i8"],
               launches_path_g=g_res["launches"]["decode_attention_int4_i8"],
               launches_dense_w4a8=knob_res["dense_w4a8"]["launches"]["decode_attention_int4_i8"]),
@@ -4002,13 +4201,20 @@ def main() -> int:
               launches_path_g=g_res["launches"]["silu_quant"]),
         # library_ms of the int4 kernels: torch._int_mm on the INT8 copy of the weights (yardstick only)
         entry("int4_gateup_silu", "cuda", "spatialthinker_torch/csrc/int4_mlp.cu",
-              "spatialthinker_tpu/ops/int4_mlp.py:150", int4_gu_cases, g_res["launches"]["int4_gateup"],
+              "spatialthinker_tpu/ops/int4_mlp.py:150", int4_gu_cases + tp_cases["int4"]["gateup"],
+              g_res["launches"]["int4_gateup"],
               launches_dense_w4a8=knob_res["dense_w4a8"]["launches"]["int4_gateup"],
               library="torch._int_mm, int8 weights, yardstick only"),
         entry("int4_down", "cuda", "spatialthinker_torch/csrc/int4_mlp.cu",
               "spatialthinker_tpu/ops/int4_mlp.py:168", int4_dn_cases, g_res["launches"]["int4_down"],
               launches_dense_w4a8=knob_res["dense_w4a8"]["launches"]["int4_down"],
               library="torch._int_mm, int8 weights, yardstick only", fallback=int4_fallback),
+        # #14's split entry (a row-parallel down shard under tensor parallelism: the row amax of
+        # the whole I, fp32 partials); launches are path m3's dense w4a8 case, rank 0
+        entry("int4_down_split", "cuda", "spatialthinker_torch/csrc/int4_mlp.cu",
+              "spatialthinker_tpu/ops/int4_mlp.py:168", tp_cases["int4"]["down_split"],
+              m_res["m2"][0]["m3"]["dense_w4a8"]["launches"]["int4_down_split"],
+              library="torch._int_mm, the int8 shard, yardstick only"),
         # library_ms: torch._int_mm alone on the pre-quantized x (the dot without quantize or epilogue)
         entry("w8a8_matmul", "cuda", "spatialthinker_torch/csrc/int8_matmul.cu",
               "spatialthinker_tpu/ops/int8_matmul.py:46",
@@ -4044,7 +4250,9 @@ def main() -> int:
         # per rank of path m2 (the trainer at tp 2) and of m1 (the model's forward)
         pick = (lambda c: c[key[0]] + c[key[1]]) if isinstance(key, tuple) else (lambda c: c[key])
         k["launches_path_m"] = {"m2": [pick(r["launches"]) for r in m_res["m2"]],
-                                "m1": [pick(r["launches"]) for r in m_res["m1"]]}
+                                "m1": [pick(r["launches"]) for r in m_res["m1"]],
+                                "m3": {label: [pick(r["m3"][label]["launches"]) for r in m_res["m2"]]
+                                       for label, _, _, _ in TP_M3_CASES}}
         if isinstance(key, tuple):
             continue
         k["launches_gae_path"], k["launches_eval_path"] = i_l[key], j_l[key]

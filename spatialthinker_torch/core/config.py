@@ -18,11 +18,11 @@ the JAX package refuses or never reads with their reason; none is ignored:
   JAX trainer does). The actor's mesh serves the critic and the reference
   too, as in JAX. ``model_size`` > 1 without sequence parallelism is
   Megatron tensor parallelism (``parallel/tensor.py``; the trainer checks
-  the kv-head cap) and the rollout is tensor-parallel with it, one paged
-  engine a TP group; ``rollout.tensor_parallel_size`` is 1 or
-  ``model_size``, as the JAX tree checks. Under TP the dense and continuous
-  engines, ``quantization=w4a8`` and a TP rollout beside sequence
-  parallelism are refused: ROADMAP A13c.
+  the kv-head cap) and the rollout is tensor-parallel with it, one engine
+  (dense, continuous or paged, any quantization) a TP group;
+  ``rollout.tensor_parallel_size`` is 1 or ``model_size``, as the JAX tree
+  checks; beside sequence parallelism the ``model`` group decodes the
+  union of its rows on one engine over a TP-local rollout copy.
 - ``sharding.host_offload_params``, with the JAX tree's reason: one parameter
   set serves rollout and training, so there is no idle stage to offload it
   across.
@@ -367,28 +367,6 @@ class PPOConfig:
                 f"actor.sharding.model_size={self.worker.actor.sharding.model_size}: "
                 "decode shares the training mesh; set actor.sharding.model_size "
                 "(and leave tensor_parallel_size at 1 or equal to it)"
-            )
-        roll = self.worker.rollout
-        model_size = self.worker.actor.sharding.model_size
-        if model_size > 1 and self.worker.actor.ulysses_sequence_parallel_size == 1:
-            # Megatron TP: the rollout runs one paged engine per TP group
-            if roll.name != "continuous" or roll.page_size <= 0:
-                raise ValueError(
-                    f"rollout.name={roll.name!r} with page_size={roll.page_size} under tensor "
-                    f"parallelism (sharding.model_size={model_size}): a TP rollout runs the paged "
-                    "engine (rollout.name=continuous, page_size > 0); the dense and continuous "
-                    "engines under TP are ROADMAP A13c"
-                )
-            if roll.quantization == "w4a8":
-                raise ValueError(
-                    "rollout.quantization=w4a8 under tensor parallelism: the int4 rule reads the "
-                    "whole contraction, which TP splits (ROADMAP A13c); use int8"
-                )
-        elif tp > 1:
-            raise ValueError(
-                f"rollout.tensor_parallel_size={tp} with sequence parallelism on the model axis: "
-                "tensor-parallel decode runs when the model axis is tensor-parallel "
-                "(ulysses_sequence_parallel_size=1); beside sp it is ROADMAP A13c"
             )
 
 

@@ -74,6 +74,9 @@ _SIGNATURES = {
     # x, scratch, q4, gscale, out, m, k, n_cols, group, gateup, out_f32, (the plan:) warps, ranks,
     # stages, tile_rows, stream
     "st_int4_mlp": [_P] * 5 + [_I] * 10 + [_P],
+    # x, amax, scratch, q4, gscale, out, m, kx, k, n_cols, group, (the plan:) warps, ranks, stages,
+    # tile_rows, stream
+    "st_int4_mlp_split": [_P] * 6 + [_I] * 9 + [_P],
     # x, x_f32, xq, xs, w, ws, out, out_f32, m, n, k, quantize, mb, bn, splits, stages, stream
     "st_int8_matmul": [_P, _I] + [_P] * 5 + [_I] * 9 + [_P],
     # x, x_f32, xq, xs, amax, m, k, pass (1: amax, 2: quantize with it), stream

@@ -43,6 +43,15 @@
 //   dependent launch at its start, so the main kernel's CTAs launch while it
 //   runs and stream weights (which do not depend on x) before
 //   `griddepcontrol.wait`; the xq copies follow.
+// - Under tensor parallelism down is row-parallel: a rank holds I / tp of
+//   its contraction, while the contract quantizes each row over the whole I.
+//   The split entry (`st_int4_mlp_split`) takes the row amax as an input (the
+//   group's max of the ranks' row amaxes, kernel A's row-amax pass and one
+//   all-reduce before it), so the prologue's xq and xs equal the whole row's,
+//   and writes the rank's fp32 partial, which the group adds and rounds once.
+//   A shard of I / tp rows need not be a whole number of split-half groups
+//   (5,504 at 3B / 2): the weight is packed padded with zero rows, and the
+//   prologue stages x's missing columns as zeros.
 // - A CTA owns all rows of a row tile (up to 144: the 136 lanes of 128 slots
 //   in one tile, so each weight byte is read from HBM once) and 16 weight
 //   columns per warp, one to three warpgroups (three at the 3B decode shapes:
@@ -157,36 +166,50 @@ __device__ __forceinline__ float bf16x2_amax(uint32_t w, float amax) {
 // One CTA a row: xs = max(amax, eps) / 127 (IEEE division, as the plain
 // version), xq = clip(rint(x / xs)) in the staged layout, 16 values (one
 // 16-byte store) at a time. K % 64 == 0, so a 16-value chunk never straddles
-// a half or a stage.
+// a half or a stage. x's rows are kx <= k wide (kx % 16 == 0): the columns
+// from kx on (a weight padded with zero rows to whole split-half groups) are
+// staged as zeros. amax_in (the split entry): the row amax is given -- under
+// tensor parallelism the group's max of the ranks' row amaxes -- instead of
+// x's own, so a rank's xq and xs equal the whole row's.
 __global__ void __launch_bounds__(QTHREADS)
-int4_quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs, int k,
-                          int tile_rows, int n_stages) {
+int4_quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ amax_in,
+                          int8_t* __restrict__ xq, float* __restrict__ xs, int kx, int k, int tile_rows,
+                          int n_stages) {
   griddep_launch_dependents();  // the main kernel may start streaming weights now
   const int row = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * k);  // 8 bf16 a vector
-  float amax = 0.f;
-  for (int v = threadIdx.x; v < k / 8; v += QTHREADS) {
-    const uint4 a = xr[v];
-    amax = bf16x2_amax(a.w, bf16x2_amax(a.z, bf16x2_amax(a.y, bf16x2_amax(a.x, amax))));
-  }
-  amax = warp_max(amax);
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * kx);  // 8 bf16 a vector
   __shared__ float warp_amax[QTHREADS / 32];
   __shared__ float row_scale;
-  if (lane == 0) warp_amax[warp] = amax;
-  __syncthreads();
+  if (amax_in == nullptr) {
+    float amax = 0.f;
+    for (int v = threadIdx.x; v < kx / 8; v += QTHREADS) {
+      const uint4 a = xr[v];
+      amax = bf16x2_amax(a.w, bf16x2_amax(a.z, bf16x2_amax(a.y, bf16x2_amax(a.x, amax))));
+    }
+    amax = warp_max(amax);
+    if (lane == 0) warp_amax[warp] = amax;
+    __syncthreads();
+  }
   if (threadIdx.x == 0) {
     float v = 0.f;
-    for (int w = 0; w < QTHREADS / 32; ++w) v = fmaxf(v, warp_amax[w]);
+    if (amax_in != nullptr) {
+      v = amax_in[row];
+    } else {
+      for (int w = 0; w < QTHREADS / 32; ++w) v = fmaxf(v, warp_amax[w]);
+    }
     row_scale = fmaxf(v, EPS) / 127.0f;
     xs[row] = row_scale;
   }
   __syncthreads();
   const float s = row_scale;
   for (int c16 = threadIdx.x; c16 < k / 16; c16 += QTHREADS) {
-    const uint4 a = xr[2 * c16], b = xr[2 * c16 + 1];
-    const uint4 q = make_uint4(quantize_word(a.x, a.y, s), quantize_word(a.z, a.w, s), quantize_word(b.x, b.y, s),
-                               quantize_word(b.z, b.w, s));
+    uint4 q = make_uint4(0u, 0u, 0u, 0u);
+    if (16 * c16 < kx) {
+      const uint4 a = xr[2 * c16], b = xr[2 * c16 + 1];
+      q = make_uint4(quantize_word(a.x, a.y, s), quantize_word(a.z, a.w, s), quantize_word(b.x, b.y, s),
+                     quantize_word(b.z, b.w, s));
+    }
     *reinterpret_cast<uint4*>(xq + staged_offset(row, 16 * c16, k, tile_rows, n_stages)) = q;
   }
 }
@@ -675,25 +698,16 @@ int dispatch(int tile_rows, const Launch& p) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-}  // namespace
-
-// x bf16 (m, k); scratch: the staged xq (row tiles x stages x 2 x tile_rows x
-// 128 bytes), then xs fp32 (m,) (ops/int4_mlp.py `W4Plan.scratch_bytes`);
-// q4 (n_cols, k/2) uint8; gscale (k/group, n_cols) fp32; out (m, n_cols/2)
-// bf16 for gate_up, (m, n_cols) bf16 | fp32 (out_f32) for down. The plan
-// (ops/int4_mlp.py `w4_plan`): `warps` (4 or 8) consumer warps of 16 weight
-// columns a CTA, K's ring stages split over `ranks` CTAs of a cluster, a ring
-// of `stages`, row tiles of `tile_rows` rows (a built N); a plan or shape this file cannot
-// run is refused (cudaErrorInvalidValue) before anything launches. Launches
-// the prologue and the main kernel on `stream`; returns the first launch
-// error (0 = launched).
-extern "C" int st_int4_mlp(const void* x, void* scratch, const void* q4, const void* gscale, void* out, int m, int k,
-                           int n_cols, int group, int gateup, int out_f32, int warps, int ranks, int stages,
-                           int tile_rows, void* stream) {
+// The prologue and the main kernel of one call (both entries below); amax
+// and kx as the prologue takes them.
+int run_int4_mlp(const void* x, const void* amax, void* scratch, const void* q4, const void* gscale, void* out,
+                 int m, int kx, int k, int n_cols, int group, int gateup, int out_f32, int warps, int ranks,
+                 int stages, int tile_rows, void* stream) {
   const int nmat = gateup ? 2 : 1;
   if (m < 1 || (group != 32 && group != 64 && group != 128) || k < 2 * group || k % (2 * group) != 0 ||
-      n_cols % nmat != 0 || (gateup && out_f32) || warps % 4 != 0 || warps < 4 || warps > MAX_WARPS ||
-      tile_rows > MAX_TILE_ROWS || !built_tile(tile_rows) || stages < 2 || stages > MAX_STAGES)
+      kx < 16 || kx > k || kx % 16 != 0 || n_cols % nmat != 0 || (gateup && out_f32) || warps % 4 != 0 ||
+      warps < 4 || warps > MAX_WARPS || tile_rows > MAX_TILE_ROWS || !built_tile(tile_rows) || stages < 2 ||
+      stages > MAX_STAGES)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_out = n_cols / nmat;
   const int cm = WARP_COLS * warps / nmat;
@@ -713,7 +727,8 @@ extern "C" int st_int4_mlp(const void* x, void* scratch, const void* q4, const v
   int8_t* xq = static_cast<int8_t*>(scratch);
   float* xs = reinterpret_cast<float*>(xq + (size_t)row_tiles * n_stages * 2 * tile_rows * STAGE_K);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int4_quantize_rows_kernel<<<m, QTHREADS, 0, s>>>(static_cast<const __nv_bfloat16*>(x), xq, xs, k, tile_rows,
+  int4_quantize_rows_kernel<<<m, QTHREADS, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
+                                                   static_cast<const float*>(amax), xq, xs, kx, k, tile_rows,
                                                    n_stages);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -721,4 +736,39 @@ extern "C" int st_int4_mlp(const void* x, void* scratch, const void* q4, const v
                  row_tiles, s};
   if (gateup) return dispatch<true, __nv_bfloat16>(tile_rows, p);
   return out_f32 ? dispatch<false, float>(tile_rows, p) : dispatch<false, __nv_bfloat16>(tile_rows, p);
+}
+
+}  // namespace
+
+// x bf16 (m, k); scratch: the staged xq (row tiles x stages x 2 x tile_rows x
+// 128 bytes), then xs fp32 (m,) (ops/int4_mlp.py `W4Plan.scratch_bytes`);
+// q4 (n_cols, k/2) uint8; gscale (k/group, n_cols) fp32; out (m, n_cols/2)
+// bf16 for gate_up, (m, n_cols) bf16 | fp32 (out_f32) for down. The plan
+// (ops/int4_mlp.py `w4_plan`): `warps` (4 or 8) consumer warps of 16 weight
+// columns a CTA, K's ring stages split over `ranks` CTAs of a cluster, a ring
+// of `stages`, row tiles of `tile_rows` rows (a built N); a plan or shape this file cannot
+// run is refused (cudaErrorInvalidValue) before anything launches. Launches
+// the prologue and the main kernel on `stream`; returns the first launch
+// error (0 = launched).
+extern "C" int st_int4_mlp(const void* x, void* scratch, const void* q4, const void* gscale, void* out, int m, int k,
+                           int n_cols, int group, int gateup, int out_f32, int warps, int ranks, int stages,
+                           int tile_rows, void* stream) {
+  return run_int4_mlp(x, nullptr, scratch, q4, gscale, out, m, k, k, n_cols, group, gateup, out_f32, warps, ranks,
+                      stages, tile_rows, stream);
+}
+
+// The split entry of the down kernel (#14) for a row-parallel shard under
+// tensor parallelism: x bf16 (m, kx) is the rank's columns of each row, amax
+// fp32 (m,) the whole row's amax (the group's max of the ranks' row amaxes),
+// the weight's contraction k >= kx padded with zero rows to whole split-half
+// groups (x's columns from kx on are staged as zeros); out fp32 (m, n_cols) is
+// the rank's partial sum, which the group adds. The prologue quantizes with
+// the given amax (its xq and xs equal the whole row's); the rest as
+// st_int4_mlp's down.
+extern "C" int st_int4_mlp_split(const void* x, const void* amax, void* scratch, const void* q4, const void* gscale,
+                                 void* out, int m, int kx, int k, int n_cols, int group, int warps, int ranks,
+                                 int stages, int tile_rows, void* stream) {
+  if (amax == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run_int4_mlp(x, amax, scratch, q4, gscale, out, m, kx, k, n_cols, group, 0, 1, warps, ranks, stages,
+                      tile_rows, stream);
 }

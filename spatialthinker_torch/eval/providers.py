@@ -6,13 +6,12 @@
 - ``HFProvider`` runs a local ``transformers`` model (imported when one is
   built; the card's machine does not have the package).
 - ``OpenAIProvider`` and ``AnthropicProvider`` call the hosted APIs through
-  ``post_with_retry`` (``requests`` imported at the first call).
+  ``post_with_retry`` (``utils/http.py``, shared with ``data_gen``;
+  ``requests`` imported at the first call).
 """
 
 from __future__ import annotations
 
-import base64
-import io
 import os
 from typing import Any, Dict, List, Optional
 
@@ -28,6 +27,7 @@ from ..models.qwen2_5_vl.model import vision_to_device
 from ..models.qwen2_5_vl.params import default_device
 from ..rollout.engine import generate as engine_generate
 from ..rollout.sampling import SamplingParams
+from ..utils.http import png_base64, post_with_retry
 
 
 class Provider:
@@ -162,39 +162,6 @@ class HFProvider(Provider):
         return self.processor.batch_decode(trimmed, skip_special_tokens=True)
 
 
-def _b64(image) -> str:
-    buf = io.BytesIO()
-    image.save(buf, format="PNG")
-    return base64.b64encode(buf.getvalue()).decode()
-
-
-def post_with_retry(url: str, *, headers: Dict, json_body: Dict, timeout: int = 120,
-                    max_retries: int = 5, backoff_s: float = 2.0, _sleep=None):
-    """POST with exponential backoff: retries on 429, 5xx and connection
-    errors (one rate limit must not end a benchmark run); raises on any
-    other HTTP error at once."""
-    import time
-
-    import requests
-
-    sleep = _sleep if _sleep is not None else time.sleep
-    last_exc: Optional[Exception] = None
-    for attempt in range(max_retries + 1):
-        try:
-            resp = requests.post(url, headers=headers, json=json_body, timeout=timeout)
-        except requests.RequestException as exc:  # connection and timeout errors
-            last_exc = exc
-        else:
-            if resp.status_code == 429 or resp.status_code >= 500:
-                last_exc = requests.HTTPError(f"HTTP {resp.status_code}", response=resp)
-            else:
-                resp.raise_for_status()  # a 4xx is the caller's fault: surface it now
-                return resp
-        if attempt < max_retries:
-            sleep(backoff_s * (2**attempt))
-    raise last_exc
-
-
 class OpenAIProvider(Provider):
     def __init__(self, model: str = "gpt-4o", max_tokens: int = 2048,
                  api_key: Optional[str] = None):
@@ -206,7 +173,7 @@ class OpenAIProvider(Provider):
         outs = []
         for prompt, imgs in zip(prompts, images):
             content: List[Dict] = [
-                {"type": "image_url", "image_url": {"url": f"data:image/png;base64,{_b64(img)}"}}
+                {"type": "image_url", "image_url": {"url": f"data:image/png;base64,{png_base64(img)}"}}
                 for img in imgs
             ]
             content.append({"type": "text", "text": prompt})
@@ -235,7 +202,7 @@ class AnthropicProvider(Provider):
         for prompt, imgs in zip(prompts, images):
             content: List[Dict] = [
                 {"type": "image",
-                 "source": {"type": "base64", "media_type": "image/png", "data": _b64(img)}}
+                 "source": {"type": "base64", "media_type": "image/png", "data": png_base64(img)}}
                 for img in imgs
             ]
             content.append({"type": "text", "text": prompt})

@@ -44,7 +44,7 @@ from ...ops.quant import (
     embed_rows, fused_silu_quant_dot, is_quantized, linear, quantized_dot, row_parallel_dot,
     row_parallel_silu_dot,
 )
-from ...parallel.tensor import copy_to_tp, reduce_from_tp, tp_size, vocab_range
+from ...parallel.tensor import all_reduce_max, copy_to_tp, reduce_from_tp, tp_size, vocab_range
 from .config import TextConfig
 from .rope import apply_rotary, compute_cos_sin, make_inv_freq
 
@@ -304,9 +304,15 @@ class MLP(nn.Module):
         columns) and down row-parallel: the rank's partial down product is
         summed over the group in fp32. On the quantized tree the down input's
         per-row scale is the amax over the whole I (``ops.quant``'s
-        ``row_parallel_*``); the w4a8 copies are never built under TP."""
+        ``row_parallel_*``; on the w4a8 tree's int4 path #14's split entry),
+        and the int4 rule reads the whole model's I."""
         gup, down = self.gate_up_proj.weight, self.down_proj.weight
         if tp_size(self.tp) > 1:
+            if self.gate_up_w4 is not None and self.w4:
+                part = w4_swiglu(x, self.gate_up_w4, self.down_w4, torch.float32,
+                                 combine_amax=lambda a: all_reduce_max(a, self.tp))
+                if part is not None:
+                    return reduce_from_tp(part, self.tp, out_dtype=x.dtype)
             gu = linear(copy_to_tp(x, self.tp), gup, contract_axis=1)
             if is_quantized(gup):
                 part = row_parallel_silu_dot(gu, down, self.tp, fused=self.fused_silu)

@@ -33,7 +33,10 @@ Only the order of the fp32 group sums differs between a kernel and its plain
 version.
 
 ``w4_swiglu`` is the MLP's entry point: it asks both kernels' rules once and
-runs #13 then #14, or answers None for the int8 path.
+runs #13 then #14, or answers None for the int8 path. Under tensor
+parallelism a rank's down copy is a row-parallel shard and #14 runs its split
+entry (``w4_matmul_split``): the row quantized with the whole row's amax (the
+group's max), this rank's fp32 partial out, the group's sum rounded once.
 
 Eligibility (``w4_eligible``) is the JAX package's ``_eligible_m`` plus
 ``_pick_bn``'s VMEM fit, copied as they are. The VMEM budget is a Mosaic
@@ -66,7 +69,9 @@ import torch
 from torch import nn
 
 from .. import csrc
-from .int8_matmul import _stream, quantize_rows  # the row quantize: a true division on every device
+from .int8_matmul import (  # the row quantize: a true division on every device
+    _stream, quantize_rows, quantize_rows_with_amax_plain, row_amax,
+)
 from .paged_attention import device_sms
 
 _EPS = 1e-8
@@ -118,18 +123,41 @@ def pack_int4_grouped(w: torch.Tensor, contract_axis: int, group: int = GROUP) -
 
 class Int4Weight(nn.Module):
     """An int4 decode copy of one matmul weight: ``q4`` (N, K/2) uint8, one
-    byte row per output column, and ``gscale`` (K/group, N) fp32."""
+    byte row per output column, and ``gscale`` (K/group, N) fp32.
 
-    def __init__(self, q4: torch.Tensor, gscale: torch.Tensor):
+    ``k`` is the contraction the activation has. A row-parallel shard under
+    tensor parallelism (down at I / tp) may be no whole number of split-half
+    groups (5,504 at 3B / 2 is 43 groups of 128): it is packed padded with
+    zero rows to the next multiple of 2 * group, so ``q4`` holds more than
+    ``k`` rows; a zero group dequantizes to zero and adds exactly 0.
+    ``rule_k`` / ``rule_n``, where set, are the contraction and the output
+    columns a stream that the eligibility rule sees: the whole model's (the
+    JAX package asks its rule on the whole arrays), not the shard's; None
+    reads them from the copy itself."""
+
+    def __init__(self, q4: torch.Tensor, gscale: torch.Tensor, k: Optional[int] = None,
+                 rule_k: Optional[int] = None, rule_n: Optional[int] = None):
         super().__init__()
         self.register_buffer("q4", q4)
         self.register_buffer("gscale", gscale)
+        self.k = 2 * q4.shape[1] if k is None else k
+        self.rule_k, self.rule_n = rule_k, rule_n
 
     @classmethod
-    def from_weight(cls, w: torch.Tensor, group: int) -> "Int4Weight":
-        """From an (out, in) weight, contracting ``in``."""
-        p = pack_int4_grouped(w.detach(), 1, group)  # (N, K/2), (N, K/group)
-        return cls(p["q4"].contiguous(), p["gscale"].t().contiguous())
+    def from_weight(cls, w: torch.Tensor, group: int, *, rule_k: Optional[int] = None,
+                    rule_n: Optional[int] = None) -> "Int4Weight":
+        """From an (out, in) weight, contracting ``in`` (zero-padded to whole
+        split-half groups where it is no multiple of 2 * group; it must be a
+        multiple of the group, so no group straddles two shards)."""
+        k = w.shape[1]
+        if k % group:
+            raise ValueError(f"a contraction of {k} is no whole number of int4 groups of {group}")
+        w = w.detach()
+        pad = -k % (2 * group)
+        if pad:
+            w = torch.cat([w, w.new_zeros(w.shape[0], pad)], dim=1)
+        p = pack_int4_grouped(w, 1, group)  # (N, K/2), (N, K/group)
+        return cls(p["q4"].contiguous(), p["gscale"].t().contiguous(), k, rule_k, rule_n)
 
     @property
     def group(self) -> int:
@@ -178,19 +206,24 @@ def w4_eligible(m: int, k: int, n: int, group: int, streams: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _w4_acc(x: torch.Tensor, q4: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
-    """sum_g (xq_g . u_g - 8 sum xq_g) * gscale[g], times xs: (m, N) fp32.
-    The per-group integer dots run as fp32 products of integers below 2^24,
+def _w4_acc_q(xq: torch.Tensor, xs: torch.Tensor, q4: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
+    """sum_g (xq_g . u_g - 8 sum xq_g) * gscale[g], times xs: (m, N) fp32,
+    from quantized rows xq (m, K) int8 and their scales xs (m, 1). The
+    per-group integer dots run as fp32 products of integers below 2^24,
     exact in any order."""
-    m, k = x.shape
+    m, k = xq.shape
     n_groups = gscale.shape[0]
     group = k // n_groups
-    xq, xs = quantize_rows(x)
     u = torch.cat([q4 & 15, q4 >> 4], dim=1).float()  # (N, K) stored nibbles, k order
     xg = xq.float().reshape(m, n_groups, group)
     d = torch.einsum("mgk,ngk->mgn", xg, u.reshape(-1, n_groups, group))
     d = d - BIAS * xg.sum(dim=2, keepdim=True)
     return (d * gscale.float()[None]).sum(dim=1) * xs
+
+
+def _w4_acc(x: torch.Tensor, q4: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
+    """``_w4_acc_q`` of x's rows quantized (``quantize_rows``)."""
+    return _w4_acc_q(*quantize_rows(x), q4, gscale)
 
 
 def w4_gateup_silu_plain(x: torch.Tensor, q4: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
@@ -206,6 +239,21 @@ def w4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, gscale: torch.Tensor,
                     out_dtype=torch.bfloat16) -> torch.Tensor:
     """x (m, K) against an int4 copy of N columns -> (m, N) in ``out_dtype``."""
     return _w4_acc(x, q4, gscale).to(out_dtype)
+
+
+def w4_matmul_split_plain(x: torch.Tensor, amax: torch.Tensor, q4: torch.Tensor,
+                          gscale: torch.Tensor) -> torch.Tensor:
+    """The split entry's function: x (m, kx), a rank's columns of each row,
+    quantized with the whole row's amax (m, 1) (``quantize_rows_with_amax``:
+    xq and xs equal the whole row's), zero-padded to the copy's K, against
+    its int4 copy -> this rank's fp32 partial (m, N). The group's partials
+    add up to ``w4_matmul_plain`` on the whole rows up to the order of the
+    fp32 group sums."""
+    xq, xs = quantize_rows_with_amax_plain(x, amax)
+    pad = 2 * q4.shape[1] - xq.shape[1]
+    if pad:
+        xq = torch.cat([xq, xq.new_zeros(xq.shape[0], pad)], dim=1)
+    return _w4_acc_q(xq, xs, q4, gscale)
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +401,8 @@ def staged_offsets(m: int, k: int, plan: W4Plan) -> torch.Tensor:
 
 def _check_cuda_inputs(x: torch.Tensor, w: Int4Weight, n_cols: int) -> None:
     csrc.refuse_sharded(x=x, q4=w.q4, gscale=w.gscale)
-    m, k = x.shape
+    m, kx = x.shape
+    k = 2 * w.q4.shape[1]
     group = k // w.gscale.shape[0]
     if x.dtype != torch.bfloat16:
         raise ValueError(f"the int4 MLP kernels take bf16 activations, got {x.dtype}")
@@ -361,9 +410,9 @@ def _check_cuda_inputs(x: torch.Tensor, w: Int4Weight, n_cols: int) -> None:
         raise ValueError(
             f"the int4 MLP kernels take group sizes {KERNEL_GROUPS} (whole k-steps of 32 "
             f"inside one group), got {group}")
-    if tuple(w.q4.shape) != (n_cols, k // 2) or tuple(w.gscale.shape) != (k // group, n_cols):
-        raise ValueError(f"int4 weight q4{tuple(w.q4.shape)} gscale{tuple(w.gscale.shape)} does not fit "
-                         f"x{tuple(x.shape)} with {n_cols} columns")
+    if kx != w.k or tuple(w.q4.shape) != (n_cols, k // 2) or tuple(w.gscale.shape) != (k // group, n_cols):
+        raise ValueError(f"int4 weight q4{tuple(w.q4.shape)} gscale{tuple(w.gscale.shape)} of K {w.k} does not "
+                         f"fit x{tuple(x.shape)} with {n_cols} columns")
     for name, t, dtype in (("x", x, torch.bfloat16), ("q4", w.q4, torch.uint8),
                            ("gscale", w.gscale, torch.float32)):
         if t.device != x.device:
@@ -374,35 +423,43 @@ def _check_cuda_inputs(x: torch.Tensor, w: Int4Weight, n_cols: int) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(x: torch.Tensor, w: Int4Weight, out: torch.Tensor, gateup: bool) -> torch.Tensor:
-    """The prologue (row quantize into the staged layout) + the int4 kernel
-    under ``w4_plan``, on the current stream; returns the scratch (staged xq,
-    then xs)."""
-    m, k = x.shape
+def _launch(x: torch.Tensor, w: Int4Weight, out: torch.Tensor, gateup: bool,
+            amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The prologue (row quantize into the staged layout; with ``amax`` the
+    split entry's, quantizing with the given row amax) + the int4 kernel
+    under ``w4_plan``, on the current stream; returns the scratch (staged
+    xq, then xs)."""
+    m, kx = x.shape
+    k = 2 * w.q4.shape[1]
     n_cols = w.q4.shape[0]
     group = k // w.gscale.shape[0]
     device = x.device
     plan = w4_plan(m, k, n_cols // 2 if gateup else n_cols, gateup, device_sms(device.index), group)
     scratch = torch.empty((plan.scratch_bytes,), dtype=torch.uint8, device=device)
-    args = (x.data_ptr(), scratch.data_ptr(), w.q4.data_ptr(), w.gscale.data_ptr(), out.data_ptr(), m, k, n_cols,
-            group, int(gateup), int(out.dtype == torch.float32), plan.warps, plan.ranks, plan.stages,
-            plan.tile_rows)
     lib = csrc.library()
+    if amax is None:
+        fn, args = lib.st_int4_mlp, (x.data_ptr(), scratch.data_ptr(), w.q4.data_ptr(), w.gscale.data_ptr(),
+                                     out.data_ptr(), m, k, n_cols, group, int(gateup),
+                                     int(out.dtype == torch.float32))
+    else:
+        fn, args = lib.st_int4_mlp_split, (x.data_ptr(), amax.data_ptr(), scratch.data_ptr(), w.q4.data_ptr(),
+                                           w.gscale.data_ptr(), out.data_ptr(), m, kx, k, n_cols, group)
+    args += (plan.warps, plan.ranks, plan.stages, plan.tile_rows)
     if device.index == torch.cuda.current_device():
-        rc = lib.st_int4_mlp(*args, _stream(device))
+        rc = fn(*args, _stream(device))
     else:
         with torch.cuda.device(device):
-            rc = lib.st_int4_mlp(*args, _stream(device))
+            rc = fn(*args, _stream(device))
     csrc.check_launch(rc, "int4 MLP")
     return scratch
 
 
-def _gateup_eligible(m: int, k: int, w: Int4Weight) -> bool:
-    return w4_eligible(m, k, w.q4.shape[0] // 2, k // w.gscale.shape[0], streams=2)
+def _gateup_eligible(m: int, w: Int4Weight) -> bool:
+    return w4_eligible(m, w.rule_k or w.k, w.rule_n or w.q4.shape[0] // 2, w.group, streams=2)
 
 
-def _down_eligible(m: int, k: int, w: Int4Weight) -> bool:
-    return w4_eligible(m, k, w.q4.shape[0], k // w.gscale.shape[0], streams=1)
+def _down_eligible(m: int, w: Int4Weight) -> bool:
+    return w4_eligible(m, w.rule_k or w.k, w.rule_n or w.q4.shape[0], w.group, streams=1)
 
 
 def _gateup(x: torch.Tensor, w: Int4Weight) -> torch.Tensor:
@@ -419,6 +476,9 @@ def _gateup(x: torch.Tensor, w: Int4Weight) -> torch.Tensor:
 
 def _down(x: torch.Tensor, w: Int4Weight, out_dtype) -> torch.Tensor:
     """#14 on an admitted shape: the kernel for a CUDA tensor, else the plain version."""
+    if w.k != 2 * w.q4.shape[1]:
+        raise ValueError(f"a down copy padded from K {w.k} (a row-parallel shard) runs through the split "
+                         "entry, w4_matmul_split")
     if not x.is_cuda:
         return w4_matmul_plain(x, w.q4, w.gscale, out_dtype)
     if out_dtype not in (torch.bfloat16, torch.float32):
@@ -431,19 +491,42 @@ def _down(x: torch.Tensor, w: Int4Weight, out_dtype) -> torch.Tensor:
     return out
 
 
+def w4_matmul_split(x: torch.Tensor, w: Int4Weight, combine_amax) -> torch.Tensor:
+    """#14's split entry, for a row-parallel shard under tensor parallelism:
+    x (m, kx) is this rank's columns of each row and ``w`` its int4 down
+    shard (``k`` = kx, maybe zero-padded). Each row's amax on the shard
+    (kernel A's row-amax pass), ``combine_amax`` of it (the group's max, in
+    place or returned), then the down kernel quantizing with that amax:
+    returns this rank's fp32 partial (m, N), which the caller sums over the
+    group and rounds once. The kernels for a CUDA tensor, the plain
+    versions for a CPU tensor."""
+    amax = combine_amax(row_amax(x))
+    if not x.is_cuda:
+        return w4_matmul_split_plain(x, amax, w.q4, w.gscale)
+    n = w.q4.shape[0]
+    _check_cuda_inputs(x, w, n)
+    if amax.shape != (x.shape[0], 1) or amax.dtype != torch.float32 or amax.device != x.device:
+        raise ValueError(f"amax must be ({x.shape[0]}, 1) fp32 on {x.device}, got {tuple(amax.shape)} {amax.dtype}")
+    out = torch.empty((x.shape[0], n), dtype=torch.float32, device=x.device)
+    _launch(x, w, out, gateup=False, amax=amax.contiguous())
+    w4_matmul_split.launches += 1
+    return out
+
+
 def w4_gateup_silu(x: torch.Tensor, w: Int4Weight) -> Optional[torch.Tensor]:
     """x (m, E) against the int4 gate_up copy (``q4`` (2I, E/2)) -> silu(gate)
     * up (m, I) bf16, or None where the JAX package's rule refuses the shape."""
-    return _gateup(x, w) if _gateup_eligible(*x.shape, w) else None
+    return _gateup(x, w) if _gateup_eligible(x.shape[0], w) else None
 
 
 def w4_matmul(x: torch.Tensor, w: Int4Weight, out_dtype=torch.bfloat16) -> Optional[torch.Tensor]:
     """x (m, K) against an int4 copy of N columns (``q4`` (N, K/2)) -> (m, N)
     in ``out_dtype``, or None where the JAX package's rule refuses the shape."""
-    return _down(x, w, out_dtype) if _down_eligible(*x.shape, w) else None
+    return _down(x, w, out_dtype) if _down_eligible(x.shape[0], w) else None
 
 
-def w4_swiglu(x: torch.Tensor, gate_up: Int4Weight, down: Int4Weight, out_dtype) -> Optional[torch.Tensor]:
+def w4_swiglu(x: torch.Tensor, gate_up: Int4Weight, down: Int4Weight, out_dtype,
+              combine_amax=None) -> Optional[torch.Tensor]:
     """Decode-path SwiGLU on an MLP's int4 copies: #13 (gate_up with the silu
     junction), then #14 (down with its per-row quantize). x is (..., E).
     Returns None when either kernel's rule refuses the shape (prefill-sized m,
@@ -451,14 +534,22 @@ def w4_swiglu(x: torch.Tensor, gate_up: Int4Weight, down: Int4Weight, out_dtype)
     package's ``w4_swiglu`` runs gate_up before it asks the down kernel and
     throws that ``h`` away on a refusal; both rules are shape-only, so asking
     both first gives the same function without the wasted launch (m = 256 at
-    3B: gate_up fits, down does not)."""
+    3B: gate_up fits, down does not).
+
+    Under tensor parallelism (``combine_amax``: the group's max of a row
+    amax) the copies are this rank's shards: gate_up's columns are whole
+    (the contraction E is), down runs its split entry (``w4_matmul_split``)
+    and the result is this rank's fp32 partial, which the caller sums over
+    the group. The rules read the whole model's shapes either way."""
     lead, e = x.shape[:-1], x.shape[-1]
-    m, inter = math.prod(lead), gate_up.q4.shape[0] // 2
-    if not (_gateup_eligible(m, e, gate_up) and _down_eligible(m, inter, down)):
+    m = math.prod(lead)
+    if not (_gateup_eligible(m, gate_up) and _down_eligible(m, down)):
         return None
-    out = _down(_gateup(x.reshape(m, e), gate_up), down, out_dtype)
+    h = _gateup(x.reshape(m, e), gate_up)
+    out = _down(h, down, out_dtype) if combine_amax is None else w4_matmul_split(h, down, combine_amax)
     return out.reshape(*lead, out.shape[-1])
 
 
 w4_gateup_silu.launches = 0
 w4_matmul.launches = 0
+w4_matmul_split.launches = 0

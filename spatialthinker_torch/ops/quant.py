@@ -44,7 +44,8 @@ contraction, the group's max (``quantize_weight(..., tp=)``), and so does
 the per-row scale of their input (``row_parallel_dot``,
 ``row_parallel_silu_dot``: the group's max of the rows' amaxes between the
 two passes of kernel A's row quantize in its split mode, then kernel A's
-prequantized entry; at prefill-sized m the silu junction's split mode).
+prequantized entry; at prefill-sized m the silu junction's split mode; on
+the w4a8 copy's decode path #14's split entry, ``ops.int4_mlp.w4_swiglu``).
 Each rank's product is a partial sum in fp32 that the caller adds over the
 group.
 """
@@ -279,6 +280,20 @@ def _pick_w4_group(k: int) -> Optional[int]:
     return None
 
 
+def w4_decode_copies(gate_up: torch.Tensor, down: torch.Tensor, text_cfg):
+    """An MLP's int4 decode copies of its (out, in) ``gate_up`` and ``down``
+    weights -- this rank's shards under tensor parallelism -- at the whole
+    model's group sizes, asking the eligibility rule with the whole model's
+    I (``text_cfg`` is the whole model's config): (gate_up, down)
+    ``Int4Weight``s, or None where a contraction admits no group size."""
+    g_e, g_i = _pick_w4_group(text_cfg.hidden_size), _pick_w4_group(text_cfg.intermediate_size)
+    if g_e is None or g_i is None:
+        return None
+    inter = text_cfg.intermediate_size
+    return (Int4Weight.from_weight(gate_up, g_e, rule_n=inter),
+            Int4Weight.from_weight(down, g_i, rule_k=inter))
+
+
 @torch.no_grad()
 def quantize_model(model, mode: str = "int8", fused_silu: bool = True,
                    prefill_dequant_min_m: int = 0):
@@ -301,18 +316,22 @@ def quantize_model(model, mode: str = "int8", fused_silu: bool = True,
 
     A TP-local ``model`` (its ``tp`` set; ``embed_tokens`` / ``lm_head``
     whole, as the rollout copy keeps them) gives a TP-local copy: o and down
-    take the group's channel amax. ``w4a8`` under TP is ROADMAP A13c."""
+    take the group's channel amax. Its int4 copies are the rank's shards with
+    the whole model's group sizes: gate_up's (column-parallel, E whole) are
+    row slices of the single-device copy; down's (row-parallel) hold the
+    rank's I / tp columns, whole groups with their own scales, padded with a
+    zero group where I / tp is no multiple of 2 * group (``Int4Weight``), so
+    the copy dequantizes to the single-device copy's column slice. Both ask
+    the eligibility rule with the whole model's I."""
     if mode not in ("int8", "w4a8"):
         raise ValueError(f"unknown quantization mode {mode!r}")
     from ..models.qwen2_5_vl.model import Qwen25VL
 
     tp = model.tp
-    if tp_size(tp) > 1 and (mode == "w4a8" or model.text.vocab_split):
-        raise ValueError("quantize_model under tensor parallelism takes a rollout copy with the whole "
-                         "vocab, in mode int8 (w4a8 under TP: ROADMAP A13c)")
+    if tp_size(tp) > 1 and model.text.vocab_split:
+        raise ValueError("quantize_model under tensor parallelism takes a rollout copy with the whole vocab "
+                         "(parallel.sharding.tp_rollout_copy)")
     tc = model.cfg.text
-    g_e, g_i = _pick_w4_group(tc.hidden_size), _pick_w4_group(tc.intermediate_size)
-    want_w4 = mode == "w4a8" and g_e is not None and g_i is not None
 
     out = Qwen25VL(model.cfg, device="meta", dtype=model.text.norm.weight.dtype, tp=tp, whole_vocab=True)
     out.vision = model.vision
@@ -327,9 +346,10 @@ def quantize_model(model, mode: str = "int8", fused_silu: bool = True,
         dst.mlp.gate_up_proj = QuantLinear.from_linear(src.mlp.gate_up_proj, m)
         dst.mlp.down_proj = QuantLinear.from_linear(src.mlp.down_proj, m, tp)
         dst.mlp.fused_silu = fused_silu
-        if want_w4:
-            dst.mlp.gate_up_w4 = Int4Weight.from_weight(src.mlp.gate_up_proj.weight, g_e)
-            dst.mlp.down_w4 = Int4Weight.from_weight(src.mlp.down_proj.weight, g_i)
+        copies = w4_decode_copies(src.mlp.gate_up_proj.weight, src.mlp.down_proj.weight, tc) \
+            if mode == "w4a8" else None
+        if copies is not None:
+            dst.mlp.gate_up_w4, dst.mlp.down_w4 = copies
     emb = quantize_weight(src_text.embed_tokens.weight.detach(), 1)
     dst_text.embed_tokens = QuantEmbedding(emb["qvalue"], emb["scale"], prefill_dequant_min_m)
     if not model.cfg.text.tie_word_embeddings:

@@ -41,7 +41,7 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 
 from .mesh import fsdp_mesh as tp_fsdp_mesh
 from .mesh import shard_mesh
-from .tensor import gather_leaf, shard_for_rank, tp_size
+from .tensor import gather_leaf, shard_for_rank, split_of, tp_size
 
 
 def shard_model(model: nn.Module, mesh: DeviceMesh, *, reshard_after_forward: bool = True) -> nn.Module:
@@ -133,23 +133,30 @@ def unsharded_copy(model: nn.Module) -> nn.Module:
 
 
 @torch.no_grad()
-def tp_rollout_copy(model: nn.Module) -> nn.Module:
-    """The rollout's copy of a TP-local policy: a plain TP-local
-    ``Qwen25VL`` (this rank's shards, gathered over ``(data, fsdp)`` one
-    parameter at a time, or shared as they are when unwrapped) whose
-    ``embed_tokens`` / ``lm_head`` are whole (gathered over ``model``), so
-    logits and sampling are local. No whole copy of the other weights ever
-    exists."""
+def tp_rollout_copy(model: nn.Module, tp=None) -> nn.Module:
+    """The rollout's copy of a policy for a TP group's one engine: a plain
+    TP-local ``Qwen25VL`` whose ``embed_tokens`` / ``lm_head`` are whole, so
+    logits and sampling are local. A TP-local policy (its ``tp`` set) gives
+    its shards, gathered over ``(data, fsdp)`` one parameter at a time (or
+    shared as they are when unwrapped) and the two vocab tables over
+    ``model``. A whole-width policy trained under sequence parallelism
+    (``tp`` given: the ``model`` group) gives this rank's TP slice of each
+    parameter (``shard_for_rank``'s dims), each gathered whole over ``(data,
+    fsdp x model)`` and cut before the next. No whole copy of the other
+    weights ever exists."""
     from ..models.qwen2_5_vl.model import Qwen25VL
 
     reshard(model)
-    copy = Qwen25VL(model.cfg, device="meta", dtype=model.text.norm.weight.dtype, tp=model.tp,
-                    whole_vocab=True)
+    cut = model.tp is None  # the sp layout: whole parameters, this rank's slice kept
+    tp = model.tp if tp is None else tp
+    copy = Qwen25VL(model.cfg, device="meta", dtype=model.text.norm.weight.dtype, tp=tp, whole_vocab=True)
     state = {}
     for name, t in model.named_parameters():
         w = full_tensor(local(t), t).detach()
         if name in ("text.embed_tokens.weight", "text.lm_head.weight"):
-            w = gather_leaf(name, w, model.tp)
+            w = w if cut else gather_leaf(name, w, tp)
+        elif cut and split_of(name) is not None:
+            w = shard_for_rank({name: w}, tp.size, tp.rank)[name]
         state[name] = w
     copy.load_state_dict(state, assign=True)
     return copy.requires_grad_(False)

@@ -3,11 +3,10 @@
 Behavioral parity with verl/utils/reward_score/spatial_sgg.py:140-246,
 but cost matrices are built with vectorized geometry (pairwise_ciou) and a
 batched similarity matrix instead of per-pair python loops. The assignment
-solve is ``scipy.optimize.linear_sum_assignment``. The JAX package's C++
-Jonker-Volgenant solver (not copied) finds an optimal assignment too, but
-where costs tie (duplicate predictions, equal boxes) the two may pick
-different optimal mappings. The rewards built on the mappings stay equal
-(``tests/test_torch_rewards.py::test_rewards_equal_on_tied_costs``).
+solve is the JAX package's C++ Jonker-Volgenant solver, copied
+(``csrc/lap.py``): where costs tie (duplicate predictions, equal boxes) it
+picks the mapping the JAX matcher picks. Unlike the JAX package it does not
+fall back to scipy: a failed build raises.
 """
 
 from __future__ import annotations
@@ -26,9 +25,9 @@ DUMMY_COST = 1e5
 
 def _solve_assignment(cost: np.ndarray):
     """Minimum-cost assignment; returns (row_idx, col_idx)."""
-    from scipy.optimize import linear_sum_assignment
+    from ..csrc import lap
 
-    return linear_sum_assignment(cost)
+    return lap.solve(cost)
 
 
 def match_objects(gt_objs: Sequence[Dict], pr_objs: Sequence[Dict]) -> List[Optional[int]]:

@@ -36,7 +36,14 @@ uneven response lengths.
 
 Slot state is updated in place. The host keeps mirrors of the slot flags it
 sets itself, so the steady-state loop reads one (lanes,) vector per chunk.
-Not ported: the multi-device branch (``mesh=``).
+Tensor parallelism: a TP-local model (``parallel/tensor.py``; the rollout
+copy keeps ``embed_tokens`` and the head whole) runs here as it is, each rank
+of the TP group on the same prompts: the slot cache and the prefill scratch
+hold the rank's kv heads, and the layers all-reduce their row-parallel
+products. The host loop reads only the finished flags, which come from the
+sampled tokens: with the all-reduced hidden states bitwise equal on every
+rank and the group's sampler seed, every rank refills and harvests the same
+slots at the same chunk. Not ported: the multi-device branch (``mesh=``).
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from ..models.qwen2_5_vl.text import (
     _quantize_kv,
     _quantize_kv4,
     attention_inputs,
+    kv_heads,
     finish_layer,
     logits_from_hidden,
     repack_kv4,
@@ -95,8 +103,10 @@ class SlotState:
 
 
 def init_slot_state(cfg: Qwen25VLConfig, slots: int, prompt_len: int, max_new_tokens: int,
-                    kv_dtype=torch.bfloat16, device=None) -> SlotState:
-    """Empty slots: every cell invalid, every slot finished and inactive."""
+                    kv_dtype=torch.bfloat16, device=None, num_kv_heads: Optional[int] = None) -> SlotState:
+    """Empty slots: every cell invalid, every slot finished and inactive.
+    ``num_kv_heads``: the heads the cache holds (this rank's under TP;
+    default the config's)."""
     if device is None:
         from ..models.qwen2_5_vl.params import default_device
 
@@ -104,7 +114,8 @@ def init_slot_state(cfg: Qwen25VLConfig, slots: int, prompt_len: int, max_new_to
     t = cfg.text
     mult = 256 if kv_dtype == torch.uint8 else 128
     total = -(-(prompt_len + max_new_tokens) // mult) * mult
-    shape = (t.num_hidden_layers, slots, t.num_key_value_heads, total, t.head_dim)
+    heads = t.num_key_value_heads if num_kv_heads is None else num_kv_heads
+    shape = (t.num_hidden_layers, slots, heads, total, t.head_dim)
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -158,7 +169,7 @@ def prefill_slots(
     total = state.kv_seg.shape[1]
     max_new = state.responses.shape[1]
 
-    scratch = KVCache.init(t.num_hidden_layers, u, p, t.num_key_value_heads, t.head_dim,
+    scratch = KVCache.init(t.num_hidden_layers, u, p, kv_heads(model.text), t.head_dim,
                            dtype=state.cache_k.dtype, device=state.cache_k.device)
     seg32 = segment_ids.to(torch.int32)
     hidden, scratch = prefill_forward(model, input_ids, position_ids, seg32, scratch, seg32, vision=vision,
@@ -375,7 +386,8 @@ def generate_continuous(
     # count rounds up to a multiple of 8 (the decode m, see the module note)
     trash = slots
     n_lanes = -(-(slots + 1) // LANE_MULTIPLE) * LANE_MULTIPLE
-    state = init_slot_state(cfg, n_lanes, p, max_new_tokens, kv_cache_dtype, device=device)
+    state = init_slot_state(cfg, n_lanes, p, max_new_tokens, kv_cache_dtype, device=device,
+                            num_kv_heads=kv_heads(model.text))
 
     def dev(x):
         return torch.as_tensor(np.asarray(x), device=device)

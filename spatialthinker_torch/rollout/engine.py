@@ -18,6 +18,13 @@ The cache is written in place in the format ``kv_cache_dtype`` names
 int4 (the ``torch.uint8`` marker). Its width rounds up to a multiple of 128
 (256 for int4, so the packed row count stays a multiple of 128) and the pad
 cells stay invalid in ``kv_seg``.
+
+Tensor parallelism: a TP-local model (``parallel/tensor.py``; the rollout
+copy keeps ``embed_tokens`` and the head whole) runs here as it is, each rank
+of the TP group on the same prompts: the cache holds the rank's kv heads, the
+layers all-reduce their row-parallel products, and with equal inputs and the
+group's sampler seed every rank draws the same tokens and stops at the same
+step.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch
 
 from ..models.qwen2_5_vl.host import VisionInputs
 from ..models.qwen2_5_vl.model import Qwen25VL, fanout_rows, forward, prefill_forward
-from ..models.qwen2_5_vl.text import KVCache, logits_from_hidden, repack_kv4
+from ..models.qwen2_5_vl.text import KVCache, kv_heads, logits_from_hidden, repack_kv4
 from .sampling import SamplingParams, get_response_mask, sample_tokens, sampled_token_logp
 
 CACHE_WIDTH_MULTIPLE = 128
@@ -73,7 +80,7 @@ def generate(
     total = cache_width(p, max_new_tokens, kv_cache_dtype)
 
     def new_cache(rows: int, width: int) -> KVCache:
-        return KVCache.init(tc.num_hidden_layers, rows, width, tc.num_key_value_heads,
+        return KVCache.init(tc.num_hidden_layers, rows, width, kv_heads(model.text),
                             tc.head_dim, dtype=kv_cache_dtype, device=device)
 
     # prefill writes a prompt-width cache for the b unique prompts; with n == 1

@@ -44,11 +44,17 @@ HF checkpoint as the shard itself, on the mesh from ``run_mesh``) and
 FSDP-shards that over ``(data, fsdp)``; the reference and the critic are
 TP-local alike (the critic's HF backbone loads as a shard too). The ranks
 of a TP group take the same prompts (the loader's shard is the batch index)
-and run ONE paged engine on them in lockstep: each rank's copy holds its
+and run ONE engine on them in lockstep: each rank's copy holds its
 heads' weights and kv pools, ``embed_tokens`` and the head whole
 (``tp_rollout_copy``), its page pool the group's smallest, its sampler the
-group's stream, so the group draws the same tokens. The dense and continuous
-engines and ``w4a8`` under TP are refused by the config (ROADMAP A13c).
+group's stream, so the group draws the same tokens. Any engine (dense,
+continuous, paged) and any quantization (W8A8, w4a8: each rank's int4
+copies are its shards, ``ops.quant.quantize_model``) runs so. Beside
+sequence parallelism (``tensor_parallel_size`` = sp = ``model_size``) the
+training layout stays sp's; the rollout copy is TP-local all the same
+(``tp_rollout_copy`` cuts each whole parameter to this rank's slice as it
+is gathered), and the ``model`` group gathers its ranks' prompts, decodes
+their union on one engine and keeps each rank's own rows.
 """
 
 from __future__ import annotations
@@ -93,7 +99,7 @@ from ..parallel.sharding import (
     full_state, full_tensor, local, local_piece, rollout_bytes, shard_model, tp_rollout_copy,
     unsharded_copy,
 )
-from ..parallel.tensor import TPSpec, gather_leaf, split_of
+from ..parallel.tensor import TPSpec, gather_leaf, split_of, tp_size
 from ..rewards.manager import RewardManager
 from ..rollout.engine import generate
 from ..rollout.continuous import effective_prefill_chunk, generate_continuous
@@ -512,6 +518,10 @@ def mesh_checks(config: PPOConfig, kv_heads: int, world: int, local_ranks: int) 
         seq = config.data.max_prompt_length + config.data.max_response_length
         if seq % sp_size:
             raise ValueError(f"sequence length {seq} must be divisible by sp={sp_size}")
+        if config.worker.rollout.tensor_parallel_size > 1 and kv_heads % sp_size:
+            raise ValueError(
+                f"rollout.tensor_parallel_size={sp_size} beside sp must divide the model's "
+                f"num_key_value_heads={kv_heads}: the rollout copy is tensor-parallel over KV-head groups")
     if config.data.rollout_batch_size % (world // tp):
         raise ValueError(
             f"data.rollout_batch_size={config.data.rollout_batch_size} must be divisible "
@@ -776,7 +786,7 @@ class GRPOTrainer:
         shard, unless it is one already (``main.build_model`` loads an HF
         checkpoint so, on the given mesh's ``model`` group)."""
         config, model = self.config, self.model
-        self.mesh = self.sp = self.groups = self.tp = None
+        self.mesh = self.sp = self.groups = self.tp = self.rollout_tp = None
         self.lockstep = Lockstep()
         self.world, self.rank, self.batch_ranks, self.batch_index = 1, 0, 1, 0
         n_chips = config.trainer.n_chips
@@ -812,6 +822,8 @@ class GRPOTrainer:
         self.batch_index = batch_rank(self.mesh)
         if sp_size > 1:
             self.sp = UlyssesSpec(sp_group(self.mesh), self.groups.batch, actor.sequence_parallel_backend)
+            if config.worker.rollout.tensor_parallel_size > 1:  # the model group decodes its rows together
+                self.rollout_tp = TPSpec(sp_group(self.mesh))
         self.lockstep = Lockstep(dist.group.WORLD)
         shard_model(model, self.mesh)
 
@@ -849,8 +861,9 @@ class GRPOTrainer:
             return override
         if self._paged_pool_cache is None:
             pages = self._paged_pool_size_uncached(page_size, kv_dtype)
-            if self.tp is not None:  # one engine a TP group: every rank admits alike
-                pages = -Lockstep(self.tp.group).max(-pages)
+            tp = self.tp or self.rollout_tp
+            if tp is not None:  # one engine a TP group: every rank admits alike
+                pages = -Lockstep(tp.group).max(-pages)
             self._paged_pool_cache = pages
         return self._paged_pool_cache
 
@@ -862,7 +875,7 @@ class GRPOTrainer:
         torch.cuda.empty_cache()
         free_now, total = torch.cuda.mem_get_info(self.device)
         t = self.model_cfg.text
-        heads = t.num_key_value_heads // (1 if self.tp is None else self.tp.size)  # this rank's pools
+        heads = t.num_key_value_heads // tp_size(self.tp or self.rollout_tp)  # this rank's pools
         elem = {torch.int8: 1.0, torch.uint8: 0.5}.get(kv_dtype, 2.0)  # uint8 = packed int4
         cell = int(2 * t.num_hidden_layers * heads * t.head_dim * elem)
         if elem < 2:  # bf16 scales per (k, v) token-head in both quantized formats
@@ -908,8 +921,8 @@ class GRPOTrainer:
         the JAX trainer's lockstep engines over one global queue and a page
         pool sharded over pages exist because XLA runs one program over every
         device); greedy rows are the same either way. Under tensor parallelism
-        the ranks of a TP group run one paged engine on the same prompts over
-        their shards (``tp_rollout_copy``; the module docstring)."""
+        the ranks of a TP group run one engine on the same prompts over their
+        shards (``tp_rollout_copy``; the module docstring)."""
         n = sampling.n
         generator = generator if generator is not None else self._rollout_generator(0)
         self._last_rollout_stats = {}  # per-rollout telemetry, never stale
@@ -921,10 +934,16 @@ class GRPOTrainer:
         # the rollout copy follows the knobs as they stand at this rollout
         # (W8A8, or W8A8 + int4 MLP decode copies), quantized anew each time:
         # the optimizer just rewrote the weights
-        if self.tp is not None:
-            gen_model = tp_rollout_copy(self.model)
+        if self.tp is not None or self.rollout_tp is not None:
+            gen_model = tp_rollout_copy(self.model, self.rollout_tp)
         else:
             gen_model = self.model if self.mesh is None else unsharded_copy(self.model)
+        own = None
+        if self.rollout_tp is not None:  # beside sp: the model group decodes the union of its prompts
+            parts = allgather_pyobj(batch, self.rollout_tp.group)
+            start = sum(len(p) for p in parts[:self.rollout_tp.rank])
+            own = slice(start * n, (start + len(batch)) * n)
+            batch = self._concat(parts)
         if roll.quantization != "none":
             gen_model = quantize_model(gen_model, mode=roll.quantization,
                                        prefill_dequant_min_m=self.prefill_dequant_min_m)
@@ -997,6 +1016,8 @@ class GRPOTrainer:
             repeated, _to_numpy(result.responses), _to_numpy(result.response_mask),
             _to_numpy(result.rollout_log_probs),
         )
+        if own is not None:  # this rank's rows back ([prompt0 x n, ...]: its prompts' rows are contiguous)
+            out = out.select(own)
         # the quantized copy (int4 copies included), the cache or the pools
         # go before the log-prob and update forwards need the room
         del gen_model, result

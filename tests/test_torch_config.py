@@ -57,12 +57,9 @@ def test_cli_grammar_and_coercion():
         tc.build_config(["oops"])
 
 
-A13C = "ROADMAP A13c"  # the dense / continuous engines and w4a8 under tensor parallelism
 NO_IDLE_STAGE = "share one parameter set .no idle stage"  # the JAX tree's reason
-# model_size=2 alone is tensor parallelism with the default (dense) engine: A13c;
 # tensor_parallel_size=2 beside model_size 1 is the JAX tree's own refusal
 REJECTED = [
-    ("worker.actor.sharding.model_size=2", A13C),
     ("worker.rollout.tensor_parallel_size=2", "conflicts with actor.sharding.model_size=1: decode shares"),
     ("worker.critic.optim.stream=true", "JAX critic reads only optim.lr"),
     ("worker.actor.sharding.host_offload_params=true", NO_IDLE_STAGE),
@@ -85,28 +82,44 @@ PAGED_TP = ["worker.actor.sharding.model_size=2", "worker.rollout.name=continuou
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["worker.rollout.name=jax"], A13C),
-    (["worker.rollout.page_size=0"], A13C),
-    (["worker.rollout.quantization=w4a8"], A13C),
-    (["worker.actor.ulysses_sequence_parallel_size=2", "worker.rollout.tensor_parallel_size=2"], A13C),
     (["worker.rollout.tensor_parallel_size=4"], "conflicts with actor.sharding.model_size=2"),
-], ids=["dense", "continuous", "w4a8", "beside_sp", "tp_not_model_size"])
+], ids=["tp_not_model_size"])
 def test_tensor_parallel_rollout_refusals(extra, match):
-    """Under TP the dense and continuous engines, w4a8 and a TP rollout beside
-    sp name ROADMAP A13c; a tensor_parallel_size other than 1 or model_size
-    is the JAX tree's own refusal (it refuses that one too)."""
+    """A tensor_parallel_size other than 1 or model_size is the JAX tree's
+    own refusal, in both trees."""
     with pytest.raises(ValueError, match=match):
         tc.build_config(PAGED_TP + extra)
-    if match != A13C:
-        with pytest.raises(ValueError, match=match):
-            jc.build_config(PAGED_TP + extra)
+    with pytest.raises(ValueError, match=match):
+        jc.build_config(PAGED_TP + extra)
 
 
-@pytest.mark.parametrize("extra", [[], ["worker.rollout.tensor_parallel_size=2"],
-                                   ["worker.rollout.quantization=int8", "worker.rollout.kv_cache_dtype=int4",
-                                    "worker.rollout.int4_i8dot=true"]],
-                         ids=["tp1_rollout", "tp2_rollout", "w8a8_int4"])
+TP_ACCEPTED = {
+    "tp1_rollout": [],
+    "tp2_rollout": ["worker.rollout.tensor_parallel_size=2"],
+    "w8a8_int4": ["worker.rollout.quantization=int8", "worker.rollout.kv_cache_dtype=int4",
+                  "worker.rollout.int4_i8dot=true"],
+    # every engine and quantization besides the paged engine on W8A8 under TP
+    "model_size_alone": ["worker.rollout.name=jax"],
+    "dense": ["worker.rollout.name=jax", "worker.rollout.tensor_parallel_size=2"],
+    "dense_int4_i8dot": ["worker.rollout.name=jax", "worker.rollout.tensor_parallel_size=2",
+                         "worker.rollout.kv_cache_dtype=int4", "worker.rollout.int4_i8dot=true"],
+    "continuous": ["worker.rollout.page_size=0", "worker.rollout.tensor_parallel_size=2",
+                   "worker.rollout.kv_cache_dtype=int8"],
+    "w4a8": ["worker.rollout.quantization=w4a8", "worker.rollout.tensor_parallel_size=2"],
+    "dense_w4a8": ["worker.rollout.name=jax", "worker.rollout.quantization=w4a8",
+                   "worker.rollout.kv_cache_dtype=int4", "worker.rollout.int4_i8dot=true"],
+    "continuous_w4a8": ["worker.rollout.page_size=0", "worker.rollout.quantization=w4a8"],
+    "beside_sp": ["worker.actor.ulysses_sequence_parallel_size=2", "worker.rollout.tensor_parallel_size=2"],
+    "beside_ring_sp_dense": ["worker.actor.ulysses_sequence_parallel_size=2",
+                             "worker.actor.sequence_parallel_backend=ring", "worker.rollout.tensor_parallel_size=2",
+                             "worker.rollout.name=jax"],
+}
+
+
+@pytest.mark.parametrize("extra", list(TP_ACCEPTED.values()), ids=list(TP_ACCEPTED))
 def test_tensor_parallel_configs_parse_as_the_jax_tree(extra):
+    """Every engine (dense, continuous, paged) and every quantization under
+    tensor parallelism gives the JAX tree."""
     argv = PAGED_TP + extra
     assert tc.to_dict(tc.build_config(argv)) == jc.to_dict(jc.build_config(argv))
 

@@ -1297,6 +1297,79 @@ def test_int4_refused_plans_raise(dev):
         assert lib.st_int4_mlp(*args, *plan, stream) != 0, plan
 
 
+# (m, E, whole I, tp, group): 3B / 2 and 7B / 4 (shards padded to 5,632 / 4,864 rows), a shard
+# that needs no pad (7B / 2), a small one with group 64 (I 384 / 2: 192 padded to 256)
+INT4_SPLIT_CASES = [(8, 2048, 11008, 2, 128), (136, 2048, 11008, 2, 128), (8, 3584, 18944, 4, 128),
+                    (136, 3584, 18944, 2, 128), (6, 256, 384, 2, 64)]
+
+
+@pytest.mark.parametrize("m,e,inter,tp,group", INT4_SPLIT_CASES)
+def test_int4_down_split_entry_matches_plain(dev, m, e, inter, tp, group):
+    """#14's split entry on each rank's columns of one whole row (the ranks
+    emulated in one process, the row amax the max of kernel A's row-amax
+    pass on each): each fp32 partial within 1e-4 of the largest of its plain
+    version, two calls bit-identical, the prologue's xq and xs equal to
+    ``quantize_rows`` of the whole row (the shard's columns, zeros in the
+    pad), and the partials summed within 1e-4 of the one-pass kernel's fp32
+    output on the whole row; one launch a call."""
+    rng = np.random.default_rng(m + inter)
+    h = _bf16(rng, (m, inter), dev)
+    w = torch.from_numpy((rng.normal(size=(e, inter)) * 0.02).astype(np.float32)).to(dev)
+    part = inter // tp
+    pieces = [h[:, r * part:(r + 1) * part].contiguous() for r in range(tp)]
+    amax = torch.stack([i8.row_amax(p) for p in pieces]).amax(dim=0)
+    xq_whole, xs_whole = i4.quantize_rows(h)
+    total = torch.zeros((m, e), dtype=torch.float32, device=dev)
+    for r, piece in enumerate(pieces):
+        shard = i4.Int4Weight.from_weight(w[:, r * part:(r + 1) * part], group, rule_k=inter)
+        kp = 2 * shard.q4.shape[1]
+        before = i4.w4_matmul_split.launches
+        out = i4.w4_matmul_split(piece, shard, lambda a: amax)
+        again = i4.w4_matmul_split(piece, shard, lambda a: amax)
+        torch.cuda.synchronize()
+        assert i4.w4_matmul_split.launches == before + 2
+        ref = i4.w4_matmul_split_plain(piece, amax, shard.q4, shard.gscale)
+        assert out.dtype == torch.float32 and out.shape == (m, e)
+        assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+        assert torch.equal(out, again)
+        staged = torch.empty((m, e), dtype=torch.float32, device=dev)
+        scratch = i4._launch(piece, shard, staged, False, amax=amax)
+        torch.cuda.synchronize()
+        plan = i4.w4_plan(m, kp, e, False, pa.device_sms(dev.index), group)
+        xq = scratch[i4.staged_offsets(m, kp, plan).to(dev)].view(torch.int8)
+        assert torch.equal(xq[:, :part], xq_whole[:, r * part:(r + 1) * part]) and not xq[:, part:].any()
+        assert torch.equal(scratch[scratch.numel() - 4 * m:].view(torch.float32), xs_whole.reshape(-1))
+        total += out
+    one_pass = i4._down(h, i4.Int4Weight.from_weight(w, group), torch.float32)  # the kernel, rule or not
+    assert (total - one_pass).abs().max().item() <= 1e-4 * one_pass.abs().max().item()
+
+
+def test_int4_split_entry_refusals(dev):
+    """The one-pass down refuses a padded shard; the split entry refuses an
+    amax of the wrong shape, and the C side a kx past k or no amax."""
+    rng = np.random.default_rng(5)
+    x = _bf16(rng, (8, 192), dev)
+    shard = i4.Int4Weight.from_weight(torch.zeros(256, 192, device=dev), 64)
+    with pytest.raises(ValueError, match="split entry"):
+        i4._down(x, shard, torch.bfloat16)
+    with pytest.raises(ValueError, match="amax must be"):
+        i4.w4_matmul_split(x, shard, lambda a: a[:4])
+    from spatialthinker_torch import csrc
+
+    lib = csrc.library()
+    out = torch.empty((8, 256), dtype=torch.float32, device=dev)
+    scratch = torch.empty((1 << 20,), dtype=torch.uint8, device=dev)
+    amax = torch.ones((8,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (x.data_ptr(), amax.data_ptr(), scratch.data_ptr(), shard.q4.data_ptr(), shard.gscale.data_ptr(),
+            out.data_ptr())
+    assert lib.st_int4_mlp_split(*ptrs, 8, 192, 256, 256, 64, 4, 1, 2, 8, stream) == 0
+    assert lib.st_int4_mlp_split(*ptrs, 8, 320, 256, 256, 64, 4, 1, 2, 8, stream) != 0  # kx past k
+    assert lib.st_int4_mlp_split(*ptrs, 8, 200, 256, 256, 64, 4, 1, 2, 8, stream) != 0  # kx % 16
+    assert lib.st_int4_mlp_split(ptrs[0], None, *ptrs[2:], 8, 192, 256, 256, 64, 4, 1, 2, 8, stream) != 0
+    torch.cuda.synchronize()
+
+
 def test_int4_wrappers_raise_on_unsupported_cuda_input(dev):
     x, w = _int4_case(dev, 8, 256, 256, 128, seed=3)
     with pytest.raises(ValueError, match="bf16 activations"):

@@ -205,7 +205,10 @@ def test_constants_agree_with_the_source():
     offset = re.search(r"inline size_t staged_offset\(.*?\n}", src, re.S).group(0)
     assert "((((size_t)t * n_stages + st) * 2 + h) * tile_rows + rl) * STAGE_K" in offset
     assert "(((b >> 4) ^ (rl & 7)) << 4)" in offset
-    entry = re.search(r'extern "C" int st_int4_mlp\(.*?\n}', src, re.S).group(0)
+    # both C entries (the one-pass and the split one) run through one host function
+    assert re.search(r'extern "C" int st_int4_mlp\(.*?return run_int4_mlp\(x, nullptr,.*?\n}', src, re.S)
+    assert re.search(r'extern "C" int st_int4_mlp_split\(.*?return run_int4_mlp\(x, amax,.*?\n}', src, re.S)
+    entry = re.search(r'int run_int4_mlp\(.*?\n}', src, re.S).group(0)
     assert "xq + (size_t)row_tiles * n_stages * 2 * tile_rows * STAGE_K" in entry  # xs after the staged xq
     for refusal in ("warps % 4 != 0", "warps > MAX_WARPS", "tile_rows > MAX_TILE_ROWS", "!built_tile(tile_rows)",
                     "stages < 2", "stages > MAX_STAGES", "ranks > MAX_RANKS", "ranks > n_stages",

@@ -130,9 +130,9 @@ def _tie_prone_scene(rng):
 
 
 def test_rewards_equal_on_tied_costs():
-    """On tied costs scipy's solver and the JAX package's C++ one may pick
-    different optimal mappings (the port does not pin them); the rewards the
-    mappings feed are equal all the same."""
+    """On tied costs the rewards the mappings feed are equal: the port runs
+    the JAX package's C++ solver (``csrc/lap.py``), so the mappings are the
+    same too (``tests/test_torch_lap.py``)."""
     from spatialthinker_tpu.rewards import spatial_sgg as js
     from spatialthinker_torch.rewards import spatial_sgg as ts
 

@@ -13,11 +13,20 @@ the pytest process, the tiny config in fp32.
 - ``train_step`` at tp = 2 (resident, ``ref.offload``, GAE) and at
   fsdp 2 x model 2 on 4 ranks against the JAX trainer's single-process step:
   every metric within 1e-4, parameters in units of lr;
-- greedy paged rollouts at ``tensor_parallel_size=2`` (bf16 pools; W8A8 +
-  int4 pools + ``int4_i8dot``) against JAX's single-process rollout, token
-  for token up to near-ties, both ranks drawing the same tokens;
+- greedy rollouts at ``tensor_parallel_size=2`` against JAX's
+  single-process rollout, token for token up to near-ties, both ranks
+  drawing the same tokens: the paged engine (bf16 pools; W8A8 + int4 pools +
+  ``int4_i8dot``), the dense engine (bf16; int4 + ``int4_i8dot``), the
+  continuous engine (int8), the dense engine on the w4a8 copy (the int4
+  down's split entry on every rank, never the one-pass one; rows equal to
+  the single-device port's), and the paged engine beside sp 2 (each rank's
+  own rows);
 - the TP W8A8 copy's int8 weights, weight scales and row-parallel activation
-  scales equal slices of the single-device copy bit for bit;
+  scales equal slices of the single-device copy bit for bit; the TP w4a8
+  copy's int4 copies too (gate_up bit for bit, down dequantized bit for bit
+  with its zero pad group); the int4 rule's decisions on a TP shard equal the
+  single-device ones at the 3B / 7B widths; #14's split entry in its plain
+  version sums over the ranks to the one-pass function;
 - the silu junction's and kernel A's row quantize's plain two-pass splits
   equal their one-pass plain versions bit for bit;
 - a checkpoint saved at tp = 2 resumed at world 1, and the reverse, bit for
@@ -25,6 +34,8 @@ the pytest process, the tiny config in fp32.
 - the policy and the critic loaded from HF directories by each rank as its
   shard (``trainer.main``'s start: the mesh, then ``load_params(tp=)``).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -262,41 +273,98 @@ def test_tp_train_step_matches_jax_single_process(tp_steps, variant):
 # tensor-parallel paged rollouts
 # ---------------------------------------------------------------------------
 
+W4A8_DENSE = ["worker.rollout.name=jax", "worker.rollout.quantization=w4a8", "worker.rollout.kv_cache_dtype=int4",
+              "worker.rollout.int4_i8dot=true"]
 POOLS = {"bf16": [],
          "w8a8_int4_i8dot": ["worker.rollout.quantization=int8", "worker.rollout.kv_cache_dtype=int4",
-                             "worker.rollout.int4_i8dot=true", "worker.rollout.page_size=256"]}
+                             "worker.rollout.int4_i8dot=true", "worker.rollout.page_size=256"],
+         # the dense and the continuous engines
+         "dense_bf16": ["worker.rollout.name=jax"],
+         "dense_int4_i8dot": ["worker.rollout.name=jax", "worker.rollout.kv_cache_dtype=int4",
+                              "worker.rollout.int4_i8dot=true"],
+         "continuous_int8": ["worker.rollout.page_size=0", "worker.rollout.kv_cache_dtype=int8"],
+         # w4a8 on the widened preset at I = 384: group 64, each rank's down shard of 192 rows
+         # is 64 mod 128 and packs padded with a zero group
+         "dense_w4a8": W4A8_DENSE,
+         # a TP rollout beside sequence parallelism (sp 2 = model_size = tensor_parallel_size):
+         # each rank gives its 2 prompts, the group decodes the 4 on one paged engine
+         "beside_sp": []}
+SP_2 = ["worker.actor.ulysses_sequence_parallel_size=2"]
+
+
+def w4_tp_models(seed: int, inter: int = 384):
+    """(JAX config, JAX params, port model) of the w4a8 preset (E = 128)
+    at intermediate size ``inter``, weights sharpened as the w4a8 engine
+    tests draw them."""
+    import jax.numpy as jnp
+
+    from spatialthinker_tpu.models.qwen2_5_vl import init_params as jax_init_params
+    from tests.test_torch_int4_mlp import w4_configs
+
+    jcfg, cfg = (dataclasses.replace(c, text=dataclasses.replace(c.text, intermediate_size=inter))
+                 for c in w4_configs())
+    tree = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.key(seed), jnp.float32))
+    tree = jax.tree.map(lambda a: a * 2.5 if a.ndim >= 2 else a, tree)  # sharper logits than init's
+    model = build_model(cfg, params_from_jax(tree, cfg), device="cpu", dtype=torch.float32)
+    return jcfg, jax.tree.map(jnp.asarray, tree), model
 
 
 @pytest.mark.parametrize("pools", list(POOLS))
-def test_tp2_greedy_paged_rollouts_match_jax_single_process(tmp_path, pools):
-    """Both ranks of the TP group run one paged engine on the 4 prompts (n 2)
-    over their shards: their tokens are equal, and they match the JAX
-    trainer's single-process rollout token for token up to near-ties."""
+def test_tp2_greedy_paged_rollouts_match_jax_single_process(tmp_path, monkeypatch, pools):
+    """Both ranks of the TP group run one engine (paged; since the dense and
+    continuous cases also those engines) on the 4 prompts (n 2) over their
+    shards: their tokens are equal, and they match the JAX trainer's
+    single-process rollout token for token up to near-ties. Beside sp each
+    rank gives 2 of the prompts and gets its own rows back: the ranks' rows
+    in rank order match JAX's. The w4a8 case
+    runs the widened preset as the single-device w4a8 tests do: JAX forced
+    onto its int4 path off the TPU (``SPATIALTHINKER_W4=force``), the port's
+    decode attention the JAX package's exact CPU fallback (which has no int8
+    dots); its rows also equal the single-device port's."""
     from collections import namedtuple
 
     from spatialthinker_torch.data.dataset import DataLoader
     from tests.test_torch_continuous import assert_same_up_to_ties
 
-    jax_params, model = both_models(seed=4)
+    w4a8 = pools == "dense_w4a8"
+    if w4a8:
+        monkeypatch.setenv("SPATIALTHINKER_W4", "force")
+        jax_cfg, jax_params, model = w4_tp_models(seed=4)
+    else:
+        jax_cfg, (jax_params, model) = JAX_CFG, both_models(seed=4)
     extra = ["worker.rollout.name=continuous", "worker.rollout.page_size=4", *POOLS[pools]]  # later wins
     trainer, _ = build(tmp_path, *extra, model=model)
     batch = next(iter(DataLoader(trainer.train_dataloader.dataset, 4, shuffle=False)))
-    ref = JaxTrainer(jc.build_config(_dotlist(tmp_path, *extra)), trainer.tokenizer, JAX_CFG, jax_params,
+    ref = JaxTrainer(jc.build_config(_dotlist(tmp_path, *extra)), trainer.tokenizer, jax_cfg, jax_params,
                      train_dataloader=None, reward_fn=reward_fn,
                      mesh=create_mesh(1, 1, 1, devices=jax.devices()[:1]))
     want = ref.generate_sequences(_as(JaxRolloutBatch, batch), ref.sampling.override(temperature=0.0))
     state = {k: v.clone() for k, v in model.state_dict().items()}
-    payload = {"dotlist": _dotlist(tmp_path, *extra, *TP2[:2], "worker.rollout.tensor_parallel_size=2",
+    sp = SP_2 if pools == "beside_sp" else []
+    payload = {"dotlist": _dotlist(tmp_path, *extra, *TP2[:2], *sp, "worker.rollout.tensor_parallel_size=2",
                                    "trainer.n_chips=2"),
-               "rows": ROWS, "state": state, "batch": {"tensors": batch.tensors, "non_tensors": batch.non_tensors}}
+               "rows": ROWS, "state": state, "batch": {"tensors": batch.tensors, "non_tensors": batch.non_tensors},
+               "cfg": model.cfg, "exact_decode": w4a8}
     ranks = run_ranks("rollout", 2, tmp_path, payload)
     Rows = namedtuple("Rows", "responses response_mask rollout_log_probs")
-    for k in Rows._fields:
-        np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
-    got = Rows(*(ranks[0][k] for k in Rows._fields))
+    if sp:  # each rank its own rows
+        got = Rows(*(np.concatenate([r[k] for r in ranks]) for k in Rows._fields))
+    else:  # every rank the group's rows
+        for k in Rows._fields:
+            np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
+        got = Rows(*(ranks[0][k] for k in Rows._fields))
     ref_rows = Rows(*(np.asarray(want.tensors[k]) for k in Rows._fields))
     assert got.responses.shape == ref_rows.responses.shape == (8, 8)
     assert assert_same_up_to_ties(got, ref_rows) <= 1
+    assert all(r["w4_one_pass"] == 0 and (r["w4_split"] > 0) == w4a8 for r in ranks)
+    if w4a8:  # the TP rows are the single-device port's, but for the order of the fp32 sums
+        from tests.test_torch_rollout import _exact_decode
+        from spatialthinker_torch.models.qwen2_5_vl import text as torch_text
+
+        monkeypatch.setattr(torch_text, "decode_attention", _exact_decode)
+        one = trainer.generate_sequences(batch, trainer.sampling.override(temperature=0.0))
+        np.testing.assert_array_equal(got.responses, np.asarray(one.tensors["responses"]))
+        np.testing.assert_allclose(got.rollout_log_probs, np.asarray(one.tensors["rollout_log_probs"]), atol=1e-5)
     # each rank's rollout copy holds its shards (the embedding whole), never a whole copy
     whole = sum(v.numel() * v.element_size() for v in state.values())
     assert all(r["batch_index"] == 0 and 0 < r["copy_bytes"] < whole for r in ranks)
@@ -367,6 +435,137 @@ def test_tp_w8a8_copy_equals_slices_of_the_single_device_copy(tmp_path):
             piece = shard_for_rank({name: xq_whole}, 2, r)[name]
             np.testing.assert_array_equal(got[f"xq:{name}"], piece.numpy())
             np.testing.assert_array_equal(got[f"xs:{name}"], xs_whole.numpy())
+
+
+def _dequant4(q4, gscale):
+    """An int4 copy as its (N, K) values (u - 8) * gscale of each group."""
+    q4, gscale = torch.as_tensor(q4), torch.as_tensor(gscale)
+    u = torch.cat([q4 & 15, q4 >> 4], dim=1).float() - 8.0
+    group = u.shape[1] // gscale.shape[0]
+    return (u * gscale.t().repeat_interleave(group, dim=1)).numpy()
+
+
+def test_tp_w4a8_copy_equals_slices_of_the_single_device_copy(tmp_path):
+    """Each rank's w4a8 copy at tp 2 (widened preset, I = 384, group 64):
+    its gate_up int4 bytes and scales are row slices of the single-device
+    copy's, bit for bit; its down copy, dequantized, is the column slice of
+    the single-device copy's, bit for bit, with the zero group that pads 192
+    rows to 256; both ask the rule with the whole I; the int8 weights are
+    slices as in the W8A8 test."""
+    from spatialthinker_torch.ops.quant import quantize_model
+
+    _, _, model = w4_tp_models(seed=5)
+    inter, e = model.cfg.text.intermediate_size, model.cfg.text.hidden_size
+    whole = {k: v.numpy() for k, v in quantize_model(model, mode="w4a8").state_dict().items()}
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    ranks = run_ranks("tp_quant", 2, tmp_path, {"state": state, "cfg": model.cfg, "mode": "w4a8"})
+    half = inter // 2
+    for r, got in enumerate(ranks):
+        for layer in range(model.cfg.text.num_hidden_layers):
+            mlp = f"text.layers.{layer}.mlp"
+            cols = np.r_[r * half:(r + 1) * half, inter + r * half:inter + (r + 1) * half]  # [gate | up]
+            np.testing.assert_array_equal(got[f"{mlp}.gate_up_w4.q4"], whole[f"{mlp}.gate_up_w4.q4"][cols])
+            np.testing.assert_array_equal(got[f"{mlp}.gate_up_w4.gscale"], whole[f"{mlp}.gate_up_w4.gscale"][:, cols])
+            assert got[f"rule:{mlp}.gate_up_w4"] == (e, None, inter)
+            assert got[f"{mlp}.down_w4.q4"].shape == (e, 128)  # 192 rows + a zero group of 64, packed
+            mine = _dequant4(got[f"{mlp}.down_w4.q4"], got[f"{mlp}.down_w4.gscale"])
+            ref = _dequant4(whole[f"{mlp}.down_w4.q4"], whole[f"{mlp}.down_w4.gscale"])
+            np.testing.assert_array_equal(mine[:, :half], ref[:, r * half:(r + 1) * half])
+            assert not mine[:, half:].any()
+            assert got[f"rule:{mlp}.down_w4"] == (half, inter, None)
+            split = shard_for_rank({f"{mlp}.gate_up_proj.weight": torch.as_tensor(
+                whole[f"{mlp}.gate_up_proj.qvalue"])}, 2, r)
+            np.testing.assert_array_equal(got[f"{mlp}.gate_up_proj.qvalue"],
+                                          split[f"{mlp}.gate_up_proj.weight"].numpy())
+
+
+W4_WIDTHS = {"3b": (2048, 11008), "7b": (3584, 18944)}
+
+
+@pytest.mark.parametrize("preset,tp", [("3b", 2), ("7b", 2), ("7b", 4)])
+@pytest.mark.parametrize("m", [8, 136, 256, 512])
+def test_tp_w4a8_rule_decides_as_the_single_device_copy(preset, tp, m):
+    """A TP rank's int4 copies (built on ``meta`` tensors at the shard's
+    shapes by the function ``quantize_model`` calls) take the int4 path
+    exactly where the single-device copy does and where JAX's entry points,
+    traced abstractly on the whole arrays, do (m = 256 at 3B: down refused);
+    a rule read off the shard would differ at some of these shapes."""
+    import jax.numpy as jnp
+
+    from spatialthinker_tpu.ops import int4_mlp as ji
+    from spatialthinker_torch.ops import int4_mlp as ti
+    from spatialthinker_torch.ops.quant import w4_decode_copies
+
+    e, inter = W4_WIDTHS[preset]
+    tc = dataclasses.replace(CFG.text, hidden_size=e, intermediate_size=inter)
+
+    def copies(i):
+        return w4_decode_copies(torch.empty(2 * i, e, device="meta"), torch.empty(e, i, device="meta"), tc)
+
+    def decide(gate_up, down):
+        return ti._gateup_eligible(m, gate_up) and ti._down_eligible(m, down)
+
+    shard, single = copies(inter // tp), copies(inter)
+    sd = jax.ShapeDtypeStruct
+    jax_says = []
+    for k, n, streams, fn in ((e, inter, 2, ji.w4_gateup_silu), (inter, e, 1, ji.w4_matmul)):
+        group = 128 if k % 256 == 0 else 64
+        cols = 2 * n if streams == 2 else n
+        jax_says.append(jax.eval_shape(lambda x, q, s: fn(x, {"q4": q, "gscale": s}), sd((m, k), jnp.bfloat16),
+                                       sd((k // 2, cols), jnp.uint8), sd((k // group, cols), jnp.float32))
+                        is not None)
+    assert decide(*shard) == decide(*single) == all(jax_says)
+    if (preset, m) == ("3b", 256):
+        assert jax_says == [True, False] and not decide(*shard)
+    # the negative control: the rule asked on the shard's own shapes
+    local = ti.w4_eligible(m, e, inter // tp, 128, 2) and ti.w4_eligible(m, shard[1].q4.shape[1] * 2, e, 128, 1)
+    differs = {("3b", 2, 256), ("7b", 2, 136), ("7b", 2, 256), ("7b", 4, 136), ("7b", 4, 256), ("7b", 4, 512)}
+    assert (local != decide(*single)) == ((preset, tp, m) in differs)
+
+
+def test_tp_w4a8_down_shard_needs_whole_groups():
+    """3B's I over 4 ranks is 2,752 rows, 21.5 groups of 128: a group would
+    straddle two ranks, so the copy is refused (the kv-head cap refuses 3B at
+    tp 4 before any copy is built)."""
+    from spatialthinker_torch.ops.quant import w4_decode_copies
+
+    tc = dataclasses.replace(CFG.text, hidden_size=2048, intermediate_size=11008)
+    with pytest.raises(ValueError, match="no whole number of int4 groups of 128"):
+        w4_decode_copies(torch.empty(5504, 2048, device="meta"), torch.empty(2048, 2752, device="meta"), tc)
+
+
+@pytest.mark.parametrize("m,e,inter,tp", [(8, 128, 384, 2), (136, 128, 11008, 2), (6, 256, 18944, 4)])
+def test_w4_down_split_plain_partials_sum_to_the_one_pass(m, e, inter, tp):
+    """#14's split entry in its plain version: each rank quantizes its
+    columns with the whole row's amax (the group's max of the ranks' row
+    amaxes: xq and xs equal the whole row's) against its padded down shard;
+    the ranks' fp32 partials add up to ``w4_matmul_plain`` on the whole rows
+    within 1e-5 of the largest output (only the order of the fp32 group sums
+    differs), and the wrapper on a CPU tensor is the plain version."""
+    from spatialthinker_torch.ops import int4_mlp as ti
+    from spatialthinker_torch.ops.int8_matmul import quantize_rows, row_amax_plain
+    from spatialthinker_torch.ops.quant import _pick_w4_group
+
+    rng = np.random.default_rng(m + inter)
+    x = torch.as_tensor(rng.normal(size=(m, inter)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.as_tensor((rng.normal(size=(e, inter)) * 0.05).astype(np.float32))
+    group = _pick_w4_group(inter)
+    whole = ti.Int4Weight.from_weight(w, group)
+    want = ti.w4_matmul_plain(x, whole.q4, whole.gscale, torch.float32)
+    k = inter // tp
+    pieces = [x[:, r * k:(r + 1) * k] for r in range(tp)]
+    amax = torch.stack([row_amax_plain(p) for p in pieces]).amax(dim=0)
+    total = torch.zeros_like(want)
+    for r, piece in enumerate(pieces):
+        shard = ti.Int4Weight.from_weight(w[:, r * k:(r + 1) * k], group, rule_k=inter)
+        assert shard.k == k and shard.q4.shape[1] * 2 == k + (-k % (2 * group))
+        part = ti.w4_matmul_split_plain(piece, amax, shard.q4, shard.gscale)
+        torch.testing.assert_close(ti.w4_matmul_split(piece.contiguous(), shard, lambda a: amax.clone()), part,
+                                   rtol=0, atol=0)
+        total += part
+    np.testing.assert_array_equal(quantize_rows(x)[1].numpy(),
+                                  torch.clamp(amax, min=1e-8).div(torch.full_like(amax, 127.0)).numpy())
+    assert (total - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

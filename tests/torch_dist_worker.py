@@ -100,11 +100,14 @@ def _attention_task(backend: str):
 
 
 def _model(p):
+    """The payload's model: its ``state`` in the tiny preset, or in the
+    payload's ``cfg`` where it gives one (a widened preset)."""
     import torch
 
     from spatialthinker_torch.models.qwen2_5_vl import build_model, qwen25_vl_tiny
 
-    return build_model(qwen25_vl_tiny(VOCAB), p["state"], device="cpu", dtype=torch.float32)
+    cfg = p.get("cfg") or qwen25_vl_tiny(VOCAB)
+    return build_model(cfg, p["state"], device="cpu", dtype=torch.float32)
 
 
 def task_logprobs(p):
@@ -198,15 +201,47 @@ def task_train_step(p):
     return results
 
 
+def _exact_decode(q, k_cache, v_cache, kv_seg, layer_idx, k_scale=None, v_scale=None, scale=None,
+                  int4_i8dot=False):
+    """The dense decode as the JAX package runs it off the TPU (its
+    ``_xla_decode``): the layer dequantized, one exact masked softmax in fp32
+    (``tests/test_torch_rollout.py``'s swap)."""
+    from spatialthinker_torch.models.qwen2_5_vl import text
+    from spatialthinker_torch.ops import decode_attention as da
+
+    k_l, v_l = text._layer_kv(k_cache, v_cache, layer_idx, q.dtype, k_scale, v_scale)
+    as_stack = lambda t: t.transpose(1, 2)[None].float()  # noqa: E731  (1, B, Hkv, S, D)
+    return da.decode_attention_plain(q.float(), as_stack(k_l), as_stack(v_l), kv_seg, 0,
+                                     scale if scale is not None else q.shape[-1] ** -0.5).to(q.dtype)
+
+
 def task_rollout(p):
     """This rank's share of the prompts (by rank, or under tensor parallelism
     by batch index: a TP group shares them) through the trainer's greedy
-    rollout, with the bytes of its rollout copy."""
+    rollout, with the bytes of its rollout copy. ``p["exact_decode"]``: the
+    dense engines' decode attention is the JAX package's CPU fallback."""
     import numpy as np
     import torch.distributed as dist
 
     from spatialthinker_torch.core.batch import RolloutBatch
 
+    if p.get("exact_decode"):
+        from spatialthinker_torch.models.qwen2_5_vl import text
+        from spatialthinker_torch.rollout import continuous
+
+        text.decode_attention = continuous.decode_attention = _exact_decode
+    from spatialthinker_torch.ops import int4_mlp
+
+    calls = {"w4_split": 0, "w4_one_pass": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    int4_mlp.w4_matmul_split = counted("w4_split", int4_mlp.w4_matmul_split)
+    int4_mlp._down = counted("w4_one_pass", int4_mlp._down)
     trainer, _ = _trainer(p)
     rank, world = dist.get_rank(), dist.get_world_size()
     if trainer.tp is not None:  # a TP group shares its prompts
@@ -217,6 +252,7 @@ def task_rollout(p):
                                         trainer.sampling.override(temperature=0.0))
     out = {k: np.asarray(rolled.tensors[k]) for k in ("responses", "response_mask", "rollout_log_probs")}
     out["batch_index"], out["copy_bytes"] = trainer.batch_index, trainer.rollout_copy_bytes
+    out.update(calls)  # the int4 down's entries: the split one under TP, never the one-pass one
     return out
 
 
@@ -371,9 +407,11 @@ def task_tp_logprobs(p):
 
 
 def task_tp_quant(p):
-    """The TP-local W8A8 rollout copy's int8 weights and scales, and the
-    row-parallel inputs ``p["x"]`` of o / down quantized by this rank's
-    K columns with the group's row amax (the row quantize's split mode)."""
+    """The TP-local rollout copy's int8 weights and scales (in ``p["mode"]``,
+    default int8; w4a8 also its int4 copies, with the shapes the eligibility
+    rule reads), and the row-parallel inputs ``p["x"]`` of o / down quantized
+    by this rank's K columns with the group's row amax (the row quantize's
+    split mode)."""
     import torch
 
     from spatialthinker_torch.ops.int8_matmul import quantize_rows_split
@@ -383,9 +421,12 @@ def task_tp_quant(p):
     from spatialthinker_torch.trainer.grpo_trainer import tp_local
 
     tp = _tp()
-    q = quantize_model(tp_rollout_copy(tp_local(_model(p), tp)))
-    out = {k: v.numpy() for k, v in q.state_dict().items() if k.endswith((".qvalue", ".scale"))}
-    for name, x in p["x"].items():  # x is the whole (rows, K) input of a row-parallel product
+    q = quantize_model(tp_rollout_copy(tp_local(_model(p), tp)), mode=p.get("mode", "int8"))
+    out = {k: v.numpy() for k, v in q.state_dict().items() if k.endswith((".qvalue", ".scale", ".q4", ".gscale"))}
+    for name, m in q.named_modules():
+        if hasattr(m, "rule_k") and hasattr(m, "q4"):
+            out[f"rule:{name}"] = (m.k, m.rule_k, m.rule_n)
+    for name, x in p.get("x", {}).items():  # x is the whole (rows, K) input of a row-parallel product
         piece = shard_for_rank({name: torch.as_tensor(x)}, tp.size, tp.rank)[name]
         xq, xs = quantize_rows_split(piece.contiguous(), lambda a: all_reduce_max(a, tp))
         out[f"xq:{name}"], out[f"xs:{name}"] = xq.numpy(), xs.numpy()
