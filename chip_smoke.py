@@ -80,7 +80,8 @@ non-zero without a device. In order:
       (64 rows): the dense engine (``rollout.name=jax``)
       over an int8 cache, an int4 cache and an int4 cache with ``int4_i8dot``,
       the paged engine with int4 pools without ``int4_i8dot``, the continuous
-      engine (``page_size=0``) over an int8 cache, and the dense engine with
+      engine (``page_size=0``) over an int8 cache (all 16 prompts: 128 rows
+      through 72 lanes, two waves with refills), and the dense engine with
       the w4a8 copy (64 rows through the int4 MLP kernels);
    g. the same trainer with path e's dotlist and four knobs changed
       (``rollout.name=continuous``, ``page_size=0``, ``quantization=w4a8``,
@@ -136,7 +137,9 @@ non-zero without a device. In order:
       correctness, not a timing; (m3) that trainer's ``generate_sequences``
       on 2 prompts x n 4 with the dense engine on the w4a8 copy (int4 KV,
       int8 dots: #13, #14's split entry, #6) and the continuous engine over
-      an int8 cache (#4'), both ranks the same tokens (a TP rollout beside
+      an int8 cache at 4 slots (#4', refills in lockstep), both ranks the
+      same tokens, then layer 0's TP w4a8 MLP against the unsharded copy's
+      with a planted local amax as its negative control (a TP rollout beside
       sp needs the policy FSDP-sharded over both ranks: gloo carries no CUDA
       all-gather and NCCL refuses two ranks on one card, so it is held on
       the CPU and waits for several cards);
@@ -436,8 +439,10 @@ TRAINER_OVERRIDES = [
 ]
 TRAINER_VAL_ROWS = 8
 # path f's knob cases and the w4 controls: 8 of path e's 16 prompts x n 8 = 64 rows, one wave of the
-# paged engine's 64 slots and of the continuous engine's 72 lanes (the full batch took two)
+# paged engine's 64 slots and of the dense engine's batch; the continuous engine's case takes all 16
+# (128 rows through its 64 slots, 72 lanes: two waves, so it harvests and refills lanes mid-decode)
 KNOB_PROMPTS = 8
+CONTINUOUS_KNOB_PROMPTS = 16
 CKPT_LAYERS = 4
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -2245,6 +2250,24 @@ KNOB_CASES = [
 ]
 
 
+@contextmanager
+def kept_continuous_result():
+    """The trainer's ``generate_continuous`` wrapped so that the engine's own
+    result (its stats: lanes, refills, chunks) is kept in the dict yielded;
+    the result passes on unchanged."""
+    kept, real = {}, gt.generate_continuous
+
+    def keep(*args, **kwargs):
+        kept["result"] = real(*args, **kwargs)
+        return kept["result"]
+
+    gt.generate_continuous = keep
+    try:
+        yield kept
+    finally:
+        gt.generate_continuous = real
+
+
 def knob_rollout(trainer, batch, knobs: dict):
     """One rollout through the trainer's own ``generate_sequences`` with these
     rollout knobs, then the trainer's own log-probs of the same tokens (what
@@ -2271,23 +2294,25 @@ def knob_rollout(trainer, batch, knobs: dict):
 def knob_paths(dev, card, trainer, train_ds, paged_probs_diff: float) -> dict:
     """Path f: one rollout per knob case (``knob_rollout``). The continuous
     engine's case also keeps one decode call's inputs and holds its kernel
-    against the plain version on them."""
-    batch = next(iter(DataLoader(train_ds, KNOB_PROMPTS, shuffle=False)))
+    against the plain version on them, and must run two waves (refills)."""
+    batches = {p: next(iter(DataLoader(train_ds, p, shuffle=False))) for p in (KNOB_PROMPTS, CONTINUOUS_KNOB_PROMPTS)}
     out = {}
     for label, knobs, kernels, limit in KNOB_CASES:
         limit = paged_probs_diff + INT8_CACHE_EXTRA_DRIFT if limit is None else limit
         continuous = knobs.get("page_size") == 0
         recorder = record_call(tcont, "decode_attention", decode_pick(trainer.model_cfg)) if continuous \
             else nullcontext()
-        with recorder as rec:
+        with recorder as rec, (kept_continuous_result() if continuous else nullcontext({})) as kept:
+            batch = batches[CONTINUOUS_KNOB_PROMPTS if continuous else KNOB_PROMPTS]
             rolled, counts, gen_s, diff = knob_rollout(trainer, batch, knobs)
+        refills = kept["result"].stats["refills"] if continuous else None
         mask = rolled.tensors["response_mask"].astype(bool)
         logp = rolled.tensors["rollout_log_probs"]
         launched = {k: counts[k] for k in kernels}
         others = {k: counts[k] for k in DECODE_KERNELS + INT4_KERNELS if k not in kernels and counts[k]}
         print(f"knob case {label}: {knobs} -> responses {rolled.tensors['responses'].shape} in {gen_s:.3f} s, "
               f"{int(mask.sum())} tokens; launches {launched}, other decode kernels {others}; "
-              f"probs_diff_mean {diff:.4f} (limit {limit:.4f}); peak allocated "
+              f"probs_diff_mean {diff:.4f} (limit {limit:.4f}); refills {refills}; peak allocated "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]", flush=True)
         checks = {
             "its kernels launched": all(launched.values()), "no other decode kernel": not others,
@@ -2295,12 +2320,13 @@ def knob_paths(dev, card, trainer, train_ds, paged_probs_diff: float) -> dict:
             "every row has a token": bool((mask.sum(-1) >= 1).all()),
             "probs_diff within the limit": diff <= limit,
             **w8a8_checks(counts),
+            **({"two waves: lanes harvested and refilled mid-decode": refills >= 2} if continuous else {}),
         }
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
             raise AssertionError(f"knob case {label} failed: {failed}")
         out[label] = dict(launches=launched, probs_diff=diff, limit=limit, seconds=gen_s,
-                          w8a8_launches=counts["w8a8"])
+                          w8a8_launches=counts["w8a8"], refills=refills)
         if continuous:
             kind = "int4_i8" if knobs["int4_i8dot"] else knobs["kv_cache_dtype"]
             out[label]["decode_cases"] = recorded_decode_case(trainer.model_cfg, kind, rec, label)
@@ -2365,19 +2391,12 @@ def continuous_w4a8_path(dev, card, trainer, train_ds) -> dict:
     for key, value in PATH_G_KNOBS.items():
         setattr(roll, key, value)
     batch = next(iter(DataLoader(train_ds, trainer.config.data.rollout_batch_size, shuffle=False)))
-    engine = {}
-    real = gt.generate_continuous
-
-    def keep(*args, **kwargs):
-        engine["result"] = real(*args, **kwargs)
-        return engine["result"]
-
-    gt.generate_continuous = keep
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     layers = trainer.model_cfg.text.num_hidden_layers
     prefill_rows = lambda x, *a, **k: x.shape[0] >= tq.FUSED_SILU_MIN_M  # noqa: E731
-    with record_call(tcont, "decode_attention", decode_pick(trainer.model_cfg)) as decode_rec, \
+    with kept_continuous_result() as engine, \
+            record_call(tcont, "decode_attention", decode_pick(trainer.model_cfg)) as decode_rec, \
             record_call(sq, "fused_silu_quantize", layers - 1) as silu_rec, \
             record_call(tq, "fused_w8a8_matmul", 2, when=prefill_rows) as w8_rec:
         reset_counts()
@@ -2388,11 +2407,10 @@ def continuous_w4a8_path(dev, card, trainer, train_ds) -> dict:
             torch.cuda.synchronize()
             step_s = time.perf_counter() - t0
         counts = read_counts()
-    gt.generate_continuous = real
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     res = engine["result"]
     st = res.stats
-    chunk = inspect.signature(real).parameters["decode_chunk_size"].default
+    chunk = inspect.signature(gt.generate_continuous).parameters["decode_chunk_size"].default
     steps = st["chunks"] * chunk
     mask = res.response_mask.astype(bool)
     logp = res.rollout_log_probs
@@ -3345,14 +3363,17 @@ TP_M2_PROMPTS, TP_M2_N = 3, 8
 TP_M2_LAYERS = 4
 # (m3) the same trainer after (m2)'s step, its own generate_sequences on 2 prompts x n 4 with the
 # engines (m2) does not run under TP: label, rollout knobs, the kernels it must launch, its limit on
-# rollout/probs_diff_mean
+# rollout/probs_diff_mean. The continuous engine gets 4 slots (8 lanes) for its 8 rows: one prompt's
+# group at a time, so the TP group harvests and refills in lockstep mid-decode
 TP_M3_PROMPTS, TP_M3_N = 2, 4
 TP_M3_CASES = (
     ("dense_w4a8", dict(name="jax", quantization="w4a8", kv_cache_dtype="int4", int4_i8dot=True),
      ("int4_gateup", "int4_down_split", "decode_attention_int4_i8"), W4_PROBS_DIFF_LIMIT),
     ("continuous_int8", dict(name="continuous", page_size=0, quantization="int8", kv_cache_dtype="int8",
-                             int4_i8dot=False), ("decode_attention_int8",), PROBS_DIFF_LIMIT),
+                             int4_i8dot=False, decode_batch_size=4), ("decode_attention_int8",), PROBS_DIFF_LIMIT),
 )
+# (m3)'s check of the w4a8 MLP itself: rows of one decode step (path m3's 8) through layer 0's MLP
+TP_M3_MLP_ROWS = 8
 TP_KERNELS = ("flash_fwd", "flash_ranges", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv",
               "paged_attention_int4_i8", "silu_amax", "silu_with_amax", "quant_amax", "quant_with_amax", "w8a8",
               "w8a8_prequantized")
@@ -3527,8 +3548,10 @@ def tp_text_cfg(preset, tp: int):
 
 
 # the dense decode kernels at one kv head (a TP rank's cache): (kind, rows, width) -- #4 at path a's
-# rows, #4' at the continuous engine's 72 lanes (path m3's), #5 at path f's rows, #6 at path m3's 8
-TP_DECODE_CASES = (("bf16", 20, 640), ("int8", 72, 640), ("int4", 128, 768), ("int4_i8", 8, 768))
+# rows, #4' at the continuous engine's 72 lanes (64 slots, path f's) and path m3's 8, #5 at path f's
+# rows, #6 at path m3's 8
+TP_DECODE_CASES = (("bf16", 20, 640), ("int8", 72, 640), ("int8", 8, 640), ("int4", 128, 768),
+                   ("int4_i8", 8, 768))
 
 
 def tp_decode_cases(dev) -> dict:
@@ -3569,12 +3592,12 @@ def tp_int4_cases(dev) -> dict:
         e, inter = tc.hidden_size, tc.intermediate_size
         part = inter // tp
         gu_w = torch.randn((2 * part, e), device=dev, generator=gen) * 0.02
-        gu4 = i4.Int4Weight.from_weight(gu_w, 128, rule_n=inter)
+        gu4 = i4.Int4Weight.from_weight(gu_w, 128, whole_i=inter)
         gu8 = quantize_weight(gu_w, 1)["qvalue"]  # the W8A8 shard: the yardstick
         del gu_w
         dn_w = torch.randn((e, inter), device=dev, generator=gen) * 0.02
         whole4 = i4.Int4Weight.from_weight(dn_w, 128)
-        shards = [i4.Int4Weight.from_weight(dn_w[:, r * part:(r + 1) * part], 128, rule_k=inter)
+        shards = [i4.Int4Weight.from_weight(dn_w[:, r * part:(r + 1) * part], 128, whole_i=inter)
                   for r in range(tp)]
         dn8 = quantize_weight(dn_w[:, :part], 1, None)["qvalue"]  # rank 0's W8A8 shard: the yardstick
         del dn_w
@@ -3606,9 +3629,9 @@ def tp_int4_cases(dev) -> dict:
             h = randn_bf16(rng, dev, m, inter)
             pieces = [h[:, r * part:(r + 1) * part].contiguous() for r in range(tp)]
             amax = torch.stack([i8m.row_amax(p) for p in pieces]).amax(dim=0)
-            partials = [i4.w4_matmul_split(p, w, lambda a: amax) for p, w in zip(pieces, shards)]
+            partials = [i4.w4_matmul_split(p, w, amax) for p, w in zip(pieces, shards)]
             plains = [i4.w4_matmul_split_plain(p, amax, w.q4, w.gscale) for p, w in zip(pieces, shards)]
-            again = i4.w4_matmul_split(pieces[0], shards[0], lambda a: amax)
+            again = i4.w4_matmul_split(pieces[0], shards[0], amax)
             one_pass = i4._down(h, whole4, torch.float32)  # the kernel, whatever the rule says of m
             torch.cuda.synchronize()
             summed = torch.stack(partials).sum(dim=0)
@@ -3617,13 +3640,17 @@ def tp_int4_cases(dev) -> dict:
             sum_rel = (summed - one_pass).abs().max().item() / one_pass.abs().max().item()
             twice = bool(torch.equal(partials[0], again))
             p0, w0 = pieces[0], shards[0]
-            ms = cuda_ms(lambda: i4.w4_matmul_split(p0, w0, lambda a: amax))
-            dev_us = device_us(lambda: i4.w4_matmul_split(p0, w0, lambda a: amax))
+            ms = cuda_ms(lambda: i4.w4_matmul_split(p0, w0, amax))
+            dev_us = device_us(lambda: i4.w4_matmul_split(p0, w0, amax))
             plain_ms = cuda_ms(lambda: i4.w4_matmul_split_plain(p0, amax, w0.q4, w0.gscale), iters=5, warmup=1)
             xq0 = quantize_activation(p0)[0]
             lib_ms = cuda_ms(lambda: int8_matmul(xq0, dn8.t()))
             kp = 2 * w0.q4.shape[1]
-            b_ms, b_by = bound_ms(nbytes(p0, amax, w0.q4, w0.gscale, partials[0]), 2.0 * m * kp * e, "int8")
+            # the rank's k = I / tp columns only: the zero group that pads the copy to kp is a packing
+            # choice, no work of the function (k / 2 bytes of q4 and k / group scale rows a column)
+            k = w0.k
+            need = nbytes(p0, amax, partials[0]) + e * k // 2 + (k // w0.group) * e * w0.gscale.element_size()
+            b_ms, b_by = bound_ms(need, 2.0 * m * k * e, "int8")
             plan = i4.w4_plan(m, kp, e, False, sms).describe()
             case = dict(shape=f"down_split_{label}_padded_{kp}_m{m}", max_abs_err=err, rel_err=rel,
                         summed_rel_err=sum_rel, bit_identical_twice=twice, ms=ms, device_us=dev_us,
@@ -3904,13 +3931,65 @@ def path_m3_cases(trainer, train_ds) -> dict:
     trainer.sampling = trainer.sampling.override(n=TP_M3_N)
     out = {}
     for label, knobs, _, limit in TP_M3_CASES:
-        rolled, counts, gen_s, diff = knob_rollout(trainer, batch, knobs)
+        with kept_continuous_result() as kept:
+            rolled, counts, gen_s, diff = knob_rollout(trainer, batch, knobs)
         resp = np.ascontiguousarray(rolled.tensors["responses"])
         out[label] = dict(tokens=hashlib.sha256(resp.tobytes()).hexdigest(), rows=int(resp.shape[0]),
                           launches=counts, seconds=gen_s, probs_diff=diff, limit=limit,
-                          finite=bool(np.isfinite(rolled.tensors["rollout_log_probs"]).all()))
+                          finite=bool(np.isfinite(rolled.tensors["rollout_log_probs"]).all()),
+                          refills=kept["result"].stats["refills"] if "result" in kept else None)
         del rolled
+    out["w4_mlp"] = m3_w4_mlp_check(trainer)
     return out
+
+
+@torch.no_grad()
+def m3_w4_mlp_check(trainer) -> dict:
+    """(m3)'s w4a8 MLP on the card: ``TP_M3_MLP_ROWS`` rows (the same on
+    both ranks) through layer 0's MLP of this rank's w4a8 rollout copy as
+    the model runs it (``w4_swiglu`` under TP: #13 on the shard, each row's
+    amax maxed over the group, #14's split entry; the fp32 partials summed
+    over the group) against the one-pass #14 of the unsharded copy (the
+    same weights gathered) on the ranks' h gathered whole: equal but for
+    the order of the fp32 group sums. The same with every rank quantizing
+    with its own amax (the group's max planted as the identity on both
+    ranks) must land outside the limit. Also #13's h against the unsharded
+    gate_up copy's slice."""
+    from spatialthinker_torch.ops.ulysses import all_gather_seq
+    from spatialthinker_torch.parallel.sharding import tp_rollout_copy
+    from spatialthinker_torch.parallel.tensor import all_reduce_sum, gather_leaf
+
+    tp, tc = trainer.tp, trainer.model_cfg.text
+    copy = tp_rollout_copy(trainer.model, trainer.rollout_tp)
+    src = copy.text.layers[0].mlp
+    gu_whole, dn_whole = tq.w4_decode_copies(
+        gather_leaf("text.layers.0.mlp.gate_up_proj.weight", src.gate_up_proj.weight, tp),
+        gather_leaf("text.layers.0.mlp.down_proj.weight", src.down_proj.weight, tp), tc)
+    mlp = tq.quantize_model(copy, mode="w4a8").text.layers[0].mlp
+    x = randn_bf16(np.random.default_rng(43), src.down_proj.weight.device, TP_M3_MLP_ROWS, tc.hidden_size)
+
+    def summed():
+        return all_reduce_sum(i4.w4_swiglu(x, mlp.gate_up_w4, mlp.down_w4, torch.float32, tp=tp), tp)
+
+    def rel(a, b):
+        return (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+
+    reset_counts()
+    sound = summed()
+    launches = read_counts()
+    h = i4._gateup(x, mlp.gate_up_w4)
+    part = h.shape[1]
+    gate_rel = rel(h, i4._gateup(x, gu_whole)[:, tp.rank * part:(tp.rank + 1) * part])
+    want = i4._down(all_gather_seq(h, tp.group, dim=1), dn_whole, torch.float32)
+    real = i4.all_reduce_max
+    i4.all_reduce_max = lambda a, group: a
+    try:
+        planted = summed()
+    finally:
+        i4.all_reduce_max = real
+    return dict(rows=TP_M3_MLP_ROWS, local_i=part, padded_k=2 * mlp.down_w4.q4.shape[1], gate_rel=gate_rel,
+                sound_rel=rel(sound, want), planted_rel=rel(planted, want),
+                split_launches=launches["int4_down_split"], one_pass_launches=launches["int4_down"])
 
 
 def path_m_rank(rank: int, work: Path) -> int:
@@ -3964,8 +4043,24 @@ def path_m(card: str, work_dir: str) -> dict:
                   f"{TP_M3_PROMPTS} prompts x n {TP_M3_N} = {c['rows']} rows, (m2)'s trainer): {c['seconds']:.2f} s, "
                   f"probs_diff_mean {c['probs_diff']:.4f} (limit {limit}), tokens {c['tokens'][:16]} [{card}]; "
                   f"launches {dict((k, v) for k, v in c['launches'].items() if v)}", flush=True)
+    for r in m2:
+        c = r["m3"]["w4_mlp"]
+        print(f"path m3 w4a8 MLP rank {r['rank']}: layer 0 at {c['rows']} rows, local I {c['local_i']} padded to "
+              f"{c['padded_k']}: the TP MLP's summed fp32 partials against the unsharded copy's one-pass #14 "
+              f"{c['sound_rel']:.2e} of max |out| (limit {INT4_F32_REL_TOL}); each rank quantizing with its own "
+              f"amax {c['planted_rel']:.2e} (must exceed it); #13's h against the unsharded copy's slice "
+              f"{c['gate_rel']:.2e} (limit {INT4_REL_TOL}); split launches {c['split_launches']}, one-pass "
+              f"{c['one_pass_launches']}; continuous refills {r['m3']['continuous_int8']['refills']} [{card}]",
+              flush=True)
+    mlp_m3 = [r["m3"]["w4_mlp"] for r in m2]
     m3 = {label: [r["m3"][label] for r in m2] for label, _, _, _ in TP_M3_CASES}
     checks = {
+        "m3: the TP w4a8 MLP equals the unsharded copy's on both ranks": all(
+            c["sound_rel"] <= INT4_F32_REL_TOL and c["gate_rel"] <= INT4_REL_TOL and c["split_launches"] > 0
+            and c["one_pass_launches"] == 0 for c in mlp_m3),
+        "m3: a rank quantizing with its own amax caught": all(c["planted_rel"] > INT4_F32_REL_TOL for c in mlp_m3),
+        "m3: the continuous engine refilled lanes mid-decode on both ranks": all(
+            c["refills"] >= 2 for c in m3["continuous_int8"]),
         "m3: both ranks sampled the same tokens": all(c[0]["tokens"] == c[1]["tokens"] for c in m3.values()),
         "m3: rollout/probs_diff_mean within the limits": all(
             c["finite"] and c["probs_diff"] <= c["limit"] for cs in m3.values() for c in cs),

@@ -44,7 +44,7 @@ from ...ops.quant import (
     embed_rows, fused_silu_quant_dot, is_quantized, linear, quantized_dot, row_parallel_dot,
     row_parallel_silu_dot,
 )
-from ...parallel.tensor import all_reduce_max, copy_to_tp, reduce_from_tp, tp_size, vocab_range
+from ...parallel.tensor import copy_to_tp, reduce_from_tp, tp_size, vocab_range
 from .config import TextConfig
 from .rope import apply_rotary, compute_cos_sin, make_inv_freq
 
@@ -309,8 +309,7 @@ class MLP(nn.Module):
         gup, down = self.gate_up_proj.weight, self.down_proj.weight
         if tp_size(self.tp) > 1:
             if self.gate_up_w4 is not None and self.w4:
-                part = w4_swiglu(x, self.gate_up_w4, self.down_w4, torch.float32,
-                                 combine_amax=lambda a: all_reduce_max(a, self.tp))
+                part = w4_swiglu(x, self.gate_up_w4, self.down_w4, torch.float32, tp=self.tp)
                 if part is not None:
                     return reduce_from_tp(part, self.tp, out_dtype=x.dtype)
             gu = linear(copy_to_tp(x, self.tp), gup, contract_axis=1)

@@ -69,6 +69,7 @@ import torch
 from torch import nn
 
 from .. import csrc
+from ..parallel.tensor import TPSpec, all_reduce_max
 from .int8_matmul import (  # the row quantize: a true division on every device
     _stream, quantize_rows, quantize_rows_with_amax_plain, row_amax,
 )
@@ -130,22 +131,21 @@ class Int4Weight(nn.Module):
     groups (5,504 at 3B / 2 is 43 groups of 128): it is packed padded with
     zero rows to the next multiple of 2 * group, so ``q4`` holds more than
     ``k`` rows; a zero group dequantizes to zero and adds exactly 0.
-    ``rule_k`` / ``rule_n``, where set, are the contraction and the output
-    columns a stream that the eligibility rule sees: the whole model's (the
-    JAX package asks its rule on the whole arrays), not the shard's; None
-    reads them from the copy itself."""
+    ``whole_i``, where set, is the whole model's I, which the eligibility
+    rule reads in place of the shard's (gate_up's columns a stream, down's
+    contraction): the JAX package asks its rule on the whole arrays. None
+    reads it from the copy itself."""
 
     def __init__(self, q4: torch.Tensor, gscale: torch.Tensor, k: Optional[int] = None,
-                 rule_k: Optional[int] = None, rule_n: Optional[int] = None):
+                 whole_i: Optional[int] = None):
         super().__init__()
         self.register_buffer("q4", q4)
         self.register_buffer("gscale", gscale)
         self.k = 2 * q4.shape[1] if k is None else k
-        self.rule_k, self.rule_n = rule_k, rule_n
+        self.whole_i = whole_i
 
     @classmethod
-    def from_weight(cls, w: torch.Tensor, group: int, *, rule_k: Optional[int] = None,
-                    rule_n: Optional[int] = None) -> "Int4Weight":
+    def from_weight(cls, w: torch.Tensor, group: int, *, whole_i: Optional[int] = None) -> "Int4Weight":
         """From an (out, in) weight, contracting ``in`` (zero-padded to whole
         split-half groups where it is no multiple of 2 * group; it must be a
         multiple of the group, so no group straddles two shards)."""
@@ -157,7 +157,7 @@ class Int4Weight(nn.Module):
         if pad:
             w = torch.cat([w, w.new_zeros(w.shape[0], pad)], dim=1)
         p = pack_int4_grouped(w, 1, group)  # (N, K/2), (N, K/group)
-        return cls(p["q4"].contiguous(), p["gscale"].t().contiguous(), k, rule_k, rule_n)
+        return cls(p["q4"].contiguous(), p["gscale"].t().contiguous(), k, whole_i)
 
     @property
     def group(self) -> int:
@@ -455,11 +455,11 @@ def _launch(x: torch.Tensor, w: Int4Weight, out: torch.Tensor, gateup: bool,
 
 
 def _gateup_eligible(m: int, w: Int4Weight) -> bool:
-    return w4_eligible(m, w.rule_k or w.k, w.rule_n or w.q4.shape[0] // 2, w.group, streams=2)
+    return w4_eligible(m, w.k, w.whole_i or w.q4.shape[0] // 2, w.group, streams=2)
 
 
 def _down_eligible(m: int, w: Int4Weight) -> bool:
-    return w4_eligible(m, w.rule_k or w.k, w.rule_n or w.q4.shape[0], w.group, streams=1)
+    return w4_eligible(m, w.whole_i or w.k, w.q4.shape[0], w.group, streams=1)
 
 
 def _gateup(x: torch.Tensor, w: Int4Weight) -> torch.Tensor:
@@ -491,16 +491,14 @@ def _down(x: torch.Tensor, w: Int4Weight, out_dtype) -> torch.Tensor:
     return out
 
 
-def w4_matmul_split(x: torch.Tensor, w: Int4Weight, combine_amax) -> torch.Tensor:
+def w4_matmul_split(x: torch.Tensor, w: Int4Weight, amax: torch.Tensor) -> torch.Tensor:
     """#14's split entry, for a row-parallel shard under tensor parallelism:
-    x (m, kx) is this rank's columns of each row and ``w`` its int4 down
-    shard (``k`` = kx, maybe zero-padded). Each row's amax on the shard
-    (kernel A's row-amax pass), ``combine_amax`` of it (the group's max, in
-    place or returned), then the down kernel quantizing with that amax:
-    returns this rank's fp32 partial (m, N), which the caller sums over the
-    group and rounds once. The kernels for a CUDA tensor, the plain
-    versions for a CPU tensor."""
-    amax = combine_amax(row_amax(x))
+    x (m, kx) is this rank's columns of each row, ``w`` its int4 down shard
+    (``k`` = kx, maybe zero-padded) and ``amax`` (m, 1) fp32 each whole
+    row's amax (the group's max of ``row_amax`` on the shards). The down
+    kernel quantizes with that amax and returns this rank's fp32 partial
+    (m, N), which the caller sums over the group and rounds once. The kernel
+    for a CUDA tensor, the plain version for a CPU tensor."""
     if not x.is_cuda:
         return w4_matmul_split_plain(x, amax, w.q4, w.gscale)
     n = w.q4.shape[0]
@@ -526,7 +524,7 @@ def w4_matmul(x: torch.Tensor, w: Int4Weight, out_dtype=torch.bfloat16) -> Optio
 
 
 def w4_swiglu(x: torch.Tensor, gate_up: Int4Weight, down: Int4Weight, out_dtype,
-              combine_amax=None) -> Optional[torch.Tensor]:
+              tp: Optional[TPSpec] = None) -> Optional[torch.Tensor]:
     """Decode-path SwiGLU on an MLP's int4 copies: #13 (gate_up with the silu
     junction), then #14 (down with its per-row quantize). x is (..., E).
     Returns None when either kernel's rule refuses the shape (prefill-sized m,
@@ -536,17 +534,18 @@ def w4_swiglu(x: torch.Tensor, gate_up: Int4Weight, down: Int4Weight, out_dtype,
     both first gives the same function without the wasted launch (m = 256 at
     3B: gate_up fits, down does not).
 
-    Under tensor parallelism (``combine_amax``: the group's max of a row
-    amax) the copies are this rank's shards: gate_up's columns are whole
-    (the contraction E is), down runs its split entry (``w4_matmul_split``)
-    and the result is this rank's fp32 partial, which the caller sums over
-    the group. The rules read the whole model's shapes either way."""
+    Under tensor parallelism (``tp``, the rank's group) the copies are this
+    rank's shards: gate_up's columns are whole (the contraction E is), each
+    row's amax on the shard (kernel A's row-amax pass) is maxed over the
+    group, down runs its split entry (``w4_matmul_split``) and the result is
+    this rank's fp32 partial, which the caller sums over the group. The
+    rules read the whole model's shapes either way."""
     lead, e = x.shape[:-1], x.shape[-1]
     m = math.prod(lead)
     if not (_gateup_eligible(m, gate_up) and _down_eligible(m, down)):
         return None
     h = _gateup(x.reshape(m, e), gate_up)
-    out = _down(h, down, out_dtype) if combine_amax is None else w4_matmul_split(h, down, combine_amax)
+    out = _down(h, down, out_dtype) if tp is None else w4_matmul_split(h, down, all_reduce_max(row_amax(h), tp))
     return out.reshape(*lead, out.shape[-1])
 
 

@@ -290,8 +290,8 @@ def w4_decode_copies(gate_up: torch.Tensor, down: torch.Tensor, text_cfg):
     if g_e is None or g_i is None:
         return None
     inter = text_cfg.intermediate_size
-    return (Int4Weight.from_weight(gate_up, g_e, rule_n=inter),
-            Int4Weight.from_weight(down, g_i, rule_k=inter))
+    return (Int4Weight.from_weight(gate_up, g_e, whole_i=inter),
+            Int4Weight.from_weight(down, g_i, whole_i=inter))
 
 
 @torch.no_grad()

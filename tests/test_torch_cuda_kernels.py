@@ -1321,11 +1321,11 @@ def test_int4_down_split_entry_matches_plain(dev, m, e, inter, tp, group):
     xq_whole, xs_whole = i4.quantize_rows(h)
     total = torch.zeros((m, e), dtype=torch.float32, device=dev)
     for r, piece in enumerate(pieces):
-        shard = i4.Int4Weight.from_weight(w[:, r * part:(r + 1) * part], group, rule_k=inter)
+        shard = i4.Int4Weight.from_weight(w[:, r * part:(r + 1) * part], group, whole_i=inter)
         kp = 2 * shard.q4.shape[1]
         before = i4.w4_matmul_split.launches
-        out = i4.w4_matmul_split(piece, shard, lambda a: amax)
-        again = i4.w4_matmul_split(piece, shard, lambda a: amax)
+        out = i4.w4_matmul_split(piece, shard, amax)
+        again = i4.w4_matmul_split(piece, shard, amax)
         torch.cuda.synchronize()
         assert i4.w4_matmul_split.launches == before + 2
         ref = i4.w4_matmul_split_plain(piece, amax, shard.q4, shard.gscale)
@@ -1353,7 +1353,7 @@ def test_int4_split_entry_refusals(dev):
     with pytest.raises(ValueError, match="split entry"):
         i4._down(x, shard, torch.bfloat16)
     with pytest.raises(ValueError, match="amax must be"):
-        i4.w4_matmul_split(x, shard, lambda a: a[:4])
+        i4.w4_matmul_split(x, shard, i8.row_amax(x)[:4])
     from spatialthinker_torch import csrc
 
     lib = csrc.library()

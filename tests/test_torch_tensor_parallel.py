@@ -466,13 +466,13 @@ def test_tp_w4a8_copy_equals_slices_of_the_single_device_copy(tmp_path):
             cols = np.r_[r * half:(r + 1) * half, inter + r * half:inter + (r + 1) * half]  # [gate | up]
             np.testing.assert_array_equal(got[f"{mlp}.gate_up_w4.q4"], whole[f"{mlp}.gate_up_w4.q4"][cols])
             np.testing.assert_array_equal(got[f"{mlp}.gate_up_w4.gscale"], whole[f"{mlp}.gate_up_w4.gscale"][:, cols])
-            assert got[f"rule:{mlp}.gate_up_w4"] == (e, None, inter)
+            assert got[f"rule:{mlp}.gate_up_w4"] == (e, inter)
             assert got[f"{mlp}.down_w4.q4"].shape == (e, 128)  # 192 rows + a zero group of 64, packed
             mine = _dequant4(got[f"{mlp}.down_w4.q4"], got[f"{mlp}.down_w4.gscale"])
             ref = _dequant4(whole[f"{mlp}.down_w4.q4"], whole[f"{mlp}.down_w4.gscale"])
             np.testing.assert_array_equal(mine[:, :half], ref[:, r * half:(r + 1) * half])
             assert not mine[:, half:].any()
-            assert got[f"rule:{mlp}.down_w4"] == (half, inter, None)
+            assert got[f"rule:{mlp}.down_w4"] == (half, inter)
             split = shard_for_rank({f"{mlp}.gate_up_proj.weight": torch.as_tensor(
                 whole[f"{mlp}.gate_up_proj.qvalue"])}, 2, r)
             np.testing.assert_array_equal(got[f"{mlp}.gate_up_proj.qvalue"],
@@ -557,10 +557,10 @@ def test_w4_down_split_plain_partials_sum_to_the_one_pass(m, e, inter, tp):
     amax = torch.stack([row_amax_plain(p) for p in pieces]).amax(dim=0)
     total = torch.zeros_like(want)
     for r, piece in enumerate(pieces):
-        shard = ti.Int4Weight.from_weight(w[:, r * k:(r + 1) * k], group, rule_k=inter)
+        shard = ti.Int4Weight.from_weight(w[:, r * k:(r + 1) * k], group, whole_i=inter)
         assert shard.k == k and shard.q4.shape[1] * 2 == k + (-k % (2 * group))
         part = ti.w4_matmul_split_plain(piece, amax, shard.q4, shard.gscale)
-        torch.testing.assert_close(ti.w4_matmul_split(piece.contiguous(), shard, lambda a: amax.clone()), part,
+        torch.testing.assert_close(ti.w4_matmul_split(piece.contiguous(), shard, amax), part,
                                    rtol=0, atol=0)
         total += part
     np.testing.assert_array_equal(quantize_rows(x)[1].numpy(),

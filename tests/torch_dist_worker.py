@@ -424,8 +424,8 @@ def task_tp_quant(p):
     q = quantize_model(tp_rollout_copy(tp_local(_model(p), tp)), mode=p.get("mode", "int8"))
     out = {k: v.numpy() for k, v in q.state_dict().items() if k.endswith((".qvalue", ".scale", ".q4", ".gscale"))}
     for name, m in q.named_modules():
-        if hasattr(m, "rule_k") and hasattr(m, "q4"):
-            out[f"rule:{name}"] = (m.k, m.rule_k, m.rule_n)
+        if hasattr(m, "whole_i") and hasattr(m, "q4"):
+            out[f"rule:{name}"] = (m.k, m.whole_i)
     for name, x in p.get("x", {}).items():  # x is the whole (rows, K) input of a row-parallel product
         piece = shard_for_rank({name: torch.as_tensor(x)}, tp.size, tp.rank)[name]
         xq, xs = quantize_rows_split(piece.contiguous(), lambda a: all_reduce_max(a, tp))
