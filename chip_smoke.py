@@ -119,7 +119,8 @@ non-zero without a device. In order:
       the update's first text flash call, a mid-decode paged call (cut to
       its pages), the first silu junction call and a decode call of kernel A
       recorded, and each kernel held against its plain version on them
-      after the step, beside kernel A at the five 7B linears;
+      after the step, beside kernel A at the five 7B linears
+      (``--only-path-k`` runs the build and path k alone);
    l. several GPUs on one card, in processes of their own: (l1) the
       distributed branch at world 1 over NCCL (path e's dotlist at
       ``cut_depth``, one step), a probe of two NCCL ranks on one
@@ -272,7 +273,7 @@ from spatialthinker_torch.trainer.grpo_trainer import (
     to_device, update_actor_packed,
 )
 from spatialthinker_torch.trainer.main import build_model, build_trainer, load_tokenizer
-from spatialthinker_torch.trainer.metrics import Timer
+from spatialthinker_torch.utils.spans import Timer
 from spatialthinker_torch.trainer.train_step import (
     make_optimizer, make_packed_grad_fn, make_packed_update_fn,
 )
@@ -3212,10 +3213,11 @@ def path_l2_rank(rank: int, store: str, out: str) -> int:
                         for g, r in zip(grads, ref_g)]
             dist.barrier()
             sp_call()
-            copy0 = dict(ulysses.HOST_COPY)
-            sp_ms = cuda_ms(sp_call, iters=3, warmup=0)  # the host copies of these 3 calls only
-            copy_s = (ulysses.HOST_COPY["seconds"] - copy0["seconds"]) / 3
-            copy_mb = (ulysses.HOST_COPY["bytes"] - copy0["bytes"]) / 3 / 1e6
+            copies = Timer()
+            with copies.active():  # the host copies of these 3 calls only
+                sp_ms = cuda_ms(sp_call, iters=3, warmup=0)
+            copy_s = copies.seconds("sp/host_copy") / 3
+            copy_mb = copies.counters.get("sp/host_copy/bytes", 0) / 3 / 1e6
             res["attention"][f"{name}_{width}"] = dict(
                 max_abs_err=err, grad_rel_err=grad_rel, launches=counts, sp_ms=sp_ms, one_rank_ms=one_rank_ms,
                 host_copy_s=copy_s, host_copy_mb=copy_mb,
@@ -4114,6 +4116,7 @@ def main() -> int:
         return RANK_ENTRIES[sys.argv[1]](sys.argv[2:])
     only_l = sys.argv[1:] == ["--only-path-l"]  # the build and path l alone
     only_m = sys.argv[1:] == ["--only-path-m"]  # the build, the TP-local kernel cases and path m alone
+    only_k = sys.argv[1:] == ["--only-path-k"]  # the build and path k alone
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch._int_mm = counted_int_mm
@@ -4139,6 +4142,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as work_dir:
             l_res = path_l(card, work_dir)
         print(json.dumps({"path_l": l_res, "seconds": time.perf_counter() - t_start}), flush=True)
+        print(card, flush=True)
+        return 0
+    if only_k:
+        with tempfile.TemporaryDirectory() as work_dir:
+            k_res = sevenb_path(dev, card, work_dir)
+        print(json.dumps({"path_k": k_res, "seconds": time.perf_counter() - t_start}), flush=True)
         print(card, flush=True)
         return 0
 

@@ -33,14 +33,15 @@ flash kernels take any non-empty chunk, so the only rule is ``S % sp``
 
 from __future__ import annotations
 
-import time
+from contextlib import nullcontext
 from typing import List, Optional
 
 import torch
 import torch.distributed as dist
 
+from ..utils.spans import count
 from .flash_attention import NEG_INF, flash_bwd, flash_fwd
-from .ulysses import UlyssesSpec, from_host_bytes, host_copy_timer, staged, to_host_bytes
+from .ulysses import UlyssesSpec, from_host_bytes, host_copy, staged, to_host_bytes
 
 SKIP, CAUSAL, FULL = 0, 1, 2
 
@@ -76,19 +77,19 @@ def _rotate(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
     dst = dist.get_global_rank(group, (idx + 1) % sp)
     src = dist.get_global_rank(group, (idx - 1) % sp)
     host = staged(tensors[0], group)
-    t0 = time.perf_counter()
-    send = [to_host_bytes(t) if host else t.contiguous() for t in tensors]
-    if host:
-        torch.cuda.current_stream().synchronize()
-    recv = [torch.empty_like(t) for t in send]
-    ops = [dist.P2POp(dist.isend, t, dst, group) for t in send]
-    ops += [dist.P2POp(dist.irecv, t, src, group) for t in recv]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    if not host:
-        return recv
-    out = [from_host_bytes(buf, t) for buf, t in zip(recv, tensors)]
-    host_copy_timer(t0, 2 * sum(b.numel() for b in send))
+    with host_copy() if host else nullcontext():
+        send = [to_host_bytes(t) if host else t.contiguous() for t in tensors]
+        if host:
+            torch.cuda.current_stream().synchronize()
+        recv = [torch.empty_like(t) for t in send]
+        ops = [dist.P2POp(dist.isend, t, dst, group) for t in send]
+        ops += [dist.P2POp(dist.irecv, t, src, group) for t in recv]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if not host:
+            return recv
+        out = [from_host_bytes(buf, t) for buf, t in zip(recv, tensors)]
+        count("bytes", 2 * sum(b.numel() for b in send))
     return out
 
 

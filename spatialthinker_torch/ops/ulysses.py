@@ -14,22 +14,20 @@ The transport follows the group's backend, never a failure: NCCL moves CUDA
 tensors from the card; gloo carries no CUDA tensor in its all-to-all,
 point-to-point or all-gather calls, so on a gloo group a CUDA tensor is
 copied through page-locked host memory (as raw bytes: gloo has no bf16
-send), and the seconds and bytes of those copies are added to
-``HOST_COPY``. CPU tensors go as they are.
+send), each such exchange an ``sp/host_copy`` span of the current recorder
+(``utils/spans.py``) with its bytes counted. CPU tensors go as they are.
 """
 
 from __future__ import annotations
 
-import time
+from contextlib import contextmanager
 from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
+from ..utils.spans import count, span
 from .attention import attention
-
-# seconds and bytes of the host copies of the gloo transport (card -> host -> card)
-HOST_COPY = {"seconds": 0.0, "bytes": 0}
 
 
 class UlyssesSpec(NamedTuple):
@@ -69,10 +67,13 @@ def from_host_bytes(buf: torch.Tensor, like: torch.Tensor, shape=None) -> torch.
     return buf.to(like.device, non_blocking=True).view(like.dtype).reshape(shape)
 
 
-def host_copy_timer(t0: float, n_bytes: int) -> None:
-    torch.cuda.current_stream().synchronize()
-    HOST_COPY["seconds"] += time.perf_counter() - t0
-    HOST_COPY["bytes"] += n_bytes
+@contextmanager
+def host_copy():
+    """The ``sp/host_copy`` span of a staged exchange (card -> host -> card),
+    which ends once the stream has copied its result back to the card."""
+    with span("sp/host_copy"):
+        yield
+        torch.cuda.current_stream().synchronize()
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -81,13 +82,13 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x.contiguous(), group=group)
         return out
-    t0 = time.perf_counter()
-    host = to_host_bytes(x)
-    torch.cuda.current_stream().synchronize()
-    recv = torch.empty_like(host)
-    dist.all_to_all_single(recv, host, group=group)
-    out = from_host_bytes(recv, x)
-    host_copy_timer(t0, 2 * host.numel())
+    with host_copy():
+        host = to_host_bytes(x)
+        torch.cuda.current_stream().synchronize()
+        recv = torch.empty_like(host)
+        dist.all_to_all_single(recv, host, group=group)
+        out = from_host_bytes(recv, x)
+        count("bytes", 2 * host.numel())
     return out
 
 
@@ -99,13 +100,13 @@ def all_gather_seq(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
         parts = [torch.empty_like(x) for _ in range(sp)]
         dist.all_gather(parts, x.contiguous(), group=group)
         return torch.cat(parts, dim=dim)
-    t0 = time.perf_counter()
-    host = to_host_bytes(x)
-    torch.cuda.current_stream().synchronize()
-    parts = [torch.empty_like(host) for _ in range(sp)]
-    dist.all_gather(parts, host, group=group)
-    out = torch.cat([from_host_bytes(p, x) for p in parts], dim=dim)
-    host_copy_timer(t0, (sp + 1) * host.numel())
+    with host_copy():
+        host = to_host_bytes(x)
+        torch.cuda.current_stream().synchronize()
+        parts = [torch.empty_like(host) for _ in range(sp)]
+        dist.all_gather(parts, host, group=group)
+        out = torch.cat([from_host_bytes(p, x) for p in parts], dim=dim)
+        count("bytes", (sp + 1) * host.numel())
     return out
 
 

@@ -11,6 +11,7 @@ moved" is plain functions that the class calls with what it holds:
     train_batch_views           RolloutBatch -> TrainBatch (host arrays)
     pack_rows                   first-fit-decreasing packing, the trainer's row length rule
     vision_for_packed           vision pack in the packed rows' image order
+    copy_to_device              a batch and its vision pack to the card (the ``h2d`` span)
     compute_log_probs_batched   old / ref log-probs in experience-sized pieces
     compute_advantages          the five estimators, groups from uid strings
     iter_minibatches            the seeded shuffle shared by the update loops
@@ -21,7 +22,10 @@ moved" is plain functions that the class calls with what it holds:
     update_critic               the critic's clipped-value update (GAE)
 
 Every function takes what the trainer class reads from ``self`` (model,
-update function, knobs, device) as explicit arguments.
+update function, knobs, device) as explicit arguments. Their spans (``pack``,
+``h2d``, ``forward``, ``grad``, ``apply``) and counters go to the recorder
+``train_step`` makes current (``utils/spans.py``), under the phase that
+called them: ``old/pack``, ``update_actor/h2d/bytes``.
 
 Several GPUs (one process each, launched by ``torchrun``; ``parallel/``): the
 trainer takes its distributed branch whenever a process group exists. The
@@ -62,7 +66,6 @@ from __future__ import annotations
 import copy
 import os
 import logging
-import time
 import uuid
 from collections import defaultdict
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
@@ -111,9 +114,9 @@ from ..utils.seqlen_balancing import balance_order
 from .checkpoint import CheckpointManager
 from .critic import Critic, CriticBatch, compute_values, make_critic_update_fn
 from .streamed_opt import make_streamed_optimizer
+from ..utils.spans import Timer, count, current_timer, span
 from .metrics import (
-    Timer, compute_data_metrics, compute_throughput_metrics, compute_timing_metrics,
-    reduce_metrics,
+    compute_data_metrics, compute_throughput_metrics, compute_timing_metrics, reduce_metrics,
 )
 from .tracker import Tracker
 from .train_step import (
@@ -198,6 +201,19 @@ def to_device(batch, device):
     return type(batch)(*(torch.as_tensor(np.ascontiguousarray(x), device=device) for x in batch))
 
 
+def copy_to_device(batch, vision: Optional[VisionInputs], device):
+    """``batch`` and its vision pack on ``device``: the ``h2d`` span, with the
+    host bytes it copies counted (``h2d/bytes``)."""
+    with span("h2d"):
+        count("bytes", sum(np.asarray(x).nbytes for part in (batch, vision) if part is not None for x in part))
+        return to_device(batch, device), vision_to_device(vision, device)
+
+
+def patch_count(batch: RolloutBatch) -> int:
+    """The vision patches of ``batch``'s images."""
+    return sum(len(p) for p in batch.non_tensors.get("patches", ()) if p is not None)
+
+
 def vision_for_packed(batch: RolloutBatch, slot_map: SlotMap, vision_cfg: VisionConfig,
                       row_lo: Optional[int] = None, row_hi: Optional[int] = None,
                       pad_to: Optional[int] = None) -> Optional[VisionInputs]:
@@ -257,20 +273,28 @@ def compute_log_probs_batched(
     chunk = max(micro_batch_size, 1)
     kw = dict(remat=False, temperature=temperature, chunk_size=chunk_size, sp=sp)
     outs = []
-    if padding_free:
-        r = batch.tensors["responses"].shape[1]
-        for piece in batch.split(chunk):
-            packed, slot_map = pack_rows(piece)
-            packed = pad_rows_to_count(packed, lockstep.max(packed.input_ids.shape[0]))
-            vision = lockstep.vision(vision_for_packed(piece, slot_map, vision_cfg), vision_cfg)
-            ptb = to_device(PackedTrainBatch(*packed), device)
-            logp_rows = model(compute_packed_log_probs, ptb, vision_to_device(vision, device), **kw)[0]
-            outs.append(gather_response_values(logp_rows.float().cpu().numpy(), slot_map, r))
-        return np.concatenate(outs, axis=0)
+    r = batch.tensors["responses"].shape[1]
     for piece in batch.split(chunk):
-        tb = to_device(train_batch_views(piece), device)
-        vision = vision_to_device(lockstep.vision(_pack_vision(piece, vision_cfg), vision_cfg), device)
-        outs.append(model(compute_log_probs, tb, vision, **kw)[0].float().cpu().numpy())
+        count("pieces")
+        with span("pack"):
+            if padding_free:
+                packed, slot_map = pack_rows(piece)
+                packed = pad_rows_to_count(packed, lockstep.max(packed.input_ids.shape[0]))
+                vision = lockstep.vision(vision_for_packed(piece, slot_map, vision_cfg), vision_cfg)
+                host = PackedTrainBatch(*packed)
+            else:
+                host = train_batch_views(piece)
+                vision = lockstep.vision(_pack_vision(piece, vision_cfg), vision_cfg)
+            count("rows", len(host.input_ids))
+            count("patches", patch_count(piece))
+        tb, vision = copy_to_device(host, vision, device)
+        # the forward through its log-probs on the host: the piece's wait on the device
+        with span("forward"):
+            if padding_free:
+                logp_rows = model(compute_packed_log_probs, tb, vision, **kw)[0]
+                outs.append(gather_response_values(logp_rows.float().cpu().numpy(), slot_map, r))
+            else:
+                outs.append(model(compute_log_probs, tb, vision, **kw)[0].float().cpu().numpy())
     return np.concatenate(outs, axis=0)
 
 
@@ -345,6 +369,9 @@ def packed_micro_batches(mini: RolloutBatch, vision_cfg: VisionConfig, micro_row
         vision_for_packed(mini, slot_map, vision_cfg, row_lo=g * per, row_hi=(g + 1) * per)
         for g in range(n_micro)
     ]
+    count("micro_batches", n_micro)
+    count("rows", per * n_micro)
+    count("patches", patch_count(mini))
     return (PackedTrainBatch(*(micro_shape(x) for x in packed)),
             lockstep.vision(stack_vision_packs(packs, vision_cfg), vision_cfg, n_micro))
 
@@ -363,8 +390,9 @@ def update_actor_packed(
     metrics_acc: Dict[str, List[float]] = defaultdict(list)
     mini_bs = min(global_batch_size, len(batch))
     for mini in iter_minibatches(batch, mini_bs, ppo_epochs, 131, global_step):
-        ptb, vision = packed_micro_batches(mini, vision_cfg, micro_rows, lockstep)
-        metrics = packed_update_fn(to_device(ptb, device), vision_to_device(vision, device))
+        with span("pack"):
+            ptb, vision = packed_micro_batches(mini, vision_cfg, micro_rows, lockstep)
+        metrics = packed_update_fn(*copy_to_device(ptb, vision, device))
         for k, v in metrics.items():
             metrics_acc[k].append(float(v))
     return reduce_metrics(metrics_acc)
@@ -402,11 +430,15 @@ def update_actor(
     mini_bs = min(max(global_batch_size, 1), len(batch))
     n_micro = _fit_n_micro(mini_bs, max(micro_batch_size, 1))
     for mini in iter_minibatches(batch, mini_bs, ppo_epochs, 131, global_step):
-        tb = train_batch_views(mini)
-        micro_batches = to_device(TrainBatch(*(_reshape_micro(x, n_micro) for x in tb)), device)
-        packs = [_pack_vision(piece, vision_cfg) for piece in mini.split(len(mini) // n_micro)]
-        vision = (lockstep or Lockstep()).vision(stack_vision_packs(packs, vision_cfg), vision_cfg, n_micro)
-        for k, v in update_fn(micro_batches, vision_to_device(vision, device)).items():
+        with span("pack"):
+            tb = train_batch_views(mini)
+            micro_batches = TrainBatch(*(_reshape_micro(x, n_micro) for x in tb))
+            packs = [_pack_vision(piece, vision_cfg) for piece in mini.split(len(mini) // n_micro)]
+            vision = (lockstep or Lockstep()).vision(stack_vision_packs(packs, vision_cfg), vision_cfg, n_micro)
+            count("micro_batches", n_micro)
+            count("rows", len(mini))
+            count("patches", patch_count(mini))
+        for k, v in update_fn(*copy_to_device(micro_batches, vision, device)).items():
             metrics_acc[k].append(float(v))
     return reduce_metrics(metrics_acc)
 
@@ -539,7 +571,12 @@ class GRPOTrainer:
     ``host_offload_optimizer``), the tracker and the checkpoint manager.
     ``device`` is where the model lives (read from its parameters).
     ``prefill_dequant_min_m`` > 0 turns on the rollout copy's prefill-dequant
-    mode (``ops.quant.quantize_model``)."""
+    mode (``ops.quant.quantize_model``).
+
+    ``init_spans`` is the constructor's ``Timer`` (``init`` and the spans
+    inside it), ``step_spans`` the last ``train_step``'s (None before one):
+    ``fit`` logs each step's as the ``spans/`` family, and the constructor's
+    with its first step."""
 
     def __init__(
         self,
@@ -553,6 +590,14 @@ class GRPOTrainer:
         prefill_dequant_min_m: int = 0,
         mesh=None,
     ):
+        self.step_spans: Optional[Timer] = None
+        self.init_spans = Timer()
+        with self.init_spans.active(), self.init_spans("init"):
+            self._init(config, tokenizer, model, train_dataloader, val_dataloader, reward_fn,
+                       val_reward_fn, prefill_dequant_min_m, mesh)
+
+    def _init(self, config, tokenizer, model, train_dataloader, val_dataloader, reward_fn,
+              val_reward_fn, prefill_dequant_min_m, mesh):
         self.config = config
         self.tokenizer = tokenizer
         self.model = model
@@ -607,13 +652,15 @@ class GRPOTrainer:
         self.ref_model: Optional[Qwen25VL] = None
         self.ref_host = None
         if self.use_ref:
-            if self.ref_offload:  # several GPUs: each rank's own shards
-                self.ref_host = offload_to_host({n: local(t) for n, t in model.state_dict().items()})
-            elif self.mesh is not None:
-                self.ref_model = self._sharded_policy({n: local(p) for n, p in model.named_parameters()})
-            else:
-                self.ref_model = copy.deepcopy(model).requires_grad_(False)
-        # seconds and bytes of the last ref restore and streamed apply
+            with span("ref_copy"):
+                if self.ref_offload:  # several GPUs: each rank's own shards
+                    self.ref_host = offload_to_host({n: local(t) for n, t in model.state_dict().items()})
+                elif self.mesh is not None:
+                    self.ref_model = self._sharded_policy({n: local(p) for n, p in model.named_parameters()})
+                else:
+                    self.ref_model = copy.deepcopy(model).requires_grad_(False)
+        # bytes of the last ref restore and streamed apply, and their seconds
+        # (the ``ref/restore`` and ``update_actor/apply`` spans of the last step)
         self.host_state_stats: Dict[str, float] = {}
 
         actor = config.worker.actor
@@ -643,37 +690,39 @@ class GRPOTrainer:
             warmup_steps=int(opt_cfg.lr_warmup_ratio * max(opt_cfg.training_steps, 0)),
             use_kahan_summation=opt_cfg.use_kahan_summation,
         )
-        if self.stream_opt:
-            # AnyPrecision AdamW with host-resident bf16 moments, streamed
-            # through the card (trainer/streamed_opt.py)
-            if opt_cfg.strategy == "adamw":
-                logger.warning(
-                    "optim.stream=true always uses bf16-moment AnyPrecisionAdamW; "
-                    "optim.strategy='adamw' (fp32 moments) is ignored -- set "
-                    "strategy='adamw_bf16' to silence this"
-                )
-            self.optimizer = make_streamed_optimizer(opt_cfg.lr, **opt_kwargs)
-        else:
-            self.optimizer = make_optimizer(opt_cfg.lr, strategy=opt_cfg.strategy, **opt_kwargs)
-        # moments allocated now (on the card, or on the host under stream): the
-        # paged engine's pool is sized from what is free on the card once
-        # everything a run keeps there is there
-        self.optimizer.init(trainable_parameters(model, actor.model.freeze_vision_tower))
-        # host_offload_optimizer: the fused optimizer's state lives on the
-        # host except inside the update (the streamed one's always does)
-        self.offload_opt = sharding.host_offload_optimizer and not self.stream_opt
-        if self.offload_opt:
-            self.optimizer.state = offload_to_host(self.optimizer.state)
-        self.update_fn = make_update_fn(
-            model, self.optimizer, freeze_vision_tower=actor.model.freeze_vision_tower,
-            **update_kwargs,
-        )
-        self.padding_free = actor.padding_free
-        if self.padding_free:
-            self.packed_update_fn = make_packed_update_fn(
+        with span("optimizer"):
+            if self.stream_opt:
+                # AnyPrecision AdamW with host-resident bf16 moments, streamed
+                # through the card (trainer/streamed_opt.py)
+                if opt_cfg.strategy == "adamw":
+                    logger.warning(
+                        "optim.stream=true always uses bf16-moment AnyPrecisionAdamW; "
+                        "optim.strategy='adamw' (fp32 moments) is ignored -- set "
+                        "strategy='adamw_bf16' to silence this"
+                    )
+                self.optimizer = make_streamed_optimizer(opt_cfg.lr, **opt_kwargs)
+            else:
+                self.optimizer = make_optimizer(opt_cfg.lr, strategy=opt_cfg.strategy, **opt_kwargs)
+            # moments allocated now (on the card, or on the host under stream): the
+            # paged engine's pool is sized from what is free on the card once
+            # everything a run keeps there is there
+            self.optimizer.init(trainable_parameters(model, actor.model.freeze_vision_tower))
+            # host_offload_optimizer: the fused optimizer's state lives on the
+            # host except inside the update (the streamed one's always does)
+            self.offload_opt = sharding.host_offload_optimizer and not self.stream_opt
+            if self.offload_opt:
+                self.optimizer.state = offload_to_host(self.optimizer.state)
+        with span("update_fns"):
+            self.update_fn = make_update_fn(
                 model, self.optimizer, freeze_vision_tower=actor.model.freeze_vision_tower,
                 **update_kwargs,
             )
+            self.padding_free = actor.padding_free
+            if self.padding_free:
+                self.packed_update_fn = make_packed_update_fn(
+                    model, self.optimizer, freeze_vision_tower=actor.model.freeze_vision_tower,
+                    **update_kwargs,
+                )
 
         self.critic: Optional[Critic] = None
         if self.use_critic:
@@ -1043,11 +1092,13 @@ class GRPOTrainer:
         if not self.offload_opt:
             return self._update_actor_inner(batch)
         host = self.optimizer.state
-        self.optimizer.state = restore_from_host(host)
+        with span("opt_restore"):
+            self.optimizer.state = restore_from_host(host)
         try:
             return self._update_actor_inner(batch)
         finally:
-            self.optimizer.state = offload_to_host(self.optimizer.state, into=host)
+            with span("opt_offload"):
+                self.optimizer.state = offload_to_host(self.optimizer.state, into=host)
 
     def _update_actor_inner(self, batch: RolloutBatch) -> Dict[str, float]:
         actor = self.config.worker.actor
@@ -1063,9 +1114,10 @@ class GRPOTrainer:
                 batch, self.update_fn, self.model_cfg.vision,
                 micro_batch_size=actor.micro_batch_size_per_device_for_update, **common)
         if self.stream_opt:
-            self.host_state_stats.update(
-                apply_s=self.optimizer.last_apply_s,
-                apply_bytes_each_way=self.optimizer.last_apply_stats.get("measured_bytes", 0))
+            self.host_state_stats["apply_bytes_each_way"] = self.optimizer.last_apply_stats.get("measured_bytes", 0)
+            timer = current_timer()
+            if timer is not None:
+                self.host_state_stats["apply_s"] = timer.seconds(timer.path("apply"))
         return metrics
 
     def ref_policy(self) -> Qwen25VL:
@@ -1073,14 +1125,15 @@ class GRPOTrainer:
         into a new module for this call; the caller drops it afterwards."""
         if self.ref_host is None:
             return self.ref_model
-        t0 = time.perf_counter()
-        if self.mesh is not None:
-            ref = self._sharded_policy(host_view(self.ref_host))
-        else:
-            ref = Qwen25VL(self.model_cfg, device="meta", dtype=self.model.text.norm.weight.dtype)
-            ref.load_state_dict(restore_from_host(self.ref_host), assign=True)
-        self.host_state_stats.update(ref_restore_s=time.perf_counter() - t0,
-                                     ref_restore_bytes=host_bytes(self.ref_host))
+        with span("restore") as restore:
+            if self.mesh is not None:
+                ref = self._sharded_policy(host_view(self.ref_host))
+            else:
+                ref = Qwen25VL(self.model_cfg, device="meta", dtype=self.model.text.norm.weight.dtype)
+                ref.load_state_dict(restore_from_host(self.ref_host), assign=True)
+        self.host_state_stats["ref_restore_bytes"] = host_bytes(self.ref_host)
+        if restore is not None:
+            self.host_state_stats["ref_restore_s"] = restore.seconds
         return ref.requires_grad_(False)
 
     # ------------------------------------------------------------------- fit
@@ -1098,6 +1151,7 @@ class GRPOTrainer:
             if cfg.trainer.val_only:
                 return
 
+        init_spans = self.init_spans.flat()  # the constructor's, logged with the first step
         for _ in range(cfg.trainer.total_episodes):
             for batch in self.train_dataloader:
                 if self.global_step >= total_steps:
@@ -1106,7 +1160,8 @@ class GRPOTrainer:
                 with maybe_trace(cfg.trainer.profile_dir, self.global_step,
                                  tuple(cfg.trainer.profile_steps)):
                     metrics = self.train_step(batch)
-                self.tracker.log(metrics, self.global_step)
+                self.tracker.log({**metrics, **self.step_spans.flat(), **init_spans}, self.global_step)
+                init_spans = {}
 
                 if cfg.trainer.val_freq > 0 and self.global_step % cfg.trainer.val_freq == 0 \
                         and self.val_dataloader is not None:
@@ -1126,9 +1181,12 @@ class GRPOTrainer:
     # ------------------------------------------------------------- train step
 
     def train_step(self, batch: RolloutBatch) -> Dict[str, float]:
-        timer = Timer()
+        """One GRPO step on ``batch``'s prompts; its metrics. The step's spans
+        and counters are kept as ``step_spans``, not among the metrics."""
+        timer = Timer(step=self.global_step)
+        self.step_spans = timer
         roll = self.config.worker.rollout
-        with timer("step"):
+        with timer.active():
             # uid per prompt BEFORE repeat: grouping survives any reordering
             batch.non_tensors["uid"] = _obj([str(uuid.uuid4()) for _ in range(len(batch))])
 
@@ -1226,15 +1284,18 @@ class GRPOTrainer:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
 
+        timer.timing["step"] = timer.end - timer.start
         # the logged numbers are the union of the ranks' rows, as JAX's global arrays
-        patches = [0 if p is None else len(p) for p in rolled.non_tensors.get("patches", [])]
-        rolled = self._global_rows(rolled, patch_count=np.asarray(patches or [0] * len(rolled)))
+        image_patches = [int(np.prod(thw)) for grid in rolled.non_tensors.get("image_grid_thw", ())
+                         if grid is not None for thw in np.reshape(grid, (-1, 3))]
+        if self.mesh is not None:
+            image_patches = [n for part in allgather_pyobj(image_patches, self.groups.batch) for n in part]
+        rolled = self._global_rows(rolled)
         num_tokens = int(rolled.tensors["response_mask"].sum() + rolled.tensors["segment_ids"].sum())
         seqlens_all = rolled.tensors["full_segment_ids"].sum(-1).astype(np.int64).tolist()
-        vision_patches = float(rolled.tensors["patch_count"].sum())
         mfu = compute_mfu(
             self.flops_counter, seqlens_all, timer.timing["update_actor"], self.world,
-            self.config.worker.actor.ppo_epochs, vision_patches=vision_patches,
+            self.config.worker.actor.ppo_epochs, image_patches=image_patches,
         )
         drift = not roll.use_rollout_log_probs and "rollout_log_probs" in rolled.tensors
         return {

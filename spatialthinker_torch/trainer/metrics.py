@@ -1,11 +1,11 @@
 """Training metrics (the port's own copy of
 ``spatialthinker_tpu/trainer/metrics.py``; parity: verl/trainer/metrics.py:23-120,
-same metric names so dashboards transfer). Host code on numpy arrays."""
+same metric names so dashboards transfer). Host code on numpy arrays. The
+section timer (the JAX package's ``Timer``) is the port's span recorder,
+``utils/spans.py``."""
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
 from typing import Dict, List
 
 import numpy as np
@@ -96,18 +96,3 @@ def compute_throughput_metrics(
         "perf/time_per_step": step_time,
         "perf/throughput": total_tokens / max(step_time * n_chips, 1e-9),
     }
-
-
-class Timer:
-    """Section timing accumulated into a dict (reference's codetiming usage)."""
-
-    def __init__(self):
-        self.timing: Dict[str, float] = {}
-
-    @contextmanager
-    def __call__(self, name: str):
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.timing[name] = time.perf_counter() - start

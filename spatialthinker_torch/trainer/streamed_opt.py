@@ -31,7 +31,6 @@ rank pins and streams the moments of its own parameter shards only
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple, TypedDict
 
 import torch
@@ -77,7 +76,6 @@ class StreamedAdamW:
         self.layer_chunk = layer_chunk
         self.state: StreamedAdamWState = {"count": 0, "mu": {}, "nu": {}, "compensation": {}}
         self.last_apply_stats: Dict[str, int] = {}
-        self.last_apply_s = 0.0  # wall seconds of the last step, copies included
 
     def init(self, named_params: Iterable[Tuple[str, torch.Tensor]]) -> None:
         """Allocate the host moments (and compensation) of every named
@@ -114,7 +112,6 @@ class StreamedAdamW:
         ``last_apply_stats`` but skipped, so their rows do not move."""
         if not finite:
             return
-        t0 = time.perf_counter()
         state = self.state
         count_prev = int(state["count"])
         count = count_prev + 1
@@ -154,7 +151,6 @@ class StreamedAdamW:
         if any(p.is_cuda for p in grads.values()):
             torch.cuda.current_stream().synchronize()
         state["count"] = count
-        self.last_apply_s = time.perf_counter() - t0
         self.last_apply_stats = {"measured_slices": measured_slices,
                                  "measured_bytes": measured_bytes, "total_bytes": total_bytes}
 

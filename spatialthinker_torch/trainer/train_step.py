@@ -61,6 +61,7 @@ from ..ops.logprobs import log_probs_from_hidden
 from ..ops.ulysses import all_gather_seq, seq_chunk
 from ..parallel.sharding import is_sharded, local
 from ..parallel.tensor import split_of
+from ..utils.spans import span
 from .optim import AdamW, make_schedule
 
 
@@ -367,7 +368,12 @@ def _make_grad_fn(model: Qwen25VL, loss_fn: Callable, *, max_grad_norm: float = 
     def grad_step(micro_batches, vision=None):
         """micro_batches: a batch tuple with a leading (n_micro,) dim on every
         tensor; ``vision``, when present, a ``VisionInputs`` stacked the same
-        way. Returns (grads by parameter name, metrics, finite, factor)."""
+        way. Returns (grads by parameter name, metrics, finite, factor). The
+        ``grad`` span ends at the norm's host read, which waits for the loop."""
+        with span("grad"):
+            return accumulate(micro_batches, vision)
+
+    def accumulate(micro_batches, vision):
         named = trainable_parameters(model, freeze_vision_tower)
         frozen = [p for n, p in model.named_parameters()
                   if freeze_vision_tower and n.startswith("vision.") and p.requires_grad]
@@ -458,8 +464,9 @@ def apply_optimizer_step(optimizer: AdamW, grads, model: Qwen25VL, *, finite: bo
     in place. A non-finite norm leaves parameters, moments and count
     untouched. A frozen vision tower never enters the apply, so weight decay
     cannot move it: it stays exactly as it was."""
-    optimizer.step(trainable_parameters(model, freeze_vision_tower), grads,
-                   finite=finite, grad_scale=grad_scale)
+    with span("apply"):
+        optimizer.step(trainable_parameters(model, freeze_vision_tower), grads,
+                       finite=finite, grad_scale=grad_scale)
 
 
 def make_update_fn(model: Qwen25VL, optimizer: AdamW, *, freeze_vision_tower: bool = False,

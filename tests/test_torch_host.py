@@ -170,7 +170,8 @@ def test_qwen_synthetic_tokenizer_uses_the_config_ids():
     "spatialthinker_torch.trainer.metrics", "spatialthinker_torch.trainer.tracker",
     "spatialthinker_torch.trainer.checkpoint", "spatialthinker_torch.trainer.grpo_trainer",
     "spatialthinker_torch.trainer.main", "spatialthinker_torch.trainer.streamed_opt",
-    "spatialthinker_torch.parallel.offload", "chip_smoke", "profile_rollout", "time_flash", "time_w8a8",
+    "spatialthinker_torch.parallel.offload", "spatialthinker_torch.utils.spans", "chip_smoke", "profile_rollout",
+    "profile_spans", "time_flash", "time_w8a8",
     "time_paged", "time_decode", "time_silu", "time_int4_mlp", "paged_cases",
 ])
 def test_port_imports_no_jax(module):
@@ -186,15 +187,15 @@ def test_port_imports_no_jax(module):
 
 def test_no_source_line_of_the_port_imports_jax_or_the_jax_package():
     """The same pinned in the sources: no ``import`` / ``from`` line of the
-    package, of ``chip_smoke.py``, ``profile_rollout.py`` or the timing scripts names jax or
-    ``spatialthinker_tpu`` (a lazy import inside a function would slip past
-    the module-import check above)."""
+    package, of ``chip_smoke.py``, the profiling scripts or the timing
+    scripts names jax or ``spatialthinker_tpu`` (a lazy import inside a
+    function would slip past the module-import check above)."""
     import re
 
     pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|spatialthinker_tpu)\b")
     files = [os.path.join(REPO, name) for name in
-             ("chip_smoke.py", "profile_rollout.py", "time_flash.py", "time_w8a8.py", "time_paged.py",
-              "time_decode.py", "time_silu.py", "time_int4_mlp.py", "paged_cases.py")]
+             ("chip_smoke.py", "profile_rollout.py", "profile_spans.py", "time_flash.py", "time_w8a8.py",
+              "time_paged.py", "time_decode.py", "time_silu.py", "time_int4_mlp.py", "paged_cases.py")]
     for root, dirs, names in os.walk(os.path.join(REPO, "spatialthinker_torch")):
         dirs[:] = [d for d in dirs if d != "build"]  # csrc/build holds build outputs, not sources
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

@@ -109,6 +109,9 @@ def test_fit_two_steps(tmp_path):
                 "timing_s/old", "timing_s/ref", "rollout/probs_diff_mean", "perf/max_memory_allocated_gb"):
         assert key in last and np.isfinite(last[key]), key
     assert last["rollout/probs_diff_mean"] < 1e-3  # same weights, bf16 cache against the fp32 forward
+    assert last["spans/update_actor/grad_calls"] == 1 and last["spans/old/pack_s"] > 0  # the step's spans
+    # the constructor's spans, with the first step only
+    assert logged[1]["spans/init_s"] >= logged[1]["spans/init/ref_copy_s"] > 0 and "spans/init_s" not in last
     assert _sums(trainer.model) != before and _sums(trainer.ref_model) == ref_before
     records = [json.loads(line) for line in
                open(f"{tmp_path}/ckpt/{cfg.trainer.experiment_name}_metrics.jsonl")]

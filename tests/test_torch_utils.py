@@ -6,7 +6,8 @@ the ``DataLoader`` (order, prefetch threads, ``state_dict`` resume, ``load_rows`
 on a jsonl file), ``repeat`` / ``reorder`` / ``unpad`` /
 ``trim_response_padding``, ``compute_data_metrics`` and the timing / throughput
 metrics, the tracker's jsonl backend, the checkpoint directory contract, the
-flops counter (same FLOPs, the H100's dense bf16 peak) and ``maybe_trace``.
+flops counter (a hand count at the tiny preset, the JAX package's count for one
+image, the H100's dense bf16 peak) and ``maybe_trace``.
 """
 
 import json
@@ -161,13 +162,28 @@ def test_data_timing_and_throughput_metrics_equal(with_drift):
 
 
 def test_flops_counter_counts_alike_against_the_h100_peak():
+    """The count at the tiny preset against a hand count (text E 64, I 128,
+    2 layers, 4 / 2 heads of 16, vocab 1,024; vision E 32, I 64, 2 blocks of
+    which 1 full, windows of 8 x 8 patches, 1,176 values a patch, merge unit
+    4): each image's attention stays inside it. The JAX package's counter
+    takes a batch's patches as one image, so it gives the same count for one
+    image and for text alone, and a larger one for several images."""
     ours, ref = tf.FlopsCounter(qwen25_vl_tiny(), "cpu"), jf.FlopsCounter(jax_tiny())
-    lens = [100, 37, 512]
-    achieved, promised = ours.estimate_flops(lens, 2.0, vision_patches=64.0)
-    assert achieved == ref.estimate_flops(lens, 2.0, vision_patches=64.0)[0]
+    lens, images = [100, 37, 512], [16, 100]
+    for patches in ([64], []):
+        assert ours.estimate_flops(lens, 2.0, image_patches=patches)[0] == pytest.approx(
+            ref.estimate_flops(lens, 2.0, vision_patches=float(sum(patches)))[0], rel=1e-12)
+    achieved, promised = ours.estimate_flops(lens, 2.0, image_patches=images)
+    text = sum(lens) * (2 * 2 * (64 * 64 + 2 * 64 * 32 + 64 * 64 + 3 * 64 * 128) + 2 * 64 * 1024) \
+        + 2 * 4 * 4 * 16 * sum(s * s for s in lens)
+    vision = sum(images) * (2 * 2 * (32 * 96 + 32 * 32 + 3 * 32 * 64) + 2 * (4 * 32 * 32 + 32 * 64)
+                            + 2 * 1176 * 32) \
+        + 4 * 32 * (16 * (16 + 16) + 100 * (64 + 100))  # window block min(64, n), full block n
+    assert achieved == pytest.approx((text + vision) / 2.0 / 1e12, rel=1e-12)
+    assert ref.estimate_flops(lens, 2.0, vision_patches=float(sum(images)))[0] > achieved
     assert promised == 1.0  # the CPU's nominal figure keeps MFU finite in tests
     assert tf.device_peak_flops("NVIDIA H100 80GB HBM3") == 989e12
-    assert tf.compute_mfu(ours, lens, 2.0, 1, ppo_epochs=2, vision_patches=64.0) == achieved * 3 * 2 / promised
+    assert tf.compute_mfu(ours, lens, 2.0, 1, ppo_epochs=2, image_patches=images) == achieved * 3 * 2 / promised
 
 
 def test_tracker_checkpoint_contract_and_profiling(tmp_path):
