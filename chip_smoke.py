@@ -31,7 +31,10 @@ non-zero without a device. In order:
    the segment ids its first micro-batch gave them (packed text rows, the
    vision pack of that micro-batch's images as one sequence and as windows)
    and on the inputs of its first log-prob vision call (``record_call``: the
-   16 images of a piece as one sequence),
+   first full-attention block of the old log-probs' first piece, its 2
+   distinct images as one sequence), and on hand-made segment ids at the
+   shapes the packs had while they held an image once a sample (16 images in
+   32,768 slots, forward; 8 in 16,384, forward and backward),
    timed beside SDPA and its backward, with the share of tile pairs each
    direction runs and two backward calls that must agree bit for bit; the int4 MLP kernels (gate_up + silu, down) at m = 136,
    128 and 8 rows of the 3B widths, timed beside ``torch._int_mm`` on the
@@ -397,10 +400,12 @@ def cut_depth(cfg, layers: int = TRAIN_LAYERS):
 
 
 
-# A log-prob piece of 16 samples runs the vision tower over their 16 images as
-# one sequence (32,768 slots); its full-attention forward is recorded in path d
-# as the first vision call of at least this many slots.
-LOGPROB_VISION_MIN_SLOTS = 20000
+# Path d's first log-prob piece of 16 samples (2 prompts x n 8) runs the vision
+# tower over its 2 distinct images as one sequence; before the training packs
+# held each image once, a piece held its 16 samples' copies in 32,768 slots and
+# an update micro-batch 8 in 16,384. Those shapes are kept as hand-made cases
+# (``repeated_image_cases``): (slots, images of 34 x 46 patches, backward too).
+REPEATED_IMAGE_SHAPES = ((32768, 16, False), (16384, 8, True))
 # Path f: the dense engine over an int8 cache differs from path b's engine only
 # in the KV format (8 bits instead of 4), so its drift from the trainer's own
 # log-probs may exceed path b's measured probs_diff by at most this much.
@@ -776,6 +781,42 @@ def synthetic_training_cases(cfg):
     seg_win[-3:, wlen // 2 :] = 0   # edge windows padded in place
     seg_win[-1] = 0                 # a whole padding window
     return training_cases(cfg, "synthetic", seg_text, seg_full, seg_win)
+
+
+def repeated_image_cases(dev, cfg):
+    """The vision tower's attention at the shapes the training packs had while
+    they held an image once a sample (``REPEATED_IMAGE_SHAPES``): images of
+    34 x 46 patches one after another, then padding, as one sequence; where
+    marked also as windows and through the backward (``check_flash_training``),
+    else the forward alone, head by head against its plain version (the
+    32,768-slot one does not fit at once). Returns (forward, range,
+    pre-pass, dQ, dK/dV) results."""
+    vc = cfg.vision
+    wlen = window_patch_len(vc)
+    vis = (vc.num_heads, vc.num_heads, vc.head_dim)
+    rng = np.random.default_rng(9)
+    fwd, ranges, with_bwd = [], [], []
+    for slots, images, backward in REPEATED_IMAGE_SHAPES:
+        seg = np.zeros((1, slots), np.int32)
+        for i in range(images):
+            seg[0, i * 1564:(i + 1) * 1564] = i + 1
+        name = f"repeated_{images}_images_vision_full_{slots}"
+        if backward:
+            seg_win = np.ones((slots // wlen, wlen), np.int32)
+            seg_win[-3:, wlen // 2:] = 0  # edge windows padded in place
+            seg_win[-1] = 0               # a whole padding window
+            with_bwd += [(name, vis, seg, False),
+                         (f"repeated_{images}_images_vision_window_{slots}", vis, seg_win, False)]
+            continue
+        seg_t = torch.from_numpy(seg).to(dev)
+        q, k, v = (randn_bf16(rng, dev, 1, slots, vc.num_heads, vc.head_dim) for _ in range(3))
+        case, rng_case = flash_fwd_case(name, q, k, v, seg_t, seg_t, False, 0, by_head=True, plain_iters=2)
+        fwd.append(case)
+        ranges.append(rng_case)
+        del q, k, v
+        torch.cuda.empty_cache()
+    bwd_fwd, prep, dq, dkv = check_flash_training(dev, with_bwd)
+    return fwd + bwd_fwd, ranges, prep, dq, dkv
 
 
 def training_cases(cfg, prefix, seg_text, seg_full, seg_win, text_form="text_packed_rows"):
@@ -1612,16 +1653,19 @@ def training_path(dev, model, qmodel_holder, host, paged_kw, card):
             generator=torch.Generator(device=dev).manual_seed(20 + len(steps)), **paged_kw)
         qmodel_holder["model"] = None  # free the int8 copy and the pools before the update
         torch.cuda.empty_cache()
+        after_rollout[0] = True  # the next full-attention vision call is the old log-probs' first
         return out
 
     steps = []
+    after_rollout = [False]
     score_rng = np.random.default_rng(11)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     rolled = None
+    full_vision = _is_vision_call(cfg, False)
     logprob_vision = record_call(fa, "flash_attention", 0,
-                                 when=lambda q, *a, **kw: q.shape[1] >= LOGPROB_VISION_MIN_SLOTS)
+                                 when=lambda *a, **kw: after_rollout[0] and full_vision(*a, **kw))
     with forbid_plain_versions(), logprob_vision as logprob_call:
         for step in range(1, GRPO_STEPS + 1):
             before = read_counts()
@@ -2086,11 +2130,12 @@ def earlier_paths(dev, card, cfg) -> dict:
         rec["kwargs"]["causal_offset"], by_head=True, plain_iters=2)
     del rec, q, k, v, q_seg, kv_seg
     torch.cuda.empty_cache()
-    flash_cases += path_fwd + synth_fwd + [logprob_fwd]
-    range_cases.append(logprob_ranges)
-    prep_cases += synth_prep
-    dq_cases += synth_dq
-    dkv_cases += synth_dkv
+    rep_fwd, rep_ranges, rep_prep, rep_dq, rep_dkv = repeated_image_cases(dev, cfg)
+    flash_cases += path_fwd + synth_fwd + [logprob_fwd] + rep_fwd
+    range_cases += [logprob_ranges] + rep_ranges
+    prep_cases += synth_prep + rep_prep
+    dq_cases += synth_dq + rep_dq
+    dkv_cases += synth_dkv + rep_dkv
 
     return dict(
         flash_cases=flash_cases, range_cases=range_cases, prep_cases=prep_cases, dq_cases=dq_cases,

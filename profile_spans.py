@@ -11,7 +11,9 @@ answered from the generator's units) and drives its ``REFERENCE_STEPS``
 warm-up steps (every shape of the cell; nothing is compared with the
 reference). Then ``--units`` units, each read from ``trainer.step_spans``:
 seconds, self seconds and calls by span, the counters, ``pack_s`` (the
-``*/pack`` spans), ``h2d_s`` (the ``*/h2d`` spans) and the copies' GB/s.
+``*/pack`` spans), ``h2d_s`` (the ``*/h2d`` spans), the copies' GB/s and
+each phase's ``distinct_patches / patches`` (the share of the samples'
+patch rows its vision packs hold, each image once a pack).
 Then one more unit under ``torch.profiler``: the card's busy and idle
 seconds inside it, the idle seconds by the innermost ``st/`` span around
 them, ``pack_idle_s`` (the idle seconds inside ``st/*/pack`` or
@@ -58,16 +60,21 @@ HOST = ("pack", "h2d")  # the spans of the host's packing and copies
 
 def unit_record(timer: Timer) -> dict:
     """A step's record: seconds, self seconds and calls by span, counters,
-    the packing's and the copies' seconds and the copies' GB/s."""
+    the packing's and the copies' seconds, the copies' GB/s, and by phase
+    the patch rows its packs hold over the samples' (none where the
+    program does not count them)."""
     paths = dict.fromkeys(s.path for s in timer.spans)
     spans = {p: {"s": timer.seconds(p), "self_s": timer.self_seconds(p), "calls": timer.calls(p)}
              for p in paths}
     pack_s = sum(v["s"] for p, v in spans.items() if p.rsplit("/", 1)[-1] == "pack")
     h2d_s = sum(v["s"] for p, v in spans.items() if p.rsplit("/", 1)[-1] == "h2d")
     h2d_bytes = sum(v for k, v in timer.counters.items() if k.endswith("/h2d/bytes"))
+    held = {k[:-len("/distinct_patches")]: v for k, v in timer.counters.items() if k.endswith("/distinct_patches")}
+    distinct_share = {p.split("/")[0]: v / timer.counters[f"{p}/patches"]
+                      for p, v in held.items() if timer.counters.get(f"{p}/patches")}
     return {"step_s": timer.end - timer.start, "spans": spans, "counters": dict(timer.counters),
             "pack_s": pack_s, "h2d_s": h2d_s, "h2d_bytes": h2d_bytes,
-            "h2d_gb_s": h2d_bytes / h2d_s / 1e9 if h2d_s > 0 else None}
+            "h2d_gb_s": h2d_bytes / h2d_s / 1e9 if h2d_s > 0 else None, "distinct_share": distinct_share}
 
 
 def busy_and_gaps(device: Sequence[Tuple[int, int]], w0: int, w1: int) -> Tuple[int, List[Tuple[int, int]]]:
@@ -245,7 +252,9 @@ def main(argv=None) -> int:
     for i, u in enumerate(res["units"] + [res["traced"]["record"]]):
         name = "traced" if i == len(res["units"]) else f"unit {i}"
         print(f"{name}: step {u['step_s']:.3f} s, pack_s {u['pack_s']:.3f} s, h2d_s {u['h2d_s']:.3f} s "
-              f"({u['h2d_bytes'] / 1e9:.3f} GB, {u['h2d_gb_s'] or float('nan'):.2f} GB/s); "
+              f"({u['h2d_bytes'] / 1e9:.3f} GB, {u['h2d_gb_s'] or float('nan'):.2f} GB/s), "
+              "distinct_patches / patches "
+              + (", ".join(f"{p} {v:.4f}" for p, v in u["distinct_share"].items()) or "not counted") + "; "
               "by span (s / self s / calls): "
               + ", ".join(f"{p} {v['s']:.3f}/{v['self_s']:.3f}/{v['calls']}" for p, v in u["spans"].items()))
     s = res["traced"]["summary"]

@@ -1,7 +1,8 @@
 """Pack per-sample vision patches into one static-shape ``VisionInputs`` for
 the batch, with bucketed padding. A copy of
 ``spatialthinker_tpu/data/packing.py``, unchanged in behaviour (that module
-imports the JAX model package)."""
+imports the JAX model package), plus ``pack_distinct_vision_batch``, the
+training path's pack that holds an image its samples share once."""
 
 from __future__ import annotations
 
@@ -55,6 +56,53 @@ def pack_vision_batch(
     )
 
 
+def distinct_images(patch_arrays: Sequence[Optional[np.ndarray]],
+                    grid_arrays: Sequence[Optional[np.ndarray]]):
+    """The samples' distinct image entries, in order of first use, as
+    ``(patches, grid)`` pairs (the grid a tuple of ``(t, h, w)`` rows), and
+    each sample with an image's index into them. One entry is one
+    ``patches`` array object under one grid: samples that share the object
+    share the entry, an equal copy in another object is an entry of its own."""
+    slot_of, distinct, uses = {}, [], []
+    for p, g in zip(patch_arrays, grid_arrays):
+        if p is None or g is None or len(g) == 0:
+            continue
+        grid = tuple(tuple(int(v) for v in row) for row in np.asarray(g))
+        slot = slot_of.setdefault((id(p), grid), len(distinct))
+        if slot == len(distinct):
+            distinct.append((p, grid))
+        uses.append(slot)
+    return distinct, uses
+
+
+def pack_distinct_vision_batch(
+    patch_arrays: Sequence[Optional[np.ndarray]],
+    grid_arrays: Sequence[Optional[np.ndarray]],
+    cfg: VisionConfig,
+    granularity: int = 1024,
+    pad_to: Optional[int] = None,
+) -> Optional[VisionInputs]:
+    """``pack_vision_batch`` with each distinct image entry laid out once.
+    Samples whose ``patches`` entry is one array object, with equal grids,
+    share its slots (GRPO's ``n`` samples of a prompt hold one object); the
+    pack lays the distinct entries out in order of first use, under the same
+    layout, bucketing and ``pad_to`` rules. ``reverse_index`` has one entry
+    per merged image token of the samples, in order, repeats included, so
+    the tower runs once per image and the merge is unchanged (its
+    ``index_select`` backward sums the samples' gradients); padded to a
+    whole bucket of its own, never narrower than the patch width over the
+    merge unit. With no entry repeated this is ``pack_vision_batch``'s pack."""
+    distinct, uses = distinct_images(patch_arrays, grid_arrays)
+    pack = pack_vision_batch([p for p, _ in distinct], [g for _, g in distinct], cfg, granularity, pad_to)
+    if len(distinct) == len(uses):
+        return pack
+    merged = [sum(t * h * w for t, h, w in g) // cfg.spatial_merge_unit for _, g in distinct]
+    start = np.concatenate([[0], np.cumsum(merged)])
+    reverse = np.concatenate([pack.reverse_index[start[s]:start[s + 1]] for s in uses])
+    width = max(bucket_size(len(reverse), granularity), pack.patches.shape[0] // cfg.spatial_merge_unit)
+    return pack._replace(reverse_index=np.pad(reverse, (0, width - len(reverse))))
+
+
 def empty_vision_pack(cfg: VisionConfig, pad_to: int, patch_dim: int) -> VisionInputs:
     """All-padding vision pack (segment id 0 everywhere) for text-only
     micro-batches that must stack with multimodal ones."""
@@ -68,6 +116,12 @@ def empty_vision_pack(cfg: VisionConfig, pad_to: int, patch_dim: int) -> VisionI
     )
 
 
+def held_patch_count(vision: Optional[VisionInputs]) -> int:
+    """The patch rows a vision pack (or a stack of them) holds, bucket and
+    window padding left out: each image once a pack."""
+    return 0 if vision is None else int(np.count_nonzero(vision.seg_full))
+
+
 def patch_dim(cfg: VisionConfig) -> int:
     return cfg.in_channels * cfg.temporal_patch_size * cfg.patch_size * cfg.patch_size
 
@@ -75,28 +129,22 @@ def patch_dim(cfg: VisionConfig) -> int:
 def stack_vision_packs(packs: Sequence[Optional[VisionInputs]],
                        cfg: VisionConfig) -> Optional[VisionInputs]:
     """Stack per-micro-batch packs into arrays with a leading micro-batch
-    dim, all padded to the widest pack. Returns None if no pack has any image."""
-    if all(p is None for p in packs):
+    dim, all padded to the widest pack, ``reverse_index`` to the widest
+    ``reverse_index``; a None pack is all padding (``empty_vision_pack``).
+    Returns None if no pack has any image."""
+    present = [p for p in packs if p is not None]
+    if not present:
         return None
-    sizes = [p.patches.shape[0] for p in packs if p is not None]
-    pad_to = max(sizes)
-    dim = next(p.patches.shape[1] for p in packs if p is not None)
-    fixed = []
-    for p in packs:
-        if p is None:
-            fixed.append(empty_vision_pack(cfg, pad_to, dim))
-        elif p.patches.shape[0] != pad_to:
-            grow = pad_to - p.patches.shape[0]
-            merged_grow = pad_to // cfg.spatial_merge_unit - p.reverse_index.shape[0]
-            fixed.append(
-                VisionInputs(
-                    patches=np.pad(p.patches, ((0, grow), (0, 0))),
-                    pos_ids=np.pad(p.pos_ids, ((0, grow), (0, 0))),
-                    seg_full=np.pad(p.seg_full, (0, grow)),
-                    seg_window=np.pad(p.seg_window, (0, grow)),
-                    reverse_index=np.pad(p.reverse_index, (0, merged_grow)),
-                )
-            )
-        else:
-            fixed.append(p)
-    return VisionInputs(*(np.stack([getattr(p, f) for p in fixed]) for f in VisionInputs._fields))
+    pad_to = max(p.patches.shape[0] for p in present)
+    rev_to = max(p.reverse_index.shape[0] for p in present)
+    out = []
+    for field in VisionInputs._fields:
+        parts = [getattr(p, field) for p in present]
+        width = rev_to if field == "reverse_index" else pad_to
+        stacked = np.zeros((len(packs), width, *parts[0].shape[1:]), np.result_type(*parts))
+        for i, p in enumerate(packs):
+            if p is not None:
+                x = getattr(p, field)
+                stacked[i, :len(x)] = x
+        out.append(stacked)
+    return VisionInputs(*out)

@@ -29,7 +29,7 @@ class VisionInputs(NamedTuple):
     pos_ids: Any        # (N, 2)
     seg_full: Any       # (N,)
     seg_window: Any     # (N,)
-    reverse_index: Any  # (N/unit,)
+    reverse_index: Any  # (R,): N/unit, or more where a training pack repeats a shared image's slots
 
 
 def get_mrope_position_ids(

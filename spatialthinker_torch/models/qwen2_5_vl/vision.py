@@ -134,10 +134,14 @@ def vision_forward(
     pos_ids: torch.Tensor,        # (N, 2)
     seg_full: torch.Tensor,       # (N,)
     seg_window: torch.Tensor,     # (N,)
-    reverse_index: torch.Tensor,  # (N/unit,)
+    reverse_index: torch.Tensor,  # (R,): R = N/unit, or more where slots repeat
     remat: Union[bool, str] = False,
 ) -> torch.Tensor:
-    """Returns merged vision embeddings (N/unit, out_hidden) in natural order.
+    """Returns merged vision embeddings (R, out_hidden) in natural order: row
+    r is merge unit ``reverse_index[r]``, so an image that several samples
+    share (``pack_distinct_vision_batch``) runs once and is gathered once a
+    sample; the gather is in fp32, so its backward sums those samples'
+    gradients in fp32.
     ``remat`` checkpoints every block as the text decoder's layers are
     (``text.checkpointed``: "full" keeps block inputs, "dots" and True also
     the weight products). The JAX tower applies its "dots" policy whenever
@@ -167,4 +171,4 @@ def vision_forward(
     x = m.ln_q(x)
     x = x.reshape(n // cfg.spatial_merge_unit, cfg.spatial_merge_unit * e)
     x = row_parallel(m.fc2, F.gelu(m.fc1(copy_to_tp(x, tower.tp)), approximate="none"), tower.tp)
-    return x.index_select(0, reverse_index.long())
+    return x.float().index_select(0, reverse_index.long()).to(x.dtype)

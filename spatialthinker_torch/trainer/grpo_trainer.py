@@ -10,7 +10,7 @@ moved" is plain functions that the class calls with what it holds:
     rollout_batch_from_result   engine result -> RolloutBatch with full sequences
     train_batch_views           RolloutBatch -> TrainBatch (host arrays)
     pack_rows                   first-fit-decreasing packing, the trainer's row length rule
-    vision_for_packed           vision pack in the packed rows' image order
+    vision_for_packed           vision pack in the packed rows' image order, each image once
     copy_to_device              a batch and its vision pack to the card (the ``h2d`` span)
     compute_log_probs_batched   old / ref log-probs in experience-sized pieces
     compute_advantages          the five estimators, groups from uid strings
@@ -83,7 +83,10 @@ from ..algos.kl_controller import get_kl_controller
 from ..algos.losses import compute_kl
 from ..core.batch import RolloutBatch, trim_prompt_padding, trim_response_padding
 from ..core.config import PPOConfig
-from ..data.packing import empty_vision_pack, pack_vision_batch, patch_dim, stack_vision_packs
+from ..data.packing import (
+    distinct_images, empty_vision_pack, held_patch_count, pack_distinct_vision_batch, pack_vision_batch,
+    patch_dim, stack_vision_packs,
+)
 from ..data.text_packing import (
     PackedRows, SlotMap, gather_response_values, pack_train_rows, pad_rows_to_count,
 )
@@ -214,11 +217,21 @@ def patch_count(batch: RolloutBatch) -> int:
     return sum(len(p) for p in batch.non_tensors.get("patches", ()) if p is not None)
 
 
+def distinct_image_patches(batch: RolloutBatch) -> List[int]:
+    """The patches of each distinct image of ``batch`` (``distinct_images``:
+    one ``patches`` object under one grid), for the tower's model FLOPs in
+    ``perf/mfu_actor``: each image once, as the packed path's tower runs it."""
+    distinct, _ = distinct_images(batch.non_tensors.get("patches", ()),
+                                  batch.non_tensors.get("image_grid_thw", ()))
+    return [t * h * w for _, grid in distinct for t, h, w in grid]
+
+
 def vision_for_packed(batch: RolloutBatch, slot_map: SlotMap, vision_cfg: VisionConfig,
                       row_lo: Optional[int] = None, row_hi: Optional[int] = None,
                       pad_to: Optional[int] = None) -> Optional[VisionInputs]:
-    """Vision pack whose image order matches the packed rows' row-major
-    image-token order (sample order sorted by (row, offset))."""
+    """Vision pack whose image-token order matches the packed rows'
+    row-major one (sample order sorted by (row, offset)), holding each image
+    its samples share once (``pack_distinct_vision_batch``)."""
     order = sorted(
         range(len(batch)),
         key=lambda i: (int(slot_map.row[i]), int(slot_map.dst_start[i])),
@@ -227,7 +240,7 @@ def vision_for_packed(batch: RolloutBatch, slot_map: SlotMap, vision_cfg: Vision
         order = [i for i in order if row_lo <= int(slot_map.row[i]) < row_hi]
     patches = [batch.non_tensors["patches"][i] for i in order]
     grids = [batch.non_tensors["image_grid_thw"][i] for i in order]
-    return pack_vision_batch(patches, grids, vision_cfg, pad_to=pad_to)
+    return pack_distinct_vision_batch(patches, grids, vision_cfg, pad_to=pad_to)
 
 
 def pack_rows(batch: RolloutBatch, per_token=None) -> Tuple[PackedRows, SlotMap]:
@@ -287,6 +300,7 @@ def compute_log_probs_batched(
                 vision = lockstep.vision(_pack_vision(piece, vision_cfg), vision_cfg)
             count("rows", len(host.input_ids))
             count("patches", patch_count(piece))
+            count("distinct_patches", held_patch_count(vision))
         tb, vision = copy_to_device(host, vision, device)
         # the forward through its log-probs on the host: the piece's wait on the device
         with span("forward"):
@@ -371,9 +385,10 @@ def packed_micro_batches(mini: RolloutBatch, vision_cfg: VisionConfig, micro_row
     ]
     count("micro_batches", n_micro)
     count("rows", per * n_micro)
+    vision = lockstep.vision(stack_vision_packs(packs, vision_cfg), vision_cfg, n_micro)
     count("patches", patch_count(mini))
-    return (PackedTrainBatch(*(micro_shape(x) for x in packed)),
-            lockstep.vision(stack_vision_packs(packs, vision_cfg), vision_cfg, n_micro))
+    count("distinct_patches", held_patch_count(vision))
+    return PackedTrainBatch(*(micro_shape(x) for x in packed)), vision
 
 
 def update_actor_packed(
@@ -1286,8 +1301,7 @@ class GRPOTrainer:
 
         timer.timing["step"] = timer.end - timer.start
         # the logged numbers are the union of the ranks' rows, as JAX's global arrays
-        image_patches = [int(np.prod(thw)) for grid in rolled.non_tensors.get("image_grid_thw", ())
-                         if grid is not None for thw in np.reshape(grid, (-1, 3))]
+        image_patches = distinct_image_patches(rolled)
         if self.mesh is not None:
             image_patches = [n for part in allgather_pyobj(image_patches, self.groups.batch) for n in part]
         rolled = self._global_rows(rolled)

@@ -19,6 +19,7 @@ import chip_smoke
 from spatialthinker_tpu.core.batch import RolloutBatch as JaxRolloutBatch
 from spatialthinker_tpu.trainer.grpo_trainer import GRPOTrainer
 from spatialthinker_torch.core.batch import RolloutBatch
+from spatialthinker_torch.data import packing as tpk
 from spatialthinker_torch.rollout import paged as tp
 from spatialthinker_torch.rollout.sampling import SamplingParams
 from spatialthinker_torch.trainer import grpo_trainer as gt
@@ -70,8 +71,39 @@ def _stub(**kw):
     return SimpleNamespace(_negotiated_max=lambda x: x, model_cfg=JAX_CFG, **kw)
 
 
-def test_assembly_views_and_packing_equal_the_trainer_methods():
+def _copied_images(batch):
+    """``batch`` with every image entry copied to an array object of its own:
+    no two samples share one, so nothing is packed once for several."""
+    batch.non_tensors["patches"] = chip_smoke._objects([np.array(p) for p in batch.non_tensors["patches"]])
+    return batch
+
+
+def _image_tokens(pack, n_tokens, unit):
+    """Per merged image token of a pack, in the rows' order: its patch rows,
+    rotary ids, full-attention and window segment ids (the layout slot
+    ``reverse_index`` names, ``unit`` patches a slot)."""
+    rows = pack.reverse_index[:n_tokens, None].astype(np.int64) * unit + np.arange(unit)
+    return pack.patches[rows], pack.pos_ids[rows], pack.seg_full[rows], pack.seg_window[rows]
+
+
+def _same_partition(a, b):
+    """``a`` and ``b`` label the same items alike: one label of ``a`` for
+    each of ``b`` and back."""
+    return len(set(zip(a.tolist(), b.tolist()))) == len(set(a.tolist())) == len(set(b.tolist()))
+
+
+@pytest.mark.parametrize("images", ["repeated", "distinct"])
+def test_assembly_views_and_packing_equal_the_trainer_methods(images):
+    """The assembly and the packers against the JAX trainer's methods. The
+    vision pack: with every image its own object, equal to the JAX
+    trainer's field by field; with each prompt's image one object in its N
+    samples (as ``RolloutBatch.repeat`` leaves it), each image held once and
+    every image token's patch rows and rotary ids equal to the JAX pack's,
+    each image's tokens in one full-attention segment and in the same
+    windows in both."""
     ours, theirs = _batches(0)
+    if images == "distinct":
+        _copied_images(ours)
     assert ours.tensors.keys() == theirs.tensors.keys()
     for k in theirs.tensors:
         np.testing.assert_array_equal(ours.tensors[k], theirs.tensors[k], err_msg=k)
@@ -87,11 +119,39 @@ def test_assembly_views_and_packing_equal_the_trainer_methods():
         np.testing.assert_array_equal(a, b, err_msg=name)
     np.testing.assert_array_equal(slot_map.row, ref_map.row)
 
+    unit = CFG.vision.spatial_merge_unit
     for lo, hi in ((None, None), (0, 1)):
         got = gt.vision_for_packed(ours, slot_map, CFG.vision, row_lo=lo, row_hi=hi)
         ref = GRPOTrainer._vision_for_packed(_stub(), theirs, ref_map, row_lo=lo, row_hi=hi)
-        for name in got._fields:
-            np.testing.assert_array_equal(getattr(got, name), getattr(ref, name), err_msg=name)
+        if images == "distinct":
+            for name in got._fields:
+                np.testing.assert_array_equal(getattr(got, name), getattr(ref, name), err_msg=name)
+            continue
+        # the samples in the rows' order; each image token labelled by its
+        # sample and by its image (the array object the sample shows)
+        order = sorted(range(len(ours)), key=lambda i: (slot_map.row[i], slot_map.dst_start[i]))
+        objs = [ours.non_tensors["patches"][i] for i in order if lo is None or lo <= slot_map.row[i] < hi]
+        first = {}
+        for p in objs:
+            first.setdefault(id(p), len(first))
+        tokens = [len(p) // unit for p in objs]
+        sample = np.repeat(np.arange(len(objs)), tokens)
+        image = np.repeat([first[id(p)] for p in objs], tokens)
+        assert len(first) < len(objs)  # some image is shown by two samples
+        held = sum(len(p) for p in {id(p): p for p in objs}.values())
+        assert tpk.held_patch_count(got) == held < tpk.held_patch_count(ref) == sum(len(p) for p in objs)
+        mine, want = (_image_tokens(v, len(sample), unit) for v in (got, ref))
+        np.testing.assert_array_equal(mine[0], want[0], err_msg="patches")
+        np.testing.assert_array_equal(mine[1], want[1], err_msg="pos_ids")
+        for seg_full, seg_window in (mine[2:], want[2:]):
+            assert (seg_full > 0).all() and (seg_window > 0).all()
+            assert (seg_full == seg_full[:, :1]).all()  # a merged token's patches: one segment
+        # one full-attention segment an image: its samples' tokens share it
+        # here, each sample has its own in the JAX pack
+        assert _same_partition(image, mine[2][:, 0]) and _same_partition(sample, want[2][:, 0])
+        for s in range(len(objs)):  # each sample's image in the same windows in both packs
+            at = sample == s
+            assert _same_partition(mine[3][at].reshape(-1), want[3][at].reshape(-1))
 
 
 @pytest.mark.parametrize("estimator", ["grpo", "rloo", "reinforce_plus_plus", "remax", "gae"])
@@ -146,6 +206,70 @@ def test_log_probs_batched_packed_equals_per_sample():
 KNOBS = dict(clip_ratio_low=0.2, clip_ratio_high=0.3, clip_ratio_dual=3.0, use_kl_loss=True,
              kl_loss_coef=1e-2, kl_penalty="low_var_kl", max_grad_norm=1.0, remat=True,
              chunk_size=64, temperature=1.0)
+
+
+def test_a_shared_image_runs_the_tower_once_and_moves_no_number(monkeypatch):
+    """The same batch with each prompt's image one object in its N samples
+    (each image packed once) and with every image copied to its own object
+    (packed once a sample, as before): the tower runs over half the patch
+    rows, and the log-probs and the update's gradient, vision leaves
+    included, agree within fp32 rounding of sums taken in another order
+    (atol 1e-7, rtol 1e-5). The ``distinct_patches`` counters read 1/N of
+    ``patches`` where pieces and micro-batches hold whole groups, all of it
+    with copies."""
+    from spatialthinker_torch.models.qwen2_5_vl import model as model_mod
+    from spatialthinker_torch.trainer.train_step import make_packed_grad_fn
+    from spatialthinker_torch.utils.spans import Timer, span
+
+    _, model = both_models(seed=8)
+    batches = {"shared": _batches(7)[0], "copied": _copied_images(_batches(7)[0])}
+    tower_rows = []
+    real = model_mod.vision_forward
+    monkeypatch.setattr(model_mod, "vision_forward", lambda tower, patches, pos, seg_full, *a, **k: (
+        tower_rows.append(int((seg_full > 0).sum())), real(tower, patches, pos, seg_full, *a, **k))[1])
+    knobs = {k: v for k, v in KNOBS.items() if k != "max_grad_norm"}
+    grad_fn = make_packed_grad_fn(model, max_grad_norm=1.0, **knobs)
+    logp, grads, counters, rows = {}, {}, {}, {}
+    for name, batch in batches.items():
+        tower_rows.clear()
+        timer = Timer()
+        with timer.active():
+            with span("old"):  # pieces of two whole groups
+                logp[name] = gt.compute_log_probs_batched(
+                    model, batch, micro_batch_size=2 * N, temperature=0.8, chunk_size=64, device="cpu")
+            with span("update_actor"), span("pack"):  # one micro-batch
+                gt.packed_micro_batches(batch, CFG.vision, 64)
+        counters[name] = timer.counters
+        ptb, vision = gt.packed_micro_batches(batch, CFG.vision, 2)
+        acc, metrics, finite, _ = grad_fn(*gt.copy_to_device(ptb, vision, "cpu"))
+        assert finite and float(metrics["actor/grad_norm"]) > 0
+        grads[name] = acc
+        rows[name] = sum(tower_rows)
+    assert 0 < rows["shared"] * N == rows["copied"]
+    mask = batches["shared"].tensors["response_mask"].astype(bool)
+    np.testing.assert_allclose(logp["shared"][mask], logp["copied"][mask], atol=1e-7, rtol=1e-5)
+    assert grads["shared"].keys() == grads["copied"].keys()
+    vision_leaves = [n for n in grads["shared"] if n.startswith("vision.")]
+    assert vision_leaves and all(grads["shared"][n].abs().max() > 0 for n in vision_leaves)
+    for n, g in grads["shared"].items():
+        np.testing.assert_allclose(g.numpy(), grads["copied"][n].numpy(), atol=1e-7, rtol=1e-5, err_msg=n)
+    patches = gt.patch_count(batches["shared"])
+    for phase in ("old", "update_actor"):
+        assert counters["shared"][f"{phase}/pack/patches"] == counters["copied"][f"{phase}/pack/patches"]
+        assert counters["shared"][f"{phase}/pack/patches"] == patches
+        assert counters["shared"][f"{phase}/pack/distinct_patches"] * N == patches
+        assert counters["copied"][f"{phase}/pack/distinct_patches"] == patches
+
+
+def test_the_towers_model_flops_count_each_distinct_image_once():
+    """``perf/mfu_actor``'s image patches: one entry per distinct image
+    object, so 1/N of the samples' patches where the N samples of a prompt
+    share their image, and one entry per sample where each holds a copy."""
+    shared, copied = _batches(7)[0], _copied_images(_batches(7)[0])
+    per_sample = [int(np.prod(g, axis=-1).sum()) for g in shared.non_tensors["image_grid_thw"]]
+    assert gt.distinct_image_patches(shared) == per_sample[::N]
+    assert gt.distinct_image_patches(copied) == per_sample
+    assert sum(per_sample) == gt.patch_count(shared) > 0
 
 
 def test_two_grpo_steps_on_the_cpu_keep_the_smoke_invariants():

@@ -6,6 +6,8 @@ Tolerance: fp32 on both sides, the same math in a different summation order
 through a few layers: atol/rtol 1e-4.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +54,29 @@ def test_vision_forward_matches_jax(models):
     )
     got = vision_forward(model.vision, *(to_torch(a) for a in pack if a is not None))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
+
+
+def test_a_repeated_slot_sums_its_gradients_in_fp32(models):
+    """A bf16 tower whose ``reverse_index`` names one merge unit 64 times (an
+    image that 64 samples share): the gradient reaching the merger's output
+    is the exact sum of the 64 rows' gradients, rounded once to bf16, where a
+    bf16 running sum would round each partial sum. The rows' gradients are
+    multiples of 1/256 in [-1, 1], so their fp32 sum is exact."""
+    _, model = models
+    tower = copy.deepcopy(model.vision).to(torch.bfloat16)
+    pack = _vision_pack()
+    patches, pos_ids, seg_full, seg_window = (
+        to_torch(a) for a in (pack.patches, pack.pos_ids, pack.seg_full, pack.seg_window))
+    reverse_index = torch.zeros(64, dtype=torch.int32)
+    seen = []
+    tower.merger.fc2.register_forward_hook(lambda m, i, out: [out.register_hook(seen.append)] and None)
+    out = vision_forward(tower, patches, pos_ids, seg_full, seg_window, reverse_index)
+    assert out.dtype == torch.bfloat16 and out.shape[0] == 64
+    upstream = torch.randint(-256, 257, out.shape, generator=torch.Generator().manual_seed(0)) / 256
+    out.backward(upstream.to(torch.bfloat16))
+    (grad,) = seen
+    assert torch.equal(grad[0], upstream.double().sum(0).to(torch.bfloat16))
+    assert not grad[1:].any()
 
 
 def _text_inputs(seed=1, b=2, s=16):

@@ -180,7 +180,8 @@ def test_idle_seconds_go_to_the_innermost_span():
 
 def test_profile_spans_reads_a_tiny_cell_on_the_cpu():
     """``profile_spans.py`` end to end at the benchmark's tiny CPU size: the
-    constructor's spans, a unit's record, and the traced unit, where no
+    constructor's spans, a unit's record (each phase's packs holding the
+    images its samples share once), and the traced unit, where no
     device interval exists, so all of it is idle and the idle by span adds up
     to it, the packing's share inside."""
     import json
@@ -194,6 +195,9 @@ def test_profile_spans_reads_a_tiny_cell_on_the_cpu():
     assert set(res["init"]["spans"]) == {"init", "init/ref_copy", "init/optimizer", "init/update_fns"}
     (unit,) = res["units"]
     assert STEP_SPANS <= set(unit["spans"]) and unit["pack_s"] > 0 and unit["h2d_bytes"] > 0
+    # 8 samples a prompt: a pack holds each prompt's image once
+    share = unit["distinct_share"]
+    assert set(share) == {"old", "ref", "update_actor"} and all(0 < v < 1 for v in share.values())
     old = unit["spans"]["old"]
     assert old["self_s"] == pytest.approx(old["s"] - sum(unit["spans"][f"old/{p}"]["s"]
                                                          for p in ("pack", "h2d", "forward")))

@@ -78,3 +78,83 @@ def test_stack_vision_packs_equals_the_original():
     assert tpk.stack_vision_packs([None, None], vc) is None
     for a, b in zip(jpk.empty_vision_pack(jvc, 64, dim)[:5], tpk.empty_vision_pack(vc, 64, dim)):
         np.testing.assert_array_equal(a, b)
+
+
+def _images(seed, grids):
+    """One image entry a grid list (an entry may hold several images)."""
+    rng = np.random.default_rng(seed)
+    dim = tpk.patch_dim(CFG.vision)
+    return [(rng.normal(size=(sum(t * h * w for t, h, w in g), dim)).astype(np.float32), np.asarray(g))
+            for g in grids]
+
+
+ENTRIES = [[(1, 8, 12)], [(1, 6, 6), (1, 16, 16)], [(1, 4, 4)]]
+
+
+@pytest.mark.parametrize("granularity,pad_to", [(64, None), (1024, None), (64, 4096)])
+def test_distinct_pack_of_distinct_images_is_pack_vision_batch(granularity, pad_to):
+    """No entry shown twice (one object per sample, a None between): the
+    distinct pack is ``pack_vision_batch``'s, the port's and the JAX
+    package's, byte for byte."""
+    images = _images(6, ENTRIES)
+    patches = [images[0][0], None, images[1][0], images[2][0]]
+    grids = [images[0][1], None, images[1][1], images[2][1]]
+    got = tpk.pack_distinct_vision_batch(patches, grids, CFG.vision, granularity, pad_to)
+    for ref in (tpk.pack_vision_batch(patches, grids, CFG.vision, granularity, pad_to),
+                jpk.pack_vision_batch(patches, grids, JAX_CFG.vision, granularity, pad_to)):
+        for name in got._fields:
+            a, b = getattr(got, name), np.asarray(getattr(ref, name))
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    assert tpk.pack_distinct_vision_batch([None, None], [None, None], CFG.vision) is None
+
+
+@pytest.mark.parametrize("granularity", [64, 1024])
+def test_distinct_pack_holds_a_shared_entry_once(granularity):
+    """Entries shown by several samples (one object, equal grids) are laid
+    out once, in order of first use; ``reverse_index`` names each sample's
+    merged tokens, repeats included, so the tokens it gathers are those of
+    ``pack_vision_batch`` over every sample's copy; an equal copy in another
+    object and the same object under another grid are entries of their own."""
+    unit = CFG.vision.spatial_merge_unit
+    (a, ga), (b, gb), (c, gc) = _images(7, ENTRIES)
+    same_pixels = np.array(c)  # equal values, another object: not shared
+    patches = [a, b, a, c, b, same_pixels, a]
+    grids = [ga, gb, ga, gc, gb, gc, ga]
+    got = tpk.pack_distinct_vision_batch(patches, grids, CFG.vision, granularity)
+    once = tpk.pack_vision_batch([a, b, c, same_pixels], [ga, gb, gc, gc], CFG.vision, granularity)
+    every = tpk.pack_vision_batch(patches, grids, CFG.vision, granularity)
+    for name in ("patches", "pos_ids", "seg_full", "seg_window"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(once, name), err_msg=name)
+    n_tokens = sum(len(p) for p in patches) // unit
+    width = len(got.reverse_index)
+    assert width % granularity == 0 and width >= max(n_tokens, len(got.patches) // unit)
+    assert not got.reverse_index[n_tokens:].any()
+    rows = lambda pack: pack.reverse_index[:n_tokens, None] * unit + np.arange(unit)  # noqa: E731
+    np.testing.assert_array_equal(got.patches[rows(got)], every.patches[rows(every)])
+    np.testing.assert_array_equal(got.pos_ids[rows(got)], every.pos_ids[rows(every)])
+    # the same object under another grid is laid out again
+    turned = tpk.pack_distinct_vision_batch([a, a], [ga, np.asarray([(1, 12, 8)])], CFG.vision, granularity)
+    assert turned.seg_full.max() == 2 and tpk.held_patch_count(turned) == 2 * len(a)
+
+
+def test_stack_vision_packs_pads_reverse_index_to_the_widest():
+    """A distinct pack whose ``reverse_index`` is wider than its patch width
+    over the merge unit, stacked with a pack of no repeats and a None: each
+    ``reverse_index`` padded with zeros to the widest, the patches to the
+    widest pack, the None all padding."""
+    unit = CFG.vision.spatial_merge_unit
+    (a, ga), (b, gb), _ = _images(8, ENTRIES)
+    shared = tpk.pack_distinct_vision_batch([a] * 8, [ga] * 8, CFG.vision, 64)
+    plain = tpk.pack_vision_batch([b], [gb], CFG.vision, 64)
+    assert len(shared.reverse_index) > len(shared.patches) // unit
+    assert len(plain.patches) > len(shared.patches)
+    stacked = tpk.stack_vision_packs([shared, None, plain], CFG.vision)
+    assert stacked.patches.shape == (3, len(plain.patches), a.shape[1])
+    assert stacked.reverse_index.shape == (3, len(shared.reverse_index))
+    for g, pack in ((0, shared), (2, plain)):
+        for name in pack._fields:
+            x = getattr(pack, name)
+            np.testing.assert_array_equal(getattr(stacked, name)[g, :len(x)], x, err_msg=name)
+            assert not getattr(stacked, name)[g, len(x):].any()
+    assert not any(getattr(stacked, name)[1].any() for name in stacked._fields)
